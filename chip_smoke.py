@@ -21,6 +21,25 @@ no result:
             2 boxes, in f32 (TF32 off) and in bf16: f32 heatmaps and decisive
             keypoints agree; the bf16 CUDA path is as close to the f32 CPU
             answer as the bf16 CPU path is (within BF16_FACTOR)
+  kernel-bwd K2 (attention_bwd) against its plain version on the card at the
+            training shapes and the other head dims and lengths, with the
+            same timings and bound as the kernel phase (the library call is
+            SDPA's backward, timed as fwd+bwd minus fwd); then one K3 check:
+            gradients through `attention` on CUDA equal the plain backward
+  train     full-width ViTPose-B 256x192 training steps (bf16, K1 + K2
+            attention, drop_path 0.3, the COCO-B optimizer, batch 64) from
+            seeded synthetic records on 640x640 canvases, augmented on the
+            host (flip, half-body, scale, rotation) and cropped with UDP
+            targets on the card: exactly 12 K1 and 12 K2 launches per step,
+            every tensor on the card, finite loss and gradients, parameters
+            and BN statistics changed, acc_pose in [0, 1]; ms per step, and
+            a torch.profiler view of two more steps: kernel time per step,
+            the card's idle share and the kernels that take the most time
+  train-ref the same seeded weights and batch of 2 crops, drop_path 0, on
+            CUDA (K1 + K2) and on the CPU (plain attention): in f32 (TF32
+            off) loss, grad_norm, every gradient, and every parameter
+            tensor and BN statistic after 2 steps agree; in bf16 CUDA is as close to the
+            f32 CPU answer as the bf16 CPU path is (within BF16_FACTOR)
 
 Then the kernels JSON line, the nvidia-smi card line and the result line.
 
@@ -56,13 +75,35 @@ KERNEL_CASES = [                         # (shape [N,T,H,d], dtype, role)
     ((256, 192, 12, 64), torch.bfloat16, 'serving batch 256, ViT-B'),
     ((256, 192, 12, 64), torch.float32, 'serving batch 256, f32'),
     ((8, 192, 12, 64), torch.bfloat16, 'serve call, 8 boxes'),
+    ((64, 192, 12, 64), torch.bfloat16, 'training batch 64, ViT-B'),
     ((16, 192, 16, 80), torch.bfloat16, 'ViT-H head dim'),
     ((2, 972, 16, 80), torch.bfloat16, '576x432 inputs'),
     ((4, 72, 12, 64), torch.bfloat16, 'last key tile holds 8 of 64 keys'),
     ((3, 48, 5, 32), torch.float32, 'ragged'),
 ]
+BWD_CASES = [                         # (shape [N,T,H,d], dtype, role)
+    ((64, 192, 12, 64), torch.bfloat16, 'training batch 64, ViT-B'),
+    ((64, 192, 12, 64), torch.float32, 'training batch 64, f32'),
+    ((16, 192, 16, 80), torch.bfloat16, 'ViT-H head dim'),
+    ((2, 972, 16, 80), torch.bfloat16, '576x432 inputs'),
+    ((4, 72, 12, 64), torch.bfloat16, 'last tile holds 8 of 64 rows'),
+    ((3, 48, 5, 32), torch.float32, 'ragged'),
+]
+# K2 against its plain version, per output: |err| <= atol * max|ref| +
+# rtol * |ref|. f32: summation order. bf16: the outputs are rounded to bf16
+# on both sides (one step is 2^-8 of |x|, inside rtol), and K2 rounds P and
+# dS to bf16 (2^-9 relative) as operands of the products dV = P^T g,
+# dQ = dS k, dK = dS^T q; a CPU emulation of exactly those roundings needs
+# atol 0.6e-3 to 1.4e-3 of max|ref| at these shapes (rtol 1e-2), so atol is
+# twice that
+BWD_TOLS = {torch.float32: (1e-5, 1e-5),
+            torch.bfloat16: (3e-3, 1e-2)}
 SERVE_CFG = {'variant': 'b', 'dtype': 'bfloat16',
              'backbone_overrides': {'fused_attention': True}}
+TRAIN_BATCH = 64                     # configs/base/coco_data.py
+CANVAS = 640                         # configs/base/coco_data.py canvas_size
+STEPS_PER_EPOCH = 2340               # COCO train2017: 149,813 people / 64
+TIMED_STEPS = 5
 HM_TOL = (1e-3, 1e-4)               # CUDA vs CPU f32 heatmaps (atol, rtol)
 KP_TOL_PX = 0.05                     # CUDA vs CPU keypoints, image pixels
 # bf16: max |CUDA bf16 - CPU f32| over heatmaps (and decisive keypoints, plus
@@ -88,20 +129,25 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Median of `reps` CUDA-event timings of fn(), after warm-up."""
+def time_ms(fn, calls=10, rounds=7, warmup=3):
+    """Time of one fn() on the card: median over `rounds` of a CUDA-event
+    timing of `calls` back-to-back calls, divided by `calls`, after warm-up.
+    Back to back, the host enqueues the next call while the card runs this
+    one, so a call's host overhead shows only where it exceeds its device
+    time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -130,6 +176,7 @@ def phase_kernel():
         before = attn.fused_attention.launches
         out = attn.fused_attention(q, k, v)
         torch.cuda.synchronize()
+        launched = attn.fused_attention.launches - before
         ref = attn.reference_attention(q, k, v)
         atol, rtol = TOLS[dtype]
         diff = (out.float() - ref.float()).abs()
@@ -143,7 +190,6 @@ def phase_kernel():
         plain_ms = time_ms(lambda: attn.reference_attention(q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bound_ms, bound_by = attention_bound(shape, dtype)
-        launched = attn.fused_attention.launches - before
         dt = str(dtype).replace('torch.', '')
         print(f'kernel attention_fwd {shape} {dt} ({role}): max_abs_err '
               f'{err:.3e} (tol {atol:g} + {rtol:g}|ref|), kernel_ms '
@@ -222,7 +268,8 @@ class DeviceAudit(TorchDispatchMode):
 def phase_serve():
     from vitpose_tpu_torch.api import (inference_top_down_pose_model,
                                        init_pose_model)
-    from vitpose_tpu_torch.ops.attention import fused_attention
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
     from vitpose_tpu_torch.ops.geometry import bbox_xywh2cs
     model = init_pose_model(SERVE_CFG, device='cuda')
     shape_peaks(model.model)
@@ -233,14 +280,17 @@ def phase_serve():
     img = scene(0, boxes)
     persons = [{'bbox': b} for b in boxes]
 
-    fused_attention.launches = 0
+    fused_attention.launches = fused_attention_bwd.launches = 0
     t0 = time.perf_counter()
     results, _ = inference_top_down_pose_model(model, img, persons)
     call_s = time.perf_counter() - t0
     launches = fused_attention.launches
+    bwd_launches = fused_attention_bwd.launches
     depth = model.cfg.backbone.depth
     check(launches == depth * 2, f'K1 launched {launches} times in the '
           f'serve call, expected {depth} blocks x 2 passes')
+    check(bwd_launches == 0, f'K2 launched {bwd_launches} times in the '
+          'serve call, expected none')
 
     kp = np.stack([r['keypoints'] for r in results])          # [8, 17, 3]
     check(kp.shape == (8, 17, 3) and np.isfinite(kp).all(),
@@ -263,7 +313,7 @@ def phase_serve():
     check(not audit.off_device, f'off-card tensors on the serving path: '
           f'{sorted(audit.off_device)[:5]}')
     print(f'serve: ViTPose-B 256x192 bf16, 8 boxes, {launches} K1 launches '
-          f'(12 blocks x 2), keypoints finite and inside their padded boxes, '
+          f'(12 blocks x 2) and {bwd_launches} K2, keypoints finite and inside their padded boxes, '
           f'{audit.ops} ops all on CUDA, first call {call_s:.2f} s',
           flush=True)
 
@@ -347,6 +397,375 @@ def phase_serve_ref():
           f'{np.abs(hm_ref).max():.3e}', flush=True)
 
 
+def attention_bwd_bound(shape, dtype):
+    """Least time for K2's work: q, k, v, g read once and dq, dk, dv written
+    once, against the five [T, T] x d products at the card's peak rate."""
+    n, t, h, d = shape
+    esize = torch.finfo(dtype).bits // 8
+    bytes_ms = 7 * n * t * h * d * esize / HBM_BYTES_PER_S * 1e3
+    ops_ms = 10 * n * h * t * t * d / PEAK_FLOPS[dtype] * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def bwd_error(outs, refs, dtype):
+    """Max abs error over (dq, dk, dv) and whether each is inside
+    BWD_TOLS."""
+    atol, rtol = BWD_TOLS[dtype]
+    err, ok = 0.0, True
+    for o, r in zip(outs, refs):
+        o, r = o.float(), r.float()
+        diff = (o - r).abs()
+        err = max(err, diff.max().item())
+        ok &= bool(torch.isfinite(o).all().item())
+        ok &= bool((diff <= atol * r.abs().max() + rtol * r.abs()).all()
+                   .item())
+    return err, ok
+
+
+def phase_kernel_bwd():
+    from vitpose_tpu_torch.ops import attention as attn
+    torch.backends.cuda.matmul.allow_tf32 = False     # true f32 reference
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    records = []
+    for shape, dtype, role in BWD_CASES:
+        n, t, h, d = shape
+        qkv = torch.randn(n, t, 3, h, d, generator=gen, device='cuda',
+                          dtype=torch.float32).to(dtype)
+        q, k, v = qkv.unbind(2)
+        g = torch.randn(n, t, h, d, generator=gen, device='cuda',
+                        dtype=torch.float32).to(dtype)
+        before = attn.fused_attention_bwd.launches
+        outs = attn.fused_attention_bwd(q, k, v, g)
+        torch.cuda.synchronize()
+        launched = attn.fused_attention_bwd.launches - before
+        refs = attn.reference_attention_bwd(q, k, v, g)
+        err, ok = bwd_error(outs, refs, dtype)
+        atol, rtol = BWD_TOLS[dtype]
+        check(ok, f'K2 disagrees with plain at {shape} {dtype}: max abs err '
+              f'{err}')
+        ms = time_ms(lambda: attn.fused_attention_bwd(q, k, v, g))
+        plain_ms = time_ms(lambda: attn.reference_attention_bwd(q, k, v, g))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        gt = g.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qt, kt, vt)
+            torch.autograd.grad(o, (qt, kt, vt), gt)
+
+        lib_ms = (time_ms(sdpa_fwd_bwd) - time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt)))
+        bound_ms, bound_by = attention_bwd_bound(shape, dtype)
+        dt = str(dtype).replace('torch.', '')
+        print(f'kernel-bwd attention_bwd {shape} {dt} ({role}): max_abs_err '
+              f'{err:.3e} (tol {atol:g} max|ref| + {rtol:g}|ref|), kernel_ms '
+              f'{ms:.4f}, plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} '
+              f'(sdpa bwd = fwd+bwd - fwd), bound_ms {bound_ms:.4f} '
+              f'({bound_by}), launches {launched}', flush=True)
+        records.append(dict(shape=shape, dtype=dtype, err=err, ms=ms,
+                            plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bound_ms, bound_by=bound_by))
+        del qkv, q, k, v, g, outs, refs, qt, kt, vt, gt
+
+    # K3 at the training shape: gradients through `attention` on CUDA are
+    # K2's, and the plain backward's within BWD_TOLS
+    n, t, h, d = TRAIN_BATCH, 192, 12, 64
+    qkv = torch.randn(n, t, 3, h, d, generator=gen, device='cuda').to(
+        torch.bfloat16).requires_grad_()
+    g = torch.randn(n, t, h, d, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    f0, b0 = attn.fused_attention.launches, attn.fused_attention_bwd.launches
+    attn.attention(*qkv.unbind(2)).backward(g)
+    torch.cuda.synchronize()
+    check((attn.fused_attention.launches - f0,
+           attn.fused_attention_bwd.launches - b0) == (1, 1),
+          'K3 did not launch K1 and K2 once each')
+    refs = attn.reference_attention_bwd(*qkv.detach().unbind(2), g)
+    err, ok = bwd_error(qkv.grad.unbind(2), refs, torch.bfloat16)
+    check(ok, f'K3 gradients differ from the plain backward by {err}')
+    with torch.no_grad():
+        attn.attention(*qkv.unbind(2))
+    check(attn.fused_attention_bwd.launches - b0 == 1,
+          'K3 launched K2 under no_grad')
+    print(f'kernel-bwd: attention_bwd built, launched and matched its plain '
+          f'version at {len(records)} shapes; K3 on CUDA at {(n, t, h, d)} '
+          f'bf16 (1 K1 + 1 K2 launch) gives the plain backward within '
+          f'{err:.3e}', flush=True)
+    return records[0]
+
+
+# COCO template of a standing person, (x, y) as fractions of its box
+TEMPLATE = np.array([
+    [.50, .08], [.55, .06], [.45, .06], [.60, .08], [.40, .08],
+    [.70, .22], [.30, .22], [.78, .38], [.22, .38], [.80, .52], [.20, .52],
+    [.62, .55], [.38, .55], [.63, .75], [.37, .75], [.64, .95], [.36, .95]],
+    np.float32)
+
+
+def synthetic_records(seed, n):
+    """`n` dim random CANVAS x CANVAS images, each with one person: 17
+    jittered COCO joints painted as bright 9x9 squares (a colour per joint),
+    some of them invisible and unpainted, and the record a top-down loader
+    gives for it (joints_3d, joints_3d_visible, center, scale)."""
+    from vitpose_tpu_torch.ops.geometry import bbox_xywh2cs
+    rng = np.random.RandomState(seed)
+    imgs = rng.randint(0, 40, (n, CANVAS, CANVAS, 3)).astype(np.uint8)
+    colours = rng.randint(120, 256, (17, 3))
+    records = []
+    for i in range(n):
+        bh = rng.uniform(200, 480)
+        bw = bh * rng.uniform(0.4, 0.6)
+        x0 = rng.uniform(10, CANVAS - 10 - bw)
+        y0 = rng.uniform(10, CANVAS - 10 - bh)
+        joints = TEMPLATE * [bw, bh] + [x0, y0] \
+            + rng.normal(0, 0.03 * bh, (17, 2))
+        joints = np.clip(joints, 5, CANVAS - 6).astype(np.float32)
+        vis = (rng.rand(17) > 0.15).astype(np.float32)
+        for (x, y), c, v in zip(joints.astype(int), colours, vis):
+            if v:
+                imgs[i, y - 4:y + 5, x - 4:x + 5] = c
+        c, s = bbox_xywh2cs(np.array([x0, y0, bw, bh], np.float32),
+                            192 / 256)
+        records.append({
+            'joints_3d': np.concatenate([joints, np.zeros((17, 1),
+                                                          np.float32)], 1),
+            'joints_3d_visible': np.repeat(vis[:, None], 3, 1),
+            'center': c.numpy(), 'scale': s.numpy()})
+    return imgs, records
+
+
+def train_inputs(seed, n, info, device):
+    """Canvases and host augmentation draws (COCO's AugmentConfig: flip,
+    half-body, scale, rotation) of `n` synthetic records, on `device`."""
+    from vitpose_tpu_torch.data.pipeline import (AugmentConfig,
+                                                 sample_augmentations)
+    imgs, records = synthetic_records(seed, n)
+    rng = np.random.RandomState(seed)
+    aug = AugmentConfig()
+    draws = [sample_augmentations(rng, r, info, CANVAS, aug, (192, 256))
+             for r in records]
+    cols = [torch.from_numpy(np.stack(x)).to(device) for x in zip(*draws)]
+    return [torch.from_numpy(imgs).to(device)] + cols
+
+
+def train_setup(cfg, device):
+    """(train state, step, preprocess, inputs) of ViTPose-B on `device`
+    with the COCO-B optimizer; weights from init_pose_model's seed."""
+    from vitpose_tpu_torch.api import init_pose_model
+    from vitpose_tpu_torch.data.pipeline import make_preprocess_fn
+    from vitpose_tpu_torch.train import (OptimConfig, create_train_state,
+                                         layer_decay_adamw, make_train_step)
+    pm = init_pose_model(cfg, device=device)
+    ocfg = OptimConfig()
+    state = create_train_state(
+        pm.model, layer_decay_adamw(pm.model, ocfg, STEPS_PER_EPOCH),
+        ocfg.grad_clip_norm)
+    preprocess = make_preprocess_fn((192, 256), (48, 64), use_udp=True,
+                                    sigma=2.0)
+    return state, make_train_step(pm.model), preprocess, pm.dataset_info
+
+
+def snapshot(model):
+    """Every parameter and BN running statistic, cloned."""
+    out = {n: p.detach().clone() for n, p in model.named_parameters()}
+    out.update({n: b.clone() for n, b in model.named_buffers()
+                if 'running' in n})
+    return out
+
+
+def phase_train():
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    state, step, preprocess, info = train_setup(SERVE_CFG, 'cuda')
+    model = state.model
+    check(model.cfg.backbone.drop_path_rate == 0.3, 'drop_path is not 0.3')
+    inputs = train_inputs(0, TRAIN_BATCH, info, 'cuda')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    before = snapshot(model)
+    t0 = time.perf_counter()
+    m = step(state, preprocess(*inputs), gen)                 # warm-up
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+
+    fused_attention.launches = fused_attention_bwd.launches = 0
+    audit = DeviceAudit()
+    with audit:
+        m = step(state, preprocess(*inputs), gen)
+    torch.cuda.synchronize()
+    launches = (fused_attention.launches, fused_attention_bwd.launches)
+    check(launches == (12, 12), f'one step launched K1, K2 {launches} '
+          'times, expected 12 blocks each')
+    check(not audit.off_device, f'off-card tensors in the train step: '
+          f'{sorted(audit.off_device)[:5]}')
+    grads = [p.grad for p in model.parameters()]
+    check(all(g is not None and torch.isfinite(g).all().item()
+              for g in grads), 'a gradient is missing or not finite')
+
+    fused_attention.launches = fused_attention_bwd.launches = 0
+    times = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, preprocess(*inputs), gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        vals = {k: v.item() for k, v in m.items()}
+        check(all(np.isfinite(x) for x in vals.values()),
+              f'non-finite metrics {vals}')
+        check(0.0 <= vals['acc_pose'] <= 1.0, f'acc_pose {vals}')
+    check((fused_attention.launches, fused_attention_bwd.launches)
+          == (12 * TIMED_STEPS, 12 * TIMED_STEPS),
+          'timed steps did not launch K1 and K2 12 times each')
+    med = statistics.median(times)
+    print(f'train: step times {", ".join(f"{t * 1e3:.1f}" for t in times)} '
+          f'ms', flush=True)
+    profile_steps(lambda: step(state, preprocess(*inputs), gen), med)
+    after = snapshot(model)
+    unchanged = [n for n in before if torch.equal(before[n], after[n])]
+    check(not unchanged, f'unchanged after {state.step} steps: '
+          f'{unchanged[:5]}')
+    print(f'train: ViTPose-B 256x192 bf16, drop_path 0.3, batch '
+          f'{TRAIN_BATCH}: {launches[0]} K1 + {launches[1]} K2 launches per '
+          f'step, {audit.ops} ops all on CUDA, gradients finite, every '
+          f'parameter and BN statistic changed; last timed step: '
+          f'heatmap_loss {vals["heatmap_loss"]:.6f}, grad_norm '
+          f'{vals["grad_norm"]:.6f}, acc_pose {vals["acc_pose"]:.4f}; '
+          f'first step {first_s:.2f} s', flush=True)
+    return launches, med, TRAIN_BATCH / med
+
+
+def profile_steps(run_step, step_s, steps=2):
+    """Device time of `steps` profiled steps by torch.profiler: CUDA kernel
+    time per step, the idle share against the unprofiled median step time
+    `step_s` (unclamped), and the kernels that take the most time. Fails if
+    the kernel time exceeds the profiled steps' own wall time, which only a
+    miscount (a kernel summed twice) can give."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # device events, less the ranges that annotate the device timeline
+    # (Optimizer.step#...), which would count their kernels twice
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False)
+               and not e.key.startswith('Optimizer.')]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
+    if busy_ms == 0:
+        print('train: device time not measured (the profiler saw no CUDA '
+              'kernels)', flush=True)
+        return
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+    check(busy_ms <= wall_ms, f'profiler kernel time {busy_ms:.3f} ms per '
+          f'step exceeds the profiled steps\' wall time {wall_ms:.3f} ms: '
+          'kernels counted twice')
+    print(f'train: profiler, {steps} steps: kernels busy {busy_ms:.1f} ms '
+          f'per step of the {step_s * 1e3:.1f} ms median step, idle share '
+          f'{1 - busy_ms / (step_s * 1e3):.3f} (profiled steps: '
+          f'{wall_ms:.1f} ms each); top kernels (ms '
+          f'per step, launches per step): ' + '; '.join(
+              f'{e.key[:70]} {e.device_time_total / 1e3 / steps:.2f} '
+              f'{e.count // steps}' for e in top), flush=True)
+
+
+def train_run(cfg, device, batch):
+    """Two steps on `batch`: (metrics of step 1, gradients of step 1 after
+    the clip, the 2-step change of every parameter and BN statistic), all
+    on the CPU in f32."""
+    state, step, _, _ = train_setup(cfg, device)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    gen = torch.Generator(device=device).manual_seed(0)
+    before = snapshot(state.model)
+    m = step(state, batch, gen)
+    metrics = {k: v.item() for k, v in m.items()}
+    grads = {n: p.grad.float().cpu()
+             for n, p in state.model.named_parameters()}
+    step(state, batch, gen)
+    after = snapshot(state.model)
+    delta = {n: (after[n] - before[n]).float().cpu() for n in after}
+    return metrics, grads, delta
+
+
+def ref_distances(run, ref):
+    """Distances of a train_run from the reference run: relative |loss| and
+    |grad_norm|; for the gradients and the 2-step change of the BN
+    statistics the max over tensors of max|x - ref| / max|ref|; for the
+    2-step change of the parameters the max over tensors of the RMS of
+    x - ref over the RMS of ref. Also returns that RMS ratio per parameter
+    tensor."""
+    (m, g, d), (mr, gr, dr) = run, ref
+    rel = {k: abs(m[k] - mr[k]) / abs(mr[k])
+           for k in ('heatmap_loss', 'grad_norm')}
+    rel['grads'] = max(((g[n] - gr[n]).abs().max() / gr[n].abs().max())
+                       .item() for n in gr)
+    params = {n: ((d[n] - dr[n]).norm() / dr[n].norm()).item() for n in gr}
+    rel['params'] = max(params.values())
+    rel['bn_stats'] = max(((d[n] - dr[n]).abs().max() / dr[n].abs().max())
+                          .item() for n in dr if n not in gr)
+    return rel, params
+
+
+def worst(dist, k=3):
+    return ', '.join(f'{n} {v:.3e}' for n, v in
+                     sorted(dist.items(), key=lambda x: -x[1])[:k])
+
+
+# train-ref f32, CUDA against the CPU, in the units of ref_distances:
+# summation order through 12 blocks and a BN over 2 crops. Measured 0 /
+# 1.5e-4 / 1.5e-4 / 1.5e-3 / 3.3e-7; the largest parameter distances are in
+# the first blocks' attn.proj and mlp.fc2 weights, where the step-2 update
+# m_hat / sqrt(v_hat) turns the gradients' 1.5e-4 into about ten times that
+TRAIN_REF_TOL = {'heatmap_loss': 1e-4, 'grad_norm': 1e-3, 'grads': 1e-3,
+                 'params': 3e-3, 'bn_stats': 1e-5}
+
+
+def phase_train_ref():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vitpose_tpu_torch.data.dataset_info import DatasetInfo
+    from vitpose_tpu_torch.data.pipeline import make_preprocess_fn
+    inputs = train_inputs(1, 2, DatasetInfo.load('coco'), 'cpu')
+    batch = make_preprocess_fn((192, 256), (48, 64))(*inputs)
+    runs = {}
+    for dtype in ('float32', 'bfloat16'):
+        cfg = {'variant': 'b', 'dtype': dtype, 'backbone_overrides': {
+            'fused_attention': True, 'drop_path_rate': 0.0}}
+        for dev in ('cuda', 'cpu'):
+            runs[dev, dtype] = train_run(cfg, dev, batch)
+    ref = runs['cpu', 'float32']
+    f32, f32_params = ref_distances(runs['cuda', 'float32'], ref)
+    print('train-ref: f32 (TF32 off) CUDA+K1+K2 vs CPU plain, ViT-B full '
+          'depth, batch 2, drop_path 0: ' + ', '.join(
+              f'{k} {v:.3e} (tol {TRAIN_REF_TOL[k]:g})'
+              for k, v in f32.items()) + '; loss '
+          f'{ref[0]["heatmap_loss"]:.6f}, grad_norm '
+          f'{ref[0]["grad_norm"]:.6f}; largest per-tensor parameter '
+          f'distances: {worst(f32_params)}', flush=True)
+    for k, tol in TRAIN_REF_TOL.items():
+        check(f32[k] <= tol, f'train-ref f32: {k} differs by {f32[k]} '
+              f'(tol {tol})')
+    gpu, gpu_params = ref_distances(runs['cuda', 'bfloat16'], ref)
+    cpu, cpu_params = ref_distances(runs['cpu', 'bfloat16'], ref)
+    print('train-ref: bf16 against the f32 CPU answer, CUDA+K1+K2 / CPU '
+          'plain: ' + ', '.join(f'{k} {gpu[k]:.3e} / {cpu[k]:.3e}'
+                                for k in gpu)
+          + f' (CUDA at most {BF16_FACTOR}x CPU, + 2^-8 for the scalars); '
+          f'largest per-tensor parameter distances, CUDA: '
+          f'{worst(gpu_params)}; CPU: {worst(cpu_params)}', flush=True)
+    for k in gpu:
+        # one bf16 step of a scalar as a floor for loss and grad_norm
+        floor = 2.0 ** -8 if k in ('heatmap_loss', 'grad_norm') else 0.0
+        check(gpu[k] <= BF16_FACTOR * cpu[k] + floor,
+              f'train-ref bf16: CUDA {k} is {gpu[k]} from the f32 answer, '
+              f'the bf16 CPU path {cpu[k]}')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -380,17 +799,29 @@ def main():
         del model
         torch.cuda.empty_cache()
         phase_serve_ref()
+        k2 = phase_kernel_bwd()
+        train_launches, step_s, train_img_s = phase_train()
+        print(f'train: step (preprocess on the card, forward, backward, '
+              f'clip, AdamW) median {step_s * 1e3:.1f} ms over '
+              f'{TIMED_STEPS} steps = {train_img_s:.1f} img/s on {card}',
+              flush=True)
+        torch.cuda.empty_cache()
+        phase_train_ref()
     except Failure as e:
         print(f'chip_smoke: FAIL {e}', file=sys.stderr)
         return 1
 
-    print(json.dumps({'kernels': [{
-        'name': 'attention_fwd', 'route': 'cuda',
-        'source': 'vitpose_tpu_torch/csrc/attention_fwd.cu',
-        'replaces': 'vitpose_tpu/ops/attention.py:22',
-        'launches': launches, 'max_abs_err': k1['err'], 'ms': k1['ms'],
-        'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'],
-        'bound_by': k1['bound_by'], 'library_ms': k1['library_ms']}]}))
+    kernels = []
+    for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
+                               ('attention_bwd', 94, k2, train_launches[1])):
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': f'vitpose_tpu_torch/csrc/{name}.cu',
+            'replaces': f'vitpose_tpu/ops/attention.py:{line}',
+            'launches': n, 'max_abs_err': rec['err'], 'ms': rec['ms'],
+            'plain_ms': rec['plain_ms'], 'bound_ms': rec['bound_ms'],
+            'bound_by': rec['bound_by'], 'library_ms': rec['library_ms']})
+    print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -15,9 +15,10 @@ PORT = ROOT / 'vitpose_tpu_torch'
 BANNED = ('jax', 'flax', 'vitpose_tpu')
 
 MODULES = ['ops.attention', 'kernels._build', 'models.vit', 'models.heads',
-           'models.topdown', 'utils.convert', 'ops.geometry', 'ops.warp',
-           'ops.decode', 'data.dataset_info', 'data.pipeline',
-           'api.inference']
+           'models.topdown', 'models.losses', 'utils.convert',
+           'ops.geometry', 'ops.warp', 'ops.decode', 'ops.target',
+           'data.dataset_info', 'data.pipeline', 'api.inference',
+           'train.optim', 'train.state', 'train.step']
 
 
 def _imported_names(path):
@@ -44,6 +45,7 @@ def test_port_module_imports_without_cuda(name):
 
 def test_kernel_source_and_metadata_are_in_the_package():
     assert (PORT / 'csrc' / 'attention_fwd.cu').is_file()
+    assert (PORT / 'csrc' / 'attention_bwd.cu').is_file()
     assert (PORT / 'data' / 'metadata' / 'coco.json').is_file()
 
 

@@ -46,6 +46,14 @@ class DatasetInfo:
         return idx
 
     @property
+    def upper_body_ids(self) -> List[int]:
+        return [i for i, t in enumerate(self.keypoint_type) if t == 'upper']
+
+    @property
+    def lower_body_ids(self) -> List[int]:
+        return [i for i, t in enumerate(self.keypoint_type) if t == 'lower']
+
+    @property
     def skeleton_links(self) -> List[List[int]]:
         name2id = {n: i for i, n in enumerate(self.keypoint_names)}
         return [[name2id[a], name2id[b]] for a, b in self.skeleton]

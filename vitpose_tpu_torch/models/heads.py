@@ -6,13 +6,22 @@ BatchNorm2d, `final_layer`). Flax's ConvTranspose(k4, s2, 'SAME',
 transpose_kernel=True) is ConvTranspose2d(k4, s2, padding 1, no bias); the BN
 eps is 1e-5 and eval uses the running statistics. Parameters stay f32 and are
 cast to the compute dtype; BN runs in f32 and casts its result, as flax does.
+
+BatchNorm in training mode follows flax's `BatchNorm(momentum=0.9)`, not
+torch's: statistics in f32 over (N, H, W) with the variance taken as
+max(0, E[x^2] - E[x]^2), the biased variance both to normalise and in the
+running update `0.9 * old + 0.1 * batch` (torch's BatchNorm2d stores the
+unbiased one).
 """
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from .vit import compute_dtype, normal_
+
+FLAX_BN_MOMENTUM = 0.9
 
 # mmpose `_get_deconv_cfg`: kernel -> (padding, output_padding)
 _DECONV_PADDING = {4: (1, 0), 3: (1, 1), 2: (0, 0)}
@@ -67,7 +76,25 @@ class HeatmapHead(nn.Module):
             x = F.conv_transpose2d(x, deconv.weight.to(dt), None, stride=2,
                                    padding=deconv.padding,
                                    output_padding=deconv.output_padding)
-            x = F.relu(bn(x.float()).to(dt))
+            x = F.relu(batch_norm(bn, x.float()).to(dt))
         final = self.final_layer
         return F.conv2d(x, final.weight.to(dt), final.bias.to(dt),
                         padding=final.padding)
+
+
+def batch_norm(bn: nn.BatchNorm2d, x):
+    """`bn` on f32 NCHW `x` with flax semantics: running statistics in eval
+    mode; in training mode batch statistics, and the running ones updated
+    in place with the biased variance."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    mean = x.mean((0, 2, 3))
+    var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = FLAX_BN_MOMENTUM
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean[:, None, None]) * mul[:, None, None] \
+        + bn.bias[:, None, None]

@@ -1,9 +1,14 @@
 """Top-down pose estimator (ViT backbone + classic deconv head), in PyTorch.
 
 Counterpart of vitpose_tpu/models/topdown.py: `TopDownConfig`,
-`make_config`, `TopDownModel`, `forward` and `infer` (flip test with
-`flip_back` and the optional 1-pixel `shift_heatmap`). Models take NHWC float
-crops and return NCHW float32 heatmaps, as in the JAX package.
+`make_config`, `TopDownModel`, `forward`, `infer` (flip test with
+`flip_back` and the optional 1-pixel `shift_heatmap`) and `loss_fn`. Models
+take NHWC float crops and return NCHW float32 heatmaps, as in the JAX
+package.
+
+The mode is explicit, as JAX's `train=` argument is: `forward` sets the
+module's training mode for its call, and `infer` always runs in eval mode,
+whatever mode a training step left the module in.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch.nn as nn
 
 from ..ops.geometry import flip_back
 from .heads import HeatmapHead
+from .losses import joints_mse_loss
 from .vit import ViT, ViTConfig, VIT_VARIANTS
 
 
@@ -62,14 +68,20 @@ class TopDownModel(nn.Module):
             cfg.deconv_kernels, cfg.final_kernel, cfg.backbone.dtype,
             generator)
 
-    def forward(self, imgs):
-        return self.keypoint_head(self.backbone(imgs)).float()
+    def forward(self, imgs, generator=None):
+        return self.keypoint_head(self.backbone(imgs, generator)).float()
 
 
-def forward(model: TopDownModel, imgs):
-    """Eval forward, the counterpart of the JAX `forward(model, variables,
-    imgs)`: the parameters live in the module."""
-    return model(imgs)
+def forward(model: TopDownModel, imgs, train=False, generator=None):
+    """The counterpart of the JAX `forward(model, variables, imgs, train,
+    rngs=...)`: the parameters and BN statistics live in the module.
+
+    Sets the module's mode to `train` for this call. In training mode BN
+    uses (and updates) batch statistics and DropPath draws from
+    `generator`, a torch.Generator on the input's device.
+    """
+    model.train(train)
+    return model(imgs, generator)
 
 
 def infer(model: TopDownModel, imgs, flip_index=None):
@@ -80,6 +92,7 @@ def infer(model: TopDownModel, imgs, flip_index=None):
     top_down.py:163-188). The flipped pass is a second forward.
     """
     cfg = model.cfg
+    model.eval()
     hm = model(imgs)
     if flip_index is None or not cfg.flip_test:
         return hm
@@ -88,3 +101,11 @@ def infer(model: TopDownModel, imgs, flip_index=None):
     if cfg.shift_heatmap:
         hm_f = torch.cat([hm_f[..., :1], hm_f[..., :-1]], dim=-1)
     return (hm + hm_f) * 0.5
+
+
+def loss_fn(heatmaps, target, target_weight, target_type='GaussianHeatmap'):
+    """Keypoint loss dict (reference TopdownHeatmapSimpleHead.get_loss)."""
+    if target_type.lower() == 'combinedtarget':
+        raise NotImplementedError('the CombinedTarget loss is not ported yet '
+                                  '(ROADMAP.md queue 1 item 7)')
+    return {'heatmap_loss': joints_mse_loss(heatmaps, target, target_weight)}

@@ -6,7 +6,8 @@ Counterpart of vitpose_tpu/models/vit.py (`DropPath`, `Mlp`, `Attention`,
 mlp.fc2}`, `last_norm`), so a reference state dict loads as it is.
 
 Precision follows flax's `dtype`: parameters are stored in f32 and cast to
-the compute dtype at each use (explicit casts, not autocast). LayerNorm
+the compute dtype at each use (explicit casts, not autocast), so gradients
+flow back into the f32 parameters through the casts. LayerNorm
 computes its statistics and affine in f32 and casts the result, as flax does.
 Where the rounding differs from flax: a bf16 Linear or conv rounds once after
 adding its bias (flax rounds the product, then the sum), and GELU rounds once
@@ -56,18 +57,25 @@ def init_linear(layer: nn.Linear, generator=None):
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth (reference vit.py:48); identity in eval."""
+    """Per-sample stochastic depth (reference vit.py:48); identity in eval.
+
+    In training the mask is drawn from `generator`, a torch.Generator on the
+    activations' device (the JAX module's 'droppath' rng), never from torch's
+    global generator."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         if self.rate == 0.0 or not self.training:
             return x
+        if generator is None:
+            raise ValueError('DropPath in training mode needs a '
+                             'torch.Generator on the activations\' device')
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = torch.rand(shape, device=x.device, generator=generator) < keep
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -124,11 +132,11 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approx)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, generator=None):
         y = self.attn(self.norm1(x.float()).to(dtype), dtype)
-        x = x + self.drop_path(y)
+        x = x + self.drop_path(y, generator)
         y = self.mlp(self.norm2(x.float()).to(dtype), dtype)
-        return x + self.drop_path(y)
+        return x + self.drop_path(y, generator)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,8 +190,9 @@ def _check_ported(cfg: ViTConfig):
         raise NotImplementedError('the ViTPose+ MoE MLP is not ported yet '
                                   '(ROADMAP.md queue 1 item 10)')
     if cfg.remat_blocks:
-        raise NotImplementedError('block rematerialisation belongs to the '
-                                  'training slice (ROADMAP.md queue 1 item 7)')
+        raise NotImplementedError('block rematerialisation is not ported yet '
+                                  '(ROADMAP.md queue 1 item 7); no shipped '
+                                  'config sets it')
 
 
 class PatchEmbed(nn.Module):
@@ -225,7 +234,8 @@ class ViT(nn.Module):
                 norm.reset_parameters()
         self.last_norm.reset_parameters()
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """`generator` feeds DropPath in training mode (see DropPath)."""
         dtype = compute_dtype(self.cfg.dtype)
         proj = self.patch_embed.proj
         x = x.to(dtype).permute(0, 3, 1, 2)
@@ -237,6 +247,6 @@ class ViT(nn.Module):
         # keep the cls-token slot additive, as the pretrained weights expect
         x = x + pos[:, 1:] + pos[:, :1]
         for blk in self.blocks:
-            x = blk(x, dtype)
+            x = blk(x, dtype, generator)
         x = self.last_norm(x.float()).to(dtype)
         return x.reshape(n, hp, wp, d)

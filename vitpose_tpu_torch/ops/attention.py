@@ -1,22 +1,27 @@
-"""Fused multi-head self-attention forward: the K1 CUDA kernel and its plain
-PyTorch version.
+"""Fused multi-head self-attention: the K1 (forward) and K2 (backward) CUDA
+kernels, their plain PyTorch versions and the differentiable K3.
 
-Counterpart of vitpose_tpu/ops/attention.py (the Pallas forward `_attn_kernel`
-and `reference_attention`). Layout is [N, T, H, d] for q, k, v and the
-output, as in the JAX package.
+Counterpart of vitpose_tpu/ops/attention.py (the Pallas `_attn_kernel` and
+`_attn_bwd_kernel`, `reference_attention` and the `attention` custom_vjp).
+Layout is [N, T, H, d] for q, k, v, the output and its gradients, as in the
+JAX package.
 
-  * ``reference_attention`` -- plain PyTorch, following the TPU kernel's
-    arithmetic: scores in f32, softmax in f32, P cast to v's dtype, PV
-    accumulated in f32, output cast to the input dtype.
-  * ``fused_attention`` -- launches the hand-written sm_90a kernel
-    (csrc/attention_fwd.cu: tensor cores for bf16, CUDA cores for f32) on a
-    CUDA tensor, and raises on anything else or on any launch failure. Its
-    ``launches`` attribute counts launches.
-  * ``attention`` -- what the ViT calls: the kernel for a CUDA tensor, the
-    plain version for a CPU tensor, decided by the tensor's device alone.
-
-Forward only: the backward kernel (K2) and the autograd wrapper (K3) are
-still to port, so ``fused_attention`` refuses inputs that need a gradient.
+  * ``reference_attention`` -- plain PyTorch, following the TPU forward
+    kernel's arithmetic: scores in f32, softmax in f32, P cast to v's dtype,
+    PV accumulated in f32, output cast to the input dtype.
+  * ``reference_attention_bwd`` -- plain PyTorch, following the TPU backward
+    kernel's arithmetic: every step in f32 with normalised f32 P, the
+    gradients cast to the input dtype.
+  * ``fused_attention`` / ``fused_attention_bwd`` -- launch the hand-written
+    sm_90a kernels (csrc/attention_fwd.cu, csrc/attention_bwd.cu: tensor
+    cores for bf16, CUDA cores for f32) on CUDA tensors, and raise on
+    anything else or on any launch failure. Each has a ``launches``
+    attribute that counts its launches. Neither takes part in autograd.
+  * ``attention`` -- what the ViT calls (K3): the kernels for CUDA tensors,
+    the plain versions for CPU tensors, decided by the device alone. When a
+    gradient is wanted it is a ``torch.autograd.Function`` that saves q, k, v
+    (as the JAX custom_vjp does) and runs the backward; otherwise it saves
+    nothing and runs the forward only.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import ctypes
 
 import torch
 
-# head dims that csrc/attention_fwd.cu instantiates: ViTPose S (32),
+# head dims that csrc/attention_{fwd,bwd}.cu instantiate: ViTPose S (32),
 # B and L (64), H (80)
 KERNEL_HEAD_DIMS = (32, 64, 80)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,54 +45,90 @@ def reference_attention(q, k, v, scale=None):
     return o.to(q.dtype)
 
 
-def _check_kernel_inputs(q, k, v):
-    for name, x in (('q', q), ('k', k), ('v', v)):
+def reference_attention_bwd(q, k, v, g, scale=None):
+    """Plain attention backward, (q, k, v, dO) [N, T, H, d] -> (dq, dk, dv),
+    in the TPU backward kernel's math (vitpose_tpu/ops/attention.py:94)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    p = torch.softmax(torch.einsum('nqhd,nkhd->nhqk', qf, kf) * scale, -1)
+    dv = torch.einsum('nhqk,nqhd->nkhd', p, gf)
+    dp = torch.einsum('nqhd,nkhd->nhqk', gf, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.einsum('nhqk,nkhd->nqhd', ds, kf) * scale
+    dk = torch.einsum('nhqk,nqhd->nkhd', ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_inputs(fn, **tensors):
+    """Refuse what the kernels of `fn` do not take, before any build or
+    launch: tensors share one [N, T, H, d] shape, dtype and device; last dim
+    contiguous; bf16 rows 16-byte aligned; d built; CUDA."""
+    q = next(iter(tensors.values()))
+    for name, x in tensors.items():
         if x.dtype not in _DTYPE_CODE:
-            raise ValueError(f'fused_attention: {name} has dtype {x.dtype}; '
-                             'the kernel takes float32 or bfloat16')
+            raise ValueError(f'{fn}: {name} has dtype {x.dtype}; the kernel '
+                             'takes float32 or bfloat16')
         if x.dim() != 4 or x.shape != q.shape:
-            raise ValueError('fused_attention: q, k, v must share one '
-                             f'[N, T, H, d] shape, got {tuple(q.shape)}, '
-                             f'{tuple(k.shape)}, {tuple(v.shape)}')
+            raise ValueError(f'{fn}: {", ".join(tensors)} must share one '
+                             '[N, T, H, d] shape, got '
+                             f'{[tuple(t.shape) for t in tensors.values()]}')
         if x.dtype != q.dtype or x.device != q.device:
-            raise ValueError('fused_attention: q, k, v must share dtype and '
-                             'device')
+            raise ValueError(f'{fn}: {", ".join(tensors)} must share dtype '
+                             'and device')
         if x.stride(-1) != 1:
-            raise ValueError(f'fused_attention: {name} must be contiguous in '
-                             f'its last dim, got strides {x.stride()}')
+            raise ValueError(f'{fn}: {name} must be contiguous in its last '
+                             f'dim, got strides {x.stride()}')
         # the tensor cores load 16-byte rows: 8 bf16 elements
         if x.dtype == torch.bfloat16 and (
                 x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3])):
-            raise ValueError(f'fused_attention: bf16 {name} needs 16-byte '
-                             'aligned rows (base on 16 bytes, strides in '
-                             f'multiples of 8), got strides {x.stride()}')
+            raise ValueError(f'{fn}: bf16 {name} needs 16-byte aligned rows '
+                             '(base on 16 bytes, strides in multiples of 8), '
+                             f'got strides {x.stride()}')
         if x.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                'fused_attention is forward only: the backward kernel (K2) '
-                'and its autograd wrapper (K3) are not ported yet '
-                '(ROADMAP.md queue 2)')
+            raise ValueError(f'{fn} launches a kernel and records no '
+                             'gradient; call attention() to differentiate')
     n, t, h, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f'fused_attention: head dim {d} is not built; the '
-                         f'kernel takes {KERNEL_HEAD_DIMS}')
-    # the grid has one block per (pair, 64-query tile)
+        raise ValueError(f'{fn}: head dim {d} is not built; the kernel takes '
+                         f'{KERNEL_HEAD_DIMS}')
+    # the grids have one block per (pair, 64-row tile)
     if min(n, t, h) < 1 or n * h * -(-t // 64) >= 2 ** 31:
-        raise ValueError(f'fused_attention: bad shape {tuple(q.shape)}')
+        raise ValueError(f'{fn}: bad shape {tuple(q.shape)}')
     if q.device.type != 'cuda':
-        raise ValueError(f'fused_attention: the inputs are on {q.device}; '
-                         'the kernel takes CUDA tensors only')
+        raise ValueError(f'{fn}: the inputs are on {q.device}; the kernel '
+                         'takes CUDA tensors only')
 
 
-def _kernel_fn():
+def _kernel_fn(name, n_ptrs):
+    """The C entry point vtp_<name> of csrc/<name>.cu: `n_ptrs` pointers,
+    n, t, h, d, dtype, the strides, the scale and the stream."""
     from ..kernels import _build
-    lib = _build.load('attention_fwd')
-    fn = lib.vtp_attention_fwd
+    fn = getattr(_build.load(name), f'vtp_{name}')
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name, n_ptrs, tensors, outputs, scale):
+    """Call vtp_<name> on `tensors` (inputs, [N, T, H, d] views) and
+    `outputs` (pointers it writes) on the current stream; raise on error."""
+    n, t, h, d = tensors[0].shape
+    dtype = tensors[0].dtype
+    fn = _kernel_fn(name, n_ptrs)
+    strides = (ctypes.c_longlong * (3 * len(tensors)))(
+        *[st for x in tensors for st in x.stride()[:3]])
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[x.data_ptr() for x in tensors + outputs], n, t, h, d,
+                 _DTYPE_CODE[dtype], strides, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f'{name} launch failed with CUDA error {err} at '
+                           f'shape {(n, t, h, d)} {dtype}')
 
 
 def fused_attention(q, k, v, scale=None):
@@ -97,24 +138,11 @@ def fused_attention(q, k, v, scale=None):
     contiguous tensor. Launches on the current stream and raises if the
     launch fails.
     """
-    _check_kernel_inputs(q, k, v)
-    n, t, h, d = q.shape
+    _check_kernel_inputs('fused_attention', q=q, k=k, v=v)
     if scale is None:
-        scale = d ** -0.5
-    fn = _kernel_fn()
-    out = torch.empty((n, t, h, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 9)(
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 n, t, h, d, _DTYPE_CODE[q.dtype], strides, float(scale),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f'attention_fwd launch failed with CUDA error '
-                           f'{err} at shape {tuple(q.shape)} {q.dtype}')
+        scale = q.shape[-1] ** -0.5
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch('attention_fwd', 4, [q, k, v], [out], scale)
     fused_attention.launches += 1
     return out
 
@@ -122,8 +150,60 @@ def fused_attention(q, k, v, scale=None):
 fused_attention.launches = 0
 
 
-def attention(q, k, v):
-    """Attention core of the ViT: K1 on CUDA, the plain version on the CPU."""
+def fused_attention_bwd(q, k, v, g, scale=None):
+    """K2: (q, k, v, dO) [N, T, H, d] float32/bfloat16 CUDA tensors ->
+    (dq, dk, dv).
+
+    Inputs may be strided views (last dim contiguous); dq, dk, dv are new
+    contiguous tensors. The row statistics of the softmax (log-sum-exp and
+    rowsum(dP o P), f32 [N*H, T] each) are scratch that the first of the
+    kernel's two passes writes and the second reads. Launches on the current
+    stream and raises if the launch fails.
+    """
+    _check_kernel_inputs('fused_attention_bwd', q=q, k=k, v=v, g=g)
+    n, t, h, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
+             for _ in range(3)]
+    stats = torch.empty((2, n * h, t), dtype=torch.float32, device=q.device)
+    _launch('attention_bwd', 9, [q, k, v, g], grads + [stats[0], stats[1]],
+            scale)
+    fused_attention_bwd.launches += 1
+    return tuple(grads)
+
+
+fused_attention_bwd.launches = 0
+
+
+def _forward(q, k, v):
     if q.device.type == 'cpu':
         return reference_attention(q, k, v)
     return fused_attention(q, k, v)
+
+
+class _Attention(torch.autograd.Function):
+    """K3: K1 forward and K2 backward on CUDA, the plain versions on the
+    CPU; saves q, k, v as the JAX custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        g = g.contiguous()
+        if q.device.type == 'cpu':
+            return reference_attention_bwd(q, k, v, g)
+        return fused_attention_bwd(q, k, v, g)
+
+
+def attention(q, k, v):
+    """Attention core of the ViT: the kernels on CUDA, the plain versions on
+    the CPU; differentiable (K3) when a gradient is wanted."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v)
+    return _forward(q, k, v)

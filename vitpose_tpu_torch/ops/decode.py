@@ -206,3 +206,29 @@ def keypoints_from_heatmaps(heatmaps, center, scale, post_process='default',
     if post_process == 'megvii':
         maxvals = maxvals / 255.0 + 0.5
     return preds, maxvals
+
+
+def pose_pck_accuracy(output, target, mask, thr=0.05):
+    """PCK of argmax-decoded heatmaps on the device, for train-time
+    monitoring (reference top_down_eval.py:136; vitpose_tpu/ops/decode.py
+    :287). output, target [N, K, H, W]; mask [N, K] bool.
+
+    Returns (avg_acc, valid_count) as 0-dim tensors: per-keypoint accuracies
+    averaged over keypoints with at least one valid sample. Distances are
+    normalised by (h, w) in that order for (x, y), the reference's quirk.
+    """
+    n, k, h, w = output.shape
+    pred, _ = heatmaps_to_coords(output)
+    gt, _ = heatmaps_to_coords(target)
+    d = pred - gt
+    dist = torch.sqrt((d[..., 0] / h) ** 2 + (d[..., 1] / w) ** 2)
+    valid = mask.bool()
+    hit = (dist < thr) & valid
+    per_kpt_valid = valid.sum(0)
+    per_kpt_acc = torch.where(
+        per_kpt_valid > 0, hit.sum(0) / per_kpt_valid.clamp(min=1), -1.0)
+    has_valid = per_kpt_acc >= 0
+    cnt = has_valid.sum()
+    avg = torch.where(cnt > 0, torch.where(has_valid, per_kpt_acc, 0.0).sum()
+                      / cnt.clamp(min=1), 0.0)
+    return avg, cnt

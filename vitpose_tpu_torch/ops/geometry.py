@@ -113,6 +113,20 @@ def udp_warp_matrix(rot_deg, center, scale, output_size, pixel_std=PIXEL_STD):
                         torch.stack([m10, m11, m12], dim=-1)], dim=-2)
 
 
+def apply_affine_to_points(points, mat):
+    """Apply [..., 2, 3] affines to [..., K, 2] points -> [..., K, 2].
+
+    Written elementwise, so it is exact f32 on every device whatever the
+    TF32 settings (the JAX package asks for Precision.HIGHEST: a rounded
+    product would cost whole pixels on image-scale coordinates).
+    """
+    points = _f32(points)
+    x, y = points[..., 0], points[..., 1]
+    row = [[mat[..., i, j, None] for j in range(3)] for i in range(2)]
+    return torch.stack([row[i][0] * x + row[i][1] * y + row[i][2]
+                        for i in range(2)], dim=-1)
+
+
 def transform_preds(coords, center, scale, output_size, use_udp=False,
                     pixel_std=PIXEL_STD):
     """Map [..., K, 2] heatmap-grid coords back to source-image space.
