@@ -7,31 +7,38 @@ Phases, each printing its own line(s); any failure exits non-zero and prints
 no result:
 
   env       card name and power limit (nvidia-smi), torch and CUDA versions
-  build     every csrc/*.cu built by nvcc for sm_90a, one process each
+  build     every csrc/*.cu built by nvcc for sm_90a, one process each; one
+            line per kernel with ptxas's registers, static shared memory and
+            spills (any spill fails)
   kernel    K1 (attention_fwd) against its plain version on the card at the
-            shapes the serving path gives it, with median times of the
-            kernel, the plain version and one PyTorch library call, and the
+            shapes the serving and training paths give it, the other head
+            dims and both sides of the whole-pair boundary (T = 192, 193),
+            in every design that takes each shape; median times of each
+            design (the whole pair and the tiled one in turns: tiled, pair,
+            pair, tiled), back to back and on the device alone (CUDA graph),
+            of the plain version and of one PyTorch library call, and the
             card's bound for the same work
   serve     full-width ViTPose-B 256x192 (bf16, K1 attention, flip test, UDP
             decode) through init_pose_model + inference_top_down_pose_model
             on a seeded 480x640 image with 8 boxes: exactly 12 blocks x 2
-            passes = 24 K1 launches, every tensor on the card, every keypoint
-            finite and inside its padded box; then img/s of a 256-crop batch
+            passes = 24 K1 launches, all of the whole-pair design, every
+            tensor on the card, every keypoint finite and inside its padded
+            box; then img/s of a 256-crop batch
   serve-ref the same weights on CUDA (K1) and on the CPU (plain attention),
             2 boxes, in f32 (TF32 off) and in bf16: f32 heatmaps and decisive
             keypoints agree; the bf16 CUDA path is as close to the f32 CPU
             answer as the bf16 CPU path is (within BF16_FACTOR)
-  kernel-bwd K2 (attention_bwd) against its plain version on the card at the
-            training shapes and the other head dims and lengths, with the
-            same timings and bound as the kernel phase (the library call is
-            SDPA's backward, timed as fwd+bwd minus fwd); then one K3 check:
+  kernel-bwd K2 (attention_bwd) in the same way at the training shapes and
+            the other head dims and lengths (the library call is SDPA's
+            backward, timed as fwd+bwd minus fwd); then one K3 check:
             gradients through `attention` on CUDA equal the plain backward
   train     full-width ViTPose-B 256x192 training steps (bf16, K1 + K2
             attention, drop_path 0.3, the COCO-B optimizer, batch 64) from
             seeded synthetic records on 640x640 canvases, augmented on the
             host (flip, half-body, scale, rotation) and cropped with UDP
             targets on the card: exactly 12 K1 and 12 K2 launches per step,
-            every tensor on the card, finite loss and gradients, parameters
+            all of the whole-pair designs, every tensor on the card, finite
+            loss and gradients, parameters
             and BN statistics changed, acc_pose in [0, 1]; ms per step, and
             a torch.profiler view of two more steps: kernel time per step,
             the card's idle share and the kernels that take the most time
@@ -41,7 +48,9 @@ no result:
             tensor and BN statistic after 2 steps agree; in bf16 CUDA is as close to the
             f32 CPU answer as the bf16 CPU path is (within BF16_FACTOR)
 
-Then the kernels JSON line, the nvidia-smi card line and the result line.
+Then the kernels JSON line (per kernel: the design the main path takes, its
+times, the tiled design's times from the same run, bound, library time and
+launches), the nvidia-smi card line and the result line.
 
 The weights are random (torch.Generator seed 0, inside init_pose_model).
 Random heatmaps make the UDP Newton step ill conditioned, so the smoke makes
@@ -51,6 +60,7 @@ brightness detector, and carries channel 0 through bump-shaped deconv kernels
 onto every joint (`shape_peaks`). Every other weight stays random.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -66,25 +76,33 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense bf16 tensor cores
               torch.float32: 67e12}     # f32 outside the tensor cores
 # (atol, rtol). f32: summation order. bf16: the output is rounded to bf16 on
-# both sides (one step is at most 2^-7 of |o|, inside rtol) and P is rounded
-# to bf16 at a different point (unnormalised in K1, normalised in the plain
-# version), a few 1e-3 at |o| < 0.5 (atol)
+# both sides (one step is at most 2^-7 of |o|, inside rtol) and the tiled
+# design rounds P to bf16 at a different point (unnormalised; normalised in
+# the plain version and the whole-pair design), a few 1e-3 at |o| < 0.5
+# (atol)
 TOLS = {torch.float32: (1e-5, 1e-5),
         torch.bfloat16: (4e-3, 1e-2)}
-KERNEL_CASES = [                         # (shape [N,T,H,d], dtype, role)
+# (shape [N,T,H,d], dtype, role). Every bf16 case up to T = 192 runs in both
+# designs (the whole pair per block, and the tiled one); T = 192 and 193 are
+# the two sides of the plan's boundary (PAIR_MAX_T)
+KERNEL_CASES = [
     ((256, 192, 12, 64), torch.bfloat16, 'serving batch 256, ViT-B'),
     ((256, 192, 12, 64), torch.float32, 'serving batch 256, f32'),
     ((8, 192, 12, 64), torch.bfloat16, 'serve call, 8 boxes'),
     ((64, 192, 12, 64), torch.bfloat16, 'training batch 64, ViT-B'),
     ((16, 192, 16, 80), torch.bfloat16, 'ViT-H head dim'),
+    ((32, 192, 6, 32), torch.bfloat16, 'ViT-S head dim'),
+    ((4, 193, 12, 64), torch.bfloat16, 'one token past the whole pair'),
     ((2, 972, 16, 80), torch.bfloat16, '576x432 inputs'),
     ((4, 72, 12, 64), torch.bfloat16, 'last key tile holds 8 of 64 keys'),
     ((3, 48, 5, 32), torch.float32, 'ragged'),
 ]
-BWD_CASES = [                         # (shape [N,T,H,d], dtype, role)
+BWD_CASES = [
     ((64, 192, 12, 64), torch.bfloat16, 'training batch 64, ViT-B'),
     ((64, 192, 12, 64), torch.float32, 'training batch 64, f32'),
     ((16, 192, 16, 80), torch.bfloat16, 'ViT-H head dim'),
+    ((32, 192, 6, 32), torch.bfloat16, 'ViT-S head dim'),
+    ((4, 193, 12, 64), torch.bfloat16, 'one token past the whole pair'),
     ((2, 972, 16, 80), torch.bfloat16, '576x432 inputs'),
     ((4, 72, 12, 64), torch.bfloat16, 'last tile holds 8 of 64 rows'),
     ((3, 48, 5, 32), torch.float32, 'ragged'),
@@ -151,6 +169,33 @@ def time_ms(fn, calls=10, rounds=7, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(fn, calls=10, rounds=7):
+    """Device time of one fn(): `calls` calls captured in one CUDA graph,
+    replayed after a warm-up; the median over `rounds` replays, each timed
+    by CUDA events, divided by `calls`. No host time enters, unlike
+    time_ms, where a call's host time shows wherever it exceeds the
+    kernel's."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def attention_bound(shape, dtype):
     """Least time for the work: q, k, v read once, O written once, against
     QK^T and PV at the card's peak rate for the dtype."""
@@ -160,6 +205,39 @@ def attention_bound(shape, dtype):
     ops_ms = 4 * n * h * t * t * d / PEAK_FLOPS[dtype] * 1e3
     return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
                                    else 'operations')
+
+
+def designs_of(shape, dtype, backward):
+    """(the design `_plan` picks, every design that takes the shape): the
+    tiled design takes every shape, the whole pair only what _plan gives
+    it."""
+    from vitpose_tpu_torch.ops.attention import _plan
+    planned = _plan(shape[1], shape[3], dtype, backward)[0]
+    return planned, ('tiled', 'pair') if planned == 'pair' else ('tiled',)
+
+
+def time_designs(run, designs, timer=time_ms):
+    """ms of run(design) for each design by `timer`. Two designs are timed
+    in turns on this card (old, new, new, old) and each gets the mean of
+    its two turns; returns ({design: ms}, [the four turns])."""
+    if len(designs) == 1:
+        return {designs[0]: timer(lambda: run(designs[0]))}, []
+    old, new = designs
+    turns = [(d, timer(lambda d=d: run(d))) for d in (old, new, new, old)]
+    return {d: statistics.mean(ms for dd, ms in turns if dd == d)
+            for d in designs}, turns
+
+
+def design_note(planned, ms, turns, dev):
+    """The part of a kernel line that names the designs and their times:
+    back to back (kernel_ms; tiled_ms for the old design) and on the device
+    alone (device_ms, CUDA graph)."""
+    note = f'design {planned}, kernel_ms {ms[planned]:.4f}'
+    if turns:
+        note += f', tiled_ms {ms["tiled"]:.4f} (turns ' + ', '.join(
+            f'{d} {t:.4f}' for d, t in turns) + ')'
+    return note + ', device_ms ' + ', '.join(
+        f'{d} {t:.4f}' for d, t in dev.items())
 
 
 def phase_kernel():
@@ -173,35 +251,50 @@ def phase_kernel():
         qkv = torch.randn(n, t, 3, h, d, generator=gen, device='cuda',
                           dtype=torch.float32).to(dtype)
         q, k, v = qkv.unbind(2)
-        before = attn.fused_attention.launches
-        out = attn.fused_attention(q, k, v)
-        torch.cuda.synchronize()
-        launched = attn.fused_attention.launches - before
         ref = attn.reference_attention(q, k, v)
         atol, rtol = TOLS[dtype]
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
-        bad = (diff > atol + rtol * ref.float().abs()).sum().item()
-        check(torch.isfinite(out).all().item(), f'K1 non-finite at {shape}')
-        check(bad == 0, f'K1 disagrees with plain at {shape} {dtype}: '
-              f'{bad} elements, max abs err {err}')
+        planned, designs = designs_of(shape, dtype, False)
+        errs = {}
+        for design in designs:
+            before = attn.fused_attention.design_launches[design]
+            out = attn.fused_attention(q, k, v, _design=design)
+            torch.cuda.synchronize()
+            check(attn.fused_attention.design_launches[design] == before + 1,
+                  f'K1 {design} did not count its launch')
+            diff = (out.float() - ref.float()).abs()
+            errs[design] = diff.max().item()
+            bad = (diff > atol + rtol * ref.float().abs()).sum().item()
+            check(torch.isfinite(out).all().item(),
+                  f'K1 {design} non-finite at {shape}')
+            check(bad == 0, f'K1 {design} disagrees with plain at {shape} '
+                  f'{dtype}: {bad} elements, max abs err {errs[design]}')
+            del out, diff
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        ms = time_ms(lambda: attn.fused_attention(q, k, v))
+        ms, turns = time_designs(
+            lambda dsg: attn.fused_attention(q, k, v, _design=dsg), designs)
+        dev, _ = time_designs(
+            lambda dsg: attn.fused_attention(q, k, v, _design=dsg), designs,
+            device_ms)
         plain_ms = time_ms(lambda: attn.reference_attention(q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bound_ms, bound_by = attention_bound(shape, dtype)
         dt = str(dtype).replace('torch.', '')
         print(f'kernel attention_fwd {shape} {dt} ({role}): max_abs_err '
-              f'{err:.3e} (tol {atol:g} + {rtol:g}|ref|), kernel_ms '
-              f'{ms:.4f}, plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} '
-              f'(sdpa), bound_ms {bound_ms:.4f} ({bound_by}), launches '
-              f'{launched}', flush=True)
-        records.append(dict(shape=shape, dtype=dtype, err=err, ms=ms,
+              + ', '.join(f'{dsg} {e:.3e}' for dsg, e in errs.items())
+              + f' (tol {atol:g} + {rtol:g}|ref|), '
+              f'{design_note(planned, ms, turns, dev)}, plain_ms {plain_ms:.4f}, '
+              f'library_ms {lib_ms:.4f} (sdpa), bound_ms {bound_ms:.4f} '
+              f'({bound_by})', flush=True)
+        records.append(dict(shape=shape, dtype=dtype, design=planned,
+                            err=errs[planned], ms=ms[planned],
+                            old_ms=ms['tiled'] if turns else None,
+                            device_ms=dev,
                             plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bound_ms, bound_by=bound_by))
-        del qkv, q, k, v, out, ref, diff
+        del qkv, q, k, v, ref
     print(f'kernels: attention_fwd built, launched and matched its plain '
-          f'version at {len(records)} shapes', flush=True)
+          f'version at {len(records)} shapes, in every design that takes '
+          f'each', flush=True)
     return records[0]
 
 
@@ -265,6 +358,15 @@ class DeviceAudit(TorchDispatchMode):
         return out
 
 
+def reset_counts():
+    """Every kernel wrapper's launch counts to 0, per design too."""
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    for fn in (fused_attention, fused_attention_bwd):
+        fn.launches = 0
+        fn.design_launches = dict.fromkeys(fn.design_launches, 0)
+
+
 def phase_serve():
     from vitpose_tpu_torch.api import (inference_top_down_pose_model,
                                        init_pose_model)
@@ -280,7 +382,7 @@ def phase_serve():
     img = scene(0, boxes)
     persons = [{'bbox': b} for b in boxes]
 
-    fused_attention.launches = fused_attention_bwd.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     results, _ = inference_top_down_pose_model(model, img, persons)
     call_s = time.perf_counter() - t0
@@ -289,6 +391,9 @@ def phase_serve():
     depth = model.cfg.backbone.depth
     check(launches == depth * 2, f'K1 launched {launches} times in the '
           f'serve call, expected {depth} blocks x 2 passes')
+    check(fused_attention.design_launches == {'pair': depth * 2, 'tiled': 0},
+          f'K1 designs in the serve call: {fused_attention.design_launches}, '
+          'expected the whole pair every time')
     check(bwd_launches == 0, f'K2 launched {bwd_launches} times in the '
           'serve call, expected none')
 
@@ -313,7 +418,8 @@ def phase_serve():
     check(not audit.off_device, f'off-card tensors on the serving path: '
           f'{sorted(audit.off_device)[:5]}')
     print(f'serve: ViTPose-B 256x192 bf16, 8 boxes, {launches} K1 launches '
-          f'(12 blocks x 2) and {bwd_launches} K2, keypoints finite and inside their padded boxes, '
+          f'(12 blocks x 2, all whole-pair) and {bwd_launches} K2, keypoints '
+          f'finite and inside their padded boxes, '
           f'{audit.ops} ops all on CUDA, first call {call_s:.2f} s',
           flush=True)
 
@@ -435,16 +541,26 @@ def phase_kernel_bwd():
         q, k, v = qkv.unbind(2)
         g = torch.randn(n, t, h, d, generator=gen, device='cuda',
                         dtype=torch.float32).to(dtype)
-        before = attn.fused_attention_bwd.launches
-        outs = attn.fused_attention_bwd(q, k, v, g)
-        torch.cuda.synchronize()
-        launched = attn.fused_attention_bwd.launches - before
         refs = attn.reference_attention_bwd(q, k, v, g)
-        err, ok = bwd_error(outs, refs, dtype)
         atol, rtol = BWD_TOLS[dtype]
-        check(ok, f'K2 disagrees with plain at {shape} {dtype}: max abs err '
-              f'{err}')
-        ms = time_ms(lambda: attn.fused_attention_bwd(q, k, v, g))
+        planned, designs = designs_of(shape, dtype, True)
+        errs = {}
+        for design in designs:
+            before = attn.fused_attention_bwd.design_launches[design]
+            outs = attn.fused_attention_bwd(q, k, v, g, _design=design)
+            torch.cuda.synchronize()
+            check(attn.fused_attention_bwd.design_launches[design]
+                  == before + 1, f'K2 {design} did not count its launch')
+            errs[design], ok = bwd_error(outs, refs, dtype)
+            check(ok, f'K2 {design} disagrees with plain at {shape} {dtype}: '
+                  f'max abs err {errs[design]}')
+            del outs
+        ms, turns = time_designs(
+            lambda dsg: attn.fused_attention_bwd(q, k, v, g, _design=dsg),
+            designs)
+        dev, _ = time_designs(
+            lambda dsg: attn.fused_attention_bwd(q, k, v, g, _design=dsg),
+            designs, device_ms)
         plain_ms = time_ms(lambda: attn.reference_attention_bwd(q, k, v, g))
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
@@ -459,14 +575,18 @@ def phase_kernel_bwd():
         bound_ms, bound_by = attention_bwd_bound(shape, dtype)
         dt = str(dtype).replace('torch.', '')
         print(f'kernel-bwd attention_bwd {shape} {dt} ({role}): max_abs_err '
-              f'{err:.3e} (tol {atol:g} max|ref| + {rtol:g}|ref|), kernel_ms '
-              f'{ms:.4f}, plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} '
-              f'(sdpa bwd = fwd+bwd - fwd), bound_ms {bound_ms:.4f} '
-              f'({bound_by}), launches {launched}', flush=True)
-        records.append(dict(shape=shape, dtype=dtype, err=err, ms=ms,
+              + ', '.join(f'{dsg} {e:.3e}' for dsg, e in errs.items())
+              + f' (tol {atol:g} max|ref| + {rtol:g}|ref|), '
+              f'{design_note(planned, ms, turns, dev)}, plain_ms {plain_ms:.4f}, '
+              f'library_ms {lib_ms:.4f} (sdpa bwd = fwd+bwd - fwd), '
+              f'bound_ms {bound_ms:.4f} ({bound_by})', flush=True)
+        records.append(dict(shape=shape, dtype=dtype, design=planned,
+                            err=errs[planned], ms=ms[planned],
+                            old_ms=ms['tiled'] if turns else None,
+                            device_ms=dev,
                             plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bound_ms, bound_by=bound_by))
-        del qkv, q, k, v, g, outs, refs, qt, kt, vt, gt
+        del qkv, q, k, v, g, refs, qt, kt, vt, gt
 
     # K3 at the training shape: gradients through `attention` on CUDA are
     # K2's, and the plain backward's within BWD_TOLS
@@ -588,7 +708,7 @@ def phase_train():
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
 
-    fused_attention.launches = fused_attention_bwd.launches = 0
+    reset_counts()
     audit = DeviceAudit()
     with audit:
         m = step(state, preprocess(*inputs), gen)
@@ -596,13 +716,17 @@ def phase_train():
     launches = (fused_attention.launches, fused_attention_bwd.launches)
     check(launches == (12, 12), f'one step launched K1, K2 {launches} '
           'times, expected 12 blocks each')
+    designs = (fused_attention.design_launches,
+               fused_attention_bwd.design_launches)
+    check(designs == ({'pair': 12, 'tiled': 0},) * 2, f'K1, K2 designs in '
+          f'one step: {designs}, expected the whole pair every time')
     check(not audit.off_device, f'off-card tensors in the train step: '
           f'{sorted(audit.off_device)[:5]}')
     grads = [p.grad for p in model.parameters()]
     check(all(g is not None and torch.isfinite(g).all().item()
               for g in grads), 'a gradient is missing or not finite')
 
-    fused_attention.launches = fused_attention_bwd.launches = 0
+    reset_counts()
     times = []
     for _ in range(TIMED_STEPS):
         torch.cuda.synchronize()
@@ -627,7 +751,7 @@ def phase_train():
           f'{unchanged[:5]}')
     print(f'train: ViTPose-B 256x192 bf16, drop_path 0.3, batch '
           f'{TRAIN_BATCH}: {launches[0]} K1 + {launches[1]} K2 launches per '
-          f'step, {audit.ops} ops all on CUDA, gradients finite, every '
+          f'step (all whole-pair), {audit.ops} ops all on CUDA, gradients finite, every '
           f'parameter and BN statistic changed; last timed step: '
           f'heatmap_loss {vals["heatmap_loss"]:.6f}, grad_norm '
           f'{vals["grad_norm"]:.6f}, acc_pose {vals["acc_pose"]:.4f}; '
@@ -766,6 +890,51 @@ def phase_train_ref():
               f'the bf16 CPU path {cpu[k]}')
 
 
+def kernel_name(mangled):
+    """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
+    anonymous namespace; the mangled name where it is not one."""
+    m = re.match(r'_ZN(\d+)_GLOBAL__N_', mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.start(1) + len(m.group(1)) + int(m.group(1)):]
+    m = re.match(r'(\d+)', rest)
+    if not m:
+        return mangled
+    name = rest[m.end():m.end() + int(m.group(1))]
+    args = re.match(r'I((?:Li\d+E)+)E', rest[m.end() + len(name):])
+    if args:
+        name += '<' + ','.join(re.findall(r'Li(\d+)E', args.group(1))) + '>'
+    return name
+
+
+def ptxas_report(logs):
+    """One line per kernel from ptxas -v: registers, static shared memory
+    and spill bytes (the whole-pair kernels take dynamic shared memory, the
+    size `_plan` gives). Fails if any kernel spills."""
+    spilled = []
+    for src, log in logs.items():
+        func, spill = None, (0, 0)
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                func = kernel_name(m.group(1))
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                          r'loads', line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r'Used (\d+) registers', line)
+            if m:
+                smem = re.search(r'(\d+) bytes smem', line)
+                print(f'build {src}: {func}: {m.group(1)} registers, '
+                      f'{smem.group(1) if smem else 0} bytes static smem, '
+                      f'spill stores/loads {spill[0]}/{spill[1]} bytes')
+                if spill != (0, 0):
+                    spilled.append(func)
+        if not log:
+            print(f'build {src}: built before this run, no ptxas report')
+    check(not spilled, f'kernels that spill registers: {spilled}')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -784,10 +953,7 @@ def main():
         t0 = time.perf_counter()
         logs = _build.build_all()
         build_s = time.perf_counter() - t0
-        for name, log in logs.items():
-            for line in log.splitlines():
-                if 'registers' in line or 'spill' in line:
-                    print(f'build {name}: {line.strip()}')
+        ptxas_report(logs)
         print(f'build: {", ".join(logs)} built by nvcc (sm_90a) in '
               f'{build_s:.1f} s', flush=True)
 
@@ -820,7 +986,11 @@ def main():
             'replaces': f'vitpose_tpu/ops/attention.py:{line}',
             'launches': n, 'max_abs_err': rec['err'], 'ms': rec['ms'],
             'plain_ms': rec['plain_ms'], 'bound_ms': rec['bound_ms'],
-            'bound_by': rec['bound_by'], 'library_ms': rec['library_ms']})
+            'bound_by': rec['bound_by'], 'library_ms': rec['library_ms'],
+            'design': rec['design'], 'old_design': 'tiled',
+            'old_ms': rec['old_ms'],
+            'device_ms': rec['device_ms'][rec['design']],
+            'old_device_ms': rec['device_ms'].get('tiled')})
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

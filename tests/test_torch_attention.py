@@ -1,6 +1,7 @@
 """The port's attention against the JAX package on the CPU, the dispatch rule
-of its wrappers, the differentiable K3, and (on a CUDA card only) the K1 and
-K2 kernels against their plain versions.
+of its wrappers, the choice of kernel design (`_plan`), the differentiable
+K3, and (on a CUDA card only) the K1 and K2 kernels, in every design that
+takes each shape, against their plain versions.
 
 Tolerances of the forward: f32 1e-5. bf16 4e-3 absolute plus 1e-2 relative:
 the output is rounded to bf16 on both sides (one step is at most 2^-7 of |o|,
@@ -112,16 +113,68 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(case):
     assert tattn.fused_attention.launches == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('shape,dtype', [
+@pytest.mark.parametrize('backward', [False, True], ids=['fwd', 'bwd'])
+@pytest.mark.parametrize('d', tattn.KERNEL_HEAD_DIMS)
+def test_plan_takes_the_whole_pair_at_every_vitpose_head_dim(d, backward):
+    """T = 192 is every ViTPose variant at 256x192: bf16 there runs one block
+    per (batch, head) pair, inside the H100's shared memory per block."""
+    design, smem = tattn._plan(192, d, torch.bfloat16, backward)
+    assert design == 'pair'
+    assert 0 < smem <= tattn.SMEM_PER_BLOCK == 232_448
+
+
+@pytest.mark.parametrize('backward', [False, True], ids=['fwd', 'bwd'])
+@pytest.mark.parametrize('t,dtype', [(972, torch.bfloat16),
+                                     (192, torch.float32),
+                                     (tattn.PAIR_MAX_T + 1, torch.bfloat16)],
+                         ids=['576x432', 'f32', 'boundary+1'])
+def test_plan_takes_the_tiled_design_past_the_pair(t, dtype, backward):
+    """Lengths past PAIR_MAX_T (T = 972 at 576x432 inputs, and the first
+    length past the boundary) and f32 go to the tiled kernels, whose static
+    tiles stay under 48 KB."""
+    for d in tattn.KERNEL_HEAD_DIMS:
+        design, smem = tattn._plan(t, d, dtype, backward)
+        assert design == 'tiled' and 0 < smem <= 48 * 1024
+    assert tattn._plan(tattn.PAIR_MAX_T, 80, torch.bfloat16,
+                       backward)[0] == 'pair'
+
+
+@pytest.mark.parametrize('forced', ['pair', 'flash'])
+def test_forced_design_must_take_the_shape(forced):
+    """The private `_design` of the wrappers may pick the tiled design at any
+    shape, but never the pair design where `_plan` refuses it."""
+    q = torch.zeros(1, tattn.PAIR_MAX_T + 1, 2, 64, dtype=torch.bfloat16)
+    assert tattn._pick_design('k', q, False, None) == 'tiled'
+    assert tattn._pick_design('k', q[:, :64], True, 'tiled') == 'tiled'
+    with pytest.raises(ValueError, match='design'):
+        tattn._pick_design('k', q, False, forced)
+
+
+# main-path shapes, the plan's boundary (192 whole pair, 193 tiled), a ragged
+# T = 72 (8 real keys in the last 64-row tile), 7 (batch, head) pairs (a
+# count no tile size or block count divides) and T = 972
+CARD_CASES = [
     ((2, 192, 12, 64), torch.bfloat16), ((2, 192, 12, 64), torch.float32),
     ((3, 48, 5, 32), torch.float32), ((1, 972, 2, 80), torch.bfloat16),
     ((4, 72, 12, 64), torch.bfloat16), ((3, 48, 5, 32), torch.bfloat16),
-    ((2, 100, 3, 80), torch.float32)])
+    ((2, 100, 3, 80), torch.float32), ((1, 192, 7, 80), torch.bfloat16),
+    ((1, 193, 7, 64), torch.bfloat16), ((2, 130, 3, 32), torch.bfloat16)]
+
+
+def _designs(shape, dtype, backward):
+    """Every design that takes the shape: the tiled one always."""
+    if tattn._plan(shape[1], shape[3], dtype, backward)[0] == 'pair':
+        return ('tiled', 'pair')
+    return ('tiled',)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,dtype', CARD_CASES)
 def test_kernel_matches_plain_on_card(shape, dtype):
-    """K1 on strided q/k/v views of one qkv tensor, as the ViT feeds it.
-    T=72 leaves 8 real keys in the last 64-key tile, so a wrong key mask
-    moves the output far past the bf16 tolerance."""
+    """K1, in every design that takes the shape, on strided q/k/v views of
+    one qkv tensor, as the ViT feeds it. T=72 leaves 8 real keys in the last
+    64-key tile, so a wrong key mask moves the output far past the bf16
+    tolerance."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: K1 has no CPU mode')
     torch.backends.cuda.matmul.allow_tf32 = False    # a true f32 reference
@@ -129,14 +182,18 @@ def test_kernel_matches_plain_on_card(shape, dtype):
     g = torch.Generator(device='cuda').manual_seed(0)
     qkv = torch.randn(n, t, 3, h, d, generator=g, device='cuda').to(dtype)
     q, k, v = qkv.unbind(2)
-    before = tattn.fused_attention.launches
-    out = tattn.fused_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert tattn.fused_attention.launches == before + 1
     ref = tattn.reference_attention(q, k, v)
     tol = TOLS['float32' if dtype == torch.float32 else 'bfloat16']
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               ref.float().cpu().numpy(), **tol)
+    planned = tattn._plan(t, d, dtype)[0]
+    for design in _designs(shape, dtype, False):
+        before = dict(tattn.fused_attention.design_launches)
+        out = tattn.fused_attention(
+            q, k, v, _design=None if design == planned else design)
+        torch.cuda.synchronize()
+        assert tattn.fused_attention.design_launches[design] == \
+            before[design] + 1
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), **tol)
 
 
 def _assert_bwd_close(outs, refs, dtype):
@@ -255,29 +312,31 @@ def test_kernel_bwd_wrapper_refuses_what_the_kernel_does_not_take(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape,dtype', [
-    ((2, 192, 12, 64), 'bfloat16'), ((2, 192, 12, 64), 'float32'),
-    ((3, 48, 5, 32), 'float32'), ((1, 972, 2, 80), 'bfloat16'),
-    ((4, 72, 12, 64), 'bfloat16'), ((3, 48, 5, 32), 'bfloat16'),
-    ((2, 100, 3, 80), 'float32')])
+@pytest.mark.parametrize('shape,dtype', CARD_CASES)
 def test_kernel_bwd_matches_plain_on_card(shape, dtype):
-    """K2 on strided q/k/v views of one qkv tensor, and K3 through it."""
+    """K2, in every design that takes the shape, on strided q/k/v views of
+    one qkv tensor, and K3 through the planned design."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: K2 has no CPU mode')
     torch.backends.cuda.matmul.allow_tf32 = False    # a true f32 reference
     n, t, h, d = shape
     gen = torch.Generator(device='cuda').manual_seed(0)
-    dt = getattr(torch, dtype)
-    qkv = torch.randn(n, t, 3, h, d, generator=gen, device='cuda').to(dt)
-    g = torch.randn(n, t, h, d, generator=gen, device='cuda').to(dt)
-    before = tattn.fused_attention_bwd.launches
-    outs = tattn.fused_attention_bwd(*qkv.unbind(2), g)
-    torch.cuda.synchronize()
-    assert tattn.fused_attention_bwd.launches == before + 1
+    qkv = torch.randn(n, t, 3, h, d, generator=gen, device='cuda').to(dtype)
+    g = torch.randn(n, t, h, d, generator=gen, device='cuda').to(dtype)
     refs = tattn.reference_attention_bwd(*qkv.unbind(2), g)
-    _assert_bwd_close(outs, refs, dtype)
+    dtype = 'float32' if dtype == torch.float32 else 'bfloat16'
+    for design in _designs(shape, qkv.dtype, True):
+        before = dict(tattn.fused_attention_bwd.design_launches)
+        outs = tattn.fused_attention_bwd(*qkv.unbind(2), g, _design=design)
+        torch.cuda.synchronize()
+        assert tattn.fused_attention_bwd.design_launches[design] == \
+            before[design] + 1
+        _assert_bwd_close(outs, refs, dtype)
+    before = tattn.fused_attention_bwd.launches
     leaf = qkv.clone().requires_grad_()
     tattn.attention(*leaf.unbind(2)).backward(g)
-    assert tattn.fused_attention_bwd.launches == before + 2
+    assert tattn.fused_attention_bwd.launches == before + 1
+    # the planned design is the last one run above, and K2 is
+    # deterministic: K3's gradients are those outputs bit for bit
     for port, ref in zip(leaf.grad.unbind(2), outs):
         assert torch.equal(port, ref)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``kernels/build/lib<name>_<hash>.so`` (the directory is git-ignored) and
-loaded with ``ctypes``. The hash covers the source and the flags, so an edited
-source builds anew and a stale library is never loaded. Building goes
+loaded with ``ctypes``. The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source builds anew and a stale
+library is never loaded. Building goes
 through a temporary file and an atomic rename, so processes that build at the
 same time do not see half-written libraries.
 
@@ -47,7 +48,10 @@ def sources() -> list:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
+    """The library of csrc/<name>.cu, named by a hash of that source, the
+    headers it may include (csrc/*.cuh) and the flags."""
+    src = b''.join(p.read_bytes() for p in
+                   [CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))])
     digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f'lib{name}_{digest[:16]}.so'
 

@@ -15,8 +15,12 @@ JAX package.
   * ``fused_attention`` / ``fused_attention_bwd`` -- launch the hand-written
     sm_90a kernels (csrc/attention_fwd.cu, csrc/attention_bwd.cu: tensor
     cores for bf16, CUDA cores for f32) on CUDA tensors, and raise on
-    anything else or on any launch failure. Each has a ``launches``
-    attribute that counts its launches. Neither takes part in autograd.
+    anything else or on any launch failure. ``_plan`` picks each call's
+    design from its shape: 'pair' (one block per (batch, head) pair, inputs
+    read once by TMA; bf16 up to T = 192) or 'tiled' (any T, and f32). Each
+    wrapper has a ``launches`` attribute that counts its calls and a
+    ``design_launches`` dict that counts them per design. Neither takes
+    part in autograd.
   * ``attention`` -- what the ViT calls (K3): the kernels for CUDA tensors,
     the plain versions for CPU tensors, decided by the device alone. When a
     gradient is wanted it is a ``torch.autograd.Function`` that saves q, k, v
@@ -33,6 +37,37 @@ import torch
 # B and L (64), H (80)
 KERNEL_HEAD_DIMS = (32, 64, 80)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DESIGN_CODE = {'tiled': 0, 'pair': 1}
+# the whole-pair designs give each 64 rows of a pair one warpgroup and hold
+# a warpgroup's [64, T] scores in registers: at most three warpgroups
+PAIR_MAX_T = 192
+SMEM_PER_BLOCK = 232_448          # shared memory one H100 block may use
+_MAP_ERROR = 1000                 # csrc/hopper.cuh kMapError
+
+
+def _plan(t, d, dtype, backward=False):
+    """(design, shared-memory bytes of one block) of K1, or of K2 when
+    `backward`, for [N, t, H, d] inputs of `dtype`.
+
+    'pair' (one block per (batch, head) pair) takes bf16 up to PAIR_MAX_T
+    tokens when its tiles fit in SMEM_PER_BLOCK: K1 two stages of q, k, v
+    and the output tile; K2 q, k, v, g, the bf16 [T, T] dS tile and two f32
+    row statistics; both padded to 64 rows, plus 1024 bytes of alignment
+    and the barriers (csrc `pair_smem` gives the same numbers). 'tiled'
+    takes every other length and f32, in 64-row tiles of static shared
+    memory.
+    """
+    rows = -(-t // 64) * 64
+    if backward:
+        pair = 1024 + 4 * rows * d * 2 + rows * rows * 2 + 2 * rows * 4 + 8
+    else:
+        pair = 1024 + 7 * rows * d * 2 + 16
+    if dtype == torch.bfloat16 and t <= PAIR_MAX_T and pair <= SMEM_PER_BLOCK:
+        return 'pair', pair
+    if dtype == torch.bfloat16:     # three tiles, rows padded by 8 elements
+        return 'tiled', 3 * 64 * (d + 8) * 2
+    # two f32 tiles, and K2's key pass two rows of statistics
+    return 'tiled', 2 * 64 * d * 4 + (2 * 64 * 4 if backward else 0)
 
 
 def reference_attention(q, k, v, scale=None):
@@ -102,78 +137,110 @@ def _check_kernel_inputs(fn, **tensors):
 
 def _kernel_fn(name, n_ptrs):
     """The C entry point vtp_<name> of csrc/<name>.cu: `n_ptrs` pointers,
-    n, t, h, d, dtype, the strides, the scale and the stream."""
+    n, t, h, d, dtype, design, the strides, the scale and the stream."""
     from ..kernels import _build
     fn = getattr(_build.load(name), f'vtp_{name}')
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name, n_ptrs, tensors, outputs, scale):
+def _launch(name, tensors, outputs, design, scale):
     """Call vtp_<name> on `tensors` (inputs, [N, T, H, d] views) and
-    `outputs` (pointers it writes) on the current stream; raise on error."""
+    `outputs` (tensors it writes, or None for a null pointer) on the
+    current stream; raise on error."""
     n, t, h, d = tensors[0].shape
     dtype = tensors[0].dtype
-    fn = _kernel_fn(name, n_ptrs)
+    fn = _kernel_fn(name, len(tensors) + len(outputs))
     strides = (ctypes.c_longlong * (3 * len(tensors)))(
         *[st for x in tensors for st in x.stride()[:3]])
+    ptrs = [None if x is None else x.data_ptr() for x in tensors + outputs]
     dev = tensors[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[x.data_ptr() for x in tensors + outputs], n, t, h, d,
-                 _DTYPE_CODE[dtype], strides, float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f'{name} launch failed with CUDA error {err} at '
+        err = fn(*ptrs, n, t, h, d, _DTYPE_CODE[dtype], _DESIGN_CODE[design],
+                 strides, float(scale), stream)
+    if err >= _MAP_ERROR:
+        raise RuntimeError(f'{name} ({design}): cuTensorMapEncodeTiled refused a TMA '
+                           f'tensor map (CUresult {err - _MAP_ERROR}) at '
                            f'shape {(n, t, h, d)} {dtype}')
+    if err != 0:
+        raise RuntimeError(f'{name} ({design}) launch failed with CUDA error '
+                           f'{err} at shape {(n, t, h, d)} {dtype}')
 
 
-def fused_attention(q, k, v, scale=None):
+def _pick_design(fn, q, backward, forced):
+    """The design `_plan` picks for q's shape and dtype, or `forced`
+    ('tiled' or 'pair') where that design takes them."""
+    n, t, h, d = q.shape
+    planned, _ = _plan(t, d, q.dtype, backward)
+    if forced is None:
+        return planned
+    if forced not in _DESIGN_CODE or (forced == 'pair' and planned != 'pair'):
+        raise ValueError(f'{fn}: design {forced!r} does not take shape '
+                         f'{tuple(q.shape)} {q.dtype}; _plan gives '
+                         f'{planned!r}')
+    return forced
+
+
+def fused_attention(q, k, v, scale=None, _design=None):
     """K1: [N, T, H, d] float32/bfloat16 CUDA tensors -> [N, T, H, d].
 
     q, k and v may be strided views (last dim contiguous); the output is a new
     contiguous tensor. Launches on the current stream and raises if the
-    launch fails.
+    launch fails. `_design` forces a design ('tiled' or 'pair') where the
+    shape allows it, so that one can be timed against the other.
     """
     _check_kernel_inputs('fused_attention', q=q, k=k, v=v)
+    design = _pick_design('fused_attention', q, False, _design)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch('attention_fwd', 4, [q, k, v], [out], scale)
+    _launch('attention_fwd', [q, k, v], [out], design, scale)
     fused_attention.launches += 1
+    fused_attention.design_launches[design] += 1
     return out
 
 
 fused_attention.launches = 0
+fused_attention.design_launches = {'pair': 0, 'tiled': 0}
 
 
-def fused_attention_bwd(q, k, v, g, scale=None):
+def fused_attention_bwd(q, k, v, g, scale=None, _design=None):
     """K2: (q, k, v, dO) [N, T, H, d] float32/bfloat16 CUDA tensors ->
     (dq, dk, dv).
 
     Inputs may be strided views (last dim contiguous); dq, dk, dv are new
-    contiguous tensors. The row statistics of the softmax (log-sum-exp and
-    rowsum(dP o P), f32 [N*H, T] each) are scratch that the first of the
-    kernel's two passes writes and the second reads. Launches on the current
-    stream and raises if the launch fails.
+    contiguous tensors. The whole-pair design is one launch with nothing in
+    device memory but inputs and outputs; the tiled design's first pass
+    writes the softmax row statistics (log-sum-exp and rowsum(dP o P), f32
+    [N*H, T] each) to scratch that its second pass reads. Launches on the
+    current stream and raises if a launch fails. `_design` as in
+    `fused_attention`.
     """
     _check_kernel_inputs('fused_attention_bwd', q=q, k=k, v=v, g=g)
+    design = _pick_design('fused_attention_bwd', q, True, _design)
     n, t, h, d = q.shape
     if scale is None:
         scale = d ** -0.5
     grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
              for _ in range(3)]
-    stats = torch.empty((2, n * h, t), dtype=torch.float32, device=q.device)
-    _launch('attention_bwd', 9, [q, k, v, g], grads + [stats[0], stats[1]],
-            scale)
+    if design == 'tiled':
+        stats = list(torch.empty((2, n * h, t), dtype=torch.float32,
+                                 device=q.device))
+    else:
+        stats = [None, None]
+    _launch('attention_bwd', [q, k, v, g], grads + stats, design, scale)
     fused_attention_bwd.launches += 1
+    fused_attention_bwd.design_launches[design] += 1
     return tuple(grads)
 
 
 fused_attention_bwd.launches = 0
+fused_attention_bwd.design_launches = {'pair': 0, 'tiled': 0}
 
 
 def _forward(q, k, v):
