@@ -28,6 +28,22 @@ no result:
             2 boxes, in f32 (TF32 off) and in bf16: f32 heatmaps and decisive
             keypoints agree; the bf16 CUDA path is as close to the f32 CPU
             answer as the bf16 CPU path is (within BF16_FACTOR)
+  eval      the evaluation CLI (vitpose_tpu_torch.tools.test) on the COCO-B
+            config file (ViTPose-B 256x192 bf16, K1, flip test, UDP, batch
+            64, canvas 640), pointed by --cfg-options at a synthetic COCO val
+            set written to a temporary directory (248 JPEGs, 8 of them
+            larger than the canvas; 992 detection boxes, so 16 batches with
+            a ragged last one; GT joints at each box's peak plus seeded
+            jitter) and at the shaped weights saved as a .pth: exactly 24 K1
+            launches per batch, all whole-pair, and no K2; the ten COCO
+            stats, AP in (0, 1); then the same run timed: every val-step
+            tensor on the card, one finite result per box, boxes/s (decode
+            included), the host's decode and batch time alone, the card's
+            busy time (torch.profiler) and peak memory
+  eval-ref  16 of those boxes through the same config on CUDA in f32 (TF32
+            off) and bf16 and on the CPU in f32: f32 keypoints agree as
+            serve-ref's do and f32 AP within EVAL_REF_AP_TOL; bf16 AP beside
+            the f32 AP, within EVAL_REF_BF16_AP_TOL
   kernel-bwd K2 (attention_bwd) in the same way at the training shapes and
             the other head dims and lengths (the library call is SDPA's
             backward, timed as fwd+bwd minus fwd); then one K3 check:
@@ -49,8 +65,9 @@ no result:
             f32 CPU answer as the bf16 CPU path is (within BF16_FACTOR)
 
 Then the kernels JSON line (per kernel: the design the main path takes, its
-times, the tiled design's times from the same run, bound, library time and
-launches), the nvidia-smi card line and the result line.
+times, the tiled design's times from the same run, bound, library time,
+launches in a train step and `launches_per_path`: per serve call, eval run
+and train step), the nvidia-smi card line and the result line.
 
 The weights are random (torch.Generator seed 0, inside init_pose_model).
 Random heatmaps make the UDP Newton step ill conditioned, so the smoke makes
@@ -501,6 +518,320 @@ def phase_serve_ref():
           f'keypoints); CUDA vs CPU bf16 heatmaps '
           f'{np.abs(hm_gb - hm_cb).max():.3e}; max |f32 heatmap| '
           f'{np.abs(hm_ref).max():.3e}', flush=True)
+
+
+COCO_B = 'vitpose_tpu/configs/coco/vitpose_b_coco_256x192.py'
+EVAL_BATCH = 64                      # the COCO-B config's batch size
+EVAL_SMALL, EVAL_BIG = 240, 8        # 480x640 images, and 960x1280 ones
+BOXES_PER_IMAGE = 4                  # 992 boxes: 15 full batches + 32
+EVAL_REF_IMAGES = 4                  # eval-ref: their 16 boxes
+GT_JITTER_PX = 3.0                   # GT joints: box centre + this sigma
+
+
+def eval_scene(rng, boxes, scale):
+    """A dim random (480, 640) * scale image with a bright square of
+    24 * scale pixels at each box centre."""
+    h, w, half = 480 * scale, 640 * scale, 12 * scale
+    img = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+    for x, y, bw, bh in boxes[:, :4]:
+        cx, cy = int(x + bw / 2), int(y + bh / 2)
+        img[cy - half:cy + half, cx - half:cx + half] = 255
+    return img
+
+
+def write_eval_set(root, seed):
+    """A synthetic COCO val set in `root`: JPEGs written with cv2, a
+    person_keypoints json whose GT joints lie at each box centre (where
+    `shape_peaks` puts the peak) plus GT_JITTER_PX of seeded jitter, one box
+    in eight without a GT person, and a detection json of every box. The
+    first EVAL_REF_IMAGES images also get a json pair of their own. Returns
+    {name: path} and the number of boxes."""
+    import os
+    import cv2
+    rng = np.random.RandomState(seed)
+    images, anns, dets = [], [], []
+    for i in range(EVAL_SMALL + EVAL_BIG):
+        scale = 2 if i >= EVAL_SMALL else 1
+        boxes = grid_boxes(rng, 2, 2)
+        boxes[:, 0] += rng.uniform(0, 300)
+        boxes[:, :4] *= scale
+        name = f'{i + 1:012d}.jpg'
+        cv2.imwrite(os.path.join(root, name),
+                    eval_scene(rng, boxes, scale)[..., ::-1])
+        images.append(dict(id=i + 1, file_name=name, width=640 * scale,
+                           height=480 * scale))
+        for x, y, w, h, _ in boxes:
+            dets.append(dict(image_id=i + 1, category_id=1,
+                             bbox=[float(x), float(y), float(w), float(h)],
+                             score=float(rng.uniform(0.5, 1.0))))
+            if len(dets) % 8 == 0:
+                continue                             # a false positive
+            xy = np.array([x + w / 2, y + h / 2]) + rng.normal(
+                0, GT_JITTER_PX * scale, (17, 2))
+            v = np.where(rng.rand(17) < 0.9, 2, 0)
+            anns.append(dict(
+                id=len(anns) + 1, image_id=i + 1, category_id=1,
+                bbox=[float(x), float(y), float(w), float(h)],
+                area=float(w * h), iscrowd=0,
+                num_keypoints=int((v > 0).sum()),
+                keypoints=np.concatenate([xy, v[:, None]], 1).ravel()
+                .tolist()))
+    cats = [dict(id=1, name='person')]
+    files = {}
+    ref_ids = set(range(1, EVAL_REF_IMAGES + 1))
+    for tag, keep in (('', lambda a: True),
+                      ('_ref', lambda a: a['image_id'] in ref_ids)):
+        files['ann' + tag] = os.path.join(root, f'ann{tag}.json')
+        files['det' + tag] = os.path.join(root, f'det{tag}.json')
+        with open(files['ann' + tag], 'w') as f:
+            json.dump(dict(images=[im for im in images
+                                   if keep(dict(image_id=im['id']))],
+                           annotations=[a for a in anns if keep(a)],
+                           categories=cats), f)
+        with open(files['det' + tag], 'w') as f:
+            json.dump([d for d in dets if keep(d)], f)
+    return files, len(dets)
+
+
+def eval_options(root, files, tag=''):
+    """--cfg-options that point the config's val set at the synthetic
+    files, as a user points it at COCO."""
+    return [f'data.val.ann_file={files["ann" + tag]}',
+            f'data.val.img_prefix={root}/',
+            f'data.val.bbox_file={files["det" + tag]}']
+
+
+def eval_objects(options, checkpoint, device, batch_size=None):
+    """The CLI's model (checkpoint loaded, on `device`), dataset and loader
+    for the COCO-B config with `options`."""
+    from vitpose_tpu_torch.api.inference import load_checkpoint
+    from vitpose_tpu_torch.tools.test import build_eval_objects
+    from vitpose_tpu_torch.utils.config import apply_options, load_config
+    cfg = apply_options(load_config(COCO_B), options)
+    model, ds, loader = build_eval_objects(cfg, batch_size)
+    load_checkpoint(model, checkpoint)
+    return model.to(device).eval(), ds, loader
+
+
+def validate(model, loader):
+    from vitpose_tpu_torch.eval.loop import run_validation
+    c = model.cfg
+    return run_validation(model, loader, use_udp=c.use_udp,
+                          post_process=c.post_process,
+                          modulate_kernel=c.modulate_kernel,
+                          target_type=c.target_type)
+
+
+def device_busy_ms(run):
+    """(CUDA time of all device events of one run(), by torch.profiler,
+    copies included; the profiled run's wall ms), or (None, wall) where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)]
+    busy = sum(e.device_time_total for e in events) / 1e3
+    if busy == 0:
+        return None, wall_ms
+    check(busy <= wall_ms, f'profiler device time {busy:.1f} ms exceeds the '
+          f'profiled run\'s wall time {wall_ms:.1f} ms')
+    return busy, wall_ms
+
+
+def phase_eval(card):
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from vitpose_tpu_torch.api import init_pose_model
+    from vitpose_tpu_torch.eval import COCO_KPT_STAT_NAMES
+    from vitpose_tpu_torch.eval.loop import make_val_step
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.tools import test as cli
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        files, n_boxes = write_eval_set(root, 0)
+        pm = init_pose_model(COCO_B, device='cuda')
+        shape_peaks(pm.model)
+        ckpt = os.path.join(root, 'vitpose_b_peaks.pth')
+        torch.save(pm.model.state_dict(), ckpt)
+        del pm
+        print(f'eval: wrote {EVAL_SMALL + EVAL_BIG} JPEGs ({EVAL_BIG} of '
+              f'960x1280, larger than the 640 canvas), {n_boxes} detection '
+              f'boxes and the shaped weights in '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+        options = eval_options(root, files)
+        n_batches = -(-n_boxes // EVAL_BATCH)
+
+        # the main path: the CLI, as a user runs it on COCO val
+        out_json = os.path.join(root, 'stats.json')
+        reset_counts()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            stats = cli.main([COCO_B, ckpt, '--out', out_json,
+                              '--cfg-options', *options])
+        cli_s = time.perf_counter() - t0
+        launches = fused_attention.launches
+        bwd_launches = fused_attention_bwd.launches
+        check(launches == 24 * n_batches, f'K1 launched {launches} times in '
+              f'the eval run, expected 24 per batch x {n_batches}')
+        check(fused_attention.design_launches == {'pair': launches,
+                                                  'tiled': 0},
+              f'K1 designs in the eval run: '
+              f'{fused_attention.design_launches}, expected the whole pair')
+        check(bwd_launches == 0, f'K2 launched {bwd_launches} times in the '
+              'eval run, expected none')
+        with open(out_json) as f:
+            written = json.load(f)
+        check(sorted(written) == sorted(COCO_KPT_STAT_NAMES)
+              and written == {k: float(v) for k, v in stats.items()},
+              f'the CLI wrote {written}, returned {dict(stats)}')
+        check(json.loads(printed.getvalue()[printed.getvalue().index('{'):])
+              == written, 'the CLI printed other stats than it wrote')
+        check(0 < stats['AP'] < 1, f'AP {stats["AP"]} not in (0, 1)')
+        print(f'eval: CLI (vitpose_tpu_torch.tools.test) on the COCO-B config '
+              f'(ViTPose-B 256x192 bf16, flip test, UDP, batch {EVAL_BATCH}), '
+              f'{n_boxes} boxes in {n_batches} batches: {launches} K1 '
+              f'launches ({launches // n_batches} per batch, all whole-pair) '
+              f'and {bwd_launches} K2; {cli_s:.1f} s with model build and '
+              f'checkpoint load; stats ' + ', '.join(
+                  f'{k} {v:.4f}' for k, v in stats.items()), flush=True)
+
+        model, ds, loader = eval_objects(options, ckpt, 'cuda')
+        decoder = ('native (csrc/loader.cpp)' if loader.use_native
+                   else 'cv2')
+        t0 = time.perf_counter()
+        for batch in loader:
+            pass
+        host_s = time.perf_counter() - t0
+
+        step = make_val_step(model, loader.image_size,
+                             use_udp=model.cfg.use_udp,
+                             post_process=model.cfg.post_process,
+                             flip_index=ds.info.flip_index)
+        args = [torch.from_numpy(np.ascontiguousarray(batch[k])).cuda()
+                for k in ('imgs', 'center', 'scale', 'center_orig',
+                          'scale_orig')]
+        audit = DeviceAudit()
+        with audit:
+            step(*args)
+        torch.cuda.synchronize()
+        check(not audit.off_device, f'off-card tensors in the val step: '
+              f'{sorted(audit.off_device)[:5]}')
+        del args
+
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = validate(model, loader)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ids = sorted(i for r in results for i in r['bbox_ids'])
+        check(ids == list(range(n_boxes)), 'not one result per box')
+        kp = np.concatenate([r['preds'] for r in results])
+        check(kp.shape == (n_boxes, 17, 3) and np.isfinite(kp).all(),
+              f'keypoints not finite or of shape {kp.shape}')
+        rescored = ds.evaluate(results)
+        drift = max(abs(rescored[k] - stats[k]) for k in stats)
+        check(drift <= EVAL_REF_AP_TOL, f'the timed run scored stats '
+              f'{drift} away from the CLI run')
+        busy_ms, prof_ms = device_busy_ms(lambda: validate(model, loader))
+        busy = ('not measured (the profiler saw no device time)'
+                if busy_ms is None else
+                f'{busy_ms:.1f} ms ({busy_ms / n_batches:.2f} per batch) of '
+                f'the profiled run\'s {prof_ms:.1f} ms, idle share '
+                f'{1 - busy_ms / prof_ms:.3f}')
+        print(f'eval: decoder {decoder}, {loader.num_workers} threads; '
+              f'{n_boxes} boxes through run_validation in {run_s * 1e3:.1f} '
+              f'ms = {n_boxes / run_s:.1f} boxes/s (decode included), '
+              f'{run_s * 1e3 / n_batches:.2f} ms per batch; the host alone '
+              f'(decode + batch assembly, no model) {host_s * 1e3:.1f} ms = '
+              f'{host_s * 1e3 / n_batches:.2f} ms per batch; card busy '
+              f'{busy}; peak device memory {peak_gb:.2f} GB; every val-step '
+              f'tensor on CUDA ({audit.ops} ops); on {card}', flush=True)
+        del model, loader, results
+        torch.cuda.empty_cache()
+        phase_eval_ref(root, files, ckpt)
+    return launches
+
+
+# eval-ref, f32 CUDA (K1) against the f32 CPU port on the same 16 boxes:
+# AP may differ by at most this much (the keypoints agree as serve-ref's do)
+EVAL_REF_AP_TOL = 1e-3
+# eval-ref, bf16 CUDA against the f32 CPU answer. The first chip run read
+# 0.070 px between the two on the shaped peaks (and 3.05e-5 px for f32
+# CUDA), and the same AP. The keypoint bound is 3.5x that spread, a
+# twelfth of the GT jitter. AP on these boxes moves in steps of about
+# 1 / (10 OKS thresholds x 14 GT persons) = 0.007 when one match changes,
+# and 0.25 px moves an OKS by at most about 0.016 here (the steepest
+# joint, sigma 0.025, on a 23,000 px^2 box at GT_JITTER_PX): the AP bound
+# allows three such changes
+EVAL_REF_BF16_KP_PX = 0.25
+EVAL_REF_BF16_AP_TOL = 0.02
+
+
+def phase_eval_ref(root, files, ckpt):
+    from vitpose_tpu_torch.api.inference import PoseModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    options = eval_options(root, files, '_ref')
+    out = {}
+    for dtype, dev in (('float32', 'cpu'), ('float32', 'cuda'),
+                       ('bfloat16', 'cuda')):
+        model, ds, loader = eval_objects(
+            options + [f'model.dtype={dtype}'], ckpt, dev,
+            batch_size=BOXES_PER_IMAGE * EVAL_REF_IMAGES)
+        results = validate(model, loader)
+        check(len(results) == 1, 'eval-ref boxes span more than one batch')
+        out[dtype, dev] = (results[0]['preds'][..., :2],
+                           ds.evaluate(results)['AP'])
+        if dev == 'cpu':
+            # the f32 CPU heatmaps of the same crops pick the decisive joints
+            batch = next(iter(loader))
+            pm = PoseModel(model=model, cfg=model.cfg,
+                           dataset_info=ds.info, image_size=loader.image_size,
+                           heatmap_size=tuple(ds.heatmap_size),
+                           device=torch.device('cpu'))
+            hm = pm.infer_batch(*(torch.from_numpy(batch[k]) for k in
+                                  ('imgs', 'center', 'scale')),
+                                return_heatmap=True)[2].numpy()
+        del model
+    kp_ref, ap_ref = out['float32', 'cpu']
+    top2 = np.sort(hm.reshape(*hm.shape[:2], -1), axis=-1)[..., -2:]
+    decisive = (top2[..., 1] - top2[..., 0]) > 100 * HM_TOL[0]
+    check(decisive.mean() >= 0.5, f'only {decisive.sum()} decisive joints')
+    kp_f32, ap_f32 = out['float32', 'cuda']
+    kp_bf16, ap_bf16 = out['bfloat16', 'cuda']
+    err = np.abs(kp_f32 - kp_ref).max(-1)
+    err_bf16 = np.abs(kp_bf16 - kp_ref).max(-1)
+    print(f'eval-ref: {len(kp_ref)} boxes, f32 (TF32 off) CUDA+K1 vs CPU '
+          f'plain: keypoints max diff {err[decisive].max():.3e} px over '
+          f'{decisive.sum()}/{decisive.size} decisive joints (tol '
+          f'{KP_TOL_PX}), {err.max():.3e} px over all; AP CUDA '
+          f'{ap_f32:.6f} / CPU {ap_ref:.6f} (tol {EVAL_REF_AP_TOL})', flush=True)
+    print(f'eval-ref: bf16 CUDA+K1 against the f32 CPU answer: AP '
+          f'{ap_bf16:.6f} beside f32 {ap_ref:.6f} (tol '
+          f'{EVAL_REF_BF16_AP_TOL}), decisive keypoints max diff '
+          f'{err_bf16[decisive].max():.3e} px (tol {EVAL_REF_BF16_KP_PX}), '
+          f'{err_bf16.max():.3e} px over all', flush=True)
+    check(err[decisive].max() <= KP_TOL_PX, f'f32 eval keypoints differ by '
+          f'{err[decisive].max()} px')
+    check(abs(ap_f32 - ap_ref) <= EVAL_REF_AP_TOL, f'f32 AP CUDA {ap_f32} '
+          f'vs CPU {ap_ref}')
+    check(err_bf16[decisive].max() <= EVAL_REF_BF16_KP_PX, f'bf16 eval '
+          f'keypoints are {err_bf16[decisive].max()} px from the f32 answer')
+    check(abs(ap_bf16 - ap_ref) <= EVAL_REF_BF16_AP_TOL, f'bf16 AP '
+          f'{ap_bf16} vs f32 {ap_ref}')
 
 
 def attention_bwd_bound(shape, dtype):
@@ -958,13 +1289,14 @@ def main():
               f'{build_s:.1f} s', flush=True)
 
         k1 = phase_kernel()
-        model, launches, batch_s, img_s = phase_serve()
+        model, serve_launches, batch_s, img_s = phase_serve()
         print(f'serve: 256-crop batch (warp, bf16 ViT-B + K1, flip test, UDP '
               f'decode) median {batch_s * 1e3:.1f} ms = {img_s:.1f} img/s on '
               f'{card}', flush=True)
         del model
         torch.cuda.empty_cache()
         phase_serve_ref()
+        eval_launches = phase_eval(card)
         k2 = phase_kernel_bwd()
         train_launches, step_s, train_img_s = phase_train()
         print(f'train: step (preprocess on the card, forward, backward, '
@@ -978,6 +1310,11 @@ def main():
         return 1
 
     kernels = []
+    per_path = {'attention_fwd': {'serve': serve_launches,
+                                  'eval': eval_launches,
+                                  'train': train_launches[0]},
+                'attention_bwd': {'serve': 0, 'eval': 0,
+                                  'train': train_launches[1]}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({
@@ -990,7 +1327,8 @@ def main():
             'design': rec['design'], 'old_design': 'tiled',
             'old_ms': rec['old_ms'],
             'device_ms': rec['device_ms'][rec['design']],
-            'old_device_ms': rec['device_ms'].get('tiled')})
+            'old_device_ms': rec['device_ms'].get('tiled'),
+            'launches_per_path': per_path[name]})
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -18,7 +18,10 @@ MODULES = ['ops.attention', 'kernels._build', 'models.vit', 'models.heads',
            'models.topdown', 'models.losses', 'utils.convert',
            'ops.geometry', 'ops.warp', 'ops.decode', 'ops.target',
            'data.dataset_info', 'data.pipeline', 'api.inference',
-           'train.optim', 'train.state', 'train.step']
+           'train.optim', 'train.state', 'train.step', 'utils.config',
+           'data.coco_index', 'ops.nms', 'eval', 'eval.cocoeval',
+           'data.topdown', 'data.native', 'data.loader', 'data',
+           'train.loop', 'utils.torch_ckpt', 'eval.loop', 'tools.test']
 
 
 def _imported_names(path):
@@ -46,7 +49,19 @@ def test_port_module_imports_without_cuda(name):
 def test_kernel_source_and_metadata_are_in_the_package():
     assert (PORT / 'csrc' / 'attention_fwd.cu').is_file()
     assert (PORT / 'csrc' / 'attention_bwd.cu').is_file()
+    assert (PORT / 'csrc' / 'loader.cpp').is_file()
     assert (PORT / 'data' / 'metadata' / 'coco.json').is_file()
+
+
+def test_native_loader_is_the_ports_own():
+    """The port builds its own loader library and never names the JAX
+    package's binary."""
+    from vitpose_tpu_torch.kernels import _build
+    for path in sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']:
+        assert 'libvtp_loader' not in path.read_text(), path
+    if _build.has_header('jpeglib.h'):
+        lib = _build.build_host('loader')
+        assert lib.parent == PORT / 'kernels' / 'build' and lib.is_file()
 
 
 def test_cuda_entry_point_raises_without_cuda(monkeypatch):

@@ -5,14 +5,23 @@ names. It imports torch and numpy, never JAX or the JAX package.
 
 - ``ops``      attention (K1 forward and K2 backward CUDA kernels, the
                differentiable K3, plain versions), crop geometry, batched
-               warp, heatmap decoding, training targets, PCK
+               warp, heatmap decoding, training targets, PCK and the host
+               keypoint metrics, OKS NMS
 - ``models``   ViT backbone, classic deconv head, top-down estimator, loss
-- ``api``      init_pose_model / inference_top_down_pose_model
-- ``data``     dataset metadata, training augmentation and preprocessing
-- ``train``    layer-decay AdamW, train state, the top-down train step
-- ``utils``    weight carry-over from the JAX package's variables
-- ``kernels``  nvcc build and ctypes loading of ``csrc/*.cu`` at first use
-- ``csrc``     the hand-written sm_90a CUDA sources
+- ``api``      init_pose_model (also from a config file) /
+               inference_top_down_pose_model / load_checkpoint
+- ``data``     dataset metadata, the COCO index and top-down dataset with
+               its evaluation, the host loader (native or cv2 JPEG decode),
+               training augmentation and preprocessing
+- ``eval``     COCO keypoint AP and the val loop on the device
+- ``train``    layer-decay AdamW, train state, the top-down train step,
+               models from a config file's model dict
+- ``tools``    the evaluation CLI (``python -m vitpose_tpu_torch.tools.test``)
+- ``utils``    config files, weight carry-over from the JAX package's
+               variables, the .pth pos-embed regrid and patch-kernel pad
+- ``kernels``  nvcc build and ctypes loading of ``csrc/*.cu`` at first use,
+               and the g++ build of the native loader ``csrc/loader.cpp``
+- ``csrc``     the hand-written sm_90a CUDA sources and the loader's C++
 
 Entry points run on CUDA unless the caller passes ``device='cpu'``. A CUDA
 tensor goes through the kernels (or raises); a CPU tensor goes through their

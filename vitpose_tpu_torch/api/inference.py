@@ -13,6 +13,7 @@ and box batches are padded to bucket sizes as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -26,7 +27,10 @@ from ..ops.decode import keypoints_from_heatmaps
 from ..ops.geometry import (affine_matrix, bbox_xywh2cs, bbox_xyxy2xywh,
                             udp_warp_matrix)
 from ..ops.warp import warp_affine_batch
+from ..train.loop import topdown_config
+from ..utils.config import load_config
 from ..utils.convert import load_params_npz, state_dict_from_flax
+from ..utils.torch_ckpt import adapt_state_dict
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 
@@ -109,9 +113,12 @@ class PoseModel:
         return preds, maxvals
 
 
-def _load_checkpoint(model: TopDownModel, checkpoint: str):
-    """.npz written by the JAX package, or a .pth state dict (mmpose names,
-    shapes already matching this model)."""
+def load_checkpoint(model: TopDownModel, checkpoint: str):
+    """Load weights into `model`: an .npz written by the JAX package, or a
+    .pth (mmpose names; a {'state_dict' | 'model' | 'module'} container and
+    a 'module.' prefix are taken off) whose pos embed is regridded and whose
+    patch kernel is padded to the model's geometry (counterpart of the JAX
+    `load_checkpoint_variables`, vitpose_tpu/api/inference.py:97-120)."""
     if checkpoint.endswith('.npz'):
         sd = state_dict_from_flax(load_params_npz(checkpoint))
     elif checkpoint.endswith('.pth'):
@@ -120,6 +127,9 @@ def _load_checkpoint(model: TopDownModel, checkpoint: str):
             if isinstance(sd, dict) and key in sd:
                 sd = sd[key]
                 break
+        if all(k.startswith('module.') for k in sd):
+            sd = {k[len('module.'):]: v for k, v in sd.items()}
+        sd = adapt_state_dict(sd, model.cfg.backbone)
     else:
         raise ValueError(f'unsupported checkpoint {checkpoint!r}: expected '
                          '.npz (JAX export) or .pth')
@@ -130,16 +140,33 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
                     device: str = 'cuda') -> PoseModel:
     """Build a PoseModel from a config and an optional checkpoint.
 
-    `config` may be a variant string ('s', 'b', 'l', 'h'), a dict such as
-    {'variant': 'b', 'image_size': (192, 256), 'dtype': 'bfloat16',
-    'backbone_overrides': {'fused_attention': True}} (the `model` fields of a
-    config file), or a TopDownConfig. Without a checkpoint the weights are
-    random, drawn on the CPU from a torch.Generator seeded with 0, so every
-    device gets the same ones.
+    `config` may be a config FILE path (a top-down config of the zoo, read
+    with `utils.config.load_config`; its `model` dict builds the model and
+    its `data.dataset` names the metadata), a variant string ('s', 'b', 'l',
+    'h'), a dict such as {'variant': 'b', 'image_size': (192, 256), 'dtype':
+    'bfloat16', 'backbone_overrides': {'fused_attention': True}}, a config
+    file's `model` dict (one that names 'backbone_type' or 'family';
+    `img_size` is (h, w) there), or a TopDownConfig. Without a checkpoint
+    the weights are random, drawn on the CPU from a torch.Generator seeded
+    with 0, so every device gets the same ones.
     """
     dev = _device(device)
     dataset_name, padding = 'coco', 1.25
-    if isinstance(config, str) and config in VIT_VARIANTS:
+    model_dict = None
+    if isinstance(config, str) and config.endswith('.py') \
+            and os.path.exists(config):
+        full = load_config(config)
+        model_dict = full['model']
+        dataset_name = full.get('data', {}).get('dataset', 'coco')
+    elif isinstance(config, dict) and ('backbone_type' in config
+                                       or 'family' in config):
+        model_dict = dict(config)
+        dataset_name = model_dict.pop('dataset', 'coco')
+        padding = model_dict.pop('padding', 1.25)
+
+    if model_dict is not None:
+        cfg = topdown_config(model_dict)
+    elif isinstance(config, str) and config in VIT_VARIANTS:
         cfg = make_config(config, img_size=(256, 192), out_channels=17)
     elif isinstance(config, dict):
         c = dict(config)
@@ -155,12 +182,12 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
     elif isinstance(config, TopDownConfig):
         cfg = config
     else:
-        raise ValueError(f'unsupported config {config!r}: expected a variant '
-                         'name, a dict or a TopDownConfig')
+        raise ValueError(f'unsupported config {config!r}: expected a config '
+                         'file, a variant name, a dict or a TopDownConfig')
 
     model = TopDownModel(cfg, generator=torch.Generator().manual_seed(0))
     if checkpoint is not None:
-        _load_checkpoint(model, checkpoint)
+        load_checkpoint(model, checkpoint)
     model = model.to(dev).eval()
     ih, iw = cfg.backbone.img_size
     return PoseModel(model=model, cfg=cfg,

@@ -60,7 +60,12 @@ class DatasetInfo:
 
     @classmethod
     def load(cls, name: str) -> 'DatasetInfo':
-        with open(os.path.join(_META_DIR, f'{name}.json')) as f:
+        path = os.path.join(_META_DIR, f'{name}.json')
+        if not os.path.exists(path):
+            raise NotImplementedError(
+                f'dataset metadata {name!r} is not ported yet (ROADMAP.md '
+                'queue 1 item 6); the port carries COCO only')
+        with open(path) as f:
             d = json.load(f)
         return cls(
             dataset_name=d['dataset_name'],

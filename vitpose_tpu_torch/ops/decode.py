@@ -232,3 +232,61 @@ def pose_pck_accuracy(output, target, mask, thr=0.05):
     avg = torch.where(cnt > 0, torch.where(has_valid, per_kpt_acc, 0.0).sum()
                       / cnt.clamp(min=1), 0.0)
     return avg, cnt
+
+
+# ---------------------------------------------------------------------------
+# host-side keypoint metrics, numpy on the host as in the JAX package
+# (vitpose_tpu/ops/decode.py:344-395; reference top_down_eval.py:179-295)
+# ---------------------------------------------------------------------------
+
+def _normalized_distances(pred, gt, mask, normalize):
+    """[N,K,D] preds/gts, [N,K] mask, [N,D] normalize -> [K,N] distances
+    with -1 for invisible (parity: top_down_eval.py:10 `_calc_distances`)."""
+    pred = np.asarray(pred, np.float32)
+    gt = np.asarray(gt, np.float32)
+    mask = np.asarray(mask, bool)
+    normalize = np.asarray(normalize, np.float32).copy()
+    n, k, _ = pred.shape
+    _mask = mask.copy()
+    _mask[np.where((normalize == 0).sum(1))[0], :] = False
+    dists = np.full((n, k), -1, np.float32)
+    normalize[normalize <= 0] = 1e6
+    dists[_mask] = np.linalg.norm(
+        ((pred - gt) / normalize[:, None, :])[_mask], axis=-1)
+    return dists.T
+
+
+def keypoint_pck_accuracy(pred, gt, mask, thr, normalize):
+    """-> (per-kpt acc [K] with -1 for empty, avg_acc, n_valid_kpts)."""
+    dists = _normalized_distances(pred, gt, mask, normalize)
+    accs = []
+    for d in dists:
+        valid = d != -1
+        accs.append((d[valid] < thr).mean() if valid.any() else -1.0)
+    accs = np.asarray(accs, np.float32)
+    valid_accs = accs[accs >= 0]
+    return accs, (valid_accs.mean() if len(valid_accs) else 0.0), \
+        len(valid_accs)
+
+
+def keypoint_auc(pred, gt, mask, normalize, num_step=20):
+    """Area under the PCK curve over thresholds [0, 1) (top_down_eval:218)."""
+    nor = np.tile(np.array([[normalize, normalize]]), (len(pred), 1))
+    ys = [keypoint_pck_accuracy(pred, gt, mask, 1.0 * i / num_step, nor)[1]
+          for i in range(num_step)]
+    return float(np.mean(ys))
+
+
+def keypoint_nme(pred, gt, mask, normalize_factor):
+    """Normalized mean error (top_down_eval.py:250)."""
+    dists = _normalized_distances(pred, gt, mask, normalize_factor)
+    valid = dists[dists != -1]
+    return float(valid.sum() / max(1, len(valid)))
+
+
+def keypoint_epe(pred, gt, mask):
+    """End-point error in pixels (top_down_eval.py:273)."""
+    ones = np.ones((len(pred), np.asarray(pred).shape[2]), np.float32)
+    dists = _normalized_distances(pred, gt, mask, ones)
+    valid = dists[dists != -1]
+    return float(valid.sum() / max(1, len(valid)))

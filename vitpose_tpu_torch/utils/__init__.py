@@ -1,1 +1,2 @@
-"""Weight carry-over from the JAX package."""
+"""Config files, weight carry-over from the JAX package, and the load-time
+adaptation of .pth weights."""
