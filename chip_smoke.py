@@ -63,11 +63,35 @@ no result:
             off) loss, grad_norm, every gradient, and every parameter
             tensor and BN statistic after 2 steps agree; in bf16 CUDA is as close to the
             f32 CPU answer as the bf16 CPU path is (within BF16_FACTOR)
+  train-loop the training CLI (vitpose_tpu_torch.tools.train) on the COCO-B
+            config file at full width (ViTPose-B 256x192 bf16, K1 + K2,
+            drop_path 0.3, batch 64, UDP targets), pointed by --cfg-options
+            at a synthetic COCO train set (1050 persons: 16 steps per epoch)
+            and val set (256 boxes: 4 batches), starting from the shaped
+            weights (load_from), 2 epochs with an evaluation and a
+            checkpoint after each, logging every step: exactly 12 K1 + 12
+            K2 launches per step and 24 K1 per val batch, all whole-pair;
+            finite metrics, best.pth written; step wall time and img/s, the
+            data_time share, the card's idle share (the train phase's kernel
+            time over the step), AP per epoch, checkpoint bytes, peak memory
+  train-resume the epoch-0 checkpoint restored into a fresh runner state
+            equals the saved one bit for bit (parameters, BN statistics,
+            AdamW moments and step counts on the card, lr, schedule, step);
+            restore and save times; epoch 1 redone with --resume in a copy of
+            the work dir gives the uninterrupted run's losses, final weights
+            and AP exactly; best.pth loads through init_pose_model and the
+            evaluation CLI scores it to the AP the runner logged
+  remat     ViTPose-B bf16 train steps at batch 64 without remat and under
+            remat 'full', 'attn' and 'dots', from the same weights, batch and
+            DropPath seeds: K1 launches 12/24/12/24 and K2 12 in a step,
+            gradients within REMAT_GRAD_TOL of no remat, the peak memory
+            above the resident state, and step times in turns
 
 Then the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
-launches in a train step and `launches_per_path`: per serve call, eval run
-and train step), the nvidia-smi card line and the result line.
+launches in a train step and `launches_per_path`: per serve call, eval run,
+train step, train-loop run and remat step), the nvidia-smi card line and the
+result line.
 
 The weights are random (torch.Generator seed 0, inside init_pose_model).
 Random heatmaps make the UDP Newton step ill conditioned, so the smoke makes
@@ -539,19 +563,20 @@ def eval_scene(rng, boxes, scale):
     return img
 
 
-def write_eval_set(root, seed):
-    """A synthetic COCO val set in `root`: JPEGs written with cv2, a
-    person_keypoints json whose GT joints lie at each box centre (where
-    `shape_peaks` puts the peak) plus GT_JITTER_PX of seeded jitter, one box
-    in eight without a GT person, and a detection json of every box. The
-    first EVAL_REF_IMAGES images also get a json pair of their own. Returns
-    {name: path} and the number of boxes."""
+def write_eval_set(root, seed, n_small=EVAL_SMALL, n_big=EVAL_BIG):
+    """A synthetic COCO set in `root`: `n_small` 480x640 and `n_big`
+    960x1280 JPEGs written with cv2, a person_keypoints json whose GT joints
+    lie at each box centre (where `shape_peaks` puts the peak) plus
+    GT_JITTER_PX of seeded jitter, one box in eight without a GT person, and
+    a detection json of every box. The first EVAL_REF_IMAGES images also get
+    a json pair of their own. Returns {name: path} and the number of
+    boxes."""
     import os
     import cv2
     rng = np.random.RandomState(seed)
     images, anns, dets = [], [], []
-    for i in range(EVAL_SMALL + EVAL_BIG):
-        scale = 2 if i >= EVAL_SMALL else 1
+    for i in range(n_small + n_big):
+        scale = 2 if i >= n_small else 1
         boxes = grid_boxes(rng, 2, 2)
         boxes[:, 0] += rng.uniform(0, 300)
         boxes[:, :4] *= scale
@@ -1075,7 +1100,8 @@ def phase_train():
     med = statistics.median(times)
     print(f'train: step times {", ".join(f"{t * 1e3:.1f}" for t in times)} '
           f'ms', flush=True)
-    profile_steps(lambda: step(state, preprocess(*inputs), gen), med)
+    busy_ms = profile_steps(lambda: step(state, preprocess(*inputs), gen),
+                            med)
     after = snapshot(model)
     unchanged = [n for n in before if torch.equal(before[n], after[n])]
     check(not unchanged, f'unchanged after {state.step} steps: '
@@ -1087,7 +1113,7 @@ def phase_train():
           f'heatmap_loss {vals["heatmap_loss"]:.6f}, grad_norm '
           f'{vals["grad_norm"]:.6f}, acc_pose {vals["acc_pose"]:.4f}; '
           f'first step {first_s:.2f} s', flush=True)
-    return launches, med, TRAIN_BATCH / med
+    return launches, med, TRAIN_BATCH / med, busy_ms
 
 
 def profile_steps(run_step, step_s, steps=2):
@@ -1095,7 +1121,8 @@ def profile_steps(run_step, step_s, steps=2):
     time per step, the idle share against the unprofiled median step time
     `step_s` (unclamped), and the kernels that take the most time. Fails if
     the kernel time exceeds the profiled steps' own wall time, which only a
-    miscount (a kernel summed twice) can give."""
+    miscount (a kernel summed twice) can give. Returns the kernel ms per
+    step, or None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1115,7 +1142,7 @@ def profile_steps(run_step, step_s, steps=2):
     if busy_ms == 0:
         print('train: device time not measured (the profiler saw no CUDA '
               'kernels)', flush=True)
-        return
+        return None
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
     check(busy_ms <= wall_ms, f'profiler kernel time {busy_ms:.3f} ms per '
           f'step exceeds the profiled steps\' wall time {wall_ms:.3f} ms: '
@@ -1127,6 +1154,7 @@ def profile_steps(run_step, step_s, steps=2):
           f'per step, launches per step): ' + '; '.join(
               f'{e.key[:70]} {e.device_time_total / 1e3 / steps:.2f} '
               f'{e.count // steps}' for e in top), flush=True)
+    return busy_ms
 
 
 def train_run(cfg, device, batch):
@@ -1221,6 +1249,329 @@ def phase_train_ref():
               f'the bf16 CPU path {cpu[k]}')
 
 
+# train-loop: the training CLI on the COCO-B config. The train set: 292
+# 480x640 and 8 960x1280 images of 4 boxes, 1050 GT persons, so 16 steps of
+# 64 per epoch (drop_last); the val set: 60 + 4 images, 256 detection
+# boxes, 4 batches of 64. The run starts from the shaped weights
+# (`load_from`), so that AP is not 0 on the synthetic GT.
+LOOP_TRAIN_IMAGES = (292, 8)
+LOOP_VAL_IMAGES = (60, 4)
+LOOP_EPOCHS = 2
+
+
+def loop_options(root, files, ckpt):
+    return [f'data.train.ann_file={files["train"]["ann"]}',
+            f'data.train.img_prefix={root}/train/',
+            f'data.val.ann_file={files["val"]["ann"]}',
+            f'data.val.img_prefix={root}/val/',
+            f'data.val.bbox_file={files["val"]["det"]}',
+            f'load_from={ckpt}', f'optimizer.total_epochs={LOOP_EPOCHS}',
+            'runtime.eval_interval=1', 'runtime.ckpt_interval=1',
+            'runtime.log_interval=1']
+
+
+def run_train_cli(args):
+    """The training CLI in this process, its printed records kept out of
+    the smoke's output; returns (final state, the log records)."""
+    import contextlib
+    import io
+    import os
+    from vitpose_tpu_torch.tools import train as train_cli
+    work_dir = args[args.index('--work-dir') + 1]
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = train_cli.main(args)
+    with open(os.path.join(work_dir, 'train.log.json')) as f:
+        return state, [json.loads(line) for line in f]
+
+
+def step_times(records):
+    """Wall seconds of each logged step but an epoch's first: the runner
+    logs (and so reads the metrics back) after every step here."""
+    out = []
+    for a, b in zip(records, records[1:]):
+        if a['mode'] == b['mode'] == 'train' and a['epoch'] == b['epoch']:
+            out.append(b['time'] - a['time'])
+    return out
+
+
+def check_launches(what, steps, val_batches):
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    want = (12 * steps + 24 * val_batches, 12 * steps)
+    got = (fused_attention.launches, fused_attention_bwd.launches)
+    check(got == want, f'{what}: K1, K2 launched {got} times, expected '
+          f'{want} (12 + 12 per step of {steps}, 24 K1 per val batch of '
+          f'{val_batches})')
+    designs = (fused_attention.design_launches,
+               fused_attention_bwd.design_launches)
+    check(designs == ({'pair': want[0], 'tiled': 0},
+                      {'pair': want[1], 'tiled': 0}),
+          f'{what}: K1, K2 designs {designs}, expected the whole pair')
+    return got
+
+
+def phase_train_loop(card, busy_ms):
+    """The training CLI on the COCO-B config, 2 epochs with an evaluation
+    and a checkpoint after each; then train-resume on its work dir."""
+    import os
+    import tempfile
+    from vitpose_tpu_torch.api import init_pose_model
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        files = {}
+        for name, (small, big), seed in (('train', LOOP_TRAIN_IMAGES, 1),
+                                         ('val', LOOP_VAL_IMAGES, 2)):
+            os.makedirs(os.path.join(root, name))
+            files[name] = write_eval_set(os.path.join(root, name), seed,
+                                         small, big)[0]
+        pm = init_pose_model(COCO_B, device='cuda')
+        shape_peaks(pm.model)
+        ckpt = os.path.join(root, 'vitpose_b_peaks.pth')
+        torch.save(pm.model.state_dict(), ckpt)
+        del pm
+        print(f'train-loop: wrote the synthetic train and val sets and the '
+              f'shaped weights in {time.perf_counter() - t0:.1f} s',
+              flush=True)
+        work_dir = os.path.join(root, 'work')
+        options = loop_options(root, files, ckpt)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, log = run_train_cli([COCO_B, '--work-dir', work_dir,
+                                    '--cfg-options', *options])
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        train = [r for r in log if r['mode'] == 'train']
+        epochs = [r for r in log if r['mode'] == 'epoch']
+        steps = len(train)
+        per_epoch = steps // LOOP_EPOCHS
+        check(state.step == steps == LOOP_EPOCHS * per_epoch == 32,
+              f'{steps} logged steps, state at step {state.step}, expected '
+              f'{LOOP_EPOCHS} epochs of 16')
+        check(all(np.isfinite(r[k]) for r in train
+                  for k in ('heatmap_loss', 'grad_norm', 'acc_pose')),
+              'a non-finite training metric')
+        val_batches = -(-(LOOP_VAL_IMAGES[0] + LOOP_VAL_IMAGES[1]) * 4
+                        // EVAL_BATCH)
+        launches = check_launches('train-loop', steps,
+                                  val_batches * LOOP_EPOCHS)
+        ckpts = os.path.join(work_dir, 'ckpts')
+        check(os.path.exists(os.path.join(ckpts, 'best.pth')),
+              'no best.pth in the work dir')
+        check(len(epochs) == LOOP_EPOCHS and all(
+            0 <= r['AP'] <= 1 for r in epochs), f'epoch records {epochs}')
+        times = step_times(log)
+        med = statistics.median(times)
+        last = train[-1]
+        share = last['data_time'] / last['time']
+        idle = ('not measured' if busy_ms is None
+                else f'{1 - busy_ms / (med * 1e3):.3f}')
+        ckpt_bytes = os.path.getsize(os.path.join(ckpts, 'epoch_0.pth'))
+        print(f'train-loop: CLI (vitpose_tpu_torch.tools.train) on the COCO-B '
+              f'config, batch {TRAIN_BATCH}, {LOOP_EPOCHS} epochs of '
+              f'{per_epoch} steps ({steps} steps) from the shaped weights '
+              f'(load_from), logging every step: {launches[0]} K1 + '
+              f'{launches[1]} K2 launches (12 + 12 per step, 24 K1 per val '
+              f'batch x {val_batches} x {LOOP_EPOCHS}, all whole-pair); '
+              f'step wall time median {med * 1e3:.1f} ms '
+              f'({min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}) = '
+              f'{TRAIN_BATCH / med:.1f} img/s; data_time share of epoch 1 '
+              f'{share:.3f} ({last["data_time"]:.2f} of {last["time"]:.2f} '
+              f's); card idle share {idle} (the train phase\'s kernel time '
+              f'per step over this median); AP per epoch ' + ', '.join(
+                  f'{r["AP"]:.4f}' for r in epochs) + f'; epoch times '
+              + ', '.join(f'{r["epoch_time"]:.2f} s' for r in epochs)
+              + f'; last heatmap_loss {last["heatmap_loss"]:.6f}; '
+              f'checkpoint {ckpt_bytes / 1e9:.3f} GB per epoch; whole run '
+              f'{run_s:.1f} s; peak device memory {peak_gb:.2f} GB; on '
+              f'{card}', flush=True)
+        del state
+        torch.cuda.empty_cache()
+        phase_train_resume(root, work_dir, options, log, card)
+    return launches, steps, val_batches * LOOP_EPOCHS
+
+
+def phase_train_resume(root, work_dir, options, log, card):
+    """Restore the epoch-0 checkpoint into a fresh runner state bit for bit;
+    redo epoch 1 with --resume in a copy of the work dir and hold it to the
+    uninterrupted epoch exactly (the step is deterministic on the card);
+    score best.pth with the evaluation CLI."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    from vitpose_tpu_torch.api import init_pose_model
+    from vitpose_tpu_torch.tools import test as test_cli
+    from vitpose_tpu_torch.train.loop import build_train_state
+    from vitpose_tpu_torch.utils.checkpoint import CheckpointManager
+    from vitpose_tpu_torch.utils.config import apply_options, load_config
+    ckpts = os.path.join(work_dir, 'ckpts')
+    saved = torch.load(os.path.join(ckpts, 'epoch_0.pth'),
+                       map_location='cpu', weights_only=True)
+    cfg = apply_options(load_config(COCO_B), options)
+    per_epoch = saved['step']
+    state = build_train_state(cfg, per_epoch, 'cuda')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, epoch = CheckpointManager(ckpts).restore(state, 0)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(epoch == 0 and state.step == saved['step'], 'restored step')
+    for k, v in state.model.state_dict().items():
+        check(v.is_cuda and torch.equal(v.cpu(), saved['model'][k]),
+              f'restored {k} differs from the saved one')
+    opt = state.optimizer.state_dict()
+    check(opt['param_groups'] == saved['optimizer']['param_groups'],
+          'restored optimizer groups (lr, decay) differ')
+    n_moments = 0
+    for i, st in opt['state'].items():
+        for k, v in st.items():
+            check(v.is_cuda and torch.equal(v.cpu(),
+                                            saved['optimizer']['state'][i][k]),
+                  f'restored AdamW {k} of parameter {i} differs or is off '
+                  'the card')
+            n_moments += 1
+    check(state.scheduler.state_dict() == saved['scheduler'],
+          'restored schedule differs')
+    resave = os.path.join(root, 'resave')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointManager(resave).save(0, state)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(resave, 'epoch_0.pth'))
+    del state
+    torch.cuda.empty_cache()
+    print(f'train-resume: the epoch-0 checkpoint restored into a fresh '
+          f'runner state bit for bit (parameters, BN statistics, '
+          f'{n_moments} AdamW tensors on the card, groups and lr, schedule, '
+          f'step {saved["step"]}) in {restore_s:.2f} s; saving it took '
+          f'{save_s:.2f} s for {nbytes / 1e9:.3f} GB', flush=True)
+
+    copy = os.path.join(root, 'resumed')
+    shutil.copytree(work_dir, copy)
+    os.remove(os.path.join(copy, 'ckpts', 'epoch_1.pth'))
+    os.remove(os.path.join(copy, 'ckpts', 'info_1.json'))
+    reset_counts()
+    t0 = time.perf_counter()
+    _, relog = run_train_cli([COCO_B, '--work-dir', copy, '--resume',
+                              '--cfg-options', *options])
+    resume_s = time.perf_counter() - t0
+    new = relog[len(log):]
+    check(new[0] == {'mode': 'resume', 'epoch': 1}, f'resume record {new[0]}')
+    got = [(r['step'], r['heatmap_loss']) for r in new
+           if r['mode'] == 'train']
+    want = [(r['step'], r['heatmap_loss']) for r in log
+            if r['mode'] == 'train' and r['epoch'] == 1]
+    val_batches = -(-(LOOP_VAL_IMAGES[0] + LOOP_VAL_IMAGES[1]) * 4
+                    // EVAL_BATCH)
+    check_launches('train-resume', len(got), val_batches)
+    check(got == want, f'resumed epoch 1 losses {got[:3]}... differ from '
+          f'the uninterrupted {want[:3]}...')
+    a = torch.load(os.path.join(copy, 'ckpts', 'epoch_1.pth'),
+                   map_location='cpu', weights_only=True)
+    b = torch.load(os.path.join(work_dir, 'ckpts', 'epoch_1.pth'),
+                   map_location='cpu', weights_only=True)
+    differ = [k for k in b['model'] if not torch.equal(a['model'][k],
+                                                       b['model'][k])]
+    check(not differ, f'final weights differ from the uninterrupted run: '
+          f'{differ[:5]}')
+    ap_resumed = [r['AP'] for r in new if r['mode'] == 'epoch']
+    ap_ref = [r['AP'] for r in log if r['mode'] == 'epoch'][1:]
+    check(ap_resumed == ap_ref, f'resumed AP {ap_resumed} vs {ap_ref}')
+
+    with open(os.path.join(work_dir, 'ckpts', 'meta.json')) as f:
+        meta = json.load(f)
+    best = os.path.join(work_dir, 'ckpts', 'best.pth')
+    init_pose_model(COCO_B, checkpoint=best, device='cuda')
+    val = [o for o in options if o.startswith('data.val.')]
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = test_cli.main([COCO_B, best, '--cfg-options', *val])
+    check(stats['AP'] == meta['best_value'], f'the evaluation CLI scores '
+          f'best.pth {stats["AP"]}, the runner logged {meta["best_value"]}')
+    print(f'train-resume: epoch 1 redone with --resume (epoch-1 checkpoint '
+          f'removed in a copy of the work dir) in {resume_s:.1f} s: '
+          f'{len(got)} steps with the uninterrupted heatmap_loss exactly, '
+          f'final weights and AP equal bit for bit (bound: exact; the step '
+          f'is deterministic on the card); best.pth (epoch '
+          f'{meta["best_epoch"]}) loads through init_pose_model and the '
+          f'evaluation CLI scores it AP {stats["AP"]:.6f}, the AP the '
+          f'runner logged; on {card}', flush=True)
+
+
+REMAT_POLICIES = ('none', 'full', 'attn', 'dots')
+REMAT_K1 = {'none': 12, 'full': 24, 'attn': 12, 'dots': 24}
+REMAT_STEPS = 3                      # timed steps per turn, two turns each
+# remat against no remat, in the units of ref_distances' 'grads': one bf16
+# rounding step (2^-8 of a value). A recompute runs the same kernels on the
+# same inputs: every policy read 0 on an H100 80GB HBM3 at 700 W.
+REMAT_GRAD_TOL = 2.0 ** -8
+
+
+def phase_remat(card):
+    """ViTPose-B bf16 train steps at batch 64 in each remat policy, each
+    from the same weights, batch and DropPath seed: K1 and K2 launches and
+    gradients of the first step against no remat; the second step's peak
+    memory above the resident weights and optimizer state; step times in
+    turns (none, full, attn, dots, then back), all four states resident."""
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    batch, runs, grads, launches, extra = None, {}, {}, {}, {}
+    gen = torch.Generator(device='cuda')
+    for policy in REMAT_POLICIES:
+        cfg = dict(SERVE_CFG)
+        if policy != 'none':
+            cfg.update(remat=True, remat_policy=policy)
+        state, step, preprocess, info = train_setup(cfg, 'cuda')
+        if batch is None:
+            batch = preprocess(*train_inputs(0, TRAIN_BATCH, info, 'cuda'))
+        reset_counts()
+        step(state, batch, gen.manual_seed(0))
+        torch.cuda.synchronize()
+        launches[policy] = (fused_attention.launches,
+                            fused_attention_bwd.launches)
+        check(launches[policy] == (REMAT_K1[policy], 12), f'remat {policy}: '
+              f'K1, K2 launched {launches[policy]} times in one step, '
+              f'expected ({REMAT_K1[policy]}, 12)')
+        grads[policy] = {n: p.grad.float().clone()
+                         for n, p in state.model.named_parameters()}
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch, gen.manual_seed(1))
+        torch.cuda.synchronize()
+        extra[policy] = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        runs[policy] = (state, step)
+    ref = grads['none']
+    dist = {p: max(((grads[p][n] - ref[n]).abs().max()
+                    / ref[n].abs().max()).item() for n in ref)
+            for p in REMAT_POLICIES[1:]}
+    del grads
+    times = {p: [] for p in REMAT_POLICIES}
+    for policy in REMAT_POLICIES + REMAT_POLICIES[::-1]:
+        state, step = runs[policy]
+        for i in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch, gen.manual_seed(i + 2))
+            torch.cuda.synchronize()
+            times[policy].append(time.perf_counter() - t0)
+    del runs
+    torch.cuda.empty_cache()
+    med = {p: statistics.median(t) for p, t in times.items()}
+    print('remat: ViTPose-B 256x192 bf16, batch 64, drop_path 0.3, the same '
+          'weights, batch and DropPath seeds: ' + '; '.join(
+              f'{p}: K1 {launches[p][0]} + K2 {launches[p][1]}, step '
+              f'{med[p] * 1e3:.1f} ms (median of {len(times[p])} in two '
+              f'turns, {min(times[p]) * 1e3:.1f}-'
+              f'{max(times[p]) * 1e3:.1f}), peak {extra[p]:.2f} GB above '
+              f'the resident state' + ('' if p == 'none' else
+                                       f', grads {dist[p]:.3e} from no remat')
+              for p in REMAT_POLICIES) + f' (tol {REMAT_GRAD_TOL:.3e}); on '
+          f'{card}', flush=True)
+    for p, d in dist.items():
+        check(d <= REMAT_GRAD_TOL, f'remat {p}: gradients {d} from no remat')
+    return {p: launches[p][0] for p in REMAT_POLICIES}
+
+
 def kernel_name(mangled):
     """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
     anonymous namespace; the mangled name where it is not one."""
@@ -1298,23 +1649,34 @@ def main():
         phase_serve_ref()
         eval_launches = phase_eval(card)
         k2 = phase_kernel_bwd()
-        train_launches, step_s, train_img_s = phase_train()
+        train_launches, step_s, train_img_s, busy_ms = phase_train()
         print(f'train: step (preprocess on the card, forward, backward, '
               f'clip, AdamW) median {step_s * 1e3:.1f} ms over '
               f'{TIMED_STEPS} steps = {train_img_s:.1f} img/s on {card}',
               flush=True)
         torch.cuda.empty_cache()
         phase_train_ref()
+        torch.cuda.empty_cache()
+        loop_launches, loop_steps, loop_val = phase_train_loop(card, busy_ms)
+        remat_k1 = phase_remat(card)
     except Failure as e:
         print(f'chip_smoke: FAIL {e}', file=sys.stderr)
         return 1
 
     kernels = []
+    loop_k1, loop_k2 = loop_launches
     per_path = {'attention_fwd': {'serve': serve_launches,
                                   'eval': eval_launches,
-                                  'train': train_launches[0]},
+                                  'train': train_launches[0],
+                                  'train_loop': loop_k1,
+                                  'train_loop_steps': loop_steps,
+                                  'train_loop_val_batches': loop_val,
+                                  'remat_step': remat_k1},
                 'attention_bwd': {'serve': 0, 'eval': 0,
-                                  'train': train_launches[1]}}
+                                  'train': train_launches[1],
+                                  'train_loop': loop_k2,
+                                  'train_loop_steps': loop_steps,
+                                  'remat_step': dict.fromkeys(remat_k1, 12)}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({

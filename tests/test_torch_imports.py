@@ -21,7 +21,9 @@ MODULES = ['ops.attention', 'kernels._build', 'models.vit', 'models.heads',
            'train.optim', 'train.state', 'train.step', 'utils.config',
            'data.coco_index', 'ops.nms', 'eval', 'eval.cocoeval',
            'data.topdown', 'data.native', 'data.loader', 'data',
-           'train.loop', 'utils.torch_ckpt', 'eval.loop', 'tools.test']
+           'train.loop', 'utils.torch_ckpt', 'eval.loop', 'tools.test',
+           'utils.checkpoint', 'utils.env', 'parallel',
+           'parallel.distributed', 'tools.train']
 
 
 def _imported_names(path):

@@ -67,7 +67,12 @@ def _variable_shapes(out_channels):
 def _random_variables(seed, out_channels=5):
     """flax variables of the small model filled from a seeded numpy
     generator, with non-trivial BN running statistics."""
-    shapes = _variable_shapes(out_channels)
+    return _fill(_variable_shapes(out_channels), seed)
+
+
+def _fill(shapes, seed):
+    """Variables of the given shapes (a tree of ShapeDtypeStruct), filled
+    as `_random_variables` describes."""
     rng = np.random.RandomState(seed)
 
     def fill(path, leaf):
@@ -223,6 +228,30 @@ def test_topdown_infer_flip_matches_jax(small_pair, small_refs, shift):
         out = infer(port, torch.from_numpy(x), flip_index=FLIP_INDEX).numpy()
     assert out.shape == (2, 5, 16, 12) and out.dtype == np.float32
     np.testing.assert_allclose(out, np.asarray(refs[f'infer{shift}']), **TOL)
+
+
+HEADS = {'simple': dict(head_type='simple'),
+         'identity': dict(final_kernel=0)}
+
+
+@pytest.mark.parametrize('head', sorted(HEADS))
+def test_simple_and_identity_heads_match_jax(head):
+    """The simple decoder (ReLU, bilinear x4, 3x3 conv) and the classic
+    head with an identity final layer (the deconv features are the output),
+    through the weight carry-over."""
+    jcfg = dataclasses.replace(_small(jax_make_config), **HEADS[head])
+    jm = JaxTopDown(jcfg)
+    v = _fill(jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                             jnp.zeros((1, 64, 48, 3))), seed=6)
+    x = _crops(7)
+    ref = _compile_fast(lambda v, x: jm.apply(v, x), v, jnp.asarray(x))
+    port = _port_model(dataclasses.replace(_small(make_config),
+                                           **HEADS[head]), v)
+    with torch.no_grad():
+        out = port(torch.from_numpy(x)).numpy()
+    assert out.shape == ((2, 5, 16, 12) if head == 'simple'
+                         else (2, 16, 16, 12))
+    np.testing.assert_allclose(out, np.asarray(ref), **TOL)
 
 
 def test_state_dict_round_trip(small_pair):

@@ -1,7 +1,9 @@
 """The port's training slice against the JAX package on the CPU: targets,
 point warps, PCK, the loss, host augmentation, device preprocessing, the
 optimizer's schedule and groups, BatchNorm and DropPath in training mode, the
-explicit train/eval mode, and a 3-step train-step trajectory.
+explicit train/eval mode, a 3-step train-step trajectory, freezing (the
+trainable mask and a 2-step trajectory under it), and block remat (the
+port's own: its gradients against those without remat).
 
 The model is the small one of tests/test_torch_models.py (64x48 crops,
 width 32, depth 2, 4 heads), with the same numpy variables on both sides.
@@ -14,6 +16,8 @@ after each step 1e-5 absolute plus 1e-4 relative. An Adam step moves an
 element by lr * m_hat / (sqrt(v_hat) + 1e-8), so a gradient difference at f32
 rounding level moves it by a tiny fraction of lr (here <= 1e-3, so 1e-6).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,8 +40,8 @@ from vitpose_tpu.train import optim as joptim
 from vitpose_tpu.train.state import create_train_state as jax_create_state
 from vitpose_tpu.train.step import make_train_step as jax_make_train_step
 
-from test_torch_models import (_compile_fast, _port_model, _random_variables,
-                               _small)
+from test_torch_models import (SMALL, _compile_fast, _port_model,
+                               _random_variables, _small)
 from vitpose_tpu_torch.data.dataset_info import DatasetInfo
 from vitpose_tpu_torch.data.pipeline import (AugmentConfig,
                                              make_preprocess_fn,
@@ -52,7 +56,7 @@ from vitpose_tpu_torch.ops.decode import pose_pck_accuracy
 from vitpose_tpu_torch.train import (OptimConfig, create_train_state,
                                      layer_decay_adamw, make_lr_schedule,
                                      make_train_step)
-from vitpose_tpu_torch.train.optim import layer_id_for_path
+from vitpose_tpu_torch.train.optim import layer_id_for_path, make_freeze_mask
 from vitpose_tpu_torch.utils.convert import state_dict_from_flax
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -395,3 +399,144 @@ def test_train_step_trajectory_matches_jax(jax_trajectory):
     assert state.step == 3
     # the next update's lr: schedule(3) = 1e-4, times the head's scale 1
     assert state.optimizer.param_groups[-1]['lr'] == pytest.approx(1e-4)
+
+
+# --- freezing -------------------------------------------------------------
+
+FREEZE_CASES = [dict(frozen_stages=1), dict(frozen_stages=0),
+                dict(freeze_attn=True), dict(freeze_ffn=True),
+                dict(frozen_stages=1, freeze_attn=True)]
+
+
+@pytest.mark.parametrize('kw', FREEZE_CASES, ids=lambda kw: '-'.join(kw))
+def test_freeze_mask_matches_jax(kw):
+    v = _random_variables(seed=14)
+    model = _port_model(_small(make_config), v)
+    ref = joptim.make_freeze_mask(v['params'], **kw)
+    full = jax.tree.map(lambda t, p: np.full(p.shape, t, np.float32), ref,
+                        v['params'])
+    expected = state_dict_from_flax({'params': full,
+                                     'batch_stats': v['batch_stats']})
+    mask = make_freeze_mask(model, **kw)
+    assert list(mask) == [n for n, _ in model.named_parameters()]
+    assert mask == {n: bool(expected[n].flatten()[0]) for n in mask}
+    assert not all(mask.values())
+
+
+# frozen_stages=1 freezes the patch embedding and block 1 (not block 0)
+FREEZE = dict(frozen_stages=1)
+
+
+@pytest.fixture(scope='module')
+def jax_frozen_trajectory():
+    """(batch, variables, [(metrics, variables) after each of 2 steps]) of
+    the JAX step under freeze_tx, drop_path 0."""
+    jm = JaxTopDown(_small(jax_make_config, drop_path_rate=0.0))
+    v = _random_variables(seed=15)
+    rng = np.random.RandomState(16)
+    imgs = rng.randn(2, 64, 48, 3).astype(np.float32)
+    joints, vis = _joints(17, n=2, k=5, lo=0.0, hi=48.0)
+    target, weight = ttarget.generate_udp_heatmaps(_t(joints), _t(vis),
+                                                   (48, 64), (12, 16))
+    batch = {'imgs': imgs, 'target': target.numpy(),
+             'target_weight': weight.numpy()}
+    tx = joptim.freeze_tx(
+        joptim.layer_decay_adamw(v['params'],
+                                 joptim.OptimConfig(**TRAJ_OPTIM), 1),
+        joptim.make_freeze_mask(v['params'], **FREEZE))
+    state = jax_create_state(jm, jax.random.PRNGKey(0), imgs, tx,
+                             variables=v)
+    step = jax.jit(jax_make_train_step(jm)).lower(
+        state, batch, jax.random.PRNGKey(1)).compile(
+            compiler_options={'xla_backend_optimization_level': 0})
+    out = []
+    for _ in range(2):
+        state, metrics = step(state, batch, jax.random.PRNGKey(1))
+        out.append((jax.tree.map(np.asarray, metrics),
+                    {'params': jax.tree.map(np.asarray, state.params),
+                     'batch_stats': jax.tree.map(np.asarray,
+                                                 state.batch_stats)}))
+    return batch, v, out
+
+
+def test_frozen_train_step_matches_jax(jax_frozen_trajectory):
+    """Frozen parameters keep their values (no update, no weight decay),
+    the clip's norm covers the trainable gradients, and the logged
+    grad_norm every gradient, frozen ones too, as JAX's freeze_tx and
+    optax.global_norm(grads) give them; tolerances of the 3-step
+    trajectory."""
+    batch, v, ref = jax_frozen_trajectory
+    model = _port_model(_small(make_config, drop_path_rate=0.0), v)
+    cfg = OptimConfig(**TRAJ_OPTIM)
+    mask = make_freeze_mask(model, **FREEZE)
+    state = create_train_state(
+        model, layer_decay_adamw(model, cfg, 1, trainable=mask),
+        cfg.grad_clip_norm)
+    step = make_train_step(model)
+    tbatch = {k: _t(x) for k, x in batch.items()}
+    init = state_dict_from_flax(v)
+    for i, (ref_metrics, ref_vars) in enumerate(ref):
+        metrics = step(state, tbatch, torch.Generator())
+        for key in ('heatmap_loss', 'grad_norm', 'acc_pose'):
+            np.testing.assert_allclose(float(metrics[key]),
+                                       float(ref_metrics[key]), rtol=1e-4,
+                                       err_msg=f'step {i} {key}')
+        expected = state_dict_from_flax(ref_vars)
+        for name, value in model.named_parameters():
+            if not mask[name]:
+                assert torch.equal(value, init[name]), name
+            np.testing.assert_allclose(value.detach().numpy(),
+                                       expected[name].numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=f'step {i} {name}')
+
+
+# --- remat ----------------------------------------------------------------
+
+def _remat_grads(policy):
+    """Gradients of one training-mode forward and backward of the small
+    model (drop_path 0.3, the same seeded weights, crops and DropPath
+    generator seed), with `policy` ('none' or a remat policy)."""
+    kw = {} if policy == 'none' else dict(remat_blocks=True,
+                                          remat_policy=policy)
+    cfg = _small(make_config, drop_path_rate=0.3, fused_attention=True,
+                 **kw)
+    model = _port_model(cfg, _random_variables(seed=18))
+    x = torch.from_numpy(np.random.RandomState(19).randn(4, 64, 48, 3)
+                         .astype(np.float32))
+    out = forward(model, x, train=True,
+                  generator=torch.Generator().manual_seed(20))
+    out.square().mean().backward()
+    return [p.grad for p in model.parameters()]
+
+
+@pytest.mark.parametrize('policy', ['full', 'attn', 'dots'])
+def test_remat_gives_the_gradients_of_no_remat(policy, monkeypatch):
+    """Every gradient equals the one without remat, exactly (a recompute on
+    the CPU repeats the same ops): the DropPath masks are drawn before the
+    checkpointed blocks, so the recompute uses the forward's. 'attn' keeps
+    K3's output and runs the attention forward once per block, as no remat
+    does; 'full' and 'dots' run it again in the backward pass."""
+    import vitpose_tpu_torch.ops.attention as attn
+    plain, calls = attn.reference_attention, []
+
+    def counted(*args):
+        calls.append(1)
+        return plain(*args)
+
+    monkeypatch.setattr(attn, 'reference_attention', counted)
+    ref = _remat_grads('none')
+    assert len(calls) == SMALL['depth']
+    calls.clear()
+    grads = _remat_grads(policy)
+    for g, r in zip(grads, ref):
+        assert torch.equal(g, r)
+    assert len(calls) == SMALL['depth'] * (1 if policy == 'attn' else 2)
+
+
+def test_remat_refuses_unported_and_unknown_policies():
+    cfg = _small(make_config, remat_blocks=True, remat_policy='attn')
+    with pytest.raises(NotImplementedError, match='fused_attention'):
+        _port_model(cfg, _random_variables(seed=18))
+    cfg = _small(make_config, remat_blocks=True, remat_policy='most')
+    with pytest.raises(ValueError, match='remat_policy'):
+        _port_model(cfg, _random_variables(seed=18))

@@ -29,8 +29,7 @@ from ..ops.geometry import (affine_matrix, bbox_xywh2cs, bbox_xyxy2xywh,
 from ..ops.warp import warp_affine_batch
 from ..train.loop import topdown_config
 from ..utils.config import load_config
-from ..utils.convert import load_params_npz, state_dict_from_flax
-from ..utils.torch_ckpt import adapt_state_dict
+from ..utils.torch_ckpt import checkpoint_state_dict
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 
@@ -119,21 +118,8 @@ def load_checkpoint(model: TopDownModel, checkpoint: str):
     a 'module.' prefix are taken off) whose pos embed is regridded and whose
     patch kernel is padded to the model's geometry (counterpart of the JAX
     `load_checkpoint_variables`, vitpose_tpu/api/inference.py:97-120)."""
-    if checkpoint.endswith('.npz'):
-        sd = state_dict_from_flax(load_params_npz(checkpoint))
-    elif checkpoint.endswith('.pth'):
-        sd = torch.load(checkpoint, map_location='cpu', weights_only=True)
-        for key in ('state_dict', 'model', 'module'):
-            if isinstance(sd, dict) and key in sd:
-                sd = sd[key]
-                break
-        if all(k.startswith('module.') for k in sd):
-            sd = {k[len('module.'):]: v for k, v in sd.items()}
-        sd = adapt_state_dict(sd, model.cfg.backbone)
-    else:
-        raise ValueError(f'unsupported checkpoint {checkpoint!r}: expected '
-                         '.npz (JAX export) or .pth')
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(
+        checkpoint_state_dict(checkpoint, model.cfg.backbone), strict=True)
 
 
 def init_pose_model(config, checkpoint: Optional[str] = None,

@@ -89,23 +89,31 @@ def _results_of(batch, preds, maxvals):
         bbox_ids=[int(b) for b, v in zip(batch['bbox_id'], valid) if v])
 
 
-class _Staging:
-    """Two pinned host buffers for the canvases, used in turn: a buffer is
-    written again only two batches later, after the batch that used it has
-    been read back, so its copy to the card has finished."""
+class PinnedStaging:
+    """Pinned host buffers for batches of canvases, used in turn. A
+    buffer is written again only after the card has finished the copy out
+    of it (an event recorded behind each copy), so the host may run ahead of
+    the card: the val loop by one batch, the training loop by as many
+    steps as the card queues."""
 
     def __init__(self):
         self._bufs = [None, None]
+        self._copied = [None, None]
         self._turn = 0
 
     def to_device(self, imgs: np.ndarray, dev):
         i, self._turn = self._turn, 1 - self._turn
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()
         buf = self._bufs[i]
         if buf is None or buf.shape != imgs.shape:
             buf = self._bufs[i] = torch.empty(imgs.shape, dtype=torch.uint8,
                                               pin_memory=True)
         buf.numpy()[...] = imgs
-        return buf.to(dev, non_blocking=True)
+        out = buf.to(dev, non_blocking=True)
+        self._copied[i] = torch.cuda.Event()
+        self._copied[i].record(torch.cuda.current_stream(dev))
+        return out
 
 
 def run_validation(model: TopDownModel, loader, use_udp=True,
@@ -124,7 +132,7 @@ def run_validation(model: TopDownModel, loader, use_udp=True,
         model, loader.image_size, use_udp=use_udp, post_process=post_process,
         modulate_kernel=modulate_kernel, flip_index=loader.ds.info.flip_index,
         target_type=target_type)
-    staging = _Staging() if dev.type == 'cuda' else None
+    staging = PinnedStaging() if dev.type == 'cuda' else None
 
     def launch(batch):
         if staging is not None:

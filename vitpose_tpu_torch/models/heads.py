@@ -1,9 +1,11 @@
-"""Classic deconv heatmap head, in PyTorch.
+"""The ViTPose decoders in PyTorch: the classic deconv heatmap head and the
+simple decoder.
 
-Counterpart of vitpose_tpu/models/heads.py `HeatmapHead`, with the mmpose
-names (`deconv_layers.{3i}` ConvTranspose2d, `deconv_layers.{3i+1}`
-BatchNorm2d, `final_layer`). Flax's ConvTranspose(k4, s2, 'SAME',
-transpose_kernel=True) is ConvTranspose2d(k4, s2, padding 1, no bias); the BN
+Counterpart of vitpose_tpu/models/heads.py `HeatmapHead` and `SimpleHead`,
+with the mmpose names (`deconv_layers.{3i}` ConvTranspose2d,
+`deconv_layers.{3i+1}` BatchNorm2d, `final_layer`). Flax's
+ConvTranspose(k4, s2, 'SAME', transpose_kernel=True) is
+ConvTranspose2d(k4, s2, padding 1, no bias); the BN
 eps is 1e-5 and eval uses the running statistics. Parameters stay f32 and are
 cast to the compute dtype; BN runs in f32 and casts its result, as flax does.
 
@@ -48,11 +50,11 @@ class HeatmapHead(nn.Module):
                        nn.ReLU(inplace=True)]
             c = f
         self.deconv_layers = nn.Sequential(*layers)
-        if final_kernel < 1:
-            raise NotImplementedError('an identity final layer is not ported '
-                                      'yet (ROADMAP.md queue 1 item 12)')
-        self.final_layer = nn.Conv2d(c, out_channels, final_kernel,
-                                     padding=(final_kernel - 1) // 2)
+        # final_kernel <= 0: no prediction conv, the deconv features are the
+        # output (the JAX head's identity final layer)
+        self.final_layer = (nn.Conv2d(c, out_channels, final_kernel,
+                                      padding=(final_kernel - 1) // 2)
+                            if final_kernel > 0 else None)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
@@ -63,10 +65,8 @@ class HeatmapHead(nn.Module):
                 normal_(layer.weight, fan_in ** -0.5, generator)
             elif isinstance(layer, nn.BatchNorm2d):
                 layer.reset_parameters()
-        final = self.final_layer
-        fan_in = final.in_channels * final.kernel_size[0] * final.kernel_size[1]
-        normal_(final.weight, fan_in ** -0.5, generator)
-        nn.init.zeros_(final.bias)
+        if self.final_layer is not None:
+            init_conv(self.final_layer, generator)
 
     def forward(self, x):
         dt = self.dtype
@@ -77,9 +77,44 @@ class HeatmapHead(nn.Module):
                                    padding=deconv.padding,
                                    output_padding=deconv.output_padding)
             x = F.relu(batch_norm(bn, x.float()).to(dt))
-        final = self.final_layer
-        return F.conv2d(x, final.weight.to(dt), final.bias.to(dt),
-                        padding=final.padding)
+        if self.final_layer is None:
+            return x
+        return conv(self.final_layer, x, dt)
+
+
+class SimpleHead(nn.Module):
+    """The ViTPose simple decoder: ReLU -> bilinear upsample by `upsample`
+    (align_corners=False, jax.image.resize's 'bilinear' when enlarging) ->
+    k x k prediction conv `final_layer`; NHWC features -> NCHW heatmaps in
+    the compute dtype."""
+
+    def __init__(self, in_channels, out_channels, upsample=4, final_kernel=3,
+                 dtype='float32', generator=None):
+        super().__init__()
+        self.dtype = compute_dtype(dtype)
+        self.upsample = upsample
+        self.final_layer = nn.Conv2d(in_channels, out_channels, final_kernel,
+                                     padding=(final_kernel - 1) // 2)
+        init_conv(self.final_layer, generator)
+
+    def forward(self, x):
+        dt = self.dtype
+        x = F.relu(x.to(dt).permute(0, 3, 1, 2))
+        x = F.interpolate(x, scale_factor=self.upsample, mode='bilinear',
+                          align_corners=False)
+        return conv(self.final_layer, x, dt)
+
+
+def init_conv(layer: nn.Conv2d, generator=None):
+    fan_in = layer.in_channels * layer.kernel_size[0] * layer.kernel_size[1]
+    normal_(layer.weight, fan_in ** -0.5, generator)
+    nn.init.zeros_(layer.bias)
+
+
+def conv(layer: nn.Conv2d, x, dtype):
+    """`layer` applied in `dtype`, with its f32 parameters cast."""
+    return F.conv2d(x, layer.weight.to(dtype), layer.bias.to(dtype),
+                    padding=layer.padding)
 
 
 def batch_norm(bn: nn.BatchNorm2d, x):

@@ -1,4 +1,5 @@
-"""Top-down pose estimator (ViT backbone + classic deconv head), in PyTorch.
+"""Top-down pose estimator (ViT backbone + classic deconv head or simple
+decoder), in PyTorch.
 
 Counterpart of vitpose_tpu/models/topdown.py: `TopDownConfig`,
 `make_config`, `TopDownModel`, `forward`, `infer` (flip test with
@@ -18,7 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.geometry import flip_back
-from .heads import HeatmapHead
+from .heads import HeatmapHead, SimpleHead
 from .losses import joints_mse_loss
 from .vit import ViT, ViTConfig, VIT_VARIANTS
 
@@ -31,6 +32,7 @@ class TopDownConfig:
     deconv_filters: tuple = (256, 256)
     deconv_kernels: tuple = (4, 4)
     final_kernel: int = 1
+    upsample: int = 4                   # the simple decoder's factor
     # test-time behaviour (reference test_cfg)
     flip_test: bool = True
     shift_heatmap: bool = False
@@ -52,21 +54,28 @@ def make_config(variant='b', img_size=(256, 192), head='heatmap',
 
 
 class TopDownModel(nn.Module):
-    """`backbone` (ViT) + `keypoint_head` (HeatmapHead): [N, H, W, 3] ->
-    [N, K, H/4, W/4] float32."""
+    """`backbone` (ViT) + `keypoint_head` (HeatmapHead for head_type
+    'heatmap', SimpleHead for 'simple'): [N, H, W, 3] -> [N, K, H/4, W/4]
+    float32."""
 
     def __init__(self, cfg: TopDownConfig, generator=None):
         super().__init__()
-        if cfg.head_type != 'heatmap':
-            raise NotImplementedError(
-                f'head_type {cfg.head_type!r}: only the classic deconv head '
-                'is ported (ROADMAP.md queue 1 item 3)')
         self.cfg = cfg
         self.backbone = ViT(cfg.backbone, generator)
-        self.keypoint_head = HeatmapHead(
-            cfg.backbone.embed_dim, cfg.out_channels, cfg.deconv_filters,
-            cfg.deconv_kernels, cfg.final_kernel, cfg.backbone.dtype,
-            generator)
+        d, dtype = cfg.backbone.embed_dim, cfg.backbone.dtype
+        if cfg.head_type == 'heatmap':
+            self.keypoint_head = HeatmapHead(
+                d, cfg.out_channels, cfg.deconv_filters, cfg.deconv_kernels,
+                cfg.final_kernel, dtype, generator)
+        elif cfg.head_type == 'simple':
+            self.keypoint_head = SimpleHead(d, cfg.out_channels,
+                                            cfg.upsample, dtype=dtype,
+                                            generator=generator)
+        else:
+            raise NotImplementedError(
+                f'head_type {cfg.head_type!r}: only the classic deconv head '
+                "and the simple decoder are ported (ROADMAP.md queue 1 "
+                'item 12)')
 
     def forward(self, imgs, generator=None):
         return self.keypoint_head(self.backbone(imgs, generator)).float()

@@ -19,16 +19,47 @@ The input is NHWC, as in the JAX package; the output is the NHWC feature map
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from ..ops.attention import attention
+from ..ops.attention import attention, keep_outputs
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
            'float16': torch.float16}
+
+
+# the products without batch dimensions, the Linear layers: what 'dots'
+# keeps, as JAX's dots_with_no_batch_dims_saveable does
+_LINEAR_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_linear_outputs(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _LINEAR_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _keep_attention_output():
+    tape = []
+    return keep_outputs(tape, replay=False), keep_outputs(tape, replay=True)
+
+
+# remat_policy -> checkpoint's context_fn (JAX models/vit.py:347-362); every
+# op of a block whose output it does not keep runs again in the backward
+# pass. 'full' keeps nothing. 'attn' keeps K3's output (JAX's 'attn_out'
+# name, vit.py:209-213), so K1 does not run again. 'dots' keeps the Linear
+# outputs by selective checkpointing; K1 runs again.
+_REMAT_CONTEXT = {
+    'full': None,
+    'attn': _keep_attention_output,
+    'dots': functools.partial(create_selective_checkpoint_contexts,
+                              _keep_linear_outputs),
+}
 
 
 def compute_dtype(name: str) -> torch.dtype:
@@ -61,22 +92,33 @@ class DropPath(nn.Module):
 
     In training the mask is drawn from `generator`, a torch.Generator on the
     activations' device (the JAX module's 'droppath' rng), never from torch's
-    global generator."""
+    global generator. `draw` and `drop` split the two halves, so that a
+    caller can draw the masks before a checkpointed region (ViT.forward)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x, generator=None):
+    def draw(self, x, generator=None):
+        """The keep mask [N, 1, ...] for `x`, or None where nothing drops
+        (rate 0 or eval mode)."""
         if self.rate == 0.0 or not self.training:
-            return x
+            return None
         if generator is None:
             raise ValueError('DropPath in training mode needs a '
                              'torch.Generator on the activations\' device')
-        keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, device=x.device, generator=generator) < keep
+        return torch.rand(shape, device=x.device,
+                          generator=generator) < 1.0 - self.rate
+
+    def drop(self, x, mask):
+        if mask is None:
+            return x
+        keep = 1.0 - self.rate
         return torch.where(mask, x / keep, 0.0)
+
+    def forward(self, x, generator=None):
+        return self.drop(x, self.draw(x, generator))
 
 
 class Mlp(nn.Module):
@@ -132,11 +174,17 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approx)
 
-    def forward(self, x, dtype, generator=None):
+    def draw_masks(self, x, generator=None):
+        """The DropPath masks of the two branches, in the order forward
+        would draw them."""
+        return (self.drop_path.draw(x, generator),
+                self.drop_path.draw(x, generator))
+
+    def forward(self, x, dtype, masks=(None, None)):
         y = self.attn(self.norm1(x.float()).to(dtype), dtype)
-        x = x + self.drop_path(y, generator)
+        x = x + self.drop_path.drop(y, masks[0])
         y = self.mlp(self.norm2(x.float()).to(dtype), dtype)
-        return x + self.drop_path(y, generator)
+        return x + self.drop_path.drop(y, masks[1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,10 +237,15 @@ def _check_ported(cfg: ViTConfig):
     if cfg.num_experts > 0:
         raise NotImplementedError('the ViTPose+ MoE MLP is not ported yet '
                                   '(ROADMAP.md queue 1 item 10)')
-    if cfg.remat_blocks:
-        raise NotImplementedError('block rematerialisation is not ported yet '
-                                  '(ROADMAP.md queue 1 item 7); no shipped '
-                                  'config sets it')
+    if cfg.remat_blocks and cfg.remat_policy not in _REMAT_CONTEXT:
+        raise ValueError(f'remat_policy {cfg.remat_policy!r}: expected '
+                         "'full', 'attn', or 'dots'")
+    if cfg.remat_blocks and cfg.remat_policy == 'attn' \
+            and not cfg.fused_attention:
+        raise NotImplementedError(
+            "remat_policy 'attn' keeps K3's output and needs "
+            'fused_attention=True; the plain einsum path under it is not '
+            'ported yet (ROADMAP.md queue 1 item 7)')
 
 
 class PatchEmbed(nn.Module):
@@ -235,7 +288,9 @@ class ViT(nn.Module):
         self.last_norm.reset_parameters()
 
     def forward(self, x, generator=None):
-        """`generator` feeds DropPath in training mode (see DropPath)."""
+        """`generator` feeds DropPath in training mode (see DropPath): the
+        masks are drawn block by block, attention branch first, in the
+        order the blocks use them."""
         dtype = compute_dtype(self.cfg.dtype)
         proj = self.patch_embed.proj
         x = x.to(dtype).permute(0, 3, 1, 2)
@@ -247,6 +302,19 @@ class ViT(nn.Module):
         # keep the cls-token slot additive, as the pretrained weights expect
         x = x + pos[:, 1:] + pos[:, :1]
         for blk in self.blocks:
-            x = blk(x, dtype, generator)
+            x = self._block(blk, x, dtype, blk.draw_masks(x, generator))
         x = self.last_norm(x.float()).to(dtype)
         return x.reshape(n, hp, wp, d)
+
+    def _block(self, blk, x, dtype, masks):
+        """One block; under `remat_blocks`, while a gradient is recorded, a
+        non-reentrant checkpoint that keeps the block's inputs and what
+        its policy keeps. The DropPath masks are drawn before it from the
+        caller's generator, whose state a recompute would not restore, so
+        no random draw happens inside and no RNG state is stashed."""
+        if not (self.cfg.remat_blocks and torch.is_grad_enabled()):
+            return blk(x, dtype, masks)
+        context = _REMAT_CONTEXT[self.cfg.remat_policy]
+        kw = {} if context is None else {'context_fn': context}
+        return checkpoint(blk, x, dtype, masks, use_reentrant=False,
+                          preserve_rng_state=False, **kw)

@@ -25,11 +25,14 @@ JAX package.
     the plain versions for CPU tensors, decided by the device alone. When a
     gradient is wanted it is a ``torch.autograd.Function`` that saves q, k, v
     (as the JAX custom_vjp does) and runs the backward; otherwise it saves
-    nothing and runs the forward only.
+    nothing and runs the forward only. Inside ``keep_outputs`` it keeps its
+    outputs for a recompute (the ViT's remat policy 'attn').
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -249,6 +252,26 @@ def _forward(q, k, v):
     return fused_attention(q, k, v)
 
 
+# the output tape of the innermost `keep_outputs` region on this thread
+_kept = threading.local()
+
+
+@contextlib.contextmanager
+def keep_outputs(tape: list, replay: bool):
+    """Within this region K3 appends each forward output to `tape`; with
+    `replay` it returns them from `tape` again, in order from the first,
+    and launches no K1. A checkpointed block enters it around its forward
+    and around each recompute in the backward pass (the ViT's remat policy
+    'attn', JAX's 'attn_out' name); a recompute runs on the autograd
+    thread, so the region is per thread."""
+    prev = getattr(_kept, 'region', None)
+    _kept.region = (iter(tape) if replay else tape, replay)
+    try:
+        yield
+    finally:
+        _kept.region = prev
+
+
 class _Attention(torch.autograd.Function):
     """K3: K1 forward and K2 backward on CUDA, the plain versions on the
     CPU; saves q, k, v as the JAX custom_vjp does."""
@@ -256,7 +279,17 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v)
+        region = getattr(_kept, 'region', None)
+        if region is None:
+            return _forward(q, k, v)
+        tape, replay = region
+        if replay:
+            return next(tape)
+        out = _forward(q, k, v)
+        # a new tensor object on the same memory: the recompute returns it
+        # as its own output
+        tape.append(out.detach())
+        return out
 
     @staticmethod
     def backward(ctx, g):

@@ -1,17 +1,42 @@
-"""Config-driven model construction.
+"""The config-driven training runner and models from a config file.
 
-Counterpart of the `vit` branch of vitpose_tpu/train/loop.py:84-101
-`build_model_from_cfg`. The rest of that module (the training runner with
-loader, checkpoints and periodic evaluation) is not ported yet (ROADMAP.md
-queue 1 item 7).
+Counterpart of vitpose_tpu/train/loop.py: `build_model_from_cfg` (the `vit`
+branch of :84-101), `_log` (:33-45), `_pop_freeze_options` and the freezing
+of `_apply_freeze` (:67-81), `train_model` (the top-down ViT branch of
+:239-479) and the `pretrained` / `load_from` merges (:330-353, :482-517).
+
+One epoch of `train_model`: the host loader -> pinned staging -> the device
+crop and targets (`make_preprocess_fn`) -> `make_train_step` -> json-lines
+log; every `eval_interval` epochs `run_validation` + `ds.evaluate`; a
+checkpoint every `ckpt_interval` epochs and at the last one; `max_steps`
+returns without saving; SIGTERM saves the state as an incomplete epoch and
+returns, and `resume` redoes that epoch. The other model families, the
+ViTPose+ multi-dataset runner, ZeRO-1 and TensorBoard are not ported yet
+and raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import time
+from typing import Optional
 
+import numpy as np
 import torch
 
+from ..data import topdown_dataset_cls
+from ..data.loader import TopDownLoader
+from ..data.pipeline import AugmentConfig, make_preprocess_fn
+from ..eval.loop import PinnedStaging, run_validation
 from ..models.topdown import TopDownConfig, TopDownModel, make_config
+from ..parallel.distributed import PreemptionGuard
+from ..utils.checkpoint import CheckpointManager
+from ..utils.torch_ckpt import (checkpoint_state_dict,
+                                convert_backbone_checkpoint)
+from .optim import OptimConfig, layer_decay_adamw, make_freeze_mask
+from .state import create_train_state
+from .step import make_train_step
 
 
 def topdown_config(mcfg: dict) -> TopDownConfig:
@@ -46,3 +71,256 @@ def build_model_from_cfg(mcfg: dict, generator=None) -> TopDownModel:
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     return TopDownModel(topdown_config(mcfg), generator=generator)
+
+
+def _log(work_dir, record):
+    """Print one json record and append it to work_dir/train.log.json."""
+    line = json.dumps(record)
+    print(line, flush=True)
+    if work_dir:
+        with open(os.path.join(work_dir, 'train.log.json'), 'a') as f:
+            f.write(line + '\n')
+
+
+def _pop_freeze_options(ocfg_d: dict):
+    """The backbone-freezing keys of an optimizer config dict (reference
+    vit.py:249 `_freeze_stages` options, in the config as
+    optimizer.frozen_stages / freeze_attn / freeze_ffn)."""
+    return dict(frozen_stages=ocfg_d.pop('frozen_stages', -1),
+                freeze_attn=ocfg_d.pop('freeze_attn', False),
+                freeze_ffn=ocfg_d.pop('freeze_ffn', False))
+
+
+def _freeze_mask(model, freeze_kw):
+    """make_freeze_mask's {name: trainable}, or None when nothing is
+    frozen."""
+    if freeze_kw['frozen_stages'] < 0 and not freeze_kw['freeze_attn'] \
+            and not freeze_kw['freeze_ffn']:
+        return None
+    return make_freeze_mask(model, **freeze_kw)
+
+
+def load_pretrained(model: TopDownModel, path):
+    """`pretrained`: a backbone-only (MAE) checkpoint over the fresh
+    backbone (JAX `_merge_trees`); what it does not hold keeps its init."""
+    model.backbone.load_state_dict(
+        convert_backbone_checkpoint(path, model.cfg.backbone), strict=False)
+
+
+def load_from(model: TopDownModel, path):
+    """`load_from`: a whole-model checkpoint (.npz exported by the JAX
+    package, or .pth) over the fresh model, skipping, with a printed
+    message, every entry the model does not have or has in another shape
+    (mmcv load_checkpoint(strict=False), JAX `_merge_trees_checked`), e.g.
+    a head of another number of keypoints."""
+    own = model.state_dict()
+    keep = {}
+    for k, v in checkpoint_state_dict(path, model.cfg.backbone).items():
+        if k not in own:
+            print(f'load_from: skipping unexpected key {k}', flush=True)
+        elif tuple(v.shape) != tuple(own[k].shape):
+            print(f'load_from: skipping {k} (ckpt {tuple(v.shape)} != '
+                  f'model {tuple(own[k].shape)})', flush=True)
+        else:
+            keep[k] = v
+    model.load_state_dict(keep, strict=False)
+
+
+def _refuse_unported(cfg):
+    family = cfg['model'].get('family', 'topdown')
+    if family != 'topdown':
+        raise NotImplementedError(f'training the {family!r} family is not '
+                                  'ported yet (ROADMAP.md queue 1 item 12)')
+    if isinstance(cfg['data'].get('train'), (list, tuple)):
+        raise NotImplementedError('ViTPose+ multi-dataset (MoE) training is '
+                                  'not ported yet (ROADMAP.md queue 1 item '
+                                  '10)')
+    rt = cfg.get('runtime', {})
+    if rt.get('zero1'):
+        raise NotImplementedError('runtime.zero1 (sharded optimizer state '
+                                  'across devices) is not ported yet '
+                                  '(ROADMAP.md queue 1 item 11)')
+    if rt.get('tensorboard'):
+        raise NotImplementedError('runtime.tensorboard is not ported yet '
+                                  '(ROADMAP.md queue 1 item 7)')
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The DropPath generator's seed for global step `step`: the port's
+    jax.random.fold_in(rng, step), one stream per (seed, step), so a
+    resumed run draws the masks the uninterrupted one drew."""
+    return int(np.random.SeedSequence((seed, step))
+               .generate_state(1, np.uint64)[0])
+
+
+def _batch_to_device(batch, dev, staging):
+    """The loader's numpy batch -> the preprocess arguments on `dev`; the
+    canvases through pinned staging on CUDA."""
+    if staging is not None:
+        imgs = staging.to_device(batch['imgs'], dev)
+    else:
+        imgs = torch.from_numpy(np.ascontiguousarray(batch['imgs']))
+    rest = [torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev)
+            for k in ('center', 'scale', 'rot', 'joints', 'vis', 'flip')]
+    return [imgs] + rest
+
+
+def build_train_state(cfg: dict, steps_per_epoch: int, device):
+    """The runner's model and train state for `cfg`, on `device`: random
+    weights from runtime.seed, then `pretrained` and `load_from`, then the
+    layer-decay AdamW with the optimizer config's freezing. Returns the
+    state; its model is `state.model`."""
+    seed = cfg.get('runtime', {}).get('seed', 0)
+    model = build_model_from_cfg(cfg['model'],
+                                 torch.Generator().manual_seed(seed))
+    if cfg.get('pretrained'):
+        load_pretrained(model, cfg['pretrained'])
+    if cfg.get('load_from'):
+        load_from(model, cfg['load_from'])
+    model.to(device)
+    ocfg_d = dict(cfg.get('optimizer', {}))
+    ocfg_d.pop('total_epochs', None)
+    freeze_kw = _pop_freeze_options(ocfg_d)
+    ocfg = OptimConfig(num_layers=model.cfg.backbone.depth, **ocfg_d)
+    tx = layer_decay_adamw(model, ocfg, steps_per_epoch,
+                           trainable=_freeze_mask(model, freeze_kw))
+    return create_train_state(model, tx, ocfg.grad_clip_norm)
+
+
+def train_model(cfg: dict, work_dir: Optional[str] = None,
+                resume: bool = False, max_steps: Optional[int] = None,
+                device='cuda'):
+    """Train from a config dict (see vitpose_tpu/configs/) on `device`
+    (CUDA unless the caller passes 'cpu'; it raises without CUDA). Returns
+    the final TrainState. `max_steps` stops after that many optimizer
+    steps, without a checkpoint."""
+    from ..api.inference import _device
+    _refuse_unported(cfg)
+    dev = _device(device)
+    rt = cfg.get('runtime', {})
+    work_dir = work_dir or rt.get('work_dir', 'work_dir')
+    os.makedirs(work_dir, exist_ok=True)
+    seed = rt.get('seed', 0)
+
+    # ---- data -------------------------------------------------------
+    dcfg = cfg['data']
+    image_size = tuple(dcfg.get('image_size', (192, 256)))
+    heatmap_size = tuple(dcfg.get('heatmap_size', (48, 64)))
+    ds_name = dcfg.get('dataset', 'coco')
+    train_ds = topdown_dataset_cls(ds_name)(
+        dcfg['train']['ann_file'], dcfg['train']['img_prefix'],
+        dataset_info=ds_name, image_size=image_size,
+        heatmap_size=heatmap_size,
+        use_gt_bbox=dcfg['train'].get('use_gt_bbox', True))
+    loader = TopDownLoader(
+        train_ds, dcfg.get('batch_size', 64), is_train=True,
+        canvas_size=dcfg.get('canvas_size'),
+        padding=dcfg.get('padding', 1.25),
+        aug=AugmentConfig(**dcfg.get('aug', {})),
+        seed=seed, num_workers=dcfg.get('num_workers', 8))
+    tcfg = cfg.get('target', {})
+    target_type = cfg['model'].get('target_type', 'GaussianHeatmap')
+    preprocess = make_preprocess_fn(
+        image_size=image_size, heatmap_size=heatmap_size,
+        use_udp=tcfg.get('encoding', 'UDP') == 'UDP',
+        sigma=tcfg.get('sigma', 2.0), unbiased=tcfg.get('unbiased', False),
+        target_type=target_type)
+
+    # ---- model + optimizer -----------------------------------------
+    total_epochs = cfg.get('optimizer', {}).get('total_epochs', 210)
+    steps_per_epoch = max(1, len(loader))
+    state = build_train_state(cfg, steps_per_epoch, dev)
+    model = state.model
+    train_step = make_train_step(model, target_type=target_type)
+
+    # ---- checkpointing / resume ------------------------------------
+    save_best = (rt.get('save_best')
+                 or cfg.get('evaluation', {}).get('save_best', 'AP'))
+    ckpt = CheckpointManager(os.path.join(work_dir, 'ckpts'),
+                             save_best_metric=save_best)
+    start_epoch = 0
+    if resume:
+        state, ep = ckpt.restore(state)
+        if ep is not None:
+            start_epoch = ep + 1
+            info = ckpt.load_info(ep)
+            if info and info.get('meta', {}).get('completed') is False:
+                start_epoch = ep    # preempted mid-epoch: redo that epoch
+            _log(work_dir, {'mode': 'resume', 'epoch': start_epoch})
+
+    # ---- val loader -------------------------------------------------
+    val_loader = None
+    if 'val' in dcfg:
+        val_ds = topdown_dataset_cls(ds_name)(
+            dcfg['val']['ann_file'], dcfg['val']['img_prefix'],
+            dataset_info=ds_name, image_size=image_size,
+            heatmap_size=heatmap_size, test_mode=True,
+            use_gt_bbox=dcfg['val'].get('use_gt_bbox', True),
+            bbox_file=dcfg['val'].get('bbox_file'))
+        val_loader = TopDownLoader(
+            val_ds, dcfg.get('val_batch_size', dcfg.get('batch_size', 64)),
+            is_train=False, canvas_size=dcfg.get('canvas_size'),
+            padding=dcfg.get('padding', 1.25),
+            num_workers=dcfg.get('num_workers', 8))
+
+    log_interval = rt.get('log_interval', 50)
+    eval_interval = cfg.get('evaluation', {}).get(
+        'interval', rt.get('eval_interval', 10))
+    ckpt_interval = rt.get('ckpt_interval', 10)
+    mcfg = model.cfg
+    # a resumed run goes on from the saved step, so the per-step DropPath
+    # streams (step_seed) do not replay from zero
+    global_step = state.step
+    generator = torch.Generator(device=dev)
+    staging = PinnedStaging() if dev.type == 'cuda' else None
+    guard = PreemptionGuard().install()
+    try:
+        for epoch in range(start_epoch, total_epochs):
+            loader.set_epoch(epoch)
+            t_epoch = time.time()
+            t_data = 0.0
+            t_last = time.time()
+            for it, batch in enumerate(loader):
+                t_data += time.time() - t_last
+                pre = preprocess(*_batch_to_device(batch, dev, staging))
+                generator.manual_seed(step_seed(seed, global_step))
+                metrics = train_step(state, pre, generator)
+                global_step += 1
+                if it % log_interval == 0:
+                    # the one read-back of the step's metrics
+                    m = {k: float(v) for k, v in metrics.items()}
+                    _log(work_dir, dict(mode='train', epoch=epoch, iter=it,
+                                        step=global_step, data_time=t_data,
+                                        time=time.time() - t_epoch, **m))
+                t_last = time.time()
+                if guard.should_stop:
+                    _log(work_dir, {'mode': 'preempt', 'epoch': epoch,
+                                    'step': global_step})
+                    # marked incomplete, so resume redoes this epoch
+                    ckpt.save(epoch, state, meta={'completed': False})
+                    return state
+                if max_steps and global_step >= max_steps:
+                    return state
+            record = dict(mode='epoch', epoch=epoch,
+                          epoch_time=time.time() - t_epoch)
+
+            stats = None
+            if val_loader is not None and eval_interval \
+                    and (epoch + 1) % eval_interval == 0:
+                results = run_validation(
+                    model, val_loader, use_udp=mcfg.use_udp,
+                    post_process=mcfg.post_process,
+                    modulate_kernel=mcfg.modulate_kernel,
+                    target_type=mcfg.target_type)
+                eval_metric = cfg.get('evaluation', {}).get('metric')
+                stats = (val_loader.ds.evaluate(results, metric=eval_metric)
+                         if eval_metric else val_loader.ds.evaluate(results))
+                record.update({k: float(v) for k, v in stats.items()})
+            _log(work_dir, record)
+
+            if (ckpt_interval and (epoch + 1) % ckpt_interval == 0) \
+                    or epoch == total_epochs - 1:
+                ckpt.save(epoch, state, metrics=stats)
+    finally:
+        guard.uninstall()
+    return state

@@ -1,9 +1,10 @@
 """AdamW with ViT layer-wise lr decay, as torch.optim.AdamW parameter groups
 and a LambdaLR schedule.
 
-Counterpart of vitpose_tpu/train/optim.py:26-121 (`OptimConfig`,
-`layer_id_for_path`, `make_lr_schedule`, `layer_decay_adamw`), on the
-port's parameter names:
+Counterpart of vitpose_tpu/train/optim.py:26-121 and :165-205
+(`OptimConfig`, `layer_id_for_path`, `make_lr_schedule`,
+`layer_decay_adamw`, `make_freeze_mask`, `freeze_tx`), on the port's
+parameter names:
 
   * layer id: `backbone.pos_embed` / `backbone.patch_embed.*` -> 0,
     `backbone.blocks.{i}.*` -> i + 1, everything else (last_norm, the
@@ -18,12 +19,19 @@ layer scale; torch's AdamW with a group lr of lr * scale and weight_decay
 train state before the step, as optax.clip_by_global_norm does it: grads
 are scaled by max_norm / norm only when norm >= max_norm (torch's
 clip_grad_norm_ would use max_norm / (norm + 1e-6)).
+
+Freezing (`freeze_tx` around the optax chain in JAX) leaves the frozen
+parameters out of the optimizer: they get no update and no weight decay, and
+the clip inside the chain sees only the trainable gradients, as optax's
+multi_transform gives it. They still get gradients, which count in the
+logged `grad_norm` (TrainState.apply_gradients).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+import re
+from typing import Optional, Sequence
 
 import torch
 
@@ -86,11 +94,42 @@ def make_lr_schedule(cfg: OptimConfig, steps_per_epoch: int,
     return schedule
 
 
+def make_freeze_mask(model, frozen_stages=-1, freeze_attn=False,
+                     freeze_ffn=False) -> dict:
+    """{parameter name: trainable} for the ViT backbone's freezing options
+    (reference vit.py:249 `_freeze_stages`, JAX optim.py:165-196).
+
+    frozen_stages >= 0 freezes patch_embed and blocks 1..frozen_stages (the
+    reference's quirk of starting at block 1 is kept); freeze_attn freezes
+    every block's attn and norm1; freeze_ffn freezes pos_embed,
+    patch_embed, and every block's mlp and norm2.
+    """
+    def trainable(name):
+        keys = name.split('.')
+        if frozen_stages >= 0:
+            if 'patch_embed' in keys:
+                return False
+            m = re.search(r'blocks\.(\d+)', name)
+            if m and 1 <= int(m.group(1)) <= frozen_stages:
+                return False
+        if freeze_attn and ('attn' in keys or 'norm1' in keys):
+            return False
+        if freeze_ffn and any(k in keys for k in ('pos_embed', 'patch_embed',
+                                                  'mlp', 'norm2')):
+            return False
+        return True
+
+    return {name: trainable(name) for name, _ in model.named_parameters()}
+
+
 def layer_decay_adamw(model, cfg: OptimConfig, steps_per_epoch: int = 1000,
-                      policy: str = 'step'):
+                      policy: str = 'step',
+                      trainable: Optional[dict] = None):
     """(AdamW, LambdaLR) over `model`'s parameters: one group per
     (layer id, decay) pair with lr = schedule(count) * scale. Step the
     scheduler after each optimizer step, so update t uses schedule(t).
+    `trainable` ({name: bool}, from make_freeze_mask) leaves the frozen
+    parameters out of every group (JAX `freeze_tx`).
 
     On CUDA the optimizer is `capturable`: its step counts live on the card,
     so a step reads nothing back to the host. (torch's fused AdamW was tried
@@ -100,7 +139,7 @@ def layer_decay_adamw(model, cfg: OptimConfig, steps_per_epoch: int = 1000,
     depth = cfg.num_layers
     groups = {}
     for name, p in model.named_parameters():
-        if not p.requires_grad:
+        if not p.requires_grad or (trainable and not trainable[name]):
             continue
         lid = layer_id_for_path(name, depth)
         decay = _decays(name, p)

@@ -21,15 +21,22 @@ class TrainState:
     step: int = 0
 
     def apply_gradients(self):
-        """Clip the gradients in the parameters' `.grad` to the global norm
-        `grad_clip_norm` (optax.clip_by_global_norm), take the AdamW step
-        and advance the schedule. Returns the global norm before clipping
-        as a 0-dim tensor on the parameters' device."""
+        """Clip the optimizer's gradients (in the parameters' `.grad`) to
+        the global norm `grad_clip_norm` (optax.clip_by_global_norm), take
+        the AdamW step and advance the schedule. Returns the global norm of
+        every gradient of the model before clipping, frozen parameters'
+        too (JAX logs optax.global_norm of all grads), as a 0-dim tensor on
+        the parameters' device. The clip's own norm covers the optimizer's
+        parameters only, as the clip inside JAX's freeze_tx does."""
         grads = [p.grad for group in self.optimizer.param_groups
                  for p in group['params'] if p.grad is not None]
-        norm = torch.nn.utils.get_total_norm(grads)
-        coef = torch.where(norm < self.grad_clip_norm, 1.0,
-                           self.grad_clip_norm / norm)
+        every = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        norm = torch.nn.utils.get_total_norm(every)
+        clip_norm = (norm if len(every) == len(grads)
+                     else torch.nn.utils.get_total_norm(grads))
+        coef = torch.where(clip_norm < self.grad_clip_norm, 1.0,
+                           self.grad_clip_norm / clip_norm)
         torch._foreach_mul_(grads, coef)
         self.optimizer.step()
         self.scheduler.step()

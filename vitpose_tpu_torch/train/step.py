@@ -35,7 +35,9 @@ def make_train_step(model, target_type='GaussianHeatmap'):
         out = forward(state.model, batch['imgs'], train=True,
                       generator=generator)
         loss = joints_mse_loss(out, batch['target'], batch['target_weight'])
-        state.optimizer.zero_grad(set_to_none=True)
+        # the model's, not the optimizer's: frozen parameters take
+        # gradients too (they count in grad_norm)
+        state.model.zero_grad(set_to_none=True)
         loss.backward()
         grad_norm = state.apply_gradients()
         acc, _ = pose_pck_accuracy(out.detach(), batch['target'],

@@ -4,9 +4,11 @@
 `convert_backbone` and `convert_head`
 (vitpose_tpu/utils/torch_ckpt.py:182-285):
 it turns flax variables {'params', 'batch_stats'} (numpy arrays) into a state
-dict under the mmpose names that TopDownModel uses. `load_params_npz` reads
-the flat 'a/b/c' .npz files that the JAX package's `save_params_npz` writes
-(vitpose_tpu/utils/checkpoint.py:160-186).
+dict under the mmpose names that TopDownModel uses, for the classic head (also
+with the identity final layer) and the simple decoder; variables without
+'batch_stats' give a state dict without the BN running statistics.
+`load_params_npz` reads the flat 'a/b/c' .npz files that the JAX package's
+`save_params_npz` writes (vitpose_tpu/utils/checkpoint.py:160-186).
 """
 from __future__ import annotations
 
@@ -55,6 +57,9 @@ def _backbone(p):
 
 
 def _head(p, stats):
+    """HeatmapHead (deconvs, then a prediction conv unless its final layer
+    is the identity) or SimpleHead (the prediction conv alone). BN running
+    statistics are carried where `stats` has them."""
     sd = {}
     i = 0
     while f'deconv_{i}' in p:
@@ -64,13 +69,15 @@ def _head(p, stats):
                                               (3, 2, 0, 1)))
         sd[bn + 'weight'] = _t(p[f'bn_{i}']['scale'])
         sd[bn + 'bias'] = _t(p[f'bn_{i}']['bias'])
-        sd[bn + 'running_mean'] = _t(stats[f'bn_{i}']['mean'])
-        sd[bn + 'running_var'] = _t(stats[f'bn_{i}']['var'])
-        sd[bn + 'num_batches_tracked'] = torch.tensor(0)
+        if f'bn_{i}' in stats:
+            sd[bn + 'running_mean'] = _t(stats[f'bn_{i}']['mean'])
+            sd[bn + 'running_var'] = _t(stats[f'bn_{i}']['var'])
+            sd[bn + 'num_batches_tracked'] = torch.tensor(0)
         i += 1
-    sd['final_layer.weight'] = _t(np.transpose(p['final']['kernel'],
-                                               (3, 2, 0, 1)))
-    sd['final_layer.bias'] = _t(p['final']['bias'])
+    if 'final' in p:
+        sd['final_layer.weight'] = _t(np.transpose(p['final']['kernel'],
+                                                   (3, 2, 0, 1)))
+        sd['final_layer.bias'] = _t(p['final']['bias'])
     return sd
 
 

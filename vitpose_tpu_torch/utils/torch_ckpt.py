@@ -1,22 +1,81 @@
-"""Load-time adaptation of released ViTPose/MAE .pth weights to a model's
+"""Reading released ViTPose/MAE .pth weights and adapting them to a model's
 input geometry.
 
-The port's own copy of vitpose_tpu/utils/torch_ckpt.py:79-134, which
-reproduces the reference loader (mmcv_custom/checkpoint.py:312
-`load_checkpoint`):
+The port's own copy of vitpose_tpu/utils/torch_ckpt.py:36-134 and :320
+(`load_torch_state_dict`, `convert_backbone_checkpoint`), which reproduce the
+reference loader (mmcv_custom/checkpoint.py:312 `load_checkpoint`):
+  * {'state_dict' | 'model' | 'module'} containers are opened and 'module.'
+    and MoBY 'encoder.' prefixes taken off;
   * a 14x14 patch-embed kernel is zero-padded (or interpolated) to the
     model's patch size;
   * the position embedding is regridded bicubically (torch
     `F.interpolate`, align_corners=False) to the model's token grid,
     keeping the cls-token slot.
-The port keeps the mmpose parameter names, so no name map is needed. Both
-functions work on host numpy arrays, as in the JAX package.
+The port keeps the mmpose parameter names, so no name map is needed. The
+regrid and the pad work on host numpy arrays, as in the JAX package.
+`checkpoint_state_dict` also reads the JAX package's .npz exports.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .convert import load_params_npz, state_dict_from_flax
+
+# the backbone entries the JAX package's `convert_backbone` carries
+# (vitpose_tpu/utils/torch_ckpt.py:182-226); the rest of an MAE checkpoint
+# (cls_token, its final `norm`, a decoder) stays behind
+_BACKBONE_KEY = re.compile(
+    r'(patch_embed\.proj|blocks\.\d+\.(norm1|norm2|attn\.qkv|attn\.proj|'
+    r'mlp\.fc1|mlp\.fc2)|last_norm)\.(weight|bias)|pos_embed')
+
+
+def load_torch_state_dict(path):
+    """A .pth file -> {name: CPU tensor}: read with weights_only=True, out
+    of a {'state_dict' | 'model' | 'module'} container, without a 'module.'
+    prefix on every key or the MoBY 'encoder.' prefix."""
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    for key in ('state_dict', 'model', 'module'):
+        if isinstance(sd, dict) and key in sd:
+            sd = sd[key]
+            break
+    if all(k.startswith('module.') for k in sd):
+        sd = {k[len('module.'):]: v for k, v in sd.items()}
+    if sorted(sd)[0].startswith('encoder.'):
+        sd = {k[len('encoder.'):]: v for k, v in sd.items()
+              if k.startswith('encoder.')}
+    return sd
+
+
+def checkpoint_state_dict(checkpoint: str, backbone_cfg) -> dict:
+    """The state dict of a whole-model checkpoint file for a model whose
+    backbone is `backbone_cfg` (a ViTConfig): an .npz written by the JAX
+    package, or a .pth adapted to the backbone's geometry."""
+    if checkpoint.endswith('.npz'):
+        return state_dict_from_flax(load_params_npz(checkpoint))
+    if checkpoint.endswith('.pth'):
+        return adapt_state_dict(load_torch_state_dict(checkpoint),
+                                backbone_cfg)
+    raise ValueError(f'unsupported checkpoint {checkpoint!r}: expected .npz '
+                     '(JAX export) or .pth')
+
+
+def convert_backbone_checkpoint(path, backbone_cfg):
+    """A backbone-only (MAE pretraining) .pth, its keys without the
+    'backbone.' prefix -> the ViT state dict entries it holds, its patch
+    kernel padded and its pos embed regridded to `backbone_cfg` (a
+    ViTConfig). Raises if it holds none."""
+    sd = {k: v for k, v in load_torch_state_dict(path).items()
+          if _BACKBONE_KEY.fullmatch(k)}
+    if not sd:
+        raise ValueError(f'{path} holds no ViT backbone entries (expected '
+                         "names such as 'blocks.0.attn.qkv.weight')")
+    sd = adapt_state_dict({f'backbone.{k}': v for k, v in sd.items()},
+                          backbone_cfg)
+    return {k[len('backbone.'):]: v for k, v in sd.items()}
 
 
 def _interpolate_pos_embed(pos, num_patches, grid_hw):
