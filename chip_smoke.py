@@ -86,12 +86,34 @@ no result:
             DropPath seeds: K1 launches 12/24/12/24 and K2 12 in a step,
             gradients within REMAT_GRAD_TOL of no remat, the peak memory
             above the resident state, and step times in turns
+  moe-train the training CLI on the ViTPose+-B config file (6 experts of
+            part_dim 192, 6 heads of 17/14/16/17/17/133 channels, bf16, UDP,
+            batch 128, K1 + K2 turned on by --cfg-options) over six seeded
+            synthetic train sets in their own formats (COCO, AIC, MPII,
+            AP-10K, APT-36K, COCO-WholeBody; 2 batches each, 12 steps in one
+            epoch) and a COCO val set, `pretrained` the shaped dense ViT-B
+            backbone: every expert's features first equal the dense
+            backbone's; exactly 12 K1 + 12 K2 launches per step and 24 K1
+            per val batch, all whole-pair; every dataset in the log, every
+            other head's loss exactly 0, finite metrics, best.pth under the
+            mmpose names; model_split of best.pth and the evaluation CLI on
+            its COCO part with the COCO-B config give the runner's AP; step
+            wall time, img/s, data_time share, kernel time per step, peak
+            memory, checkpoint bytes and phase times
+  moe-ref   two ViTPose+ MoE steps (make_moe_train_step) at full ViTPose+-B
+            width and depth on 3 crops whose datasets mix within each batch
+            (so the blocks route rows per expert), drop_path 0, on CUDA
+            (K1 + K2) and on the CPU (plain attention): f32 (TF32 off)
+            losses, grad_norm, gradients, parameters, every expert's rows
+            and BN statistics within MOE_REF_TOL, printed beside the CPU's
+            own spread on one thread; bf16 CUDA as close to the f32 CPU
+            answer as the bf16 CPU path is (within BF16_FACTOR)
 
 Then the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, eval run,
-train step, train-loop run and remat step), the nvidia-smi card line and the
-result line.
+train step, train-loop run, remat step and moe-train run), the nvidia-smi
+card line and the result line.
 
 The weights are random (torch.Generator seed 0, inside init_pose_model).
 Random heatmaps make the UDP Newton step ill conditioned, so the smoke makes
@@ -131,6 +153,7 @@ KERNEL_CASES = [
     ((256, 192, 12, 64), torch.float32, 'serving batch 256, f32'),
     ((8, 192, 12, 64), torch.bfloat16, 'serve call, 8 boxes'),
     ((64, 192, 12, 64), torch.bfloat16, 'training batch 64, ViT-B'),
+    ((128, 192, 12, 64), torch.bfloat16, 'ViTPose+ batch 128'),
     ((16, 192, 16, 80), torch.bfloat16, 'ViT-H head dim'),
     ((32, 192, 6, 32), torch.bfloat16, 'ViT-S head dim'),
     ((4, 193, 12, 64), torch.bfloat16, 'one token past the whole pair'),
@@ -141,6 +164,7 @@ KERNEL_CASES = [
 BWD_CASES = [
     ((64, 192, 12, 64), torch.bfloat16, 'training batch 64, ViT-B'),
     ((64, 192, 12, 64), torch.float32, 'training batch 64, f32'),
+    ((128, 192, 12, 64), torch.bfloat16, 'ViTPose+ batch 128'),
     ((16, 192, 16, 80), torch.bfloat16, 'ViT-H head dim'),
     ((32, 192, 6, 32), torch.bfloat16, 'ViT-S head dim'),
     ((4, 193, 12, 64), torch.bfloat16, 'one token past the whole pair'),
@@ -1116,7 +1140,7 @@ def phase_train():
     return launches, med, TRAIN_BATCH / med, busy_ms
 
 
-def profile_steps(run_step, step_s, steps=2):
+def profile_steps(run_step, step_s, steps=2, label='train'):
     """Device time of `steps` profiled steps by torch.profiler: CUDA kernel
     time per step, the idle share against the unprofiled median step time
     `step_s` (unclamped), and the kernels that take the most time. Fails if
@@ -1140,14 +1164,14 @@ def profile_steps(run_step, step_s, steps=2):
                and not e.key.startswith('Optimizer.')]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
     if busy_ms == 0:
-        print('train: device time not measured (the profiler saw no CUDA '
-              'kernels)', flush=True)
+        print(f'{label}: device time not measured (the profiler saw no '
+              'CUDA kernels)', flush=True)
         return None
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
     check(busy_ms <= wall_ms, f'profiler kernel time {busy_ms:.3f} ms per '
           f'step exceeds the profiled steps\' wall time {wall_ms:.3f} ms: '
           'kernels counted twice')
-    print(f'train: profiler, {steps} steps: kernels busy {busy_ms:.1f} ms '
+    print(f'{label}: profiler, {steps} steps: kernels busy {busy_ms:.1f} ms '
           f'per step of the {step_s * 1e3:.1f} ms median step, idle share '
           f'{1 - busy_ms / (step_s * 1e3):.3f} (profiled steps: '
           f'{wall_ms:.1f} ms each); top kernels (ms '
@@ -1572,6 +1596,503 @@ def phase_remat(card):
     return {p: launches[p][0] for p in REMAT_POLICIES}
 
 
+# moe-train: ViTPose+-B on six seeded synthetic train sets, each in its own
+# dataset's format, sharing one folder of 480x640 JPEGs with four persons
+# each (COCO and COCO-WholeBody share COCO's images in the real config too):
+# 80 images, so 320 persons per set and 2 batches of 128 (the loader drops
+# the ragged rest), 12 steps per epoch (the real mixture has some 9,000).
+# The val set is COCO-format, 512 detection boxes: 4 batches of 128.
+PLUS_B = 'vitpose_tpu/configs/coco/vitpose_plus_b_6datasets_256x192.py'
+MOE_BATCH = 128                      # the ViTPose+-B config's batch size
+MOE_SETS = (('coco', 17), ('aic', 14), ('mpii', 16), ('ap10k', 17),
+            ('ap10k', 17), ('coco_wholebody', 17))       # the config's order
+MOE_PARTS = (('foot_kpts', 6), ('face_kpts', 68), ('lefthand_kpts', 21),
+             ('righthand_kpts', 21))
+MOE_IMAGES = 80
+MOE_VAL_IMAGES = (124, 4)
+MOE_AP_TOL = 0.002                   # split checkpoint vs the runner's AP
+MOE_FEATURE_TOL = 2.0 ** -8          # one bf16 step of the largest output
+
+
+def moe_joints(rng, box, k):
+    """`k` joints spread over a person box, about 85% of them visible."""
+    x, y, w, h = box
+    xy = np.stack([rng.uniform(x + 0.1 * w, x + 0.9 * w, k),
+                   rng.uniform(y + 0.05 * h, y + 0.95 * h, k)], 1)
+    v = np.where(rng.rand(k) < 0.85, 2, 0)
+    return np.concatenate([xy, v[:, None]], 1)
+
+
+def write_moe_sets(root, seed):
+    """The six train sets of the ViTPose+ config in `root`: COCO-format
+    jsons for COCO, AIC, AP-10K and APT-36K, COCO-WholeBody's with its
+    foot, face and hand fields, and MPII's list json (1-based center,
+    scale, joints, joints_vis). Returns the config's `data.train` list."""
+    import os
+    import cv2
+    rng = np.random.RandomState(seed)
+    images, boxes = [], []
+    for i in range(MOE_IMAGES):
+        b = grid_boxes(rng, 2, 2)
+        b[:, 0] += rng.uniform(0, 300)
+        name = f'{i + 1:012d}.jpg'
+        cv2.imwrite(os.path.join(root, name),
+                    eval_scene(rng, b, 1)[..., ::-1])
+        images.append(dict(id=i + 1, file_name=name, width=640, height=480))
+        boxes += [(i + 1, name, [float(v) for v in box[:4]]) for box in b]
+    train = []
+    for idx, (name, k) in enumerate(MOE_SETS):
+        ann = os.path.join(root, f'train_{idx}.json')
+        if name == 'mpii':
+            recs = []
+            for _, file, (x, y, w, h) in boxes:
+                kp = moe_joints(rng, (x, y, w, h), k)
+                recs.append(dict(image=file, joints=(kp[:, :2] + 1).tolist(),
+                                 joints_vis=(kp[:, 2] > 0).astype(int)
+                                 .tolist(),
+                                 center=[x + w / 2 + 1, y + h / 2 + 1],
+                                 scale=h / 200.0))
+            data = recs
+        else:
+            anns = []
+            for image_id, _, box in boxes:
+                kp = moe_joints(rng, box, k)
+                a = dict(id=len(anns) + 1, image_id=image_id, category_id=1,
+                         bbox=box, area=box[2] * box[3], iscrowd=0,
+                         num_keypoints=int((kp[:, 2] > 0).sum()),
+                         keypoints=kp.ravel().tolist())
+                if name == 'coco_wholebody':
+                    for field, n in MOE_PARTS:
+                        a[field] = moe_joints(rng, box, n).ravel().tolist()
+                anns.append(a)
+            data = dict(images=images, annotations=anns,
+                        categories=[dict(id=1, name='person')])
+        with open(ann, 'w') as f:
+            json.dump(data, f)
+        train.append(dict(dataset=name, dataset_idx=idx, ann_file=ann,
+                          img_prefix=f'{root}/'))
+    return train
+
+
+def moe_step_profile(cfg, step_s, card):
+    """The kernel time of a ViTPose+-B step: a runner's train state for
+    `cfg` on the card, one COCO and one WholeBody batch of the synthetic
+    sets through the MoE step, then two steps under torch.profiler."""
+    from vitpose_tpu_torch.eval.loop import PinnedStaging
+    from vitpose_tpu_torch.train.loop import (_batch_to_device, _train_data,
+                                              build_train_state)
+    from vitpose_tpu_torch.train.step import make_moe_train_step
+    loader, preprocess, n = _train_data(cfg, 0)
+    state = build_train_state(cfg, len(loader), 'cuda')
+    step = make_moe_train_step(state.model, n)
+    batches, staging = [], PinnedStaging()
+    for child in (loader.loaders[0], loader.loaders[-1]):
+        b = next(iter(child))
+        pre = preprocess(*_batch_to_device(b, torch.device('cuda'), staging))
+        pre['dataset_idx'] = b['dataset_idx']
+        batches.append(pre)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    turn = [0]
+
+    def run_step():
+        step(state, batches[turn[0] % 2], gen)
+        turn[0] += 1
+    for _ in range(2):
+        run_step()
+    busy_ms = profile_steps(run_step, step_s, label='moe-train')
+    del state, batches
+    torch.cuda.empty_cache()
+    return busy_ms
+
+
+def phase_moe_train(card):
+    """ViTPose+-B multi-dataset MoE training through the training CLI on the
+    shipped config, one epoch of 12 steps on six synthetic train sets, with
+    `pretrained` the shaped dense ViT-B backbone (so its fc2 is split into
+    the experts) and the shaped classic head by `load_from`; then
+    model_split of its best.pth and the evaluation CLI on the COCO part
+    with the plain COCO-B config."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from vitpose_tpu_torch.api import init_pose_model
+    from vitpose_tpu_torch.tools import test as test_cli
+    from vitpose_tpu_torch.train.loop import (build_model_from_cfg,
+                                              load_pretrained)
+    from vitpose_tpu_torch.utils.config import apply_options, load_config
+    times = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, 'train'))
+        os.makedirs(os.path.join(root, 'val'))
+        train = write_moe_sets(os.path.join(root, 'train'), 3)
+        val = write_eval_set(os.path.join(root, 'val'), 4,
+                             *MOE_VAL_IMAGES)[0]
+        val_options = eval_options(os.path.join(root, 'val'), val)
+        dense = init_pose_model(COCO_B, device='cuda')
+        shape_peaks(dense.model)
+        sd = dense.model.state_dict()
+        pretrained = os.path.join(root, 'vitpose_b_backbone.pth')
+        torch.save({'state_dict': {k[len('backbone.'):]: v.cpu()
+                                   for k, v in sd.items()
+                                   if k.startswith('backbone.')}},
+                   pretrained)
+        head = os.path.join(root, 'vitpose_b_head.pth')
+        torch.save({k: v.cpu() for k, v in sd.items()
+                    if k.startswith('keypoint_head.')}, head)
+        # the ViTPose+ configs leave the fused attention off, as JAX's do;
+        # the COCO-B config turns it on in its file, this run on the
+        # command line
+        options = [f'data.train={train!r}', *val_options,
+                   'model.backbone_overrides.fused_attention=True',
+                   f'pretrained={pretrained}', f'load_from={head}',
+                   'optimizer.total_epochs=1', 'runtime.eval_interval=1',
+                   'runtime.ckpt_interval=1', 'runtime.log_interval=1']
+        cfg = apply_options(load_config(PLUS_B), options)
+        times['data'] = time.perf_counter() - t0
+
+        # the split `pretrained`: every expert's features are the dense
+        # backbone's, before any step
+        t0 = time.perf_counter()
+        moe = build_model_from_cfg(cfg['model'])
+        load_pretrained(moe, pretrained)
+        moe = moe.to('cuda').eval()
+        bb = moe.cfg.backbone
+        check((bb.num_experts, bb.part_dim, bb.embed_dim, bb.depth,
+               bb.dtype) == (6, 192, 768, 12, 'bfloat16'),
+              f'the ViTPose+-B config built {bb}')
+        x = torch.randn(8, 256, 192, 3, device='cuda',
+                        generator=torch.Generator('cuda').manual_seed(5))
+        with torch.inference_mode():
+            want = dense.model.backbone(x).float()
+            dist = [((moe.backbone(x, expert_idx=e).float() - want).abs()
+                     .max() / want.abs().max()).item()
+                    for e in range(bb.num_experts)]
+        n_params = sum(p.numel() for p in moe.parameters())
+        del moe, dense, sd
+        torch.cuda.empty_cache()
+        times['features'] = time.perf_counter() - t0
+        check(max(dist) <= MOE_FEATURE_TOL, f'moe-train: the split '
+              f'experts\' features differ from the dense backbone\'s by '
+              f'{dist} of its largest value (tol {MOE_FEATURE_TOL})')
+        print(f'moe-train: pretrained (the shaped dense ViT-B backbone) '
+              f'split into {bb.num_experts} experts of part_dim '
+              f'{bb.part_dim}: every expert\'s bf16 features on the card '
+              f'equal the dense backbone\'s within ' + ', '.join(
+                  f'{d:.3e}' for d in dist) + f' of its largest value (tol '
+              f'{MOE_FEATURE_TOL:.3e}, one bf16 step); {n_params / 1e6:.1f} M '
+              f'parameters', flush=True)
+
+        work_dir = os.path.join(root, 'work')
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, log = run_train_cli([PLUS_B, '--work-dir', work_dir,
+                                    '--cfg-options', *options])
+        times['train'] = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        train_recs = [r for r in log if r['mode'] == 'train']
+        (epoch,) = [r for r in log if r['mode'] == 'epoch']
+        steps = len(train_recs)
+        val_batches = -(-sum(MOE_VAL_IMAGES) * 4 // MOE_BATCH)
+        check(state.step == steps == 2 * len(MOE_SETS), f'{steps} logged '
+              f'steps, state at step {state.step}, expected 2 per set')
+        launches = check_launches('moe-train', steps, val_batches)
+        del state
+        torch.cuda.empty_cache()
+        seen = sorted({r['dataset'] for r in train_recs})
+        check(seen == list(range(len(MOE_SETS))), f'datasets in the log '
+              f'{seen}')
+        losses = [f'loss_{d}' for d in range(len(MOE_SETS))]
+        for r in train_recs:
+            check(all(np.isfinite(r[k]) for k in
+                      losses + ['heatmap_loss', 'grad_norm']),
+                  f'a non-finite metric in {r}')
+            others = [r[k] for d, k in enumerate(losses) if d != r['dataset']]
+            check(others == [0.0] * (len(MOE_SETS) - 1) and
+                  r[f"loss_{r['dataset']}"] > 0, f'step {r["step"]} '
+                  f'(dataset {r["dataset"]}) has the other heads\' losses '
+                  f'{others}')
+        ckpts = os.path.join(work_dir, 'ckpts')
+        best = os.path.join(ckpts, 'best.pth')
+        check(os.path.exists(best), 'no best.pth in the work dir')
+        best_sd = torch.load(best, map_location='cpu', weights_only=True)
+        mmpose = ('backbone.blocks.11.mlp.experts.5.weight',
+                  'associate_keypoint_heads.4.final_layer.weight')
+        check(all(k in best_sd for k in mmpose)
+              and not any('expert_weight' in k or 'expert_bias' in k
+                          for k in best_sd)
+              and best_sd[mmpose[1]].shape[0] == 133
+              and best_sd[mmpose[0]].shape == (192, 3072),
+              'best.pth is not under the mmpose names')
+        del best_sd
+        step_s = statistics.median(step_times(log))
+        first = [r for r in train_recs if r['epoch'] == 0][-1]
+        share = first['data_time'] / first['time']
+        ckpt_bytes = os.path.getsize(os.path.join(ckpts, 'epoch_0.pth'))
+        best_bytes = os.path.getsize(best)
+        print(f'moe-train: CLI (vitpose_tpu_torch.tools.train) on the '
+              f'ViTPose+-B config (6 experts of part_dim 192, 6 heads of '
+              f'17/14/16/17/17/133 channels, bf16, UDP, max_num_joints 133), '
+              f'batch {MOE_BATCH}, 1 epoch of {steps} steps over six '
+              f'synthetic sets (datasets {[r["dataset"] for r in train_recs]}'
+              f'), logging every step: {launches[0]} K1 + {launches[1]} K2 '
+              f'launches (12 + 12 per step, 24 K1 per val batch x '
+              f'{val_batches}, all whole-pair); every other head\'s loss '
+              f'exactly 0 in every step; step wall time median '
+              f'{step_s * 1e3:.1f} ms = {MOE_BATCH / step_s:.1f} img/s; '
+              f'data_time share {share:.3f} ({first["data_time"]:.2f} of '
+              f'{first["time"]:.2f} s); AP {epoch["AP"]:.4f} (expert 0, '
+              f'main head); epoch {epoch["epoch_time"]:.2f} s; last '
+              f'heatmap_loss {train_recs[-1]["heatmap_loss"]:.6f}; '
+              f'checkpoint {ckpt_bytes / 1e9:.3f} GB, best.pth '
+              f'{best_bytes / 1e9:.3f} GB; peak device memory '
+              f'{peak_gb:.2f} GB; whole run {times["train"]:.1f} s; on '
+              f'{card}', flush=True)
+
+        t0 = time.perf_counter()
+        split_dir = os.path.join(root, 'split')
+        subprocess.run([sys.executable, '-m',
+                        'vitpose_tpu_torch.tools.model_split', best,
+                        '--out-dir', split_dir], check=True,
+                       capture_output=True, timeout=600)
+        names = sorted(os.listdir(split_dir))
+        check(names == sorted(f'{n}.pth' for n in (
+            'coco', 'aic', 'mpii', 'ap10k', 'apt36k', 'wholebody')),
+            f'model_split wrote {names}')
+        times['split'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = test_cli.main([COCO_B, os.path.join(split_dir,
+                                                        'coco.pth'),
+                                   '--cfg-options', *val_options])
+        times['eval'] = time.perf_counter() - t0
+        diff = abs(stats['AP'] - epoch['AP'])
+        check(diff <= MOE_AP_TOL, f'moe-train: the split COCO checkpoint '
+              f'scores AP {stats["AP"]} with the COCO-B config, the runner '
+              f'logged {epoch["AP"]} (tol {MOE_AP_TOL})')
+        print(f'moe-train: model_split (python -m '
+              f'vitpose_tpu_torch.tools.model_split) wrote {len(names)} '
+              f'single-task checkpoints in {times["split"]:.1f} s; coco.pth '
+              f'through the evaluation CLI with the plain COCO-B config: AP '
+              f'{stats["AP"]:.6f} against the runner\'s {epoch["AP"]:.6f}, '
+              f'difference {diff:.6f} (tol {MOE_AP_TOL})', flush=True)
+        t0 = time.perf_counter()
+        busy_ms = moe_step_profile(cfg, step_s, card)
+        times['profile'] = time.perf_counter() - t0
+    print('moe-train: kernel time per step '
+          + ('not measured' if busy_ms is None else f'{busy_ms:.1f} ms')
+          + ' (torch.profiler, two MoE steps alone), card idle share of the '
+          'runner\'s median step '
+          + ('not measured' if busy_ms is None
+             else f'{1 - busy_ms / (step_s * 1e3):.3f}')
+          + '; phase times ' + ', '.join(f'{k} {v:.1f} s'
+                                         for k, v in times.items())
+          + f'; on {card}', flush=True)
+    return launches, steps, val_batches
+
+
+# moe-ref: two ViTPose+ steps at full ViTPose+-B width and depth on 3 crops
+# whose datasets mix within each batch, so every block routes rows per
+# expert (the runner's batches hold one dataset each and never do). Expert
+# 5 is selected in step 1 only (step 2 moves it by its Adam moments and
+# decay), experts 1, 3 and 4 never (decay alone), and heads 1, 3 and 4 see
+# no sample (loss exactly 0, gradients exactly 0, BN statistics moving).
+# The config's optimizer, warmup included, as train-ref's
+MOE_REF_ROUTES = (np.array([5, 0, 5]), np.array([2, 2, 0]))
+MOE_REF_JOINTS = 133                 # the mixture's max_num_joints
+# moe-ref f32, CUDA against the CPU, in the units of moe_ref_distances:
+# summation order. Head 0 trains on one sample of the three while its BN
+# statistics take all three, so its gradients cancel more than train-ref's
+# (batch 2, one head), and the first Adam steps turn them into sign flips of
+# the tiny-gradient elements (the LayerNorm weights). Measured on the card
+# (heatmap_loss / grad_norm / losses / grads / params / experts / bn_stats):
+# CUDA vs CPU 8.8e-8 / 1.6e-4 / 3.0e-7 / 5.1e-3 / 3.0e-2 / 8.8e-3 /
+# 1.3e-5; the CPU against itself on one thread instead of eight, which the
+# phase prints beside them, 8.8e-8 / 7.7e-6 / 2.4e-7 / 2.4e-3 / 4.0e-2 /
+# 5.5e-3 / 9.2e-6. The bounds are about twice the larger of the two
+MOE_REF_TOL = {'heatmap_loss': 1e-6, 'grad_norm': 1e-3, 'losses': 1e-6,
+               'grads': 1e-2, 'params': 8e-2, 'experts': 2e-2,
+               'bn_stats': 3e-5}
+
+
+def moe_ref_batch():
+    """3 crops of the synthetic canvases with MOE_REF_JOINTS random joints
+    inside each person box, so that every head's channels carry targets,
+    preprocessed on the CPU as the runner does (UDP)."""
+    from vitpose_tpu_torch.data.pipeline import make_preprocess_fn
+    imgs, records = synthetic_records(6, len(MOE_REF_ROUTES[0]))
+    rng = np.random.RandomState(6)
+    center = np.stack([r['center'] for r in records])
+    scale = np.stack([r['scale'] for r in records])
+    half = scale * 200 / 1.25 / 2           # the box, without the padding
+    joints = center[:, None] + half[:, None] * rng.uniform(
+        -0.9, 0.9, (len(records), MOE_REF_JOINTS, 2))
+    vis = (rng.rand(len(records), MOE_REF_JOINTS) > 0.15)
+    args = [torch.from_numpy(x) for x in (
+        imgs, center, scale, np.zeros(len(records), np.float32),
+        joints.astype(np.float32), vis.astype(np.float32))]
+    return make_preprocess_fn((192, 256), (48, 64),
+                              pad_num_joints=MOE_REF_JOINTS)(*args)
+
+
+def moe_ref_run(cfg, device, batch):
+    """Two make_moe_train_step steps of the runner's train state for `cfg`
+    on `device`, step i with dataset_idx MOE_REF_ROUTES[i]: (the metrics of
+    each step, the gradients of step 1 after the clip, the 2-step change of
+    every parameter and BN statistic), on the CPU in f32."""
+    from vitpose_tpu_torch.train.loop import build_train_state
+    from vitpose_tpu_torch.train.step import make_moe_train_step
+    state = build_train_state(cfg, 1, device)
+    step = make_moe_train_step(state.model, len(cfg['data']['train']))
+    batch = {k: v.to(device) for k, v in batch.items()}
+    gen = torch.Generator(device=device).manual_seed(0)
+    before = snapshot(state.model)
+    metrics, grads = [], None
+    for idx in MOE_REF_ROUTES:
+        m = step(state, dict(batch, dataset_idx=idx), gen)
+        metrics.append({k: v.item() for k, v in m.items()})
+        if grads is None:
+            grads = {n: p.grad.float().cpu()
+                     for n, p in state.model.named_parameters()}
+    after = snapshot(state.model)
+    delta = {n: (after[n] - before[n]).float().cpu() for n in after}
+    del state
+    return metrics, grads, delta
+
+
+def _rel(x, ref, rms):
+    """|x - ref| over |ref|, as the max of each (rms False) or as RMS (rms
+    True); 0 where both are 0, inf where only `ref` is."""
+    diff, scale = ((x - ref).norm(), ref.norm()) if rms else \
+        ((x - ref).abs().max(), ref.abs().max())
+    if scale == 0:
+        return 0.0 if diff == 0 else float('inf')
+    return (diff / scale).item()
+
+
+def moe_ref_distances(run, ref):
+    """Distances of a moe_ref_run from the reference run, as
+    ref_distances's: relative heatmap_loss and grad_norm (the larger of the
+    two steps) and `losses`, every loss_d of a dataset in its step's batch;
+    `grads`, `bn_stats` and `params` as there; `experts` the RMS ratio of
+    each expert's rows (weight and bias) of every block. Returns those and
+    {'grads', 'params', 'experts', 'bn'}: the distances per tensor (per
+    expert)."""
+    (ms, g, d), (mrs, gr, dr) = run, ref
+    rel = {k: max(abs(m[k] - mr[k]) / abs(mr[k]) for m, mr in zip(ms, mrs))
+           for k in ('heatmap_loss', 'grad_norm')}
+    rel['losses'] = max(abs(m[f'loss_{e}'] - mr[f'loss_{e}'])
+                        / abs(mr[f'loss_{e}'])
+                        for m, mr, idx in zip(ms, mrs, MOE_REF_ROUTES)
+                        for e in set(idx.tolist()))
+    grads = {n: _rel(g[n], gr[n], False) for n in gr}
+    rel['grads'] = max(grads.values())
+    params = {n: _rel(d[n], dr[n], True) for n in gr}
+    rel['params'] = max(params.values())
+    experts = {}
+    for n in gr:
+        if n.endswith('mlp.expert_weight'):
+            b = n[:-len('weight')] + 'bias'
+            for e in range(dr[n].shape[0]):
+                experts[f'{n[:-len("expert_weight")]}experts.{e}'] = _rel(
+                    torch.cat([d[n][e].ravel(), d[b][e]]),
+                    torch.cat([dr[n][e].ravel(), dr[b][e]]), True)
+    rel['experts'] = max(experts.values())
+    bn = {n: _rel(d[n], dr[n], False) for n in dr if n not in gr}
+    rel['bn_stats'] = max(bn.values())
+    return rel, dict(grads=grads, params=params, experts=experts, bn=bn)
+
+
+def check_moe_run(run, what):
+    """Each step's absent datasets: loss exactly 0; step 1's absent heads:
+    gradients exactly 0; every metric finite."""
+    metrics, grads, _ = run
+    for i, (m, idx) in enumerate(zip(metrics, MOE_REF_ROUTES)):
+        check(all(np.isfinite(v) for v in m.values()),
+              f'{what}: non-finite metrics in step {i + 1}: {m}')
+        absent = [f'loss_{e}' for e in range(6) if e not in idx]
+        check(all(m[k] == 0.0 for k in absent), f'{what}: step {i + 1} '
+              f'(datasets {idx.tolist()}) has losses {m}')
+    heads = ['keypoint_head.' if e == 0 else f'associate_keypoint_heads.'
+             f'{e - 1}.' for e in range(6) if e not in MOE_REF_ROUTES[0]]
+    nonzero = [n for n, g in grads.items()
+               if n.startswith(tuple(heads)) and g.abs().max() > 0]
+    check(not nonzero, f'{what}: heads of no sample in step 1 have '
+          f'gradients in {nonzero[:4]}')
+
+
+def phase_moe_ref(card):
+    """make_moe_train_step at full ViTPose+-B width and depth (fused
+    attention on, drop_path 0) from the runner's seeded weights, on CUDA
+    (K1 + K2, the experts' per-row products) and on the CPU (plain
+    attention): f32 (TF32 off) within MOE_REF_TOL, bf16 CUDA as close to
+    the f32 CPU answer as the bf16 CPU path is (within BF16_FACTOR)."""
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.utils.config import apply_options, load_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    batch = moe_ref_batch()
+    runs, cfgs = {}, {}
+    for dtype in ('float32', 'bfloat16'):
+        cfgs[dtype] = apply_options(load_config(PLUS_B), [
+            f'model.dtype={dtype}',
+            'model.backbone_overrides.fused_attention=True',
+            'model.backbone_overrides.drop_path_rate=0.0'])
+        for dev in ('cuda', 'cpu'):
+            reset_counts()
+            runs[dev, dtype] = moe_ref_run(cfgs[dtype], dev, batch)
+            check_moe_run(runs[dev, dtype], f'moe-ref {dev} {dtype}')
+            if dev == 'cuda':
+                n = (fused_attention.launches, fused_attention_bwd.launches)
+                check(n == (24, 24), f'moe-ref: two CUDA steps launched K1, '
+                      f'K2 {n} times, expected 24 each')
+    ref = runs['cpu', 'float32']
+    # the spread of summation order alone: the CPU on one thread
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        spread = moe_ref_distances(
+            moe_ref_run(cfgs['float32'], 'cpu', batch), ref)[0]
+    finally:
+        torch.set_num_threads(threads)
+    f32, f32_per = moe_ref_distances(runs['cuda', 'float32'], ref)
+    print('moe-ref: f32 (TF32 off) CUDA+K1+K2 vs CPU plain, ViTPose+-B full '
+          f'width and depth, batch {len(MOE_REF_ROUTES[0])}, datasets '
+          f'{[r.tolist() for r in MOE_REF_ROUTES]} in two steps, drop_path '
+          '0: ' + ', '.join(f'{k} {v:.3e} (tol {MOE_REF_TOL[k]:g})'
+                            for k, v in f32.items())
+          + '; losses ' + ', '.join(
+              f'step {i + 1} ' + ' '.join(
+                  f'{k} {v:.6f}' for k, v in m.items() if k.startswith('loss'))
+              for i, m in enumerate(ref[0]))
+          + '; largest distances: ' + '; '.join(
+              f'{k} {worst(v)}' for k, v in f32_per.items())
+          + f'; the CPU on one thread against {threads}: ' + ', '.join(
+              f'{k} {v:.3e}' for k, v in spread.items()), flush=True)
+    for k, tol in MOE_REF_TOL.items():
+        check(f32[k] <= tol, f'moe-ref f32: {k} differs by {f32[k]} '
+              f'(tol {tol})')
+    gpu, gpu_per = moe_ref_distances(runs['cuda', 'bfloat16'], ref)
+    cpu, cpu_per = moe_ref_distances(runs['cpu', 'bfloat16'], ref)
+    print('moe-ref: bf16 against the f32 CPU answer, CUDA+K1+K2 / CPU '
+          'plain: ' + ', '.join(f'{k} {gpu[k]:.3e} / {cpu[k]:.3e}'
+                                for k in gpu)
+          + f' (CUDA at most {BF16_FACTOR}x CPU, + 2^-8 for the scalars); '
+          f'largest expert distances, CUDA: {worst(gpu_per["experts"])}; '
+          f'CPU: {worst(cpu_per["experts"])}; '
+          f'{time.perf_counter() - t0:.1f} s on {card}', flush=True)
+    for k in gpu:
+        floor = 2.0 ** -8 if k in ('heatmap_loss', 'grad_norm', 'losses') \
+            else 0.0
+        check(gpu[k] <= BF16_FACTOR * cpu[k] + floor,
+              f'moe-ref bf16: CUDA {k} is {gpu[k]} from the f32 answer, '
+              f'the bf16 CPU path {cpu[k]}')
+
+
 def kernel_name(mangled):
     """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
     anonymous namespace; the mangled name where it is not one."""
@@ -1659,6 +2180,10 @@ def main():
         torch.cuda.empty_cache()
         loop_launches, loop_steps, loop_val = phase_train_loop(card, busy_ms)
         remat_k1 = phase_remat(card)
+        torch.cuda.empty_cache()
+        moe_launches, moe_steps, moe_val = phase_moe_train(card)
+        torch.cuda.empty_cache()
+        phase_moe_ref(card)
     except Failure as e:
         print(f'chip_smoke: FAIL {e}', file=sys.stderr)
         return 1
@@ -1671,12 +2196,17 @@ def main():
                                   'train_loop': loop_k1,
                                   'train_loop_steps': loop_steps,
                                   'train_loop_val_batches': loop_val,
-                                  'remat_step': remat_k1},
+                                  'remat_step': remat_k1,
+                                  'moe_train': moe_launches[0],
+                                  'moe_train_steps': moe_steps,
+                                  'moe_train_val_batches': moe_val},
                 'attention_bwd': {'serve': 0, 'eval': 0,
                                   'train': train_launches[1],
                                   'train_loop': loop_k2,
                                   'train_loop_steps': loop_steps,
-                                  'remat_step': dict.fromkeys(remat_k1, 12)}}
+                                  'remat_step': dict.fromkeys(remat_k1, 12),
+                                  'moe_train': moe_launches[1],
+                                  'moe_train_steps': moe_steps}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({

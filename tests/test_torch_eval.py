@@ -334,9 +334,8 @@ def test_run_validation_refuses_unported(val_setup):
     coco, variables, _ = val_setup
     model = _port_model(_small(make_config, out_channels=17), variables)
     loader = _port_loader(coco)
-    for kw, item in ((dict(expert_idx=0), 'item 10'),
-                     (dict(head_idx=1), 'item 10'),
-                     (dict(target_type='Regression'), 'item 12')):
+    # (ViTPose+ expert and head selection: tests/test_torch_moe*.py)
+    for kw, item in ((dict(target_type='Regression'), 'item 12'),):
         with pytest.raises(NotImplementedError, match=item):
             run_validation(model, loader, **kw)
 

@@ -23,7 +23,8 @@ MODULES = ['ops.attention', 'kernels._build', 'models.vit', 'models.heads',
            'data.topdown', 'data.native', 'data.loader', 'data',
            'train.loop', 'utils.torch_ckpt', 'eval.loop', 'tools.test',
            'utils.checkpoint', 'utils.env', 'parallel',
-           'parallel.distributed', 'tools.train']
+           'parallel.distributed', 'tools.train', 'data.mpii',
+           'data.wholebody', 'tools.model_split']
 
 
 def _imported_names(path):
@@ -53,6 +54,7 @@ def test_kernel_source_and_metadata_are_in_the_package():
     assert (PORT / 'csrc' / 'attention_bwd.cu').is_file()
     assert (PORT / 'csrc' / 'loader.cpp').is_file()
     assert (PORT / 'data' / 'metadata' / 'coco.json').is_file()
+    assert len(list((PORT / 'data' / 'metadata').glob('*.json'))) == 37
 
 
 def test_native_loader_is_the_ports_own():

@@ -373,11 +373,13 @@ def test_cli_refuses_unported(fixture, tmp_path, monkeypatch, case):
     elif case == 'family':
         args.append('model.family=bottomup')
     elif case == 'moe':
-        args.append("data.train=[{'ann_file': 'a.json'}]")
+        # a ViTPose+ mixture with a train set whose class is not ported
+        args.append("data.train=[{'dataset': 'posetrack18', "
+                    "'ann_file': 'a.json', 'img_prefix': ''}]")
     else:
         args.append(f'runtime.{case}=True')
     item = {'cuda': 'CUDA is not available', 'family': 'item 12',
-            'moe': 'item 10', 'zero1': 'item 11', 'tensorboard': 'item 7'}
+            'moe': 'item 12', 'zero1': 'item 11', 'tensorboard': 'item 7'}
     with pytest.raises((NotImplementedError, RuntimeError),
                        match=item[case]):
         cli.main(args)

@@ -1,22 +1,26 @@
-"""Data of the port: dataset metadata, the COCO-format top-down dataset and
-its evaluation, the host loader (native or cv2 JPEG decode), and training
-augmentation and preprocessing."""
+"""Data of the port: dataset metadata, the top-down datasets (COCO format,
+MPII, MPII-TRB, COCO-WholeBody) and their evaluation, the host loader
+(native or cv2 JPEG decode) with the ViTPose+ multi-dataset mixture, and
+training augmentation and preprocessing."""
 from .coco_index import CocoIndex
-from .dataset_info import DatasetInfo
-from .loader import TopDownLoader
+from .dataset_info import DatasetInfo, available_datasets
+from .loader import MultiDatasetLoader, TopDownLoader
+from .mpii import MpiiDataset, MpiiTrbDataset
 from .topdown import TopDownDataset
+from .wholebody import WholeBodyDataset
 
-# datasets whose own classes (list jsons, video sequences, part fields) are
-# not ported yet
-_NOT_PORTED = ('mpii', 'mpii_trb', 'coco_wholebody', 'posetrack18', 'jhmdb')
+# video datasets whose classes come with the model families that use them
+_NOT_PORTED = ('posetrack18', 'jhmdb')
 
 
 def topdown_dataset_cls(name):
     """Dataset name -> top-down dataset class (counterpart of
-    vitpose_tpu/data/__init__.py:10-20). COCO-format datasets use
-    TopDownDataset; the others raise until their classes are ported."""
+    vitpose_tpu/data/__init__.py:10-20): MPII and MPII-TRB read list and
+    TRB jsons, COCO-WholeBody evaluates per part, every other dataset is
+    COCO-format (TopDownDataset)."""
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f'the {name!r} dataset class is not ported yet (ROADMAP.md queue '
-            '1 item 6)')
-    return TopDownDataset
+            '1 item 12: only CNN and PoseWarper configs use it)')
+    return {'mpii': MpiiDataset, 'mpii_trb': MpiiTrbDataset,
+            'coco_wholebody': WholeBodyDataset}.get(name, TopDownDataset)

@@ -1,8 +1,10 @@
 """Dataset metadata: keypoint names, mirror pairs, skeleton, OKS sigmas.
 
-The port's own copy of vitpose_tpu/data/dataset_info.py:20-101 (the port
-imports nothing of the JAX package). Metadata files live under
-``metadata/``; this slice carries COCO only.
+The port's own copy of vitpose_tpu/data/dataset_info.py (the port imports
+nothing of the JAX package). The zoo's metadata lives in ``metadata/``, one
+JSON file per dataset, byte for byte the JAX package's;
+`DatasetInfo.from_mmpose_dict` also reads the reference's `dataset_info`
+config dicts.
 """
 from __future__ import annotations
 
@@ -60,12 +62,7 @@ class DatasetInfo:
 
     @classmethod
     def load(cls, name: str) -> 'DatasetInfo':
-        path = os.path.join(_META_DIR, f'{name}.json')
-        if not os.path.exists(path):
-            raise NotImplementedError(
-                f'dataset metadata {name!r} is not ported yet (ROADMAP.md '
-                'queue 1 item 6); the port carries COCO only')
-        with open(path) as f:
+        with open(os.path.join(_META_DIR, f'{name}.json')) as f:
             d = json.load(f)
         return cls(
             dataset_name=d['dataset_name'],
@@ -80,3 +77,25 @@ class DatasetInfo:
             skeleton_colors=np.asarray(d.get('skeleton_colors', []),
                                        np.uint8),
         )
+
+    @classmethod
+    def from_mmpose_dict(cls, d: dict) -> 'DatasetInfo':
+        """Parse the reference's `dataset_info` config-dict schema."""
+        kp = d['keypoint_info']
+        k = len(kp)
+        sk = d.get('skeleton_info', {})
+        return cls(
+            dataset_name=d.get('dataset_name', 'custom'),
+            keypoint_names=[kp[i]['name'] for i in range(k)],
+            keypoint_swap=[kp[i].get('swap', '') for i in range(k)],
+            keypoint_type=[kp[i].get('type', '') for i in range(k)],
+            sigmas=np.asarray(d.get('sigmas', []), np.float32),
+            joint_weights=np.asarray(d.get('joint_weights', [1.0] * k),
+                                     np.float32),
+            skeleton=[sk[i]['link'] for i in sorted(sk)],
+        )
+
+
+def available_datasets() -> List[str]:
+    return sorted(f[:-5] for f in os.listdir(_META_DIR)
+                  if f.endswith('.json'))

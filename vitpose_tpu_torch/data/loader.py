@@ -1,7 +1,8 @@
 """Batched top-down data loading on the host.
 
-Counterpart of vitpose_tpu/data/loader.py:34-245 (`_load_canvas`,
-`TopDownLoader`), with the same batches for the same dataset, seed and epoch:
+Counterpart of vitpose_tpu/data/loader.py (`_load_canvas`, `TopDownLoader`,
+and for ViTPose+ `MultiDatasetLoader`, `RepeatDataset`, `ConcatPoseDataset`),
+with the same batches for the same datasets, seeds and epoch:
 
   * worker threads (or the native C++ pool, `data.native`) decode JPEGs and
     paste them onto ONE static uint8 canvas [S, S, 3]; a larger source image
@@ -242,3 +243,74 @@ class TopDownLoader:
             batch['scale_orig'] = (batch['scale']
                                    / batch['scale_factor'][:, None])
             yield batch
+
+
+class MultiDatasetLoader:
+    """ViTPose+ multi-dataset mixture: the child loaders' whole batches
+    interleaved in a seeded order that changes every epoch, each batch of
+    one dataset (reference ConcatDataset training, datasets/builder.py:
+    75-79). A child that runs out early is skipped; `len` is the sum of
+    the child lengths."""
+
+    def __init__(self, loaders, seed=0):
+        self.loaders = loaders
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        """Set every child's epoch and re-seed the interleave order (JAX's
+        runner sets the children's itself); a fixed order would bias the
+        tail of every epoch toward one dataset."""
+        self.epoch = int(epoch)
+        for loader in self.loaders:
+            loader.set_epoch(epoch)
+
+    def __len__(self):
+        return sum(len(l) for l in self.loaders)
+
+    def __iter__(self):
+        iters = [iter(l) for l in self.loaders]
+        counts = [len(l) for l in self.loaders]
+        order = np.concatenate([np.full(c, i) for i, c in enumerate(counts)])
+        np.random.RandomState(self.seed * 9973 + self.epoch).shuffle(order)
+        for i in order:
+            try:
+                yield next(iters[i])
+            except StopIteration:
+                continue
+
+
+class RepeatDataset:
+    """A dataset repeated `times` times per epoch (reference
+    dataset_wrappers.py:6 RepeatDataset): the record db is tiled, so the
+    loader's shuffle sees `times` copies."""
+
+    def __init__(self, dataset, times):
+        self._ds = dataset
+        self.times = times
+        self.db = list(dataset.db) * times
+
+    def __getattr__(self, name):
+        return getattr(self._ds, name)
+
+    def __len__(self):
+        return len(self.db)
+
+
+class ConcatPoseDataset:
+    """Same-format datasets as one (reference builder.py:29
+    `_concat_dataset` for ann_file lists): the records are merged, the
+    metadata is the first dataset's."""
+
+    def __init__(self, datasets):
+        if not datasets:
+            raise ValueError('ConcatPoseDataset needs at least one dataset')
+        self._ds = datasets[0]
+        self.datasets = list(datasets)
+        self.db = [r for d in datasets for r in d.db]
+
+    def __getattr__(self, name):
+        return getattr(self._ds, name)
+
+    def __len__(self):
+        return len(self.db)

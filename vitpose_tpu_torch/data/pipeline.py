@@ -19,6 +19,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.geometry import (affine_matrix, apply_affine_to_points,
                             udp_warp_matrix)
@@ -139,6 +140,9 @@ def make_preprocess_fn(image_size=(192, 256), heatmap_size=(48, 64),
        dict(imgs [N, h, w, 3] normalised, target [N, K, hh, hw],
             target_weight [N, K])
 
+    With `pad_num_joints`, target and target_weight are padded with zeros
+    to that many joints (ViTPose+).
+
     All on the inputs' device (the canvases share one shape). For a sample
     with `flip` set, the source mirror F = [[-1, 0, W-1], [0, 1, 0]] is
     composed on the right of its pixel warp, so the crop matches the labels
@@ -149,9 +153,6 @@ def make_preprocess_fn(image_size=(192, 256), heatmap_size=(48, 64),
         raise NotImplementedError(f'target_type {target_type!r}: only '
                                   'GaussianHeatmap targets are ported '
                                   '(ROADMAP.md queue 1 item 7)')
-    if pad_num_joints is not None:
-        raise NotImplementedError('pad_num_joints (ViTPose+ MoE) is not '
-                                  'ported yet (ROADMAP.md queue 1 item 10)')
     iw, ih = int(image_size[0]), int(image_size[1])
     norm = {}                        # device -> (mean, std), copied once
 
@@ -184,6 +185,14 @@ def make_preprocess_fn(image_size=(192, 256), heatmap_size=(48, 64),
                 target, weight = generate_msra_heatmaps(
                     joints_c, vis, (iw, ih), heatmap_size, sigma=sigma,
                     unbiased=unbiased)
+            pad = 0 if pad_num_joints is None \
+                else int(pad_num_joints) - target.shape[1]
+            if pad > 0:
+                # ViTPose+ pads every dataset's targets to max_num_joints,
+                # so one step serves the mixture (reference
+                # top_down_transform.py:746-755)
+                target = F.pad(target, (0, 0, 0, 0, 0, pad))
+                weight = F.pad(weight, (0, pad))
             out['target'] = target
             out['target_weight'] = weight
         return out

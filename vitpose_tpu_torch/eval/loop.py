@@ -29,25 +29,23 @@ from ..ops.geometry import affine_matrix, udp_warp_matrix
 from ..ops.warp import warp_affine_batch
 
 
-def _check_ported(target_type, expert_idx, head_idx):
+def _check_ported(target_type):
     if target_type.lower() == 'regression':
         raise NotImplementedError('the DeepPose regression decode is not '
                                   'ported yet (ROADMAP.md queue 1 item 12)')
-    if expert_idx is not None or head_idx:
-        raise NotImplementedError('ViTPose+ expert and head selection is not '
-                                  'ported yet (ROADMAP.md queue 1 item 10)')
 
 
 def make_val_step(model: TopDownModel, image_size, use_udp=True,
                   post_process='default', modulate_kernel=11,
                   flip_index=None, target_type='GaussianHeatmap',
-                  head_idx=None):
+                  head_idx=None, expert_idx=None):
     """The val step: (imgs [N,S,S,3] uint8, center, scale, center_orig,
     scale_orig [N,2] f32), all on the model's device -> (preds [N,K,2],
     maxvals [N,K,1]) there. `center`/`scale` drive the crop warp (canvas
     coords), `center_orig`/`scale_orig` the decode (original-image
-    coords)."""
-    _check_ported(target_type, None, head_idx)
+    coords). A ViTPose+ model runs expert `expert_idx` and head `head_idx`
+    (0 or None: the main head)."""
+    _check_ported(target_type)
     iw, ih = image_size
     dev = next(model.parameters()).device
     mean = torch.as_tensor(IMAGENET_MEAN, device=dev)
@@ -65,7 +63,8 @@ def make_val_step(model: TopDownModel, image_size, use_udp=True,
             mat = affine_matrix(center, scale, rot, (iw, ih))
         crops = warp_affine_batch(x, mat, (iw, ih))
         crops = (crops - mean) / std
-        hm = infer(model, crops, flip_index=flip)
+        hm = infer(model, crops, flip_index=flip, expert_idx=expert_idx,
+                   head_idx=head_idx)
         return keypoints_from_heatmaps(
             hm, center_orig, scale_orig, post_process=post_process,
             kernel=modulate_kernel, use_udp=use_udp, target_type=target_type)
@@ -124,14 +123,15 @@ def run_validation(model: TopDownModel, loader, use_udp=True,
     """Run the val loop on the model's device and return the results list
     consumed by TopDownDataset.evaluate: one dict per batch with preds
     [n, K, 3], boxes [n, 6] (center, scale, area, score; original-image
-    coords), image_paths and bbox_ids, padding rows dropped. `group_size`
-    is accepted for the JAX signature and has no effect."""
-    _check_ported(target_type, expert_idx, head_idx)
+    coords), image_paths and bbox_ids, padding rows dropped. A ViTPose+
+    model runs every box through expert `expert_idx` and head `head_idx`.
+    `group_size` is accepted for the JAX signature and has no effect."""
+    _check_ported(target_type)
     dev = next(model.parameters()).device
     val_step = make_val_step(
         model, loader.image_size, use_udp=use_udp, post_process=post_process,
         modulate_kernel=modulate_kernel, flip_index=loader.ds.info.flip_index,
-        target_type=target_type)
+        target_type=target_type, head_idx=head_idx, expert_idx=expert_idx)
     staging = PinnedStaging() if dev.type == 'cuda' else None
 
     def launch(batch):

@@ -2,10 +2,10 @@
 decoder), in PyTorch.
 
 Counterpart of vitpose_tpu/models/topdown.py: `TopDownConfig`,
-`make_config`, `TopDownModel`, `forward`, `infer` (flip test with
-`flip_back` and the optional 1-pixel `shift_heatmap`) and `loss_fn`. Models
-take NHWC float crops and return NCHW float32 heatmaps, as in the JAX
-package.
+`make_config`, `TopDownModel` (with the ViTPose+ associate heads),
+`forward`, `infer` (flip test with `flip_back` and the optional 1-pixel
+`shift_heatmap`) and `loss_fn`. Models take NHWC float crops and return
+NCHW float32 heatmaps, as in the JAX package.
 
 The mode is explicit, as JAX's `train=` argument is: `forward` sets the
 module's training mode for its call, and `infer` always runs in eval mode,
@@ -40,6 +40,9 @@ class TopDownConfig:
     modulate_kernel: int = 11
     use_udp: bool = True
     target_type: str = 'GaussianHeatmap'
+    # ViTPose+: associate heads for the other datasets of the mixture
+    num_extra_heads: int = 0
+    extra_head_channels: tuple = ()
 
 
 def make_config(variant='b', img_size=(256, 192), head='heatmap',
@@ -56,7 +59,9 @@ def make_config(variant='b', img_size=(256, 192), head='heatmap',
 class TopDownModel(nn.Module):
     """`backbone` (ViT) + `keypoint_head` (HeatmapHead for head_type
     'heatmap', SimpleHead for 'simple'): [N, H, W, 3] -> [N, K, H/4, W/4]
-    float32."""
+    float32. ViTPose+ adds `associate_keypoint_heads` (mmpose's name), one
+    HeatmapHead like the main one per extra dataset (JAX
+    `extra_head_{j}`)."""
 
     def __init__(self, cfg: TopDownConfig, generator=None):
         super().__init__()
@@ -76,36 +81,59 @@ class TopDownModel(nn.Module):
                 f'head_type {cfg.head_type!r}: only the classic deconv head '
                 "and the simple decoder are ported (ROADMAP.md queue 1 "
                 'item 12)')
+        self.associate_keypoint_heads = nn.ModuleList([
+            HeatmapHead(d, ch, cfg.deconv_filters, cfg.deconv_kernels,
+                        cfg.final_kernel, dtype, generator)
+            for ch in (cfg.extra_head_channels[j]
+                       for j in range(cfg.num_extra_heads))])
 
-    def forward(self, imgs, generator=None):
-        return self.keypoint_head(self.backbone(imgs, generator)).float()
+    def forward(self, imgs, generator=None, expert_idx=None, head_idx=None,
+                all_heads=False):
+        """Heatmaps of the main head (`head_idx` None or 0) or of associate
+        head head_idx - 1; with `all_heads`, the list over [main,
+        *associate] heads, each run on the whole batch (ViTPose+ training,
+        reference top_down_moe.py:166-203). `expert_idx`: see
+        vit.expert_routing."""
+        feat = self.backbone(imgs, generator, expert_idx)
+        if all_heads:
+            heads = [self.keypoint_head, *self.associate_keypoint_heads]
+            return [h(feat).float() for h in heads]
+        head = (self.keypoint_head if not head_idx
+                else self.associate_keypoint_heads[head_idx - 1])
+        return head(feat).float()
 
 
-def forward(model: TopDownModel, imgs, train=False, generator=None):
+def forward(model: TopDownModel, imgs, train=False, generator=None,
+            expert_idx=None, **kw):
     """The counterpart of the JAX `forward(model, variables, imgs, train,
-    rngs=...)`: the parameters and BN statistics live in the module.
+    expert_idx, rngs=...)`: the parameters and BN statistics live in the
+    module; `kw` (head_idx, all_heads) goes to the model.
 
     Sets the module's mode to `train` for this call. In training mode BN
-    uses (and updates) batch statistics and DropPath draws from
-    `generator`, a torch.Generator on the input's device.
+    uses (and updates) batch statistics, every head's under `all_heads`,
+    and DropPath draws from `generator`, a torch.Generator on the input's
+    device.
     """
     model.train(train)
-    return model(imgs, generator)
+    return model(imgs, generator, expert_idx, **kw)
 
 
-def infer(model: TopDownModel, imgs, flip_index=None):
+def infer(model: TopDownModel, imgs, flip_index=None, expert_idx=None,
+          head_idx=None):
     """Eval forward with the optional flip test, all on the input's device.
 
     The averaged heatmap is (hm + flip_back(hm(flipped))) / 2, the flipped
     map shifted right by one pixel when `shift_heatmap` is set (reference
-    top_down.py:163-188). The flipped pass is a second forward.
+    top_down.py:163-188). The flipped pass is a second forward. A ViTPose+
+    model runs expert `expert_idx` and head `head_idx` (0: the main one).
     """
     cfg = model.cfg
     model.eval()
-    hm = model(imgs)
+    hm = model(imgs, expert_idx=expert_idx, head_idx=head_idx)
     if flip_index is None or not cfg.flip_test:
         return hm
-    hm_f = model(imgs.flip(2))                       # W axis of NHWC
+    hm_f = model(imgs.flip(2), expert_idx=expert_idx,      # W axis of NHWC
+                 head_idx=head_idx)
     hm_f = flip_back(hm_f, flip_index, target_type=cfg.target_type)
     if cfg.shift_heatmap:
         hm_f = torch.cat([hm_f[..., :1], hm_f[..., :-1]], dim=-1)

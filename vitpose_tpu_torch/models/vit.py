@@ -1,9 +1,11 @@
 """Plain ViT backbone for top-down pose, in PyTorch.
 
-Counterpart of vitpose_tpu/models/vit.py (`DropPath`, `Mlp`, `Attention`,
-`Block`, `ViTConfig`, `VIT_VARIANTS`, `ViT`), with the mmpose parameter names
-(`patch_embed.proj`, `blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,
-mlp.fc2}`, `last_norm`), so a reference state dict loads as it is.
+Counterpart of vitpose_tpu/models/vit.py (`DropPath`, `Mlp`, `MoEMlp`,
+`Attention`, `Block`, `ViTConfig`, `VIT_VARIANTS`, `ViT`), with the mmpose
+parameter names (`patch_embed.proj`, `blocks.{i}.{norm1,attn.qkv,attn.proj,
+norm2,mlp.fc1,mlp.fc2}`, `last_norm`; ViTPose+ adds
+`blocks.{i}.mlp.experts.{e}` in state dicts), so a reference state dict
+loads as it is.
 
 Precision follows flax's `dtype`: parameters are stored in f32 and cast to
 the compute dtype at each use (explicit casts, not autocast), so gradients
@@ -134,6 +136,99 @@ class Mlp(nn.Module):
         return linear(self.fc2, x, dtype)
 
 
+def expert_routing(expert_idx, n, num_experts, device):
+    """A batch's expert indices as the MoE blocks take them: an int when
+    every sample takes one expert (the runner's batches, which hold one
+    dataset each), else [(expert, its rows as a tensor on `device`)].
+
+    `expert_idx` is an int or one index per sample on the host (a numpy
+    array or a list); a tensor raises, since reading it back would stall
+    the card. The caller routes once per forward, so no block reads an
+    index back."""
+    if expert_idx is None:
+        raise ValueError('a ViTPose+ (MoE) backbone needs expert_idx')
+    if torch.is_tensor(expert_idx):
+        raise TypeError('expert_idx must be an int or host indices (numpy '
+                        'or a list), not a tensor')
+    if isinstance(expert_idx, (int, np.integer)):
+        idx = np.full(n, int(expert_idx))
+    else:
+        idx = np.asarray(expert_idx).reshape(-1)
+    if idx.shape[0] != n or not ((idx >= 0) & (idx < num_experts)).all():
+        raise ValueError(f'expert_idx {idx.tolist()}: expected {n} indices '
+                         f'in [0, {num_experts})')
+    experts = np.unique(idx)
+    if len(experts) == 1:
+        return int(experts[0])
+    return [(int(e), torch.as_tensor(np.flatnonzero(idx == e),
+                                     device=device)) for e in experts]
+
+
+class MoEMlp(nn.Module):
+    """The ViTPose+ FFN (JAX vit.py:123-163 `MoEMlp`, reference
+    vit_moe.py:78): fc1 and GELU, then the shared `fc2` gives the first
+    dim - part_dim channels and the sample's expert the last part_dim.
+
+    The experts are stacked parameters, `expert_weight` [E, part, hidden]
+    and `expert_bias` [E, part], as JAX stacks `expert_kernel` and
+    `expert_bias`. So every step gives every expert a gradient, zeros where
+    the batch did not select it, and AdamW moves and decays each expert as
+    optax does; and the decay rule sees what JAX's sees (it decays the 2-D
+    `expert_bias`, where mmpose's 1-D expert biases do not decay). State
+    dicts carry the mmpose names `experts.{e}.weight` [part, hidden] and
+    `experts.{e}.bias` [part]: the module writes and reads them.
+
+    The expert product is one matmul per expert that the batch holds,
+    over that expert's rows (`expert_routing`), not JAX's one-hot einsum,
+    which builds per-sample [hidden, part] weights.
+    """
+
+    def __init__(self, dim, hidden_dim, num_experts, part_dim,
+                 gelu_approx=False):
+        super().__init__()
+        self.part_dim = part_dim
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, dim - part_dim)
+        self.expert_weight = nn.Parameter(
+            torch.zeros(num_experts, part_dim, hidden_dim))
+        self.expert_bias = nn.Parameter(torch.zeros(num_experts, part_dim))
+        self.gelu_approx = gelu_approx
+        self.register_state_dict_post_hook(_experts_to_mmpose)
+        self.register_load_state_dict_pre_hook(_experts_from_mmpose)
+
+    def forward(self, x, dtype, route):
+        h = linear(self.fc1, x, dtype)
+        h = F.gelu(h, approximate='tanh' if self.gelu_approx else 'none')
+        shared = linear(self.fc2, h, dtype)
+        w, b = self.expert_weight.to(dtype), self.expert_bias.to(dtype)
+        if isinstance(route, int):
+            part = F.linear(h, w[route], b[route])
+        else:
+            part = h.new_empty(h.shape[:-1] + (self.part_dim,))
+            for e, rows in route:
+                part[rows] = F.linear(h[rows], w[e], b[e])
+        return torch.cat([shared, part], dim=-1)
+
+
+def _experts_to_mmpose(module, state_dict, prefix, local_metadata):
+    w = state_dict.pop(prefix + 'expert_weight')
+    b = state_dict.pop(prefix + 'expert_bias')
+    for e in range(w.shape[0]):
+        state_dict[f'{prefix}experts.{e}.weight'] = w[e].clone()
+        state_dict[f'{prefix}experts.{e}.bias'] = b[e].clone()
+
+
+def _experts_from_mmpose(module, state_dict, prefix, *args):
+    n = module.expert_weight.shape[0]
+    keys = [(f'{prefix}experts.{e}.weight', f'{prefix}experts.{e}.bias')
+            for e in range(n)]
+    if all(k in state_dict for pair in keys for k in pair):
+        state_dict[prefix + 'expert_weight'] = torch.stack(
+            [state_dict.pop(w) for w, _ in keys])
+        state_dict[prefix + 'expert_bias'] = torch.stack(
+            [state_dict.pop(b) for _, b in keys])
+
+
 class Attention(nn.Module):
     """Multi-head self-attention with one fused qkv projection.
 
@@ -166,13 +261,16 @@ class Attention(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=True,
-                 fused_attention=False, drop_path=0.0, gelu_approx=False):
+                 fused_attention=False, drop_path=0.0, gelu_approx=False,
+                 num_experts=0, part_dim=0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, fused_attention)
         self.drop_path = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approx)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = (MoEMlp(dim, hidden, num_experts, part_dim, gelu_approx)
+                    if num_experts > 0 else Mlp(dim, hidden, gelu_approx))
 
     def draw_masks(self, x, generator=None):
         """The DropPath masks of the two branches, in the order forward
@@ -180,10 +278,12 @@ class Block(nn.Module):
         return (self.drop_path.draw(x, generator),
                 self.drop_path.draw(x, generator))
 
-    def forward(self, x, dtype, masks=(None, None)):
+    def forward(self, x, dtype, masks=(None, None), route=None):
+        """`route`: the batch's `expert_routing` in an MoE block."""
         y = self.attn(self.norm1(x.float()).to(dtype), dtype)
         x = x + self.drop_path.drop(y, masks[0])
-        y = self.mlp(self.norm2(x.float()).to(dtype), dtype)
+        y = self.norm2(x.float()).to(dtype)
+        y = self.mlp(y, dtype) if route is None else self.mlp(y, dtype, route)
         return x + self.drop_path.drop(y, masks[1])
 
 
@@ -234,9 +334,6 @@ def _check_ported(cfg: ViTConfig):
     if cfg.int8_mlp or cfg.int8_qkv or cfg.int8_act_scales:
         raise NotImplementedError('int8 W8A8 serving is not ported yet '
                                   '(ROADMAP.md queue 1 item 8)')
-    if cfg.num_experts > 0:
-        raise NotImplementedError('the ViTPose+ MoE MLP is not ported yet '
-                                  '(ROADMAP.md queue 1 item 10)')
     if cfg.remat_blocks and cfg.remat_policy not in _REMAT_CONTEXT:
         raise ValueError(f'remat_policy {cfg.remat_policy!r}: expected '
                          "'full', 'attn', or 'dots'")
@@ -268,7 +365,8 @@ class ViT(nn.Module):
         dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
         self.blocks = nn.ModuleList([
             Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
-                  cfg.fused_attention, float(dpr[i]), cfg.gelu_approx)
+                  cfg.fused_attention, float(dpr[i]), cfg.gelu_approx,
+                  cfg.num_experts, cfg.part_dim)
             for i in range(cfg.depth)])
         self.last_norm = nn.LayerNorm(d, eps=1e-6)
         self.reset_parameters(generator)
@@ -283,14 +381,22 @@ class ViT(nn.Module):
             for layer in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1,
                           blk.mlp.fc2):
                 init_linear(layer, generator)
+            if isinstance(blk.mlp, MoEMlp):
+                # flax's lecun_normal on JAX's [E, hidden, part] kernel takes
+                # E * hidden as its fan-in
+                w = blk.mlp.expert_weight
+                normal_(w, (w.shape[0] * w.shape[2]) ** -0.5, generator)
+                nn.init.zeros_(blk.mlp.expert_bias)
             for norm in (blk.norm1, blk.norm2):
                 norm.reset_parameters()
         self.last_norm.reset_parameters()
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, expert_idx=None):
         """`generator` feeds DropPath in training mode (see DropPath): the
         masks are drawn block by block, attention branch first, in the
-        order the blocks use them."""
+        order the blocks use them. `expert_idx` picks each sample's expert
+        in a ViTPose+ backbone (see `expert_routing`); a plain one ignores
+        it, as JAX's does."""
         dtype = compute_dtype(self.cfg.dtype)
         proj = self.patch_embed.proj
         x = x.to(dtype).permute(0, 3, 1, 2)
@@ -301,20 +407,24 @@ class ViT(nn.Module):
         pos = self.pos_embed.to(dtype)
         # keep the cls-token slot additive, as the pretrained weights expect
         x = x + pos[:, 1:] + pos[:, :1]
+        route = (expert_routing(expert_idx, n, self.cfg.num_experts,
+                                x.device)
+                 if self.cfg.num_experts > 0 else None)
         for blk in self.blocks:
-            x = self._block(blk, x, dtype, blk.draw_masks(x, generator))
+            x = self._block(blk, x, dtype, blk.draw_masks(x, generator),
+                            route)
         x = self.last_norm(x.float()).to(dtype)
         return x.reshape(n, hp, wp, d)
 
-    def _block(self, blk, x, dtype, masks):
+    def _block(self, blk, x, dtype, masks, route):
         """One block; under `remat_blocks`, while a gradient is recorded, a
         non-reentrant checkpoint that keeps the block's inputs and what
         its policy keeps. The DropPath masks are drawn before it from the
         caller's generator, whose state a recompute would not restore, so
         no random draw happens inside and no RNG state is stashed."""
         if not (self.cfg.remat_blocks and torch.is_grad_enabled()):
-            return blk(x, dtype, masks)
+            return blk(x, dtype, masks, route)
         context = _REMAT_CONTEXT[self.cfg.remat_policy]
         kw = {} if context is None else {'context_fn': context}
-        return checkpoint(blk, x, dtype, masks, use_reentrant=False,
+        return checkpoint(blk, x, dtype, masks, route, use_reentrant=False,
                           preserve_rng_state=False, **kw)

@@ -3,16 +3,23 @@
 Counterpart of vitpose_tpu/train/loop.py: `build_model_from_cfg` (the `vit`
 branch of :84-101), `_log` (:33-45), `_pop_freeze_options` and the freezing
 of `_apply_freeze` (:67-81), `train_model` (the top-down ViT branch of
-:239-479) and the `pretrained` / `load_from` merges (:330-353, :482-517).
+:239-479), `train_model_moe` (:520-706, the ViTPose+ runner) and the
+`pretrained` / `load_from` merges (:330-353, :482-517).
 
 One epoch of `train_model`: the host loader -> pinned staging -> the device
-crop and targets (`make_preprocess_fn`) -> `make_train_step` -> json-lines
+crop and targets (`make_preprocess_fn`) -> the train step -> json-lines
 log; every `eval_interval` epochs `run_validation` + `ds.evaluate`; a
 checkpoint every `ckpt_interval` epochs and at the last one; `max_steps`
 returns without saving; SIGTERM saves the state as an incomplete epoch and
-returns, and `resume` redoes that epoch. The other model families, the
-ViTPose+ multi-dataset runner, ZeRO-1 and TensorBoard are not ported yet
-and raise.
+returns, and `resume` redoes that epoch. A list of train sets is ViTPose+
+multi-dataset training, which JAX runs in `train_model_moe`: one loader per
+set in one mixture of single-dataset batches, targets padded to
+`max_num_joints`, the MoE step (`make_moe_train_step`), the dataset logged
+per step, evaluation through expert 0 and the main head. The port runs
+both in this one loop, so the MoE run also gets what JAX's
+`train_model_moe` lacks: `load_from`, the preemption save and the
+`data_time` log. The other
+model families, ZeRO-1 and TensorBoard are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import numpy as np
 import torch
 
 from ..data import topdown_dataset_cls
-from ..data.loader import TopDownLoader
+from ..data.loader import MultiDatasetLoader, TopDownLoader
 from ..data.pipeline import AugmentConfig, make_preprocess_fn
 from ..eval.loop import PinnedStaging, run_validation
 from ..models.topdown import TopDownConfig, TopDownModel, make_config
@@ -36,7 +43,7 @@ from ..utils.torch_ckpt import (checkpoint_state_dict,
                                 convert_backbone_checkpoint)
 from .optim import OptimConfig, layer_decay_adamw, make_freeze_mask
 from .state import create_train_state
-from .step import make_train_step
+from .step import make_moe_train_step, make_train_step
 
 
 def topdown_config(mcfg: dict) -> TopDownConfig:
@@ -131,10 +138,6 @@ def _refuse_unported(cfg):
     if family != 'topdown':
         raise NotImplementedError(f'training the {family!r} family is not '
                                   'ported yet (ROADMAP.md queue 1 item 12)')
-    if isinstance(cfg['data'].get('train'), (list, tuple)):
-        raise NotImplementedError('ViTPose+ multi-dataset (MoE) training is '
-                                  'not ported yet (ROADMAP.md queue 1 item '
-                                  '10)')
     rt = cfg.get('runtime', {})
     if rt.get('zero1'):
         raise NotImplementedError('runtime.zero1 (sharded optimizer state '
@@ -167,9 +170,10 @@ def _batch_to_device(batch, dev, staging):
 
 def build_train_state(cfg: dict, steps_per_epoch: int, device):
     """The runner's model and train state for `cfg`, on `device`: random
-    weights from runtime.seed, then `pretrained` and `load_from`, then the
-    layer-decay AdamW with the optimizer config's freezing. Returns the
-    state; its model is `state.model`."""
+    weights from runtime.seed, then `pretrained` (its fc2 split into the
+    experts of a ViTPose+ backbone) and `load_from`, then the layer-decay
+    AdamW with the optimizer config's freezing. Returns the state; its
+    model is `state.model`."""
     seed = cfg.get('runtime', {}).get('seed', 0)
     model = build_model_from_cfg(cfg['model'],
                                  torch.Generator().manual_seed(seed))
@@ -187,13 +191,56 @@ def build_train_state(cfg: dict, steps_per_epoch: int, device):
     return create_train_state(model, tx, ocfg.grad_clip_norm)
 
 
+def _train_data(cfg: dict, seed: int):
+    """(loader, preprocess, number of datasets) of the config's train set;
+    the number is None for one train set, and for a list (ViTPose+) the
+    loader is the mixture of one loader per set, with its dataset_idx and
+    seed + i, and the targets are padded to data.max_num_joints."""
+    dcfg = cfg['data']
+    image_size = tuple(dcfg.get('image_size', (192, 256)))
+    heatmap_size = tuple(dcfg.get('heatmap_size', (48, 64)))
+    tcfg = cfg.get('target', {})
+    target = dict(image_size=image_size, heatmap_size=heatmap_size,
+                  use_udp=tcfg.get('encoding', 'UDP') == 'UDP',
+                  sigma=tcfg.get('sigma', 2.0))
+    multi = isinstance(dcfg['train'], (list, tuple))
+    if multi:
+        max_k = dcfg.get('max_num_joints', 133)
+        entries = dcfg['train']
+        preprocess = make_preprocess_fn(**target, pad_num_joints=max_k)
+    else:
+        entries = [dict(dcfg['train'], dataset=dcfg.get('dataset', 'coco'))]
+        preprocess = make_preprocess_fn(
+            **target, unbiased=tcfg.get('unbiased', False),
+            target_type=cfg['model'].get('target_type', 'GaussianHeatmap'))
+    loaders = []
+    for i, entry in enumerate(entries):
+        name = entry.get('dataset', 'coco')
+        kw = (dict(dataset_idx=entry.get('dataset_idx', i),
+                   max_num_joints=max_k) if multi else {})
+        ds = topdown_dataset_cls(name)(
+            entry['ann_file'], entry['img_prefix'], dataset_info=name,
+            image_size=image_size, heatmap_size=heatmap_size,
+            use_gt_bbox=entry.get('use_gt_bbox', True), **kw)
+        loaders.append(TopDownLoader(
+            ds, dcfg.get('batch_size', 64), is_train=True,
+            canvas_size=dcfg.get('canvas_size'),
+            padding=dcfg.get('padding', 1.25),
+            aug=AugmentConfig(**dcfg.get('aug', {})),
+            seed=seed + i, num_workers=dcfg.get('num_workers', 8)))
+    if multi:
+        return MultiDatasetLoader(loaders), preprocess, len(loaders)
+    return loaders[0], preprocess, None
+
+
 def train_model(cfg: dict, work_dir: Optional[str] = None,
                 resume: bool = False, max_steps: Optional[int] = None,
                 device='cuda'):
     """Train from a config dict (see vitpose_tpu/configs/) on `device`
     (CUDA unless the caller passes 'cpu'; it raises without CUDA). Returns
     the final TrainState. `max_steps` stops after that many optimizer
-    steps, without a checkpoint."""
+    steps, without a checkpoint. A list-valued data.train trains ViTPose+
+    on the mixture of its datasets."""
     from ..api.inference import _device
     _refuse_unported(cfg)
     dev = _device(device)
@@ -206,32 +253,26 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
     dcfg = cfg['data']
     image_size = tuple(dcfg.get('image_size', (192, 256)))
     heatmap_size = tuple(dcfg.get('heatmap_size', (48, 64)))
-    ds_name = dcfg.get('dataset', 'coco')
-    train_ds = topdown_dataset_cls(ds_name)(
-        dcfg['train']['ann_file'], dcfg['train']['img_prefix'],
-        dataset_info=ds_name, image_size=image_size,
-        heatmap_size=heatmap_size,
-        use_gt_bbox=dcfg['train'].get('use_gt_bbox', True))
-    loader = TopDownLoader(
-        train_ds, dcfg.get('batch_size', 64), is_train=True,
-        canvas_size=dcfg.get('canvas_size'),
-        padding=dcfg.get('padding', 1.25),
-        aug=AugmentConfig(**dcfg.get('aug', {})),
-        seed=seed, num_workers=dcfg.get('num_workers', 8))
-    tcfg = cfg.get('target', {})
-    target_type = cfg['model'].get('target_type', 'GaussianHeatmap')
-    preprocess = make_preprocess_fn(
-        image_size=image_size, heatmap_size=heatmap_size,
-        use_udp=tcfg.get('encoding', 'UDP') == 'UDP',
-        sigma=tcfg.get('sigma', 2.0), unbiased=tcfg.get('unbiased', False),
-        target_type=target_type)
+    loader, preprocess, num_datasets = _train_data(cfg, seed)
 
     # ---- model + optimizer -----------------------------------------
     total_epochs = cfg.get('optimizer', {}).get('total_epochs', 210)
     steps_per_epoch = max(1, len(loader))
     state = build_train_state(cfg, steps_per_epoch, dev)
     model = state.model
-    train_step = make_train_step(model, target_type=target_type)
+    if num_datasets is None:
+        train_step = make_train_step(
+            model, target_type=cfg['model'].get('target_type',
+                                                'GaussianHeatmap'))
+        val_route = {}
+    else:
+        if model.cfg.num_extra_heads != num_datasets - 1:
+            raise ValueError(
+                f'{num_datasets} train sets need {num_datasets - 1} '
+                f'associate heads; the model has '
+                f'{model.cfg.num_extra_heads}')
+        train_step = make_moe_train_step(model, num_datasets)
+        val_route = dict(expert_idx=0, head_idx=0)
 
     # ---- checkpointing / resume ------------------------------------
     save_best = (rt.get('save_best')
@@ -251,9 +292,10 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
     # ---- val loader -------------------------------------------------
     val_loader = None
     if 'val' in dcfg:
-        val_ds = topdown_dataset_cls(ds_name)(
+        val_name = dcfg['val'].get('dataset', dcfg.get('dataset', 'coco'))
+        val_ds = topdown_dataset_cls(val_name)(
             dcfg['val']['ann_file'], dcfg['val']['img_prefix'],
-            dataset_info=ds_name, image_size=image_size,
+            dataset_info=val_name, image_size=image_size,
             heatmap_size=heatmap_size, test_mode=True,
             use_gt_bbox=dcfg['val'].get('use_gt_bbox', True),
             bbox_file=dcfg['val'].get('bbox_file'))
@@ -283,15 +325,20 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
             for it, batch in enumerate(loader):
                 t_data += time.time() - t_last
                 pre = preprocess(*_batch_to_device(batch, dev, staging))
+                if num_datasets is not None:
+                    pre['dataset_idx'] = batch['dataset_idx']
                 generator.manual_seed(step_seed(seed, global_step))
                 metrics = train_step(state, pre, generator)
                 global_step += 1
                 if it % log_interval == 0:
+                    record = dict(mode='train', epoch=epoch, iter=it)
+                    if num_datasets is not None:
+                        record['dataset'] = int(batch['dataset_idx'][0])
                     # the one read-back of the step's metrics
-                    m = {k: float(v) for k, v in metrics.items()}
-                    _log(work_dir, dict(mode='train', epoch=epoch, iter=it,
-                                        step=global_step, data_time=t_data,
-                                        time=time.time() - t_epoch, **m))
+                    record.update(step=global_step, data_time=t_data,
+                                  time=time.time() - t_epoch,
+                                  **{k: float(v) for k, v in metrics.items()})
+                    _log(work_dir, record)
                 t_last = time.time()
                 if guard.should_stop:
                     _log(work_dir, {'mode': 'preempt', 'epoch': epoch,
@@ -311,7 +358,7 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
                     model, val_loader, use_udp=mcfg.use_udp,
                     post_process=mcfg.post_process,
                     modulate_kernel=mcfg.modulate_kernel,
-                    target_type=mcfg.target_type)
+                    target_type=mcfg.target_type, **val_route)
                 eval_metric = cfg.get('evaluation', {}).get('metric')
                 stats = (val_loader.ds.evaluate(results, metric=eval_metric)
                          if eval_metric else val_loader.ds.evaluate(results))

@@ -1,5 +1,6 @@
-"""The top-down train step (counterpart of vitpose_tpu/train/step.py:28-102
-`make_train_step` for GaussianHeatmap targets and the joints MSE).
+"""The top-down train steps (counterpart of vitpose_tpu/train/step.py:28-102
+`make_train_step` for GaussianHeatmap targets and the joints MSE, and
+:140-176 `make_moe_train_step`, the ViTPose+ multi-dataset step).
 
 One step: forward in training mode (BN batch statistics, DropPath from the
 caller's generator), joints MSE, backward (through K3: the K2 kernel on
@@ -8,6 +9,8 @@ device as 0-dim tensors, and nothing in the step reads back to the host; PCK
 is computed on the device as in the JAX step.
 """
 from __future__ import annotations
+
+import torch
 
 from ..models.losses import joints_mse_loss
 from ..models.topdown import forward
@@ -28,8 +31,8 @@ def make_train_step(model, target_type='GaussianHeatmap'):
     if target_type.lower() != 'gaussianheatmap':
         raise NotImplementedError(
             f'target_type {target_type!r}: only GaussianHeatmap with the '
-            'joints MSE is ported (regression, CombinedTarget, awing and the '
-            'MoE step: ROADMAP.md queue 1 items 7 and 10)')
+            'joints MSE is ported (regression, CombinedTarget and awing: '
+            'ROADMAP.md queue 1 item 7)')
 
     def train_step(state, batch, generator):
         out = forward(state.model, batch['imgs'], train=True,
@@ -44,5 +47,49 @@ def make_train_step(model, target_type='GaussianHeatmap'):
                                    batch['target_weight'] > 0)
         return {'heatmap_loss': loss.detach(), 'grad_norm': grad_norm,
                 'acc_pose': acc}
+
+    return train_step
+
+
+def make_moe_train_step(model, num_datasets):
+    """ViTPose+ multi-dataset step: train_step(state, batch, generator) ->
+    metrics, as make_train_step's, where the batch also carries
+    `dataset_idx`, one int per sample on the host (numpy), and the targets
+    are padded to the mixture's largest joint count.
+
+    Every sample takes the expert of its dataset, and every head runs on
+    the whole batch in training mode (so every head's BN statistics move).
+    loss_d is head d's joints MSE over its first K_d target channels, its
+    weights masked to the samples of dataset d (0 when the batch holds none:
+    its parameters then get zero gradients); heatmap_loss is their sum
+    (reference top_down_moe.py:166-203). Metrics: every loss_d,
+    heatmap_loss and grad_norm. Raises if the model's head count is not
+    `num_datasets`.
+    """
+    def train_step(state, batch, generator):
+        ds_idx = batch['dataset_idx']
+        outs = forward(state.model, batch['imgs'], train=True,
+                       generator=generator, expert_idx=ds_idx,
+                       all_heads=True)
+        if len(outs) != num_datasets:
+            raise ValueError(
+                f'model has {len(outs)} heads but num_datasets='
+                f'{num_datasets}: samples of unmatched datasets would '
+                'silently contribute no loss')
+        idx = torch.as_tensor(ds_idx, device=batch['imgs'].device)
+        losses = {}
+        for d, out in enumerate(outs):
+            k = out.shape[1]
+            weight = batch['target_weight'][:, :k] \
+                * (idx == d).float()[:, None]
+            losses[f'loss_{d}'] = joints_mse_loss(
+                out, batch['target'][:, :k], weight)
+        loss = sum(losses.values())
+        state.model.zero_grad(set_to_none=True)
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics.update(heatmap_loss=loss.detach(), grad_norm=grad_norm)
+        return metrics
 
     return train_step

@@ -1,12 +1,15 @@
 """Weight carry-over from the JAX package to the port.
 
 `state_dict_from_flax` is the exact inverse of the JAX package's
-`convert_backbone` and `convert_head`
-(vitpose_tpu/utils/torch_ckpt.py:182-285):
+`convert_backbone`, `convert_head` and the associate-head loop of
+`convert_topdown_checkpoint` (vitpose_tpu/utils/torch_ckpt.py:182-313):
 it turns flax variables {'params', 'batch_stats'} (numpy arrays) into a state
 dict under the mmpose names that TopDownModel uses, for the classic head (also
-with the identity final layer) and the simple decoder; variables without
-'batch_stats' give a state dict without the BN running statistics.
+with the identity final layer) and the simple decoder, and for ViTPose+ the
+experts (JAX's stacked `expert_kernel` [E, hidden, part] and `expert_bias`
+to `mlp.experts.{e}.{weight,bias}`) and the associate heads (`extra_head_{j}`
+to `associate_keypoint_heads.{j}`); variables without 'batch_stats' give a
+state dict without the BN running statistics.
 `load_params_npz` reads the flat 'a/b/c' .npz files that the JAX package's
 `save_params_npz` writes (vitpose_tpu/utils/checkpoint.py:160-186).
 """
@@ -50,6 +53,12 @@ def _backbone(p):
             sd[b + f'{group}.{name}.weight'] = _t(dense['kernel'].T)
             if 'bias' in dense:
                 sd[b + f'{group}.{name}.bias'] = _t(dense['bias'])
+        mlp = blk['mlp']
+        if 'expert_kernel' in mlp:
+            for e, (w, bias) in enumerate(zip(mlp['expert_kernel'],
+                                              mlp['expert_bias'])):
+                sd[b + f'mlp.experts.{e}.weight'] = _t(w.T)
+                sd[b + f'mlp.experts.{e}.bias'] = _t(bias)
         i += 1
     sd['last_norm.weight'] = _t(p['last_norm']['scale'])
     sd['last_norm.bias'] = _t(p['last_norm']['bias'])
@@ -84,8 +93,14 @@ def _head(p, stats):
 def state_dict_from_flax(variables) -> dict:
     """flax TopDownModel variables -> {mmpose name: f32 CPU tensor}."""
     params = variables['params']
-    stats = variables.get('batch_stats', {}).get('head', {})
+    stats = variables.get('batch_stats', {})
     sd = {f'backbone.{k}': v for k, v in _backbone(params['backbone']).items()}
-    sd.update({f'keypoint_head.{k}': v
-               for k, v in _head(params['head'], stats).items()})
+    heads = [('head', 'keypoint_head')]
+    j = 0
+    while f'extra_head_{j}' in params:
+        heads.append((f'extra_head_{j}', f'associate_keypoint_heads.{j}'))
+        j += 1
+    for flax_name, name in heads:
+        sd.update({f'{name}.{k}': v for k, v in
+                   _head(params[flax_name], stats.get(flax_name, {})).items()})
     return sd

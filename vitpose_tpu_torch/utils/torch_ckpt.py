@@ -1,16 +1,19 @@
 """Reading released ViTPose/MAE .pth weights and adapting them to a model's
 input geometry.
 
-The port's own copy of vitpose_tpu/utils/torch_ckpt.py:36-134 and :320
-(`load_torch_state_dict`, `convert_backbone_checkpoint`), which reproduce the
-reference loader (mmcv_custom/checkpoint.py:312 `load_checkpoint`):
+The port's own copy of vitpose_tpu/utils/torch_ckpt.py:36-170 and :320
+(`load_torch_state_dict`, `split_moe_experts`, `merge_moe_expert`,
+`convert_backbone_checkpoint`), which reproduce the reference loader
+(mmcv_custom/checkpoint.py:312 `load_checkpoint`):
   * {'state_dict' | 'model' | 'module'} containers are opened and 'module.'
     and MoBY 'encoder.' prefixes taken off;
   * a 14x14 patch-embed kernel is zero-padded (or interpolated) to the
     model's patch size;
   * the position embedding is regridded bicubically (torch
     `F.interpolate`, align_corners=False) to the model's token grid,
-    keeping the cls-token slot.
+    keeping the cls-token slot;
+  * a dense backbone gives a ViTPose+ backbone its experts: each takes the
+    last `part_dim` rows of fc2, and fc2 keeps the rest.
 The port keeps the mmpose parameter names, so no name map is needed. The
 regrid and the pad work on host numpy arrays, as in the JAX package.
 `checkpoint_state_dict` also reads the JAX package's .npz exports.
@@ -30,7 +33,8 @@ from .convert import load_params_npz, state_dict_from_flax
 # (cls_token, its final `norm`, a decoder) stays behind
 _BACKBONE_KEY = re.compile(
     r'(patch_embed\.proj|blocks\.\d+\.(norm1|norm2|attn\.qkv|attn\.proj|'
-    r'mlp\.fc1|mlp\.fc2)|last_norm)\.(weight|bias)|pos_embed')
+    r'mlp\.fc1|mlp\.fc2|mlp\.experts\.\d+)|last_norm)\.(weight|bias)|'
+    r'pos_embed')
 
 
 def load_torch_state_dict(path):
@@ -67,7 +71,8 @@ def convert_backbone_checkpoint(path, backbone_cfg):
     """A backbone-only (MAE pretraining) .pth, its keys without the
     'backbone.' prefix -> the ViT state dict entries it holds, its patch
     kernel padded and its pos embed regridded to `backbone_cfg` (a
-    ViTConfig). Raises if it holds none."""
+    ViTConfig), and for a ViTPose+ backbone its fc2 split into experts
+    (`split_moe_experts`). Raises if it holds none."""
     sd = {k: v for k, v in load_torch_state_dict(path).items()
           if _BACKBONE_KEY.fullmatch(k)}
     if not sd:
@@ -75,7 +80,46 @@ def convert_backbone_checkpoint(path, backbone_cfg):
                          "names such as 'blocks.0.attn.qkv.weight')")
     sd = adapt_state_dict({f'backbone.{k}': v for k, v in sd.items()},
                           backbone_cfg)
-    return {k[len('backbone.'):]: v for k, v in sd.items()}
+    sd = {k[len('backbone.'):]: v for k, v in sd.items()}
+    if backbone_cfg.num_experts:
+        sd = split_moe_experts(sd, backbone_cfg.num_experts,
+                               backbone_cfg.part_dim, backbone_cfg.depth)
+    return sd
+
+
+def split_moe_experts(sd, num_experts, part_dim, depth):
+    """Give a ViTPose+ backbone its experts from a dense fc2 (reference
+    checkpoint.py:396-404): each expert gets the LAST `part_dim` output
+    rows of fc2, and fc2 keeps the rest. Keys without the 'backbone.'
+    prefix; returns a new dict."""
+    sd = dict(sd)
+    for i in range(depth):
+        wk = f'blocks.{i}.mlp.fc2.weight'
+        bk = f'blocks.{i}.mlp.fc2.bias'
+        if wk not in sd or sd[wk].shape[0] <= part_dim:
+            continue
+        w, b = sd[wk], sd[bk]
+        for e in range(num_experts):
+            sd[f'blocks.{i}.mlp.experts.{e}.weight'] = w[-part_dim:].clone()
+            sd[f'blocks.{i}.mlp.experts.{e}.bias'] = b[-part_dim:].clone()
+        sd[wk] = w[:-part_dim].clone()
+        sd[bk] = b[:-part_dim].clone()
+    return sd
+
+
+def merge_moe_expert(sd, expert_id, depth):
+    """The inverse of the split for one task: expert `expert_id`'s rows
+    appended to fc2 again, and every expert dropped (reference
+    tools/model_split.py:38-43). Keys with the 'backbone.' prefix; returns
+    a new dict."""
+    sd = dict(sd)
+    for i in range(depth):
+        b = f'backbone.blocks.{i}.mlp.'
+        if b + 'fc2.weight' in sd and f'{b}experts.{expert_id}.weight' in sd:
+            for p in ('weight', 'bias'):
+                sd[f'{b}fc2.{p}'] = torch.cat(
+                    [sd[f'{b}fc2.{p}'], sd[f'{b}experts.{expert_id}.{p}']])
+    return {k: v for k, v in sd.items() if '.experts.' not in k}
 
 
 def _interpolate_pos_embed(pos, num_patches, grid_hw):
