@@ -28,6 +28,27 @@ no result:
             2 boxes, in f32 (TF32 off) and in bf16: f32 heatmaps and decisive
             keypoints agree; the bf16 CUDA path is as close to the f32 CPU
             answer as the bf16 CPU path is (within BF16_FACTOR)
+  int8      Int8Linear (W8A8, torch._int_mm) on the card against its CPU
+            path at the four ViT-B products (qkv, proj, fc1, fc2; bf16 in
+            and out, one 8-box pass of rows): equal weight and activation
+            codes, an exact int32 product, equal outputs; at a 256-crop
+            pass's rows the times of _int_mm, the bf16 matmul it replaces,
+            the quantise + dequantise passes alone and the whole layer
+  serve-int8 full-width ViTPose-B 256x192 through int8_serving_config (W8A8
+            MLP, qkv and proj; bf16, K1, tanh GELU as the server's --fast)
+            at skip 0 and 1, scales calibrated on the scene's crops: 24 K1
+            launches per 8-box call (all whole-pair) and 96 / 80 _int_mm,
+            keypoints finite, inside their padded boxes and near the --fast
+            bf16 path's; the 256-crop batch of int8 and of --fast bf16 timed
+            in turns
+  deploy    the HTTP server (vitpose_tpu_torch.tools.serve, build_server on
+            port 0) on the card: the COCO-B config in its default mode,
+            --fast and --int8-qkv (--calib-dir of the scene's person crops),
+            and the default --variant s with --fast (K1 at head dim 32),
+            each from shaped weights saved as a .pth; 1-box and 8-box
+            requests answer exactly what the direct API call gives, K1 and
+            _int_mm launches per request, p50/p99 latency beside the
+            direct call's median
   eval      the evaluation CLI (vitpose_tpu_torch.tools.test) on the COCO-B
             config file (ViTPose-B 256x192 bf16, K1, flip test, UDP, batch
             64, canvas 640), pointed by --cfg-options at a synthetic COCO val
@@ -39,7 +60,9 @@ no result:
             stats, AP in (0, 1); then the same run timed: every val-step
             tensor on the card, one finite result per box, boxes/s (decode
             included), the host's decode and batch time alone, the card's
-            busy time (torch.profiler) and peak memory
+            busy time (torch.profiler) and peak memory; after eval-ref,
+            the CLI once more with --int8 --int8-skip 1 --show-dir: K1 and
+            _int_mm launches, AP beside the bf16 AP, one drawing per image
   eval-ref  16 of those boxes through the same config on CUDA in f32 (TF32
             off) and bf16 and on the CPU in f32: f32 keypoints agree as
             serve-ref's do and f32 AP within EVAL_REF_AP_TOL; bf16 AP beside
@@ -111,9 +134,11 @@ no result:
 
 Then the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
-launches in a train step and `launches_per_path`: per serve call, eval run,
-train step, train-loop run, remat step and moe-train run), the nvidia-smi
-card line and the result line.
+launches in a train step and `launches_per_path`: per serve call, int8
+serve call, server request per mode, eval run, int8 eval run, train step,
+train-loop run, remat step and moe-train run; beside the kernels, the
+int8 product's launches per path and times, the server's latencies and the
+int8 AP), the nvidia-smi card line and the result line.
 
 The weights are random (torch.Generator seed 0, inside init_pose_model).
 Random heatmaps make the UDP Newton step ill conditioned, so the smoke makes
@@ -127,6 +152,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -424,12 +450,15 @@ class DeviceAudit(TorchDispatchMode):
 
 
 def reset_counts():
-    """Every kernel wrapper's launch counts to 0, per design too."""
+    """Every kernel wrapper's launch counts to 0, per design too, and the
+    int8 product's (torch._int_mm) count."""
+    from vitpose_tpu_torch.models.vit import int8_matmul
     from vitpose_tpu_torch.ops.attention import (fused_attention,
                                                  fused_attention_bwd)
     for fn in (fused_attention, fused_attention_bwd):
         fn.launches = 0
         fn.design_launches = dict.fromkeys(fn.design_launches, 0)
+    int8_matmul.launches = 0
 
 
 def phase_serve():
@@ -566,6 +595,351 @@ def phase_serve_ref():
           f'keypoints); CUDA vs CPU bf16 heatmaps '
           f'{np.abs(hm_gb - hm_cb).max():.3e}; max |f32 heatmap| '
           f'{np.abs(hm_ref).max():.3e}', flush=True)
+
+
+# int8: the four ViT-B products (in, out) and the rows of one 8-box call's
+# pass (checked against the CPU) and of a 256-crop batch's (timed)
+INT8_SHAPES = (('qkv', 768, 2304), ('proj', 768, 768), ('fc1', 768, 3072),
+               ('fc2', 3072, 768))
+INT8_CHECK_ROWS = 8 * 192
+INT8_TIME_ROWS = 256 * 192
+INT8_PEAK_OPS = 1979e12              # dense int8 tensor-core rate
+
+
+def int8_bound(m, k, n):
+    """Least time of the int8 product: x_q and w_q read once, the int32
+    output written once, against 2mnk operations at the int8 peak."""
+    bytes_ms = (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * m * n * k / INT8_PEAK_OPS * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def phase_int8(card):
+    """Int8Linear on the card against its CPU path at the four ViT-B
+    shapes, bf16 in and out as the serve path runs it: equal weight and
+    activation codes, an exact int32 product, equal outputs; then the
+    times of torch._int_mm, the bf16 product it replaces, and the
+    quantise + dequantise passes alone."""
+    from vitpose_tpu_torch.models.vit import Int8Linear, int8_matmul
+    gen = torch.Generator().manual_seed(3)
+    records = {}
+    for name, k, n in INT8_SHAPES:
+        x = torch.randn(INT8_CHECK_ROWS, k, generator=gen).to(torch.bfloat16)
+        a = float(x.float().abs().amax())
+        cpu = Int8Linear(k, n, act_scale=a)
+        with torch.no_grad():
+            cpu.weight.copy_(torch.randn(n, k, generator=gen) * k ** -0.5)
+            cpu.bias.copy_(0.1 * torch.randn(n, generator=gen))
+        card_layer = Int8Linear(k, n, act_scale=a).cuda()
+        card_layer.load_state_dict(cpu.state_dict())
+        xc = x.cuda()
+        w_q, _ = cpu.quantized_weight()
+        w_qc, _ = card_layer.quantized_weight()
+        x_q, _ = cpu.quantize_input(x)
+        x_qc, _ = card_layer.quantize_input(xc)
+        check(torch.equal(w_qc.cpu(), w_q) and torch.equal(x_qc.cpu(), x_q),
+              f'int8 {name}: codes differ between the card and the CPU')
+        y = int8_matmul(x_q, w_q)
+        yc = int8_matmul(x_qc, w_qc)
+        check(torch.equal(yc.cpu(), y), f'int8 {name}: the int32 product '
+              'differs between the card and the CPU')
+        with torch.no_grad():
+            out = cpu(x, torch.bfloat16).float()
+            outc = card_layer(xc, torch.bfloat16).float().cpu()
+        err = (outc - out).abs().max().item()
+        check(err == 0.0, f'int8 {name}: outputs differ by {err}')
+
+        m = INT8_TIME_ROWS
+        xt = torch.randn(m, k, device='cuda', dtype=torch.bfloat16)
+        card_layer.act_scale = float(xt.float().abs().amax())
+        w_qc, s_w = card_layer.quantized_weight()
+        x_qt, s_x = card_layer.quantize_input(xt)
+        yt = int8_matmul(x_qt, w_qc)
+        w16, b16 = (t.detach().to(torch.bfloat16) for t in (
+            card_layer.weight, card_layer.bias))
+        bias = card_layer.bias.detach()
+
+        def quant_dequant():
+            card_layer.quantize_input(xt)
+            ((yt.float() * s_x) * s_w + bias).to(torch.bfloat16)
+
+        with torch.no_grad():
+            ms = {'int_mm': time_ms(lambda: int8_matmul(x_qt, w_qc)),
+                  'bf16': time_ms(lambda: F.linear(xt, w16, b16)),
+                  'quant_dequant': time_ms(quant_dequant),
+                  'int8_linear': time_ms(
+                      lambda: card_layer(xt, torch.bfloat16))}
+        bound_ms, bound_by = int8_bound(m, k, n)
+        print(f'int8 {name} [{INT8_CHECK_ROWS}x{k}] x [{k}x{n}]: codes, '
+              f'int32 product and bf16 outputs equal the CPU path\'s '
+              f'(tol 0); at {m} rows: _int_mm {ms["int_mm"]:.4f} ms '
+              f'(bound {bound_ms:.4f}, {bound_by}), bf16 matmul '
+              f'{ms["bf16"]:.4f} ms, quantise + dequantise '
+              f'{ms["quant_dequant"]:.4f} ms, Int8Linear '
+              f'{ms["int8_linear"]:.4f} ms on {card}', flush=True)
+        records[name] = dict(ms, bound_ms=bound_ms, bound_by=bound_by,
+                             max_abs_err=err)
+        del xt, x_qt, yt
+    torch.cuda.empty_cache()
+    return records
+
+
+def scene_crops(pm, img, boxes):
+    """The normalised crops of `boxes` on `img`, as the serve path cuts
+    them, on the card: representative calibration inputs for the shaped
+    weights (the server's --calib-dir)."""
+    from vitpose_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+    from vitpose_tpu_torch.ops.geometry import bbox_xywh2cs, udp_warp_matrix
+    from vitpose_tpu_torch.ops.warp import warp_affine_batch
+    iw, ih = pm.image_size
+    c, s = bbox_xywh2cs(boxes[:, :4], iw / ih, padding=pm.padding)
+    n = len(boxes)
+    x = (torch.from_numpy(img).cuda().float() / 255.0)[None].expand(
+        n, -1, -1, -1)
+    mat = udp_warp_matrix(torch.zeros(n, device='cuda'), c.cuda(), s.cuda(),
+                          (iw, ih))
+    crops = warp_affine_batch(x, mat, (iw, ih))
+    return ((crops - torch.as_tensor(IMAGENET_MEAN, device='cuda'))
+            / torch.as_tensor(IMAGENET_STD, device='cuda'))
+
+
+FAST_CFG = {'variant': 'b', 'dtype': 'bfloat16',
+            'backbone_overrides': {'fused_attention': True,
+                                   'gelu_approx': True}}
+# serve-int8: the int8 path's keypoints (qkv on, skip 0 and 1) may lie at
+# most this far from the --fast bf16 path's, in image pixels. The first
+# chip run read 0.076 px (skip 0) and 0.070 px (skip 1); the bound is about
+# three times that, a twelfth of the eval set's GT jitter
+SERVE_INT8_KP_PX = 0.25
+INT8_TURN_CALLS = 4
+
+
+def batch_ms(pm, imgs, c, s, calls=INT8_TURN_CALLS):
+    """Median ms of `calls` 256-crop infer_batch calls after one warm-up."""
+    times = []
+    for i in range(calls + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds, _ = pm.infer_batch(imgs, c, s)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(torch.isfinite(preds).all().item(), 'non-finite batch preds')
+    return statistics.median(times)
+
+
+def phase_serve_int8(card):
+    """Full-width ViTPose-B 256x192 through int8_serving_config (W8A8 MLP,
+    qkv and proj; bf16, K1, tanh GELU as --fast) at skip 0 and 1, scales
+    calibrated on the scene's crops: launches per 8-box call, keypoints
+    against the --fast bf16 path's, and the 256-crop batch of int8 and of
+    --fast bf16 timed in turns (bf16, int8, int8, bf16)."""
+    import dataclasses
+    from vitpose_tpu_torch.api import (inference_top_down_pose_model,
+                                       init_pose_model)
+    from vitpose_tpu_torch.models.vit import int8_matmul
+    from vitpose_tpu_torch.ops.attention import fused_attention
+    from vitpose_tpu_torch.ops.geometry import bbox_xywh2cs
+    from vitpose_tpu_torch.utils.quantize import (calibrate_act_scales,
+                                                  first_last_skip,
+                                                  int8_serving_config,
+                                                  rebuild)
+    fast = init_pose_model(FAST_CFG, device='cuda')
+    shape_peaks(fast.model)
+    rng = np.random.RandomState(0)
+    boxes = grid_boxes(rng, 4, 2)
+    img = scene(0, boxes)
+    persons = [{'bbox': b} for b in boxes]
+    scales = calibrate_act_scales(fast.model, [scene_crops(fast, img, boxes)],
+                                  attn=True)
+    ref, _ = inference_top_down_pose_model(fast, img, persons)
+    kp_ref = np.stack([r['keypoints'] for r in ref])
+    center, size = padded_boxes(boxes, fast)
+    int8_models, out = {}, {}
+    depth = fast.cfg.backbone.depth
+    for skip in (0, 1):
+        cfg = int8_serving_config(fast.cfg, scales, qkv=True,
+                                  skip_blocks=first_last_skip(depth, skip,
+                                                              skip))
+        pm = dataclasses.replace(fast, model=rebuild(fast.model, cfg),
+                                 cfg=cfg)
+        reset_counts()
+        results, _ = inference_top_down_pose_model(pm, img, persons)
+        k1, mm = fused_attention.launches, int8_matmul.launches
+        check(k1 == 2 * depth and fused_attention.design_launches
+              == {'pair': k1, 'tiled': 0}, f'serve-int8 skip {skip}: K1 '
+              f'{fused_attention.design_launches}, expected 24 whole-pair')
+        check(mm == 8 * (depth - 2 * skip), f'serve-int8 skip {skip}: '
+              f'_int_mm launched {mm} times, expected 4 products x '
+              f'{depth - 2 * skip} blocks x 2 passes')
+        kp = np.stack([r['keypoints'] for r in results])
+        check(kp.shape == (8, 17, 3) and np.isfinite(kp).all(),
+              f'serve-int8 keypoints not finite or of shape {kp.shape}')
+        inside = np.abs(kp[..., :2] - center[:, None]) <= size[:, None] / 2
+        check(inside.all(), f'serve-int8: {(~inside).sum()} keypoint '
+              'coordinates outside their padded boxes')
+        dist = np.abs(kp[..., :2] - kp_ref[..., :2]).max(-1)
+        out[skip] = dict(k1=k1, int_mm=mm, kp_px=float(dist.max()),
+                         score=float(np.abs(kp[..., 2]
+                                            - kp_ref[..., 2]).max()))
+        print(f'serve-int8: ViTPose-B 256x192 int8 (qkv on, skip {skip}), '
+              f'8 boxes: {k1} K1 launches (all whole-pair), {mm} _int_mm; '
+              f'keypoints finite and inside their padded boxes, max '
+              f'{dist.max():.4f} px (median {np.median(dist):.4f}; bound '
+              f'{SERVE_INT8_KP_PX}) and score {out[skip]["score"]:.4f} from '
+              f'the --fast bf16 path\'s', flush=True)
+        check(dist.max() <= SERVE_INT8_KP_PX, f'serve-int8 skip {skip}: '
+              f'keypoints {dist.max()} px from bf16, bound '
+              f'{SERVE_INT8_KP_PX}')
+        int8_models[skip] = pm
+    n = 256
+    big = np.stack([rng.uniform(0, 480, n), rng.uniform(0, 260, n),
+                    rng.uniform(60, 160, n), rng.uniform(120, 220, n)], 1)
+    iw, ih = fast.image_size
+    c, s = (t.cuda() for t in bbox_xywh2cs(big.astype(np.float32), iw / ih))
+    imgs = torch.from_numpy(img).cuda()[None].expand(n, -1, -1, -1)
+    turns = [(name, batch_ms(pm, imgs, c, s)) for name, pm in (
+        ('bf16', fast), ('int8', int8_models[0]), ('int8', int8_models[0]),
+        ('bf16', fast))]
+    ms = {name: statistics.mean(t for nn, t in turns if nn == name)
+          for name in ('bf16', 'int8')}
+    print(f'serve-int8: 256-crop batch (warp, ViT-B + K1, tanh GELU, flip '
+          f'test, UDP decode) bf16 {ms["bf16"]:.1f} ms, int8 qkv skip 0 '
+          f'{ms["int8"]:.1f} ms = {ms["int8"] / ms["bf16"]:.2f}x (turns ' +
+          ', '.join(f'{nn} {t:.1f}' for nn, t in turns) + f') on {card}',
+          flush=True)
+    del fast, int8_models
+    torch.cuda.empty_cache()
+    return out, ms
+
+
+DEPLOY_REQUESTS = 30                 # timed requests per mode and box count
+DEPLOY_DIRECT_CALLS = 10             # timed direct API calls of the same
+
+
+def phase_deploy(card, root):
+    """tools/serve.py on the card, as a user starts it: the COCO-B config
+    (bf16, K1) in its default mode, --fast and --int8-qkv (calibrated on
+    the scene's person crops through --calib-dir), and the default
+    --variant s with --fast (K1 at head dim 32), each from shaped weights
+    saved as a .pth. Every response equals the direct API call on the
+    server's model; K1 (and _int_mm) launches per request; p50/p99
+    latency of 1-box and 8-box requests, beside the median of the direct
+    call alone."""
+    import base64
+    import http.client
+    import os
+    import threading
+    import cv2
+    from vitpose_tpu_torch.api import (inference_top_down_pose_model,
+                                       init_pose_model)
+    from vitpose_tpu_torch.models.vit import int8_matmul
+    from vitpose_tpu_torch.ops.attention import fused_attention
+    from vitpose_tpu_torch.tools import serve
+    rng = np.random.RandomState(2)
+    boxes = grid_boxes(rng, 4, 2)
+    img = scene(2, boxes)
+    body = {n: json.dumps({'image': base64.b64encode(cv2.imencode(
+        '.png', img[..., ::-1])[1].tobytes()).decode(),
+        'bboxes': boxes[:n].tolist()}).encode() for n in (1, 8)}
+    ckpts = {}
+    for variant, cfg in (('b', COCO_B), ('s', 's')):
+        pm = init_pose_model(cfg, device='cuda')
+        shape_peaks(pm.model)
+        ckpts[variant] = os.path.join(root, f'vitpose_{variant}_peaks.pth')
+        torch.save(pm.model.state_dict(), ckpts[variant])
+        del pm
+    calib = os.path.join(root, 'calib')
+    os.makedirs(calib)
+    for i, (x, y, w, h, _) in enumerate(boxes.astype(int)):
+        cv2.imwrite(os.path.join(calib, f'{i}.png'),
+                    img[y:y + h, x:x + w, ::-1])
+    modes = {
+        'b default': ['--config', COCO_B, '--checkpoint', ckpts['b']],
+        'b --fast': ['--config', COCO_B, '--checkpoint', ckpts['b'],
+                     '--fast'],
+        'b --int8-qkv': ['--config', COCO_B, '--checkpoint', ckpts['b'],
+                         '--int8-qkv', '--calib-dir', calib],
+        's --fast': ['--variant', 's', '--checkpoint', ckpts['s'], '--fast']}
+    report = {}
+    for mode, argv in modes.items():
+        server = serve.build_server(argv + ['--port', '0', '--device',
+                                            'cuda'])
+        pm = server.pose_model
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+
+        def post(n):
+            conn = http.client.HTTPConnection('127.0.0.1', port, timeout=120)
+            try:
+                conn.request('POST', '/predict', body=body[n],
+                             headers={'Content-Type': 'application/json'})
+                resp = conn.getresponse()
+                return resp.status, json.loads(resp.read())
+            finally:
+                conn.close()
+
+        try:
+            lat, launches = {}, {}
+            for n in (1, 8):
+                status, got = post(n)
+                check(status == 200, f'deploy {mode}: status {status} '
+                      f'{got}')
+                direct, _ = inference_top_down_pose_model(
+                    pm, img, [{'bbox': b} for b in boxes[:n]])
+                want = [{'bbox': np.asarray(r['bbox']).tolist(),
+                         'keypoints': np.asarray(r['keypoints']).tolist()}
+                        for r in direct]
+                check(got['pose_results'] == want, f'deploy {mode}: the '
+                      f'{n}-box response differs from the direct call')
+                kp = np.array([r['keypoints'] for r in want])
+                check(np.isfinite(kp).all(), f'deploy {mode}: non-finite '
+                      'keypoints')
+                reset_counts()
+                times = []
+                for _ in range(DEPLOY_REQUESTS):
+                    t0 = time.perf_counter()
+                    status, _ = post(n)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    check(status == 200, f'deploy {mode}: status {status}')
+                launches[n] = (fused_attention.launches / DEPLOY_REQUESTS,
+                               int8_matmul.launches / DEPLOY_REQUESTS)
+                check(fused_attention.design_launches['tiled'] == 0,
+                      f'deploy {mode}: K1 took the tiled design')
+                # the same call without HTTP, base64, PNG and JSON
+                direct_ms = []
+                for _ in range(DEPLOY_DIRECT_CALLS):
+                    t0 = time.perf_counter()
+                    inference_top_down_pose_model(
+                        pm, img, [{'bbox': b} for b in boxes[:n]])
+                    direct_ms.append((time.perf_counter() - t0) * 1e3)
+                lat[n] = (float(np.percentile(times, 50)),
+                          float(np.percentile(times, 99)),
+                          float(np.median(direct_ms)))
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(60)
+        depth = pm.cfg.backbone.depth
+        int8 = 'int8' in mode
+        for n, (k1, mm) in launches.items():
+            check(k1 == 2 * depth and mm == (8 * depth if int8 else 0),
+                  f'deploy {mode}, {n} boxes: {k1} K1 and {mm} _int_mm per '
+                  'request')
+        report[mode] = dict(latency_ms=lat, k1_per_request=2 * depth,
+                            int_mm_per_request=8 * depth if int8 else 0)
+        print(f'deploy: tools/serve.py {mode}: responses equal the direct '
+              f'call; {2 * depth} K1 launches (whole-pair) and '
+              f'{8 * depth if int8 else 0} _int_mm per request; latency '
+              f'p50/p99 over {DEPLOY_REQUESTS} requests (median direct API '
+              f'call): 1 box {lat[1][0]:.1f}/{lat[1][1]:.1f} '
+              f'({lat[1][2]:.1f}) ms, 8 boxes {lat[8][0]:.1f}/'
+              f'{lat[8][1]:.1f} ({lat[8][2]:.1f}) ms on {card}', flush=True)
+        del server, pm
+        torch.cuda.empty_cache()
+    return report
 
 
 COCO_B = 'vitpose_tpu/configs/coco/vitpose_b_coco_256x192.py'
@@ -811,7 +1185,51 @@ def phase_eval(card):
         del model, loader, results
         torch.cuda.empty_cache()
         phase_eval_ref(root, files, ckpt)
-    return launches
+        int8 = phase_eval_int8(card, root, options, ckpt, stats, n_batches)
+    return launches, int8
+
+
+def phase_eval_int8(card, root, options, ckpt, bf16_stats, n_batches):
+    """The evaluation CLI with --int8 --int8-skip 1 --show-dir on the same
+    set and weights: K1 and _int_mm launches (calibration on the first two
+    batches without the flip test, then W8A8 in blocks 1-10 of every
+    batch), AP beside the bf16 run's, one drawing per val image."""
+    import contextlib
+    import io
+    import os
+    from vitpose_tpu_torch.models.vit import int8_matmul
+    from vitpose_tpu_torch.ops.attention import fused_attention
+    from vitpose_tpu_torch.tools import test as cli
+    show_dir = os.path.join(root, 'show')
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = cli.main([COCO_B, ckpt, '--int8', '--int8-skip', '1',
+                          '--show-dir', show_dir, '--cfg-options',
+                          *options])
+    run_s = time.perf_counter() - t0
+    k1, mm = fused_attention.launches, int8_matmul.launches
+    check(k1 == 24 * n_batches + 2 * 12 and fused_attention.design_launches
+          == {'pair': k1, 'tiled': 0}, f'eval --int8: K1 '
+          f'{fused_attention.design_launches}, expected 24 per batch x '
+          f'{n_batches} + 12 per calibration batch x 2, all whole-pair')
+    check(mm == 8 * 10 * n_batches, f'eval --int8: _int_mm launched {mm} '
+          f'times, expected 4 products x 10 blocks x 2 passes x '
+          f'{n_batches} batches')
+    check(0 < stats['AP'] < 1, f'int8 AP {stats["AP"]} not in (0, 1)')
+    drawn = sorted(os.listdir(show_dir))
+    check(len(drawn) == EVAL_SMALL + EVAL_BIG and drawn[0] == '000000000001'
+          '.jpg', f'--show-dir wrote {len(drawn)} files, expected one per '
+          f'val image ({EVAL_SMALL + EVAL_BIG})')
+    print(f'eval: CLI --int8 --int8-skip 1 --show-dir on the same set: '
+          f'{k1} K1 launches (24 per batch + 2 x 12 calibrating, all '
+          f'whole-pair), {mm} _int_mm; AP {stats["AP"]:.4f} beside bf16 '
+          f'{bf16_stats["AP"]:.4f} (difference '
+          f'{stats["AP"] - bf16_stats["AP"]:+.4f}), AR {stats["AR"]:.4f} '
+          f'beside {bf16_stats["AR"]:.4f}; {len(drawn)} drawings; '
+          f'{run_s:.1f} s with calibration and drawing on {card}',
+          flush=True)
+    return dict(k1=k1, int_mm=mm, ap=stats['AP'], bf16_ap=bf16_stats['AP'])
 
 
 # eval-ref, f32 CUDA (K1) against the f32 CPU port on the same 16 boxes:
@@ -2168,7 +2586,11 @@ def main():
         del model
         torch.cuda.empty_cache()
         phase_serve_ref()
-        eval_launches = phase_eval(card)
+        int8 = phase_int8(card)
+        serve_int8, int8_batch_ms = phase_serve_int8(card)
+        with tempfile.TemporaryDirectory() as root:
+            deploy = phase_deploy(card, root)
+        eval_launches, eval_int8 = phase_eval(card)
         k2 = phase_kernel_bwd()
         train_launches, step_s, train_img_s, busy_ms = phase_train()
         print(f'train: step (preprocess on the card, forward, backward, '
@@ -2191,7 +2613,14 @@ def main():
     kernels = []
     loop_k1, loop_k2 = loop_launches
     per_path = {'attention_fwd': {'serve': serve_launches,
+                                  'serve_int8': {f'skip_{k}': v['k1']
+                                                 for k, v in
+                                                 serve_int8.items()},
+                                  'deploy_per_request': {
+                                      m: r['k1_per_request']
+                                      for m, r in deploy.items()},
                                   'eval': eval_launches,
+                                  'eval_int8': eval_int8['k1'],
                                   'train': train_launches[0],
                                   'train_loop': loop_k1,
                                   'train_loop_steps': loop_steps,
@@ -2221,7 +2650,24 @@ def main():
             'device_ms': rec['device_ms'][rec['design']],
             'old_device_ms': rec['device_ms'].get('tiled'),
             'launches_per_path': per_path[name]})
-    print(json.dumps({'kernels': kernels}))
+    # the int8 product is a library call (torch._int_mm), as XLA's
+    # dot_general is in JAX: not a kernel of the repo, listed beside them
+    int8_matmul = {
+        'name': 'int8_matmul', 'route': 'library (torch._int_mm)',
+        'replaces': 'vitpose_tpu/models/vit.py:87',
+        'launches_per_path': {
+            'serve_int8': {f'skip_{k}': v['int_mm']
+                           for k, v in serve_int8.items()},
+            'deploy_per_request': {m: r['int_mm_per_request']
+                                   for m, r in deploy.items()},
+            'eval_int8': eval_int8['int_mm']},
+        'shapes': int8,
+        'serve_batch_ms': int8_batch_ms}
+    print(json.dumps({'kernels': kernels, 'int8_matmul': int8_matmul,
+                      'deploy_latency_ms': {
+                          m: r['latency_ms'] for m, r in deploy.items()},
+                      'eval_int8_ap': eval_int8['ap'],
+                      'eval_bf16_ap': eval_int8['bf16_ap']}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -24,7 +24,8 @@ MODULES = ['ops.attention', 'kernels._build', 'models.vit', 'models.heads',
            'train.loop', 'utils.torch_ckpt', 'eval.loop', 'tools.test',
            'utils.checkpoint', 'utils.env', 'parallel',
            'parallel.distributed', 'tools.train', 'data.mpii',
-           'data.wholebody', 'tools.model_split']
+           'data.wholebody', 'tools.model_split', 'utils.quantize',
+           'api.tracking', 'ops.smoothing', 'tools.serve', 'api']
 
 
 def _imported_names(path):

@@ -1,11 +1,12 @@
 """Plain ViT backbone for top-down pose, in PyTorch.
 
-Counterpart of vitpose_tpu/models/vit.py (`DropPath`, `Mlp`, `MoEMlp`,
-`Attention`, `Block`, `ViTConfig`, `VIT_VARIANTS`, `ViT`), with the mmpose
-parameter names (`patch_embed.proj`, `blocks.{i}.{norm1,attn.qkv,attn.proj,
-norm2,mlp.fc1,mlp.fc2}`, `last_norm`; ViTPose+ adds
-`blocks.{i}.mlp.experts.{e}` in state dicts), so a reference state dict
-loads as it is.
+Counterpart of vitpose_tpu/models/vit.py (`DropPath`, `Int8Dense`, `Mlp`,
+`MoEMlp`, `Attention`, `Block`, `ViTConfig`, `VIT_VARIANTS`, `ViT`), with
+the mmpose parameter names (`patch_embed.proj`,
+`blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,mlp.fc2}`,
+`last_norm`; ViTPose+ adds `blocks.{i}.mlp.experts.{e}` in state dicts),
+so a reference state dict loads as it is, into the float model and into
+the int8 one (`Int8Linear` keeps nn.Linear's names).
 
 Precision follows flax's `dtype`: parameters are stored in f32 and cast to
 the compute dtype at each use (explicit casts, not autocast), so gradients
@@ -83,6 +84,101 @@ def linear(layer: nn.Linear, x, dtype):
     return F.linear(x, layer.weight.to(dtype), bias)
 
 
+class Linear(nn.Linear):
+    """nn.Linear applied in the compute dtype given at each call, its f32
+    parameters cast (`linear`). A module call, so that forward hooks see
+    its input and output (int8 calibration, the API's `outputs=`)."""
+
+    def forward(self, x, dtype):
+        return linear(self, x, dtype)
+
+
+def int8_matmul(x_q, w_q):
+    """The int32 product x_q @ w_q^T of int8 x_q [M, K] and int8 w_q [N, K]
+    (row-major, nn.Linear's layout): `torch._int_mm` on the column-major
+    view w_q^T, exact on both devices. JAX computes it with XLA's
+    `dot_general` (vitpose_tpu/models/vit.py:87-89). CUDA takes M > 16 and
+    K, N multiples of 8 and raises otherwise; nothing falls back to a float
+    product. `launches` counts the calls on CUDA tensors."""
+    if x_q.is_cuda:
+        int8_matmul.launches += 1
+    return torch._int_mm(x_q, w_q.t())
+
+
+int8_matmul.launches = 0
+
+
+# amax / 127 as XLA computes it in every jitted JAX program: a product with
+# the f32 reciprocal. PyTorch's CUDA kernels turn a division by a Python
+# scalar into the same product, where its CPU kernels divide; written as
+# the product, both devices agree with JAX bit for bit.
+_INV_127 = 1.0 / 127.0
+
+
+class Int8Linear(Linear):
+    """A Linear evaluated as a W8A8 int8 product: the counterpart of JAX
+    `Int8Dense` (vitpose_tpu/models/vit.py:50-93), a serving-time option.
+
+    The parameters are nn.Linear's (`weight` [out, in], `bias` [out]), so a
+    float checkpoint loads as it is. The weight is quantised symmetrically
+    per output channel (flax's axis 0 of [in, out] is dim 1 here):
+    s_w = amax|W| * (1 / 127), w_q = round(W / max(s_w, 1e-12)); the codes are
+    kept until the weight is loaded or moved again. Activations take the
+    static absmax `act_scale` a (utils/quantize.py calibration):
+    x_q = round(clip(x * (127 / a), +-127)), s_x = a / 127; with
+    act_scale None, per token: s_x = amax|x| * (1 / 127), x_q = round(x /
+    max(s_x, 1e-12)). The output is ((y_int32 * s_x) * s_w + bias) in f32,
+    cast to the compute dtype. All in f32, rounding half to even, in JAX's
+    order."""
+
+    def __init__(self, in_features, out_features, bias=True, act_scale=None):
+        super().__init__(in_features, out_features, bias)
+        self.act_scale = None if act_scale is None else float(act_scale)
+        self._codes = (None, None)
+
+    def quantized_weight(self):
+        """(w_q [out, in] int8, s_w [out] f32) of the current weight."""
+        w = self.weight
+        key = (w.device, w.data_ptr(), w._version)
+        if self._codes[0] != key:
+            with torch.no_grad():
+                wf = w.float()
+                s_w = wf.abs().amax(dim=1) * _INV_127
+                w_q = torch.round(wf / s_w.clamp_min(1e-12)[:, None])
+            self._codes = (key, (w_q.to(torch.int8), s_w))
+        return self._codes[1]
+
+    def quantize_input(self, x):
+        """(x_q int8 of x's shape, s_x): a float for a static scale, else
+        the per-token scales [..., 1]."""
+        xf = x.float()
+        if self.act_scale is not None:
+            a = self.act_scale
+            x_q = torch.round(torch.clamp(xf * (127.0 / a), -127.0, 127.0))
+            s_x = a / 127.0
+        else:
+            s_x = xf.abs().amax(dim=-1, keepdim=True) * _INV_127
+            x_q = torch.round(xf / s_x.clamp_min(1e-12))
+        return x_q.to(torch.int8), s_x
+
+    def forward(self, x, dtype):
+        w_q, s_w = self.quantized_weight()
+        x_q, s_x = self.quantize_input(x)
+        lead, k = x.shape[:-1], x.shape[-1]
+        y = int8_matmul(x_q.reshape(-1, k), w_q).float()
+        if torch.is_tensor(s_x):
+            s_x = s_x.reshape(-1, 1)
+        y = y * s_x * s_w
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(dtype).reshape(*lead, -1)
+
+
+def _dense(in_features, out_features, int8, act_scale=None, bias=True):
+    return (Int8Linear(in_features, out_features, bias, act_scale) if int8
+            else Linear(in_features, out_features, bias))
+
+
 def init_linear(layer: nn.Linear, generator=None):
     normal_(layer.weight, layer.in_features ** -0.5, generator)
     if layer.bias is not None:
@@ -124,16 +220,22 @@ class DropPath(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim, hidden_dim, gelu_approx=False):
+    """fc1, GELU, fc2; with `int8`, both products W8A8 (`Int8Linear`) at
+    the static scales `act_scales[:2]` (fc1_in, fc2_in), or per token where
+    they are None."""
+
+    def __init__(self, dim, hidden_dim, gelu_approx=False, int8=False,
+                 act_scales=None):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, dim)
+        a1, a2 = (act_scales or (None, None))[:2]
+        self.fc1 = _dense(dim, hidden_dim, int8, a1)
+        self.fc2 = _dense(hidden_dim, dim, int8, a2)
         self.gelu_approx = gelu_approx
 
     def forward(self, x, dtype):
-        x = linear(self.fc1, x, dtype)
+        x = self.fc1(x, dtype)
         x = F.gelu(x, approximate='tanh' if self.gelu_approx else 'none')
-        return linear(self.fc2, x, dtype)
+        return self.fc2(x, dtype)
 
 
 def expert_routing(expert_idx, n, num_experts, device):
@@ -187,8 +289,8 @@ class MoEMlp(nn.Module):
                  gelu_approx=False):
         super().__init__()
         self.part_dim = part_dim
-        self.fc1 = nn.Linear(dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, dim - part_dim)
+        self.fc1 = Linear(dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, dim - part_dim)
         self.expert_weight = nn.Parameter(
             torch.zeros(num_experts, part_dim, hidden_dim))
         self.expert_bias = nn.Parameter(torch.zeros(num_experts, part_dim))
@@ -197,9 +299,9 @@ class MoEMlp(nn.Module):
         self.register_load_state_dict_pre_hook(_experts_from_mmpose)
 
     def forward(self, x, dtype, route):
-        h = linear(self.fc1, x, dtype)
+        h = self.fc1(x, dtype)
         h = F.gelu(h, approximate='tanh' if self.gelu_approx else 'none')
-        shared = linear(self.fc2, h, dtype)
+        shared = self.fc2(h, dtype)
         w, b = self.expert_weight.to(dtype), self.expert_bias.to(dtype)
         if isinstance(route, int):
             part = F.linear(h, w[route], b[route])
@@ -234,20 +336,26 @@ class Attention(nn.Module):
 
     With `fused` the core goes through ops.attention.attention (K1 on CUDA,
     its plain version on the CPU); otherwise it runs the plain einsum path of
-    vit.py:203-207, with q scaled in the compute dtype.
+    vit.py:203-207, with q scaled in the compute dtype. With `int8` the qkv
+    and proj products are W8A8 at the static scales `act_scales` (qkv_in,
+    proj_in), or per token where they are None; q, k and v leave the qkv
+    product in the compute dtype, so K1 runs between the two as it does
+    without int8.
     """
 
-    def __init__(self, dim, num_heads, qkv_bias=True, fused=False):
+    def __init__(self, dim, num_heads, qkv_bias=True, fused=False,
+                 int8=False, act_scales=None):
         super().__init__()
+        aq, ap = (act_scales or (None, None))[:2]
         self.num_heads = num_heads
         self.fused = fused
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = _dense(dim, 3 * dim, int8, aq, bias=qkv_bias)
+        self.proj = _dense(dim, dim, int8, ap)
 
     def forward(self, x, dtype):
         n, t, d = x.shape
         hd = d // self.num_heads
-        qkv = linear(self.qkv, x, dtype).reshape(n, t, 3, self.num_heads, hd)
+        qkv = self.qkv(x, dtype).reshape(n, t, 3, self.num_heads, hd)
         q, k, v = qkv.unbind(2)                      # [N, T, H, hd] views
         if self.fused:
             out = attention(q, k, v)
@@ -256,21 +364,33 @@ class Attention(nn.Module):
                              k.float())
             p = torch.softmax(s, dim=-1).to(dtype)
             out = torch.einsum('nhqk,nkhd->nqhd', p.float(), v.float())
-        return linear(self.proj, out.reshape(n, t, d).to(dtype), dtype)
+        # the proj input is what JAX sows as 'proj_in' (vit.py:214-216),
+        # read by utils/quantize.py calibration through a hook on proj
+        return self.proj(out.reshape(n, t, d).to(dtype), dtype)
 
 
 class Block(nn.Module):
+    """`int8_act_scales`: the block's static absmax, (fc1_in, fc2_in) or
+    (fc1_in, fc2_in, qkv_in, proj_in), as JAX's Block takes them
+    (vit.py:231-259)."""
+
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=True,
                  fused_attention=False, drop_path=0.0, gelu_approx=False,
-                 num_experts=0, part_dim=0):
+                 num_experts=0, part_dim=0, int8_mlp=False, int8_qkv=False,
+                 int8_act_scales=None):
         super().__init__()
+        scales = tuple(int8_act_scales or ())
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, qkv_bias, fused_attention)
+        self.attn = Attention(dim, num_heads, qkv_bias, fused_attention,
+                              int8_qkv,
+                              scales[2:4] if len(scales) >= 4 else None)
         self.drop_path = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         hidden = int(dim * mlp_ratio)
         self.mlp = (MoEMlp(dim, hidden, num_experts, part_dim, gelu_approx)
-                    if num_experts > 0 else Mlp(dim, hidden, gelu_approx))
+                    if num_experts > 0
+                    else Mlp(dim, hidden, gelu_approx, int8_mlp,
+                             int8_act_scales))
 
     def draw_masks(self, x, generator=None):
         """The DropPath masks of the two branches, in the order forward
@@ -303,9 +423,13 @@ class ViTConfig:
     remat_policy: str = 'full'
     fused_attention: bool = False       # K1 kernel on CUDA
     gelu_approx: bool = False           # tanh GELU (serving-time option)
-    int8_mlp: bool = False
-    int8_qkv: bool = False
+    int8_mlp: bool = False              # W8A8 MLP products (serving-time)
+    int8_qkv: bool = False              # W8A8 qkv/proj products too
+    # static per-block activation absmax from utils/quantize.py: one
+    # (fc1_in, fc2_in) or (fc1_in, fc2_in, qkv_in, proj_in) tuple per
+    # block; () => dynamic per token
     int8_act_scales: tuple = ()
+    # block indices kept in the float path under int8_mlp/int8_qkv
     int8_skip_blocks: tuple = ()
     dtype: str = 'float32'
 
@@ -331,9 +455,16 @@ VIT_VARIANTS = {
 
 
 def _check_ported(cfg: ViTConfig):
-    if cfg.int8_mlp or cfg.int8_qkv or cfg.int8_act_scales:
-        raise NotImplementedError('int8 W8A8 serving is not ported yet '
-                                  '(ROADMAP.md queue 1 item 8)')
+    if cfg.num_experts > 0 and (cfg.int8_mlp or cfg.int8_qkv):
+        # JAX refuses it in int8_serving_config (vitpose_tpu/utils/
+        # quantize.py:105-110): MoEMlp has no int8 path
+        raise NotImplementedError(
+            'int8 serving is not implemented for MoE (num_experts > 0) '
+            'backbones: MoEMlp has no int8 path')
+    if cfg.int8_act_scales and len(cfg.int8_act_scales) != cfg.depth:
+        raise ValueError(f'int8_act_scales holds '
+                         f'{len(cfg.int8_act_scales)} blocks, expected '
+                         f'{cfg.depth}')
     if cfg.remat_blocks and cfg.remat_policy not in _REMAT_CONTEXT:
         raise ValueError(f'remat_policy {cfg.remat_policy!r}: expected '
                          "'full', 'attn', or 'dots'")
@@ -363,10 +494,15 @@ class ViT(nn.Module):
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, d))
         dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
+        skip8 = set(cfg.int8_skip_blocks)
         self.blocks = nn.ModuleList([
             Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
                   cfg.fused_attention, float(dpr[i]), cfg.gelu_approx,
-                  cfg.num_experts, cfg.part_dim)
+                  cfg.num_experts, cfg.part_dim,
+                  int8_mlp=cfg.int8_mlp and i not in skip8,
+                  int8_qkv=cfg.int8_qkv and i not in skip8,
+                  int8_act_scales=(cfg.int8_act_scales[i]
+                                   if cfg.int8_act_scales else None))
             for i in range(cfg.depth)])
         self.last_norm = nn.LayerNorm(d, eps=1e-6)
         self.reset_parameters(generator)
