@@ -24,6 +24,14 @@ no result:
             passes = 24 K1 launches, all of the whole-pair design, every
             tensor on the card, every keypoint finite and inside its padded
             box; then img/s of a 256-crop batch
+  ops       K1 and K2 as torch.library custom ops: opcheck of
+            vitpose::attention_fwd and attention_bwd on CUDA at
+            (2,192,12,64) bf16; one K3 call through the ops counts one
+            whole-pair launch of each kernel; the dispatcher priced against
+            the same kernels called directly (the earlier path: the ctypes
+            wrappers under a Python autograd.Function): host us per K1 call
+            at the 8-box shape, the 256-crop serve batch and one train step,
+            each in turns (op, direct, direct, op)
   serve-ref the same weights on CUDA (K1) and on the CPU (plain attention),
             2 boxes, in f32 (TF32 off) and in bf16: f32 heatmaps and decisive
             keypoints agree; the bf16 CUDA path is as close to the f32 CPU
@@ -49,6 +57,31 @@ no result:
             requests answer exactly what the direct API call gives, K1 and
             _int_mm launches per request, p50/p99 latency beside the
             direct call's median
+  export    the export CLI (vitpose_tpu_torch.tools.export) on the COCO-B
+            config at --batch 8 with shaped weights saved as a .pth, then
+            load_exported of its .pt2 in this process: 24
+            vitpose.attention_fwd in the graph and 24 K1 launches per call,
+            heatmaps against eager `infer` within EXPORT_TOL of max |eager|,
+            ms per call of the exported program beside eager at batch 8 and
+            256 (exported in-process), in turns
+  demos     the 8 top-down demos (vitpose_tpu_torch.demo.*) on the card, on
+            a seeded 480x640 image with 3 boxes and a 16-frame MJPG video
+            of it: the six that take --variant get the COCO-B config and the
+            shaped .pth (24 K1 launches per frame), the face demos their f32
+            ViT-S default with shaped 68-joint weights (0 K1); every output
+            written, videos read back frame for frame; frames/s over main;
+            every shape K1 launched at is a KERNEL_CASES one (also in
+            export and webcam)
+  webcam    the examples/pose_estimation.py runner dict as
+            tools/run_webcam.py loads it, its pose node on the COCO-B config
+            and the shaped .pth, a 48-frame video as the camera, headless,
+            max_frames 32: threaded (the config's synchronous=False; K1 on
+            the pose node's own thread) and synchronous; no node thread
+            raises; frames shown and inferred (at least half the frames
+            shown threaded, all of them synchronous), 24 K1 launches per
+            inferred frame, frames/s; then
+            tools/run_webcam.py itself with --cfg-options for the camera,
+            show and max_frames
   eval      the evaluation CLI (vitpose_tpu_torch.tools.test) on the COCO-B
             config file (ViTPose-B 256x192 bf16, K1, flip test, UDP, batch
             64, canvas 640), pointed by --cfg-options at a synthetic COCO val
@@ -136,9 +169,12 @@ Then the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, int8
 serve call, server request per mode, eval run, int8 eval run, train step,
-train-loop run, remat step and moe-train run; beside the kernels, the
+train-loop run, remat step, moe-train run, exported call, demo frame and
+webcam run; beside the kernels, the
 int8 product's launches per path and times, the server's latencies and the
-int8 AP), the nvidia-smi card line and the result line.
+int8 AP, the dispatcher's price, the exported program's times and the
+demos' and webcam's frames/s), the nvidia-smi card line and the result
+line.
 
 The weights are random (torch.Generator seed 0, inside init_pose_model).
 Random heatmaps make the UDP Newton step ill conditioned, so the smoke makes
@@ -147,7 +183,9 @@ centre of a dim random image, turns channel 0 of the patch embedding into a
 brightness detector, and carries channel 0 through bump-shaped deconv kernels
 onto every joint (`shape_peaks`). Every other weight stays random.
 """
+import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -186,6 +224,8 @@ KERNEL_CASES = [
     ((2, 972, 16, 80), torch.bfloat16, '576x432 inputs'),
     ((4, 72, 12, 64), torch.bfloat16, 'last key tile holds 8 of 64 keys'),
     ((3, 48, 5, 32), torch.float32, 'ragged'),
+    ((1, 192, 12, 64), torch.bfloat16, 'webcam whole-frame box, 1 box'),
+    ((4, 192, 12, 64), torch.bfloat16, 'demo 3 boxes, bucket 4'),
 ]
 BWD_CASES = [
     ((64, 192, 12, 64), torch.bfloat16, 'training batch 64, ViT-B'),
@@ -458,7 +498,22 @@ def reset_counts():
     for fn in (fused_attention, fused_attention_bwd):
         fn.launches = 0
         fn.design_launches = dict.fromkeys(fn.design_launches, 0)
+        fn.shapes.clear()
     int8_matmul.launches = 0
+
+
+def check_shapes_held(path):
+    """Fail unless every (shape, dtype) at which K1 and K2 launched since
+    the last reset_counts() is one that the kernel and kernel-bwd phases
+    hold against the plain versions (KERNEL_CASES, BWD_CASES)."""
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    for name, fn, cases in (('K1', fused_attention, KERNEL_CASES),
+                            ('K2', fused_attention_bwd, BWD_CASES)):
+        held = {(shape, dtype) for shape, dtype, _ in cases}
+        missing = sorted(str(key) for key in fn.shapes if key not in held)
+        check(not missing, f'{path}: {name} launched at {missing}, which '
+              'no kernel phase holds against its plain version')
 
 
 def phase_serve():
@@ -2511,6 +2566,533 @@ def phase_moe_ref(card):
               f'the bf16 CPU path {cpu[k]}')
 
 
+# ops: K1 and K2 through the dispatcher (torch.library custom ops) against
+# the same kernels called as the port called them before the ops (ctypes
+# wrappers under a Python autograd.Function), priced per call and per serve
+# batch and train step, in turns
+OPS_SHAPE = (2, 192, 12, 64)         # opcheck, bf16
+OPS_CALL_SHAPE = (8, 192, 12, 64)    # the 8-box serve call's K1
+OPS_HOST_CALLS = 400
+OPS_TURN_BATCHES = 4                 # timed serve batches per turn
+OPS_TURN_STEPS = 10                  # timed train steps per turn
+
+
+class _DirectK3(torch.autograd.Function):
+    """K3 as the port had it before the ops: the kernel wrappers under a
+    Python Function, outside the dispatcher (the baseline that prices the
+    custom ops)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        from vitpose_tpu_torch.ops.attention import fused_attention
+        ctx.save_for_backward(q, k, v)
+        return fused_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        from vitpose_tpu_torch.ops.attention import fused_attention_bwd
+        return fused_attention_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+def direct_attention(q, k, v):
+    from vitpose_tpu_torch.ops.attention import fused_attention
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _DirectK3.apply(q, k, v)
+    return fused_attention(q, k, v)
+
+
+def host_us(fn, calls=OPS_HOST_CALLS):
+    """Host microseconds per fn() over `calls` back-to-back calls whose
+    device work is shorter than their host work (one sync at the end)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def in_turns(runs):
+    """{name: mean of its turns} of the two runs[name]() (each returns a
+    time), timed in turns (first, second, second, first), and the turns."""
+    a, b = runs
+    turns = [(name, runs[name]()) for name in (a, b, b, a)]
+    return ({name: statistics.mean(t for n, t in turns if n == name)
+             for name in runs}, turns)
+
+
+def wall_ms(fn, reps):
+    """Median wall ms of fn() over `reps` calls, each ended by a sync."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_ops(model, card):
+    phase_t0 = time.perf_counter()
+    from vitpose_tpu_torch.models import vit
+    from vitpose_tpu_torch.ops import attention as attn
+    from vitpose_tpu_torch.ops.geometry import bbox_xywh2cs
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    qkv = torch.randn(*OPS_SHAPE[:2], 3, *OPS_SHAPE[2:], generator=gen,
+                      device='cuda', dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    g = torch.randn(OPS_SHAPE, generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    scale = OPS_SHAPE[-1] ** -0.5
+    t0 = time.perf_counter()
+    for op, args in ((torch.ops.vitpose.attention_fwd.default,
+                      (q, k, v, scale)),
+                     (torch.ops.vitpose.attention_bwd.default,
+                      (q, k, v, g, scale))):
+        res = torch.library.opcheck(op, args)
+        check(all(r == 'SUCCESS' for r in res.values()),
+              f'opcheck {op}: {res}')
+    opcheck_s = time.perf_counter() - t0
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    reset_counts()
+    out = attn.attention(*leaves)
+    out.backward(g)
+    torch.cuda.synchronize()
+    counts = (attn.fused_attention.launches,
+              attn.fused_attention_bwd.launches,
+              attn.fused_attention.design_launches['pair'],
+              attn.fused_attention_bwd.design_launches['pair'])
+    check(counts == (1, 1, 1, 1), f'one K3 call through the ops counted '
+          f'K1, K2 (pair K1, pair K2) {counts}, expected one each')
+    ref = attn.reference_attention(q, k, v)
+    check(torch.equal(out.detach(), attn.fused_attention(q, k, v)),
+          'the op and the wrapper gave different K1 outputs')
+    err = (out.detach().float() - ref.float()).abs().max().item()
+    atol, rtol = TOLS[torch.bfloat16]
+    check(err <= atol + rtol * ref.float().abs().max().item(),
+          f'K1 through the op is {err} from its plain version')
+
+    qkv8 = torch.randn(*OPS_CALL_SHAPE[:2], 3, *OPS_CALL_SHAPE[2:],
+                       generator=gen, device='cuda', dtype=torch.bfloat16)
+    q8, k8, v8 = qkv8.unbind(2)
+    s8 = OPS_CALL_SHAPE[-1] ** -0.5
+    host, host_turns = in_turns({
+        'op': lambda: host_us(
+            lambda: torch.ops.vitpose.attention_fwd(q8, k8, v8, s8)),
+        'direct': lambda: host_us(
+            lambda: attn.fused_attention(q8, k8, v8, s8))})
+    # one K3 forward and backward at one crop's shape, where the kernels
+    # take a few microseconds: the host price of a pair in a train step
+    leaf1 = qkv8[:1].detach().clone().requires_grad_()
+    g1 = torch.randn(1, *OPS_CALL_SHAPE[1:], generator=gen, device='cuda',
+                     dtype=torch.bfloat16)
+
+    def pair(fn):
+        return lambda: fn(*leaf1.unbind(2)).backward(g1)
+
+    k3, k3_turns = in_turns({
+        'op': lambda: host_us(pair(attn.attention), OPS_HOST_CALLS // 4),
+        'direct': lambda: host_us(pair(direct_attention),
+                                  OPS_HOST_CALLS // 4)})
+
+    n = 256
+    rng = np.random.RandomState(0)
+    boxes = np.stack([rng.uniform(0, 480, n), rng.uniform(0, 260, n),
+                      rng.uniform(60, 160, n), rng.uniform(120, 220, n)], 1)
+    iw, ih = model.image_size
+    c, s = bbox_xywh2cs(boxes.astype(np.float32), iw / ih)
+    c, s = c.cuda(), s.cuda()
+    img = torch.from_numpy(scene(0, grid_boxes(rng, 4, 2))).cuda()
+    imgs = img[None].expand(n, *img.shape)
+    state, step, preprocess, info = train_setup(SERVE_CFG, 'cuda')
+    batch = preprocess(*train_inputs(0, TRAIN_BATCH, info, 'cuda'))
+    tgen = torch.Generator(device='cuda').manual_seed(0)
+
+    def timed(fn, reps):
+        def run(name):
+            vit.attention = attn.attention if name == 'op' \
+                else direct_attention
+            try:
+                fn()                                      # warm-up
+                return wall_ms(fn, reps)
+            finally:
+                vit.attention = attn.attention
+        return run
+
+    serve = timed(lambda: model.infer_batch(imgs, c, s), OPS_TURN_BATCHES)
+    train = timed(lambda: step(state, batch, tgen), OPS_TURN_STEPS)
+    serve_ms, serve_turns = in_turns({'op': lambda: serve('op'),
+                                      'direct': lambda: serve('direct')})
+    train_ms, train_turns = in_turns({'op': lambda: train('op'),
+                                      'direct': lambda: train('direct')})
+    del state, step, batch
+    torch.cuda.empty_cache()
+    per_call = host['op'] - host['direct']
+    print(f'ops: opcheck of vitpose::attention_fwd and attention_bwd on '
+          f'CUDA at {OPS_SHAPE} bf16 passed ({opcheck_s:.1f} s); one K3 '
+          f'call through the ops launched K1 and K2 once each (whole-pair), '
+          f'K1 {err:.3e} from plain; host us per K1 call at '
+          f'{OPS_CALL_SHAPE}: op {host["op"]:.1f}, direct wrapper '
+          f'{host["direct"]:.1f} (turns '
+          + ', '.join(f'{nm} {t:.1f}' for nm, t in host_turns)
+          + f'), so the dispatcher adds {per_call:.1f} us per call; host us '
+          f'per K3 forward + backward at (1, 192, 12, 64): op '
+          f'{k3["op"]:.1f}, direct {k3["direct"]:.1f} (turns '
+          + ', '.join(f'{nm} {t:.1f}' for nm, t in k3_turns) + '); '
+          f'256-crop serve batch (24 K1) op {serve_ms["op"]:.2f} / direct '
+          f'{serve_ms["direct"]:.2f} ms (turns '
+          + ', '.join(f'{nm} {t:.2f}' for nm, t in serve_turns)
+          + f'); train step (12 K1 + 12 K2) op {train_ms["op"]:.2f} / '
+          f'direct {train_ms["direct"]:.2f} ms (turns '
+          + ', '.join(f'{nm} {t:.2f}' for nm, t in train_turns)
+          + f'); phase {time.perf_counter() - phase_t0:.1f} s on {card}',
+          flush=True)
+    return {'host_us_per_call': host, 'dispatcher_us_per_call': per_call,
+            'host_us_per_k3_pair': k3,
+            'serve_batch_ms': serve_ms, 'train_step_ms': train_ms}
+
+
+def peaks_checkpoint(root, config, name):
+    """init_pose_model(config) on the card with shape_peaks weights, saved
+    as root/name.pth; returns the path."""
+    from vitpose_tpu_torch.api import init_pose_model
+    pm = init_pose_model(config, device='cuda')
+    shape_peaks(pm.model)
+    path = os.path.join(root, f'{name}.pth')
+    torch.save(pm.model.state_dict(), path)
+    del pm
+    return path
+
+
+# export: the CLI on the COCO-B config at --batch 8, then the .pt2 loaded
+# in this process; exported and eager are the same kernels in the same
+# order, so their heatmaps should agree to within one bf16 step of the
+# largest value (EXPORT_TOL of max |eager|)
+EXPORT_BATCHES = (8, 256)
+EXPORT_TOL = 2.0 ** -8
+EXPORT_REPS = 5
+
+
+def phase_export(card, root, ckpt):
+    phase_t0 = time.perf_counter()
+    from vitpose_tpu_torch.api import init_pose_model
+    from vitpose_tpu_torch.ops.attention import fused_attention
+    from vitpose_tpu_torch.tools import export
+    path = os.path.join(root, 'vitpose_b_b8.pt2')
+    t0 = time.perf_counter()
+    # the program main() reloaded from the .pt2 with load_exported, in this
+    # process
+    program, cli_err = export.main([COCO_B, '--checkpoint', ckpt, '--out',
+                                    path, '--batch',
+                                    str(EXPORT_BATCHES[0])])
+    cli_s = time.perf_counter() - t0
+    in_graph = program.graph_module.code.count('vitpose.attention_fwd')
+    check(in_graph == 24, f'the exported graph holds {in_graph} '
+          'vitpose.attention_fwd calls, expected 12 blocks x 2 passes')
+    pm = init_pose_model(COCO_B, checkpoint=ckpt, device='cuda')
+    eager = export.InferModule(pm.model, pm.flip_index_tensor()).eval()
+    cpu_gen = torch.Generator().manual_seed(1)
+    rows, launches = [], None
+    for n in EXPORT_BATCHES:
+        x = torch.randn((n, 256, 192, 3), generator=cpu_gen).cuda()
+        run = (program.module() if n == EXPORT_BATCHES[0]
+               else export.export_program(eager, x).module())
+        with torch.no_grad():
+            reset_counts()
+            out = run(x)
+            torch.cuda.synchronize()
+            if launches is None:
+                launches = fused_attention.launches
+            ref = eager(x)
+            check_shapes_held(f'export batch {n}')
+            err = (out - ref).abs().max().item()
+            bound = EXPORT_TOL * ref.abs().max().item()
+            check(torch.isfinite(out).all().item() and err <= bound,
+                  f'exported batch {n}: {err} from eager, bound {bound}')
+            ms, turns = in_turns(
+                {'exported': lambda: wall_ms(lambda: run(x), EXPORT_REPS),
+                 'eager': lambda: wall_ms(lambda: eager(x), EXPORT_REPS)})
+        rows.append(dict(batch=n, err=err, bound=bound,
+                         exported_ms=ms['exported'], eager_ms=ms['eager'],
+                         turns=turns))
+    check(launches == 24, f'the exported program launched K1 {launches} '
+          'times in a call, expected 24')
+    del program, pm, eager
+    torch.cuda.empty_cache()
+    print(f'export: the CLI on {COCO_B} --batch 8 wrote '
+          f'{os.path.getsize(path) / 1e6:.1f} MB in {cli_s:.1f} s (its '
+          f'reload parity max err {cli_err:.2e}), reloaded there by '
+          f'load_exported: {in_graph} vitpose.attention_fwd in the graph, '
+          f'{launches} K1 launches per call; ' + '; '.join(
+              f'batch {r["batch"]}: max abs err {r["err"]:.3e} against '
+              f'eager (bound {r["bound"]:.3e}), exported '
+              f'{r["exported_ms"]:.2f} / eager {r["eager_ms"]:.2f} ms per '
+              f'call (turns ' + ', '.join(
+                  f'{nm} {t:.2f}' for nm, t in r['turns']) + ')'
+              for r in rows)
+          + f'; phase {time.perf_counter() - phase_t0:.1f} s on {card}',
+          flush=True)
+    return launches, rows
+
+
+# demos: the top-down demos on a 480x640 image with 3 boxes and a 16-frame
+# video of it; the webcam on a 48-frame video (max_frames binds at 32)
+DEMO_FRAMES = 16
+WEBCAM_FRAMES = 48
+WEBCAM_MAX_FRAMES = 32
+
+
+def write_video(path, img, frames):
+    """`frames` frames of the RGB image, each shifted by 2 more pixels, as
+    an MJPG .avi (read back: it fails unless every frame is there)."""
+    from vitpose_tpu_torch.utils.video import video_writer
+    writer = video_writer(path, 10, (img.shape[1], img.shape[0]))
+    for i in range(frames):
+        writer.write(np.ascontiguousarray(np.roll(img, 2 * i, axis=1)[..., ::-1]))
+    writer.release()
+    check(count_frames(path) == frames, f'{path}: wrote {frames} frames, '
+          f'read back {count_frames(path)}')
+    return path
+
+
+def count_frames(path):
+    import cv2
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def phase_demos(card, root, ckpt):
+    phase_t0 = time.perf_counter()
+    import cv2
+    from vitpose_tpu_torch.demo import (face_img_demo, face_video_demo,
+                                        top_down_img_demo,
+                                        top_down_img_demo_with_det,
+                                        top_down_pose_tracking_demo,
+                                        top_down_video_demo,
+                                        top_down_video_demo_with_det,
+                                        webcam_demo)
+    from vitpose_tpu_torch.ops.attention import fused_attention
+    boxes = grid_boxes(np.random.RandomState(3), 3, 1)
+    img = scene(3, boxes)
+    img_path = os.path.join(root, 'people.jpg')
+    cv2.imwrite(img_path, np.ascontiguousarray(img[..., ::-1]))
+    video = write_video(os.path.join(root, 'people.avi'), img, DEMO_FRAMES)
+    xywh = [[float(v) for v in b[:4]] for b in boxes]
+    docs = {'ann': {'images': [{'id': 1, 'file_name': 'people.jpg'}],
+                    'annotations': [{'image_id': 1, 'bbox': b}
+                                    for b in xywh]},
+            'det': [{'image_id': 1, 'category_id': 1, 'bbox': b,
+                     'score': 0.9} for b in xywh],
+            'frames': {str(i): [[b[0] + 2 * i] + b[1:] + [0.9] for b in xywh]
+                       for i in range(DEMO_FRAMES)}}
+    for name, doc in docs.items():
+        with open(os.path.join(root, f'{name}.json'), 'w') as f:
+            json.dump(doc, f)
+    face_ckpt = peaks_checkpoint(
+        root, {'variant': 's', 'dataset': '300w', 'out_channels': 68},
+        'face_s_peaks')
+    out = os.path.join(root, 'vis')
+    j = {name: os.path.join(root, f'{name}.json') for name in docs}
+    b_args = ['--variant', COCO_B, '--checkpoint', ckpt]
+    demos = {
+        'top_down_img_demo': (top_down_img_demo, [img_path, '--json-file',
+                              j['ann'], '--out-img-root', out] + b_args,
+                              1, 'vis_people.jpg'),
+        'top_down_img_demo_with_det': (
+            top_down_img_demo_with_det, [img_path, '--det-json', j['det'],
+                                         '--out-img-root', out] + b_args,
+            1, 'vis_det_people.jpg'),
+        'top_down_video_demo': (top_down_video_demo, [
+            video, '--out-video-root', out] + b_args, DEMO_FRAMES,
+            'vis_people.avi'),
+        'top_down_video_demo_with_det': (top_down_video_demo_with_det, [
+            video, '--det-json', j['frames'], '--out-video-root', out]
+            + b_args, DEMO_FRAMES, 'vis_det_people.avi'),
+        'top_down_pose_tracking_demo': (top_down_pose_tracking_demo, [
+            video, '--det-json', j['frames'], '--out-video-root', out]
+            + b_args, DEMO_FRAMES, 'track_people.avi'),
+        'face_img_demo': (face_img_demo, [
+            img_path, '--checkpoint', face_ckpt, '--out-img-root', out], 1,
+            'vis_face_people.jpg'),
+        'face_video_demo': (face_video_demo, [
+            video, '--checkpoint', face_ckpt, '--out-video-root', out],
+            DEMO_FRAMES, 'face_people.avi'),
+        'webcam_demo': (webcam_demo, [
+            '--input', video, '--out', os.path.join(out, 'webcam.avi'),
+            '--sync'] + b_args, DEMO_FRAMES, 'webcam.avi'),
+    }
+    per_frame, fps, wall = {}, {}, {}
+    for name, (module, args, frames, out_name) in demos.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        module.main(args)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        check_shapes_held(name)
+        launches = fused_attention.launches
+        per_frame[name] = launches / frames
+        want = 0 if name.startswith('face') else 24
+        check(launches == want * frames, f'{name}: {launches} K1 launches '
+              f'over {frames} frames, expected {want} per frame')
+        path = os.path.join(out, out_name)
+        check(os.path.isfile(path), f'{name} wrote no {path}')
+        if frames > 1:
+            got = count_frames(path)
+            check(got == frames, f'{name}: {path} holds {got} frames, '
+                  f'expected {frames}')
+            fps[name] = frames / wall[name]
+    print(f'demos: 8 top-down demos on the card, a 480x640 image with '
+          f'{len(boxes)} boxes and a {DEMO_FRAMES}-frame MJPG video; K1 '
+          f'launches per frame: ' + ', '.join(
+              f'{n} {v:g}' for n, v in per_frame.items())
+          + '; every output written (videos read back frame for frame); '
+          'wall s of main (model build included): ' + ', '.join(
+              f'{n} {v:.2f}' for n, v in wall.items())
+          + '; frames/s over main: ' + ', '.join(
+              f'{n} {v:.1f}' for n, v in fps.items())
+          + f'; phase {time.perf_counter() - phase_t0:.1f} s on {card}',
+          flush=True)
+    return per_frame, fps
+
+
+WEBCAM_TIMEOUT_S = 120
+# threaded, the pose node takes the latest frame and the display does not
+# wait for it, so it may skip frames; in every run so far it kept up (34
+# inferred for 32 shown). A node thread that stops after a few frames
+# infers far fewer than this share of the frames shown
+WEBCAM_MIN_INFERRED_SHARE = 0.5
+
+
+@contextlib.contextmanager
+def thread_errors():
+    """Collect, as 'thread: error' strings, every exception that ends a
+    thread inside the block (threading.excepthook), and still report it."""
+    import threading
+    errors, hook = [], threading.excepthook
+
+    def record(args):
+        errors.append(f'{args.thread.name if args.thread else "?"}: '
+                      f'{args.exc_type.__name__}: {args.exc_value}')
+        hook(args)
+
+    threading.excepthook = record
+    try:
+        yield errors
+    finally:
+        threading.excepthook = hook
+
+
+def webcam_run(runner_cfg, label):
+    """Run the webcam runner built from `runner_cfg`, ended by its `_exit_`
+    event after WEBCAM_TIMEOUT_S if it has not ended by then; fails if a
+    node's thread raised or K1 launched at a shape no kernel phase holds.
+    Returns (frames shown, frames the pose node inferred, K1 launches, wall
+    s of the run without the model build)."""
+    import threading
+    from vitpose_tpu_torch.ops.attention import fused_attention
+    from vitpose_tpu_torch.webcam import WebcamRunner
+    from vitpose_tpu_torch.webcam.model_nodes import TopDownPoseEstimatorNode
+    runner = WebcamRunner(**runner_cfg)
+    pose = [n for n in runner.node_list
+            if isinstance(n, TopDownPoseEstimatorNode)][0]
+    inferred = [0]
+    process = pose.process
+
+    def counted(msgs):
+        out = process(msgs)
+        inferred[0] += 1
+        return out
+
+    pose.process = counted
+    watchdog = threading.Timer(WEBCAM_TIMEOUT_S,
+                               lambda: runner.event_manager.set('_exit_'))
+    watchdog.start()
+    reset_counts()
+    t0 = time.perf_counter()
+    with thread_errors() as errors:
+        try:
+            shown = runner.run()
+            torch.cuda.synchronize()
+        finally:
+            watchdog.cancel()
+    check(not errors, f'webcam {label}: a node thread raised: {errors}')
+    check_shapes_held(f'webcam {label}')
+    return shown, inferred[0], fused_attention.launches, \
+        time.perf_counter() - t0
+
+
+def phase_webcam(card, root, ckpt):
+    phase_t0 = time.perf_counter()
+    import copy
+    from vitpose_tpu_torch.tools import run_webcam
+    boxes = grid_boxes(np.random.RandomState(4), 3, 1)
+    video = write_video(os.path.join(root, 'webcam_in.avi'),
+                        scene(4, boxes), WEBCAM_FRAMES)
+    base = run_webcam.runner_config(run_webcam.parse_args([]))
+    results = {}
+    for mode, sync in (('threaded', False), ('synchronous', True)):
+        cfg = copy.deepcopy(base)
+        check(cfg['synchronous'] is False, 'the example config is not '
+              'threaded by default')
+        cfg.update(camera_id=video, show=False, synchronous=sync,
+                   max_frames=WEBCAM_MAX_FRAMES)
+        for node in cfg['nodes']:
+            if node['type'] == 'TopDownPoseEstimatorNode':
+                node.update(model_config=COCO_B, model_checkpoint=ckpt)
+            if node['type'] == 'RecorderNode':
+                node.update(out_video_file=os.path.join(
+                    root, f'record_{mode}.avi'), out_video_codec='MJPG')
+        shown, inferred, launches, wall = webcam_run(cfg, mode)
+        check(shown == WEBCAM_MAX_FRAMES, f'webcam {mode}: {shown} frames '
+              f'shown, expected {WEBCAM_MAX_FRAMES}')
+        check(inferred >= 1 and launches == 24 * inferred,
+              f'webcam {mode}: {launches} K1 launches over {inferred} '
+              'inferred frames, expected 24 each')
+        least = shown if sync else WEBCAM_MIN_INFERRED_SHARE * shown
+        check(inferred >= least, f'webcam {mode}: {inferred} frames '
+              f'inferred for {shown} shown, expected at least {least:g}')
+        results[mode] = dict(shown=shown, inferred=inferred,
+                             k1=launches, fps=shown / wall, wall_s=wall)
+    # the example's RecorderNode writes record.mp4 (mp4v) in the working
+    # directory from its own thread: a codec that cannot open fails here,
+    # not as a recorder thread that dies and stalls the app
+    from vitpose_tpu_torch.utils.video import video_writer
+    video_writer(os.path.join(root, 'probe.mp4'), 20, (640, 480)).release()
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        t0 = time.perf_counter()
+        with thread_errors() as errors:
+            runner = run_webcam.main([
+                '--cfg-options', f'runner.camera_id={video}',
+                'runner.show=False',
+                f'runner.max_frames={WEBCAM_MAX_FRAMES}'])
+        cli_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    check(not errors, f'run_webcam: a node thread raised: {errors}')
+    check(runner.frame_count == WEBCAM_MAX_FRAMES, f'run_webcam showed '
+          f'{runner.frame_count} frames, expected {WEBCAM_MAX_FRAMES}')
+    print('webcam: the examples/pose_estimation.py runner on the COCO-B '
+          f'config (bf16, K1), a {WEBCAM_FRAMES}-frame video, max_frames '
+          f'{WEBCAM_MAX_FRAMES}, headless: ' + '; '.join(
+              f'{m}: {r["shown"]} frames shown, {r["inferred"]} inferred, '
+              f'{r["k1"]} K1 launches, {r["fps"]:.1f} frames/s shown '
+              f'({r["wall_s"]:.2f} s)'
+              for m, r in results.items())
+          + f'; tools/run_webcam.py (ViT-S f32, the config\'s own model) '
+          f'showed {runner.frame_count} frames in {cli_s:.2f} s; phase '
+          f'{time.perf_counter() - phase_t0:.1f} s on {card}', flush=True)
+    return results
+
+
 def kernel_name(mangled):
     """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
     anonymous namespace; the mangled name where it is not one."""
@@ -2583,6 +3165,7 @@ def main():
         print(f'serve: 256-crop batch (warp, bf16 ViT-B + K1, flip test, UDP '
               f'decode) median {batch_s * 1e3:.1f} ms = {img_s:.1f} img/s on '
               f'{card}', flush=True)
+        ops = phase_ops(model, card)
         del model
         torch.cuda.empty_cache()
         phase_serve_ref()
@@ -2590,6 +3173,12 @@ def main():
         serve_int8, int8_batch_ms = phase_serve_int8(card)
         with tempfile.TemporaryDirectory() as root:
             deploy = phase_deploy(card, root)
+        with tempfile.TemporaryDirectory() as root:
+            ckpt = peaks_checkpoint(root, COCO_B, 'vitpose_b_peaks')
+            export_k1, export_rows = phase_export(card, root, ckpt)
+            demo_k1, demo_fps = phase_demos(card, root, ckpt)
+            webcam = phase_webcam(card, root, ckpt)
+        torch.cuda.empty_cache()
         eval_launches, eval_int8 = phase_eval(card)
         k2 = phase_kernel_bwd()
         train_launches, step_s, train_img_s, busy_ms = phase_train()
@@ -2613,6 +3202,12 @@ def main():
     kernels = []
     loop_k1, loop_k2 = loop_launches
     per_path = {'attention_fwd': {'serve': serve_launches,
+                                  'export': export_k1,
+                                  'demos_per_frame': demo_k1,
+                                  'webcam': {m: {k: r[k] for k in
+                                                 ('shown', 'inferred',
+                                                  'k1')}
+                                             for m, r in webcam.items()},
                                   'serve_int8': {f'skip_{k}': v['k1']
                                                  for k, v in
                                                  serve_int8.items()},
@@ -2629,7 +3224,8 @@ def main():
                                   'moe_train': moe_launches[0],
                                   'moe_train_steps': moe_steps,
                                   'moe_train_val_batches': moe_val},
-                'attention_bwd': {'serve': 0, 'eval': 0,
+                'attention_bwd': {'serve': 0, 'eval': 0, 'export': 0,
+                                  'demos_per_frame': 0, 'webcam': 0,
                                   'train': train_launches[1],
                                   'train_loop': loop_k2,
                                   'train_loop_steps': loop_steps,
@@ -2667,7 +3263,12 @@ def main():
                       'deploy_latency_ms': {
                           m: r['latency_ms'] for m, r in deploy.items()},
                       'eval_int8_ap': eval_int8['ap'],
-                      'eval_bf16_ap': eval_int8['bf16_ap']}))
+                      'eval_bf16_ap': eval_int8['bf16_ap'],
+                      'ops': ops,
+                      'export': export_rows,
+                      'demo_frames_per_s': demo_fps,
+                      'webcam_frames_per_s': {m: r['fps'] for m, r in
+                                              webcam.items()}}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """The port's attention against the JAX package on the CPU, the dispatch rule
 of its wrappers, the choice of kernel design (`_plan`), the differentiable
 K3, and (on a CUDA card only) the K1 and K2 kernels, in every design that
-takes each shape, against their plain versions.
+takes each shape, against their plain versions, and the custom ops that
+wrap them (tests/test_torch_custom_ops.py holds them on the CPU).
 
 Tolerances of the forward: f32 1e-5. bf16 4e-3 absolute plus 1e-2 relative:
 the output is rounded to bf16 on both sides (one step is at most 2^-7 of |o|,
@@ -340,3 +341,29 @@ def test_kernel_bwd_matches_plain_on_card(shape, dtype):
     # deterministic: K3's gradients are those outputs bit for bit
     for port, ref in zip(leaf.grad.unbind(2), outs):
         assert torch.equal(port, ref)
+
+
+@pytest.mark.cuda
+def test_ops_on_card_count_their_launches():
+    """On the card the op runs the hand kernels (their counters move, per
+    shape too) and opcheck holds at the ViT-B shape in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the ops\' CUDA kernels have no CPU '
+                    'mode')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    qkv = torch.randn(2, 192, 3, 12, 64, generator=gen, device='cuda',
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    g = torch.randn(2, 192, 12, 64, generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    wrappers = (tattn.fused_attention, tattn.fused_attention_bwd)
+    key = ((2, 192, 12, 64), torch.bfloat16)
+    before = [(fn.launches, fn.shapes[key]) for fn in wrappers]
+    torch.ops.vitpose.attention_fwd(q, k, v, 0.125)
+    torch.ops.vitpose.attention_bwd(q, k, v, g, 0.125)
+    assert [(fn.launches, fn.shapes[key]) for fn in wrappers] == [
+        (n + 1, m + 1) for n, m in before]
+    torch.library.opcheck(torch.ops.vitpose.attention_fwd.default,
+                          (q, k, v, 0.125))
+    torch.library.opcheck(torch.ops.vitpose.attention_bwd.default,
+                          (q, k, v, g, 0.125))

@@ -25,7 +25,16 @@ MODULES = ['ops.attention', 'kernels._build', 'models.vit', 'models.heads',
            'utils.checkpoint', 'utils.env', 'parallel',
            'parallel.distributed', 'tools.train', 'data.mpii',
            'data.wholebody', 'tools.model_split', 'utils.quantize',
-           'api.tracking', 'ops.smoothing', 'tools.serve', 'api']
+           'api.tracking', 'ops.smoothing', 'tools.serve', 'api',
+           'tools.export', 'utils.timer', 'utils.video', 'api.webcam',
+           'webcam', 'webcam.buffer', 'webcam.event', 'webcam.message',
+           'webcam.misc', 'webcam.node', 'webcam.pose_utils',
+           'webcam.runner', 'webcam.model_nodes', 'webcam.helper_nodes',
+           'webcam.effect_nodes', 'tools.run_webcam', 'demo', 'demo._video',
+           'demo.top_down_img_demo', 'demo.top_down_img_demo_with_det',
+           'demo.top_down_video_demo', 'demo.top_down_video_demo_with_det',
+           'demo.top_down_pose_tracking_demo', 'demo.face_img_demo',
+           'demo.face_video_demo', 'demo.webcam_demo']
 
 
 def _imported_names(path):

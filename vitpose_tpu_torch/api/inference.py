@@ -333,7 +333,9 @@ def inference_top_down_pose_model(model: PoseModel, img, person_results=None,
     if isinstance(img, str):
         import cv2
         img = cv2.cvtColor(cv2.imread(img), cv2.COLOR_BGR2RGB)
-    img = np.asarray(img)
+    # a channel-reversed view (frame[..., ::-1]) has negative strides,
+    # which torch.from_numpy refuses
+    img = np.ascontiguousarray(img)
     if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
         raise ValueError(f'img must be HWC uint8 RGB, got {img.shape} '
                          f'{img.dtype}')

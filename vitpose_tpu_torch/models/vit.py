@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..ops.attention import attention, keep_outputs
+from ..ops.attention import attention, keep_outputs, keeping
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
            'float16': torch.float16}
@@ -54,9 +54,10 @@ def _keep_attention_output():
 
 # remat_policy -> checkpoint's context_fn (JAX models/vit.py:347-362); every
 # op of a block whose output it does not keep runs again in the backward
-# pass. 'full' keeps nothing. 'attn' keeps K3's output (JAX's 'attn_out'
-# name, vit.py:209-213), so K1 does not run again. 'dots' keeps the Linear
-# outputs by selective checkpointing; K1 runs again.
+# pass. 'full' keeps nothing. 'attn' keeps the attention core's output (JAX's
+# 'attn_out' name, vit.py:209-213): K3's, so K1 does not run again, or on
+# the plain path the PV product's. 'dots' keeps the Linear outputs by
+# selective checkpointing; K1 runs again.
 _REMAT_CONTEXT = {
     'full': None,
     'attn': _keep_attention_output,
@@ -363,7 +364,10 @@ class Attention(nn.Module):
             s = torch.einsum('nqhd,nkhd->nhqk', (q * hd ** -0.5).float(),
                              k.float())
             p = torch.softmax(s, dim=-1).to(dtype)
-            out = torch.einsum('nhqk,nkhd->nqhd', p.float(), v.float())
+            # JAX names this product 'attn_out' on both paths: remat 'attn'
+            # keeps it (the einsum's one bmm), as K3's output on the other
+            with keeping(torch.ops.aten.bmm.default):
+                out = torch.einsum('nhqk,nkhd->nqhd', p.float(), v.float())
         # the proj input is what JAX sows as 'proj_in' (vit.py:214-216),
         # read by utils/quantize.py calibration through a hook on proj
         return self.proj(out.reshape(n, t, d).to(dtype), dtype)
@@ -468,12 +472,6 @@ def _check_ported(cfg: ViTConfig):
     if cfg.remat_blocks and cfg.remat_policy not in _REMAT_CONTEXT:
         raise ValueError(f'remat_policy {cfg.remat_policy!r}: expected '
                          "'full', 'attn', or 'dots'")
-    if cfg.remat_blocks and cfg.remat_policy == 'attn' \
-            and not cfg.fused_attention:
-        raise NotImplementedError(
-            "remat_policy 'attn' keeps K3's output and needs "
-            'fused_attention=True; the plain einsum path under it is not '
-            'ported yet (ROADMAP.md queue 1 item 7)')
 
 
 class PatchEmbed(nn.Module):

@@ -18,23 +18,31 @@ JAX package.
     anything else or on any launch failure. ``_plan`` picks each call's
     design from its shape: 'pair' (one block per (batch, head) pair, inputs
     read once by TMA; bf16 up to T = 192) or 'tiled' (any T, and f32). Each
-    wrapper has a ``launches`` attribute that counts its calls and a
-    ``design_launches`` dict that counts them per design. Neither takes
-    part in autograd.
-  * ``attention`` -- what the ViT calls (K3): the kernels for CUDA tensors,
-    the plain versions for CPU tensors, decided by the device alone. When a
-    gradient is wanted it is a ``torch.autograd.Function`` that saves q, k, v
-    (as the JAX custom_vjp does) and runs the backward; otherwise it saves
-    nothing and runs the forward only. Inside ``keep_outputs`` it keeps its
-    outputs for a recompute (the ViT's remat policy 'attn').
+    wrapper has a ``launches`` attribute that counts its calls, a
+    ``design_launches`` dict that counts them per design and a ``shapes``
+    Counter that counts them per (shape, dtype). Neither takes part in
+    autograd.
+  * ``vitpose::attention_fwd`` / ``vitpose::attention_bwd`` -- the two
+    kernels as torch.library custom ops, so that torch.export, torch.compile
+    and fake tensors trace through them. Each has a CUDA kernel (the
+    hand-written kernel, through ``fused_attention(_bwd)``; a CUDA tensor
+    reaches it or raises), a CPU kernel (the plain version) and a fake
+    implementation (new contiguous tensors of q's shape and dtype).
+    ``attention_fwd`` carries K3 as its autograd formula: it saves q, k, v,
+    as the JAX custom_vjp does, and its backward calls ``attention_bwd``.
+  * ``attention`` -- what the ViT calls: ``attention_fwd`` on either device.
+    Inside ``keep_outputs`` its output is kept for a recompute (the ViT's
+    remat policy 'attn'; see ``keeping``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import threading
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # head dims that csrc/attention_{fwd,bwd}.cu instantiate: ViTPose S (32),
 # B and L (64), H (80)
@@ -98,15 +106,12 @@ def reference_attention_bwd(q, k, v, g, scale=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_kernel_inputs(fn, **tensors):
-    """Refuse what the kernels of `fn` do not take, before any build or
-    launch: tensors share one [N, T, H, d] shape, dtype and device; last dim
-    contiguous; bf16 rows 16-byte aligned; d built; CUDA."""
+def _check_shared(fn, kernel, **tensors):
+    """The checks that need no data, which the fake kernels run too: the
+    tensors share one [N, T, H, d] shape, dtype and device; with `kernel`,
+    also a dtype and head dim the kernels are built for."""
     q = next(iter(tensors.values()))
-    for name, x in tensors.items():
-        if x.dtype not in _DTYPE_CODE:
-            raise ValueError(f'{fn}: {name} has dtype {x.dtype}; the kernel '
-                             'takes float32 or bfloat16')
+    for x in tensors.values():
         if x.dim() != 4 or x.shape != q.shape:
             raise ValueError(f'{fn}: {", ".join(tensors)} must share one '
                              '[N, T, H, d] shape, got '
@@ -114,6 +119,20 @@ def _check_kernel_inputs(fn, **tensors):
         if x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f'{fn}: {", ".join(tensors)} must share dtype '
                              'and device')
+    if kernel and q.dtype not in _DTYPE_CODE:
+        raise ValueError(f'{fn}: dtype {q.dtype} is not built; the kernel '
+                         'takes float32 or bfloat16')
+    if kernel and q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f'{fn}: head dim {q.shape[-1]} is not built; the '
+                         f'kernel takes {KERNEL_HEAD_DIMS}')
+
+
+def _check_kernel_inputs(fn, **tensors):
+    """Refuse what the kernels of `fn` do not take, before any build or
+    launch: `_check_shared`'s checks; last dim contiguous; bf16 rows 16-byte
+    aligned; no input that requires a gradient under grad mode; CUDA."""
+    _check_shared(fn, True, **tensors)
+    for name, x in tensors.items():
         if x.stride(-1) != 1:
             raise ValueError(f'{fn}: {name} must be contiguous in its last '
                              f'dim, got strides {x.stride()}')
@@ -126,10 +145,8 @@ def _check_kernel_inputs(fn, **tensors):
         if x.requires_grad and torch.is_grad_enabled():
             raise ValueError(f'{fn} launches a kernel and records no '
                              'gradient; call attention() to differentiate')
+    q = next(iter(tensors.values()))
     n, t, h, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f'{fn}: head dim {d} is not built; the kernel takes '
-                         f'{KERNEL_HEAD_DIMS}')
     # the grids have one block per (pair, 64-row tile)
     if min(n, t, h) < 1 or n * h * -(-t // 64) >= 2 ** 31:
         raise ValueError(f'{fn}: bad shape {tuple(q.shape)}')
@@ -205,11 +222,13 @@ def fused_attention(q, k, v, scale=None, _design=None):
     _launch('attention_fwd', [q, k, v], [out], design, scale)
     fused_attention.launches += 1
     fused_attention.design_launches[design] += 1
+    fused_attention.shapes[tuple(q.shape), q.dtype] += 1
     return out
 
 
 fused_attention.launches = 0
 fused_attention.design_launches = {'pair': 0, 'tiled': 0}
+fused_attention.shapes = collections.Counter()
 
 
 def fused_attention_bwd(q, k, v, g, scale=None, _design=None):
@@ -239,17 +258,88 @@ def fused_attention_bwd(q, k, v, g, scale=None, _design=None):
     _launch('attention_bwd', [q, k, v, g], grads + stats, design, scale)
     fused_attention_bwd.launches += 1
     fused_attention_bwd.design_launches[design] += 1
+    fused_attention_bwd.shapes[tuple(q.shape), q.dtype] += 1
     return tuple(grads)
 
 
 fused_attention_bwd.launches = 0
 fused_attention_bwd.design_launches = {'pair': 0, 'tiled': 0}
+fused_attention_bwd.shapes = collections.Counter()
 
 
-def _forward(q, k, v):
-    if q.device.type == 'cpu':
-        return reference_attention(q, k, v)
-    return fused_attention(q, k, v)
+def _new_like(q):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+# K1 and K2 as operators the dispatcher knows, so that torch.export,
+# torch.compile and fake tensors pass through them. The body of each is
+# what runs on a device that has no kernel of its own: it refuses.
+@torch.library.custom_op('vitpose::attention_fwd', mutates_args=(),
+                         schema='(Tensor q, Tensor k, Tensor v, float scale)'
+                                ' -> Tensor')
+def attention_fwd(q, k, v, scale):
+    raise ValueError(f'vitpose::attention_fwd has kernels for CPU and CUDA '
+                     f'tensors, not {q.device}')
+
+
+@attention_fwd.register_kernel('cuda')
+def _attention_fwd_cuda(q, k, v, scale):
+    return fused_attention(q, k, v, scale)
+
+
+@attention_fwd.register_kernel('cpu')
+def _attention_fwd_cpu(q, k, v, scale):
+    _check_shared('attention_fwd', False, q=q, k=k, v=v)
+    return reference_attention(q, k, v, scale).contiguous()
+
+
+@attention_fwd.register_fake
+def _attention_fwd_fake(q, k, v, scale):
+    _check_shared('attention_fwd', q.device.type == 'cuda', q=q, k=k, v=v)
+    return _new_like(q)
+
+
+@torch.library.custom_op('vitpose::attention_bwd', mutates_args=(),
+                         schema='(Tensor q, Tensor k, Tensor v, Tensor g, '
+                                'float scale) -> (Tensor, Tensor, Tensor)')
+def attention_bwd(q, k, v, g, scale):
+    raise ValueError(f'vitpose::attention_bwd has kernels for CPU and CUDA '
+                     f'tensors, not {q.device}')
+
+
+@attention_bwd.register_kernel('cuda')
+def _attention_bwd_cuda(q, k, v, g, scale):
+    return fused_attention_bwd(q, k, v, g, scale)
+
+
+@attention_bwd.register_kernel('cpu')
+def _attention_bwd_cpu(q, k, v, g, scale):
+    _check_shared('attention_bwd', False, q=q, k=k, v=v, g=g)
+    return tuple(x.contiguous()
+                 for x in reference_attention_bwd(q, k, v, g, scale))
+
+
+@attention_bwd.register_fake
+def _attention_bwd_fake(q, k, v, g, scale):
+    _check_shared('attention_bwd', q.device.type == 'cuda', q=q, k=k, v=v,
+                  g=g)
+    return _new_like(q), _new_like(q), _new_like(q)
+
+
+def _save_qkv(ctx, inputs, output):
+    q, k, v, scale = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.scale = scale
+
+
+def _attention_grads(ctx, g):
+    q, k, v = ctx.saved_tensors
+    dq, dk, dv = attention_bwd(q, k, v, g.contiguous(), ctx.scale)
+    return dq, dk, dv, None
+
+
+# K3: the JAX custom_vjp's pairing, saving q, k, v
+attention_fwd.register_autograd(_attention_grads, setup_context=_save_qkv)
 
 
 # the output tape of the innermost `keep_outputs` region on this thread
@@ -258,12 +348,12 @@ _kept = threading.local()
 
 @contextlib.contextmanager
 def keep_outputs(tape: list, replay: bool):
-    """Within this region K3 appends each forward output to `tape`; with
-    `replay` it returns them from `tape` again, in order from the first,
-    and launches no K1. A checkpointed block enters it around its forward
-    and around each recompute in the backward pass (the ViT's remat policy
-    'attn', JAX's 'attn_out' name); a recompute runs on the autograd
-    thread, so the region is per thread."""
+    """Within this region the outputs of the op that `keeping` names are
+    appended to `tape`; with `replay` they are returned from `tape` again,
+    in order from the first, and the op does not run. A checkpointed block
+    enters it around its forward and around each recompute in the backward
+    pass (the ViT's remat policy 'attn', JAX's 'attn_out' name); a
+    recompute runs on the autograd thread, so the region is per thread."""
     prev = getattr(_kept, 'region', None)
     _kept.region = (iter(tape) if replay else tape, replay)
     try:
@@ -272,38 +362,47 @@ def keep_outputs(tape: list, replay: bool):
         _kept.region = prev
 
 
-class _Attention(torch.autograd.Function):
-    """K3: K1 forward and K2 backward on CUDA, the plain versions on the
-    CPU; saves q, k, v as the JAX custom_vjp does."""
+class _Keep(TorchDispatchMode):
+    """Below autograd, records the outputs of `op` on the tape, or returns
+    them from it without running `op`; every other op runs as it is."""
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        region = getattr(_kept, 'region', None)
-        if region is None:
-            return _forward(q, k, v)
-        tape, replay = region
-        if replay:
-            return next(tape)
-        out = _forward(q, k, v)
+    def __init__(self, op, tape, replay):
+        super().__init__()
+        self.op, self.tape, self.replay = op, tape, replay
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is not self.op:
+            return func(*args, **(kwargs or {}))
+        if self.replay:
+            return next(self.tape)
+        out = func(*args, **(kwargs or {}))
         # a new tensor object on the same memory: the recompute returns it
         # as its own output
-        tape.append(out.detach())
+        self.tape.append(out.detach())
         return out
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        g = g.contiguous()
-        if q.device.type == 'cpu':
-            return reference_attention_bwd(q, k, v, g)
-        return fused_attention_bwd(q, k, v, g)
+
+def keeping(op):
+    """The context in which a caller runs the op whose output a
+    `keep_outputs` region keeps: outside a region it does nothing.
+
+    The replay lives in neither the op's kernels nor a Python autograd
+    Function but between them: a dispatch mode below autograd. Autograd
+    records the same node in the forward and in the recompute, saving the
+    same tensors (q, k, v for K3), as non-reentrant checkpointing requires;
+    only the kernel call is replaced by the kept tensor. So the op stays
+    pure (no hidden state, nothing aliased; `opcheck` holds) and the same
+    region keeps the plain einsum path's PV product (`aten.bmm`) too."""
+    region = getattr(_kept, 'region', None)
+    if region is None:
+        return contextlib.nullcontext()
+    return _Keep(op, *region)
 
 
 def attention(q, k, v):
-    """Attention core of the ViT: the kernels on CUDA, the plain versions on
-    the CPU; differentiable (K3) when a gradient is wanted."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _Attention.apply(q, k, v)
-    return _forward(q, k, v)
+    """Attention core of the ViT, through `vitpose::attention_fwd` on both
+    devices: K1 on CUDA, the plain version on the CPU, differentiable (K3)
+    when a gradient is wanted. Inside `keep_outputs` it keeps its output."""
+    scale = q.shape[-1] ** -0.5
+    with keeping(torch.ops.vitpose.attention_fwd.default):
+        return torch.ops.vitpose.attention_fwd(q, k, v, scale)
