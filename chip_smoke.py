@@ -164,13 +164,38 @@ no result:
             and BN statistics within MOE_REF_TOL, printed beside the CPU's
             own spread on one thread; bf16 CUDA as close to the f32 CPU
             answer as the bf16 CPU path is (within BF16_FACTOR)
+  cnn-serve HRNet-W32 (bf16) and ResNet-50 (f32) from the zoo's configs
+            through init_pose_model with seeded weights, TF32 as torch
+            defaults it: one 8-box call (every tensor on the card,
+            keypoints finite and inside their boxes), then the 256-crop
+            flip-tested batch timed, the card's busy time, conv MACs and
+            BN'd elements per crop from the shapes; 0 K1 and K2 launches
+  cnn-ref   both at full width on 4 boxes, CUDA against the CPU: f32 (TF32
+            off) heatmaps within CNN_HM_RTOL of their largest value and
+            decisive keypoints within KP_TOL_PX; HRNet-W32 in bf16 as close
+            to the f32 answer as the bf16 CPU path (BF16_FACTOR), every
+            joint decoded at a cell within twice that error of the f32
+            maximum
+  cnn-eval  the evaluation CLI on the HRNet-W32 config over a synthetic
+            COCO val set of 256 boxes: 0 K1/K2, the stats, --int8 raises,
+            boxes/s, the host's share and the card's idle share
+  cnn-train the training CLI on the ResNet-50 config, one epoch of 4 steps
+            at batch 64 (step time, img/s, data_time share, peak memory,
+            the epoch checkpoint); the HRNet-W32 and ResNet-50 steps at
+            batch 64 with a profiled step each; cnn-train-ref: two
+            ResNet-50 steps, f32 at batch 2, CUDA against the CPU within
+            CNN_REF_FACTOR times the CPU's own spread (one thread against
+            all)
+  cnn-apps  tools/serve.py on the HRNet-W32 config (1-box requests equal
+            the direct call, p50/p99) and tools/export.py at --batch 8
+            --no-flip (the reloaded program against eager, both timed)
 
-Then the kernels JSON line (per kernel: the design the main path takes, its
+Then the cnn JSON line (the CNN phases' numbers), the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, int8
 serve call, server request per mode, eval run, int8 eval run, train step,
-train-loop run, remat step, moe-train run, exported call, demo frame and
-webcam run; beside the kernels, the
+train-loop run, remat step, moe-train run, exported call, demo frame,
+webcam run and each CNN phase (0); beside the kernels, the
 int8 product's launches per path and times, the server's latencies and the
 int8 AP, the dispatcher's price, the exported program's times and the
 demos' and webcam's frames/s), the nvidia-smi card line and the result
@@ -1079,13 +1104,14 @@ def eval_options(root, files, tag=''):
             f'data.val.bbox_file={files["det" + tag]}']
 
 
-def eval_objects(options, checkpoint, device, batch_size=None):
+def eval_objects(options, checkpoint, device, batch_size=None,
+                 config=None):
     """The CLI's model (checkpoint loaded, on `device`), dataset and loader
-    for the COCO-B config with `options`."""
+    for `config` (default: the COCO-B config) with `options`."""
     from vitpose_tpu_torch.api.inference import load_checkpoint
     from vitpose_tpu_torch.tools.test import build_eval_objects
     from vitpose_tpu_torch.utils.config import apply_options, load_config
-    cfg = apply_options(load_config(COCO_B), options)
+    cfg = apply_options(load_config(config or COCO_B), options)
     model, ds, loader = build_eval_objects(cfg, batch_size)
     load_checkpoint(model, checkpoint)
     return model.to(device).eval(), ds, loader
@@ -3093,6 +3119,698 @@ def phase_webcam(card, root, ckpt):
     return results
 
 
+# --- CNN top-down: ResNet-50 and HRNet-W32 through GenericTopDown ----------
+
+HRNET_CFG = 'vitpose_tpu/configs/coco/hrnet_w32_coco_256x192.py'
+RES50_CFG = 'vitpose_tpu/configs/coco/res50_coco_256x192.py'
+CNN_CONFIGS = (('hrnet_w32', HRNET_CFG), ('res50', RES50_CFG))
+CNN_SERVE_TURNS = 5                  # timed 256-crop batches per model
+# cnn-ref f32 (TF32 off): heatmaps within CNN_HM_RTOL of max |CPU heatmap|
+# (summation order through 50 to 300 convs), and a keypoint is decisive
+# where its top-2 gap and both neighbour differences at the argmax (the
+# quarter-pixel shift of the 'default' decode) exceed 10 such bounds
+CNN_HM_RTOL = 1e-4
+CNN_DECISIVE_BOUNDS = 10
+CNN_EVAL_IMAGES = (60, 4)            # 256 boxes, 4 batches of 64
+CNN_TRAIN_IMAGES = (74, 0)           # 259 GT persons: 4 steps of 64
+CNN_APP_REQUESTS = 10
+# cnn-train-ref f32, CUDA against the CPU, ResNet-50 at batch 2, in the
+# units of ref_distances: at most CNN_REF_FACTOR times the CPU's own spread
+# (one thread against all of them: summation order alone) plus the f32
+# floor of train-ref (TRAIN_REF_TOL). A BN over two crops whose channels
+# are nearly constant (crops padded outside the canvas) takes its variance
+# as E[x^2] - E[x]^2, flax's formula, and loses most digits there, so the
+# spread, not f32's epsilon, sets the scale
+CNN_REF_FACTOR = 4.0
+
+
+def torch_tf32_defaults():
+    """TF32 as torch starts: on for cuDNN convs, off for matmuls (serve-ref
+    and train-ref turn both off)."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def cnn_model_dict(path, dtype=None):
+    """A config file's model dict, its backbone and head in `dtype` when
+    given."""
+    from vitpose_tpu_torch.utils.config import load_config
+    mdict = dict(load_config(path)['model'])
+    if dtype:
+        mdict['dtype'] = dtype
+        mdict['backbone_overrides'] = dict(mdict['backbone_overrides'],
+                                           dtype=dtype)
+    return mdict
+
+
+def conv_counts(pm):
+    """(conv and deconv MACs, BatchNorm'd elements) of one crop through
+    pm.model, counted from the shapes of one forward on the card."""
+    calls = {'macs': 0, 'bn': 0}
+    conv, deconv, bn = F.conv2d, F.conv_transpose2d, F.batch_norm
+
+    def conv_c(x, w, *a, **k):
+        y = conv(x, w, *a, **k)
+        calls['macs'] += y.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        return y
+
+    def deconv_c(x, w, *a, **k):
+        calls['macs'] += x.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        return deconv(x, w, *a, **k)
+
+    def bn_c(x, *a, **k):
+        calls['bn'] += x.numel()
+        return bn(x, *a, **k)
+
+    iw, ih = pm.image_size
+    F.conv2d, F.conv_transpose2d, F.batch_norm = conv_c, deconv_c, bn_c
+    try:
+        with torch.no_grad():
+            pm.model(torch.zeros(1, ih, iw, 3, device=pm.device))
+    finally:
+        F.conv2d, F.conv_transpose2d, F.batch_norm = conv, deconv, bn
+    return calls['macs'], calls['bn']
+
+
+def cnn_bound_ms(macs, bn_elems, dtype, n):
+    """The least time of `n` crops' convs (at the bf16 or TF32 peak) and,
+    apart, of reading and writing their BN'd activations once in `dtype`
+    (at the memory rate)."""
+    peak = 989e12 if dtype == torch.bfloat16 else 495e12
+    size = 2 if dtype == torch.bfloat16 else 4
+    return (2 * macs * n / peak * 1e3,
+            2 * size * bn_elems * n / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_cnn_serve(card):
+    """init_pose_model on the HRNet-W32 (bf16) and ResNet-50 (f32) configs
+    on the card, seeded random weights, TF32 as torch defaults it: one
+    8-box call through inference_top_down_pose_model (every tensor on the
+    card, keypoints finite and inside their padded boxes), then 256-crop
+    batches with the flip test and the config's decode: ms per batch
+    (median of CNN_SERVE_TURNS) and img/s, the card's busy time per batch
+    (torch.profiler), and 0 K1 or K2 launches."""
+    from vitpose_tpu_torch.api import (inference_top_down_pose_model,
+                                       init_pose_model)
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.ops.geometry import bbox_xywh2cs
+    torch_tf32_defaults()
+    rng = np.random.RandomState(3)
+    boxes = grid_boxes(rng, 4, 2)
+    img = scene(3, boxes)
+    persons = [{'bbox': b} for b in boxes]
+    n = 256
+    big = np.stack([rng.uniform(0, 480, n), rng.uniform(0, 260, n),
+                    rng.uniform(60, 160, n), rng.uniform(120, 220, n)],
+                   1).astype(np.float32)
+    out = {}
+    for name, path in CNN_CONFIGS:
+        pm = init_pose_model(path, device='cuda')
+        check(all(p.is_cuda for p in pm.model.parameters()),
+              f'cnn-serve {name}: a parameter is off the card')
+        dtype = next(pm.model.backbone.modules()).dtype
+        macs, bn_elems = conv_counts(pm)
+        reset_counts()
+        results, out_hm = inference_top_down_pose_model(
+            pm, img, persons, return_heatmap=True)
+        kp = np.stack([r['keypoints'] for r in results])
+        check(kp.shape == (8, 17, 3) and np.isfinite(kp).all(),
+              f'cnn-serve {name}: keypoints not finite or of shape '
+              f'{kp.shape}')
+        # random weights leave some heatmaps below 0 everywhere: the
+        # decode puts those joints at heatmap cell (-1, -1), as mmpose does;
+        # a joint at cell 0 lies on the box edge, up to f32 rounding
+        center, size = padded_boxes(boxes, pm)
+        inside = np.abs(kp[..., :2] - center[:, None]) \
+            <= size[:, None] / 2 + 1e-3
+        scored = kp[..., 2] > 0
+        bad = [(i, j) for i, j in np.argwhere(scored)
+               if not inside[i, j].all()]
+        hm = out_hm[0]['heatmap']
+        check(not bad and scored.mean() > 0.5,
+              f'cnn-serve {name}: {len(bad)} of the {scored.sum()} joints '
+              'with a positive score outside their padded boxes: ' + '; '.join(
+                  f'box {i} joint {j} at {kp[i, j].tolist()}, box centre '
+                  f'{center[i].tolist()} size {size[i].tolist()}, heatmap max '
+                  f'{hm[i, j].max()} at {np.unravel_index(hm[i, j].argmax(), hm[i, j].shape)}'
+                  for i, j in bad[:3]))
+        dev = pm.device
+        iw, ih = pm.image_size
+        image = torch.from_numpy(img).to(dev)
+        c, s = bbox_xywh2cs(boxes[:, :4], iw / ih)
+        c, s = c.to(dev), s.to(dev)
+        audit = DeviceAudit()
+        with audit:
+            pm.infer_batch(image[None].expand(8, *image.shape), c, s)
+        torch.cuda.synchronize()
+        check(not audit.off_device, f'cnn-serve {name}: off-card tensors: '
+              f'{sorted(audit.off_device)[:5]}')
+        with torch.no_grad():
+            feat = pm.model.backbone(torch.zeros(1, ih, iw, 3, device=dev))
+        layout = ('channels_last' if feat.is_contiguous(
+            memory_format=torch.channels_last) and not feat.is_contiguous()
+            else 'NCHW')
+        c, s = bbox_xywh2cs(big, iw / ih)
+        c, s = c.to(dev), s.to(dev)
+        imgs = image[None].expand(n, *image.shape)
+        times = []
+        for i in range(CNN_SERVE_TURNS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds, _ = pm.infer_batch(imgs, c, s)
+            torch.cuda.synchronize()
+            if i:                                        # first is warm-up
+                times.append(time.perf_counter() - t0)
+            check(torch.isfinite(preds).all().item(),
+                  f'cnn-serve {name}: non-finite batch keypoints')
+        med = statistics.median(times)
+        busy_ms, prof_ms = device_busy_ms(lambda: pm.infer_batch(imgs, c, s))
+        k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+        check(k1 == 0 and k2 == 0, f'cnn-serve {name}: K1 {k1} and K2 {k2} '
+              'launches, expected none')
+        conv_ms, bn_ms = cnn_bound_ms(macs, bn_elems, dtype, 2 * n)
+        busy = ('not measured' if busy_ms is None else
+                f'{busy_ms:.1f} ms busy (idle share '
+                f'{1 - busy_ms / prof_ms:.3f} of the profiled {prof_ms:.1f})')
+        print(f'cnn-serve: {name} ({path}, {str(dtype)[6:]}, flip test, '
+              f'{pm.cfg.post_process} decode, use_udp={pm.cfg.use_udp}): '
+              f'8-box call keypoints finite, those of the '
+              f'{scored.sum()}/{scored.size} joints with a positive score '
+              f'inside their boxes, '
+              f'{audit.ops} ops all on CUDA, 0 K1 and 0 K2 launches, '
+              f'features {layout}; 256-crop batch median {med * 1e3:.1f} ms '
+              f'({min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}) = '
+              f'{n / med:.1f} img/s; card {busy}; {macs / 1e9:.3f} GMAC and '
+              f'{bn_elems / 1e6:.2f} M BN elements per crop: conv bound '
+              f'{conv_ms:.1f} ms, BN read+write bound {bn_ms:.1f} ms per '
+              f'batch; on {card}', flush=True)
+        out[name] = dict(ms=med * 1e3, img_s=n / med, busy_ms=busy_ms,
+                         profiled_ms=prof_ms, gmac_per_crop=macs / 1e9,
+                         bn_melems_per_crop=bn_elems / 1e6,
+                         conv_bound_ms=conv_ms, bn_bound_ms=bn_ms,
+                         layout=layout, k1=k1, k2=k2)
+        del pm, imgs, image
+        torch.cuda.empty_cache()
+    return out
+
+
+def decisive_joints(hm, bound):
+    """[N, K] mask of the joints whose argmax (top-2 gap), quarter-pixel
+    shift (the neighbour differences at the argmax) and score sign (the
+    decode puts a joint whose maximum is not positive at cell (-1, -1)) are
+    each more than `bound` from a tie."""
+    n, k, h, w = hm.shape
+    flat = hm.reshape(n, k, -1)
+    top2 = np.sort(flat, axis=-1)[..., -2:]
+    idx = flat.argmax(-1)
+    y, x = idx // w, idx % w
+    rows = np.arange(n)[:, None], np.arange(k)[None, :]
+    dx = np.where((x > 0) & (x < w - 1),
+                  hm[rows + (y, np.clip(x + 1, 0, w - 1))]
+                  - hm[rows + (y, np.clip(x - 1, 0, w - 1))], np.inf)
+    dy = np.where((y > 0) & (y < h - 1),
+                  hm[rows + (np.clip(y + 1, 0, h - 1), x)]
+                  - hm[rows + (np.clip(y - 1, 0, h - 1), x)], np.inf)
+    return ((top2[..., 1] - top2[..., 0] > bound) & (np.abs(dx) > bound)
+            & (np.abs(dy) > bound) & (np.abs(top2[..., 1]) > bound))
+
+
+def phase_cnn_ref(card):
+    """HRNet-W32 and ResNet-50 at full width on 4 boxes, the same seeded
+    weights on CUDA and on the CPU: f32 with TF32 off, heatmaps within
+    CNN_HM_RTOL of their largest value and decisive keypoints within
+    KP_TOL_PX; HRNet-W32 also in bf16: CUDA's heatmaps as close to the f32
+    CPU answer as the bf16 CPU path's are (BF16_FACTOR), and every joint
+    decoded at a cell whose f32 value is within twice that error of the
+    f32 maximum."""
+    from vitpose_tpu_torch.api import (inference_top_down_pose_model,
+                                       init_pose_model)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    boxes = grid_boxes(np.random.RandomState(4), 2, 2)
+    img = scene(4, boxes)
+    persons = [{'bbox': b} for b in boxes]
+    runs = {}
+    cases = [('hrnet_w32', HRNET_CFG, 'float32'), ('res50', RES50_CFG,
+                                                   'float32'),
+             ('hrnet_w32', HRNET_CFG, 'bfloat16')]
+    for name, path, dtype in cases:
+        for dev in ('cuda', 'cpu'):
+            t0 = time.perf_counter()
+            pm = init_pose_model(cnn_model_dict(path, dtype), device=dev)
+            res, hm = inference_top_down_pose_model(pm, img, persons,
+                                                    return_heatmap=True)
+            runs[name, dtype, dev] = (
+                np.stack([r['keypoints'][:, :2] for r in res]),
+                hm[0]['heatmap'], time.perf_counter() - t0)
+            del pm
+    report = {}
+    for name, _, _ in cases[:2]:
+        kp_c, hm_c, s_cuda = runs[name, 'float32', 'cuda']
+        kp_r, hm_r, s_cpu = runs[name, 'float32', 'cpu']
+        top = np.abs(hm_r).max()
+        bound = CNN_HM_RTOL * top
+        hm_err = np.abs(hm_c - hm_r).max()
+        check(hm_err <= bound, f'cnn-ref {name} f32: CUDA and CPU heatmaps '
+              f'differ by {hm_err}, bound {bound}')
+        dec = decisive_joints(hm_r, CNN_DECISIVE_BOUNDS * bound)
+        check(dec.mean() >= 0.25, f'cnn-ref {name}: only {dec.sum()} of '
+              f'{dec.size} joints decisive')
+        kp_err = np.abs(kp_c - kp_r).max(-1)[dec].max()
+        check(kp_err <= KP_TOL_PX, f'cnn-ref {name} f32: decisive keypoints '
+              f'differ by {kp_err} px')
+        report[name] = dict(hm_err=float(hm_err), hm_bound=float(bound),
+                            kp_err_px=float(kp_err), decisive=int(dec.sum()))
+        print(f'cnn-ref: {name} f32 (TF32 off), 4 boxes, CUDA vs CPU: '
+              f'heatmap max abs diff {hm_err:.3e} (bound {bound:.3e} = '
+              f'{CNN_HM_RTOL:g} of max |heatmap| {top:.3e}), decisive '
+              f'keypoints max diff {kp_err:.3e} px (tol {KP_TOL_PX}) over '
+              f'{dec.sum()}/{dec.size} joints; call with model build '
+              f'{s_cuda:.1f} s on CUDA, {s_cpu:.1f} s on the CPU', flush=True)
+    # bf16: each path's heatmaps against the f32 CPU answer, the CUDA one at
+    # most BF16_FACTOR times as far as the CPU one (e). A path within e of
+    # the f32 heatmap decodes every joint at a cell whose f32 value is
+    # within 2e of the f32 maximum, whatever the ties (random weights make
+    # near-ties common): that holds the keypoints' cells
+    kp_r, hm_r, _ = runs['hrnet_w32', 'float32', 'cpu']
+    errs, short = {}, {}
+    flat_r = hm_r.reshape(*hm_r.shape[:2], -1)
+    for dev in ('cuda', 'cpu'):
+        _, hm, _ = runs['hrnet_w32', 'bfloat16', dev]
+        errs[dev] = (np.abs(hm - hm_r).max(),
+                     np.sqrt(np.mean((hm - hm_r) ** 2)))
+        cells = hm.reshape(*hm.shape[:2], -1).argmax(-1)
+        short[dev] = (flat_r.max(-1) - np.take_along_axis(
+            flat_r, cells[..., None], -1)[..., 0]).max()
+    bound = 2 * BF16_FACTOR * errs['cpu'][0]
+    gb, cb = runs['hrnet_w32', 'bfloat16', 'cuda'][1], \
+        runs['hrnet_w32', 'bfloat16', 'cpu'][1]
+    print(f'cnn-ref: hrnet_w32 bf16 against the f32 CPU answer, 4 boxes, '
+          f'CUDA / CPU: heatmap max abs {errs["cuda"][0]:.3e} / '
+          f'{errs["cpu"][0]:.3e}, RMS {errs["cuda"][1]:.3e} / '
+          f'{errs["cpu"][1]:.3e} (CUDA at most {BF16_FACTOR}x CPU); the '
+          f'decoded cells fall short of the f32 maximum by at most '
+          f'{short["cuda"]:.3e} / {short["cpu"]:.3e} (bound {bound:.3e} = '
+          f'2 x {BF16_FACTOR:g} x the CPU error); CUDA vs CPU bf16 heatmaps '
+          f'{np.abs(gb - cb).max():.3e}; max |f32 heatmap| '
+          f'{np.abs(hm_r).max():.3e}; on {card}', flush=True)
+    for i, what in enumerate(('heatmap max', 'heatmap RMS')):
+        check(errs['cuda'][i] <= BF16_FACTOR * errs['cpu'][i],
+              f'cnn-ref hrnet_w32 bf16: CUDA {what} error {errs["cuda"][i]} '
+              f'from the f32 answer, the bf16 CPU path {errs["cpu"][i]}')
+    check(max(short.values()) <= bound, f'cnn-ref hrnet_w32 bf16: decoded '
+          f'cells {short} short of the f32 maximum, bound {bound}')
+    report['hrnet_w32_bf16'] = dict(
+        hm_err_cuda=float(errs['cuda'][0]), hm_err_cpu=float(errs['cpu'][0]),
+        hm_rms_cuda=float(errs['cuda'][1]), hm_rms_cpu=float(errs['cpu'][1]),
+        cell_short_cuda=float(short['cuda']),
+        cell_short_cpu=float(short['cpu']), cell_bound=float(bound),
+        cuda_vs_cpu_bf16=float(np.abs(gb - cb).max()))
+    return report
+
+
+def phase_cnn_eval(card):
+    """The evaluation CLI on the HRNet-W32 config (bf16 as it sets it, flip
+    test, the 'default' decode with shift_heatmap) over a synthetic COCO
+    val set (CNN_EVAL_IMAGES) and seeded weights saved as a .pth: 0 K1 and
+    K2 launches, the ten stats, AP in [0, 1]; --int8 raises; then
+    run_validation timed: boxes/s, the host's decode alone, the card's busy
+    time and idle share."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from vitpose_tpu_torch.api import init_pose_model
+    from vitpose_tpu_torch.eval import COCO_KPT_STAT_NAMES
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.tools import test as cli
+    torch_tf32_defaults()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        files, n_boxes = write_eval_set(root, 5, *CNN_EVAL_IMAGES)
+        pm = init_pose_model(HRNET_CFG, device='cuda')
+        ckpt = os.path.join(root, 'hrnet_w32.pth')
+        torch.save(pm.model.state_dict(), ckpt)
+        del pm
+        write_s = time.perf_counter() - t0
+        options = eval_options(root, files)
+        n_batches = -(-n_boxes // EVAL_BATCH)
+        out_json = os.path.join(root, 'stats.json')
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = cli.main([HRNET_CFG, ckpt, '--out', out_json,
+                              '--cfg-options', *options])
+        cli_s = time.perf_counter() - t0
+        k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+        check(k1 == 0 and k2 == 0, f'cnn-eval: K1 {k1} and K2 {k2} '
+              'launches, expected none')
+        with open(out_json) as f:
+            written = json.load(f)
+        check(sorted(written) == sorted(COCO_KPT_STAT_NAMES)
+              and written == {k: float(v) for k, v in stats.items()},
+              f'cnn-eval: the CLI wrote {written}')
+        check(0 <= stats['AP'] <= 1, f'cnn-eval: AP {stats["AP"]}')
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main([HRNET_CFG, ckpt, '--int8', '--cfg-options',
+                          *options])
+            raise Failure('cnn-eval: --int8 on a CNN config did not raise')
+        except NotImplementedError as e:
+            int8_msg = str(e)
+        model, ds, loader = eval_objects(options, ckpt, 'cuda',
+                                         config=HRNET_CFG)
+        t0 = time.perf_counter()
+        for _ in loader:
+            pass
+        host_s = time.perf_counter() - t0
+        validate(model, loader)                          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = validate(model, loader)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        kp = np.concatenate([r['preds'] for r in results])
+        check(kp.shape == (n_boxes, 17, 3) and np.isfinite(kp).all(),
+              f'cnn-eval: keypoints not finite or of shape {kp.shape}')
+        rescored = ds.evaluate(results)
+        drift = max(abs(rescored[k] - stats[k]) for k in stats)
+        check(drift <= EVAL_REF_AP_TOL, f'cnn-eval: the timed run scored '
+              f'stats {drift} away from the CLI run')
+        busy_ms, prof_ms = device_busy_ms(lambda: validate(model, loader))
+        idle = (None if busy_ms is None else 1 - busy_ms / prof_ms)
+        print(f'cnn-eval: CLI on {HRNET_CFG} (HRNet-W32 bf16, flip test, '
+              f'batch {EVAL_BATCH}), {n_boxes} synthetic boxes in '
+              f'{n_batches} batches (set and weights written in '
+              f'{write_s:.1f} s): 0 K1 and 0 K2 launches; {cli_s:.1f} s with '
+              f'model build and checkpoint load; stats ' + ', '.join(
+                  f'{k} {v:.4f}' for k, v in stats.items())
+              + f' (random weights); --int8 raises ("{int8_msg[:60]}..."); '
+              f'run_validation {run_s * 1e3:.1f} ms = {n_boxes / run_s:.1f} '
+              f'boxes/s, the host alone {host_s * 1e3:.1f} ms; card busy '
+              + ('not measured' if busy_ms is None else
+                 f'{busy_ms:.1f} ms of the profiled {prof_ms:.1f} ms, idle '
+                 f'share {idle:.3f}') + f'; on {card}', flush=True)
+        del model, loader, results
+        torch.cuda.empty_cache()
+    return dict(boxes=n_boxes, boxes_s=n_boxes / run_s, run_ms=run_s * 1e3,
+                host_ms=host_s * 1e3, busy_ms=busy_ms, idle_share=idle,
+                ap=stats['AP'], k1=k1, k2=k2)
+
+
+def cnn_step_ms(path, card):
+    """Train steps of `path`'s model at batch TRAIN_BATCH on synthetic
+    inputs through the runner's state (build_train_state) and step, the
+    config's dtype: (median ms over TIMED_STEPS, peak GB)."""
+    from vitpose_tpu_torch.data.pipeline import make_preprocess_fn
+    from vitpose_tpu_torch.train.loop import build_train_state
+    from vitpose_tpu_torch.train.step import make_train_step
+    from vitpose_tpu_torch.utils.config import load_config
+    from vitpose_tpu_torch.data.dataset_info import DatasetInfo
+    state = build_train_state(load_config(path), STEPS_PER_EPOCH, 'cuda')
+    step = make_train_step(state.model)
+    batch = make_preprocess_fn((192, 256), (48, 64), use_udp=False)(
+        *train_inputs(0, TRAIN_BATCH, DatasetInfo.load('coco'), 'cuda'))
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TIMED_STEPS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    check(all(np.isfinite(v.item()) for v in m.values()),
+          f'cnn-train {path}: non-finite metrics {m}')
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(times)
+    busy = profile_steps(lambda: step(state, batch, gen), med, steps=1,
+                         label=f'cnn-train {os.path.basename(path)}')
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return med * 1e3, peak, busy
+
+
+def phase_cnn_train(card):
+    """The training CLI on the ResNet-50 config (f32, TF32 as torch
+    defaults it, MSRA targets, batch 64) for one epoch of 4 steps over a
+    synthetic COCO set, from seeded weights: 0 K1 and K2 launches, finite
+    metrics, the epoch's checkpoint written; step wall time, img/s, the
+    data_time share, peak memory. Then the HRNet-W32 (bf16) step at batch
+    64, and cnn-train-ref."""
+    import os
+    import tempfile
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    torch_tf32_defaults()
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, 'train'))
+        files, _ = write_eval_set(os.path.join(root, 'train'), 6,
+                                  *CNN_TRAIN_IMAGES)
+        work_dir = os.path.join(root, 'work')
+        options = [f'data.train.ann_file={files["ann"]}',
+                   f'data.train.img_prefix={root}/train/',
+                   f'data.val.ann_file={files["ann"]}',
+                   f'data.val.img_prefix={root}/train/',
+                   f'data.val.bbox_file={files["det"]}',
+                   'optimizer.total_epochs=1', 'runtime.eval_interval=10',
+                   'runtime.ckpt_interval=1', 'runtime.log_interval=1']
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, log = run_train_cli([RES50_CFG, '--work-dir', work_dir,
+                                    '--cfg-options', *options])
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        train = [r for r in log if r['mode'] == 'train']
+        check(len(train) == state.step == 4, f'cnn-train: {len(train)} '
+              f'logged steps, state at {state.step}, expected 4')
+        check(all(np.isfinite(r[k]) for r in train
+                  for k in ('heatmap_loss', 'grad_norm', 'acc_pose')),
+              'cnn-train: a non-finite training metric')
+        k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+        check(k1 == 0 and k2 == 0, f'cnn-train: K1 {k1} and K2 {k2} '
+              'launches, expected none')
+        check(os.path.exists(os.path.join(work_dir, 'ckpts', 'epoch_0.pth')),
+              'cnn-train: no epoch checkpoint')
+        times = step_times(log)
+        med = statistics.median(times)
+        last = train[-1]
+        share = last['data_time'] / last['time']
+        del state
+        torch.cuda.empty_cache()
+    print(f'cnn-train: CLI on {RES50_CFG} (ResNet-50 f32, TF32 on for '
+          f'convs, batch {TRAIN_BATCH}), 4 steps: 0 K1 and 0 K2 launches; '
+          f'step wall time median {med * 1e3:.1f} ms '
+          f'({min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}) = '
+          f'{TRAIN_BATCH / med:.1f} img/s; data_time share '
+          f'{share:.3f} ({last["data_time"]:.2f} of {last["time"]:.2f} s); '
+          f'losses ' + ', '.join(f'{r["heatmap_loss"]:.6f}' for r in train)
+          + f'; whole run {run_s:.1f} s; peak device memory {peak_gb:.2f} '
+          f'GB; on {card}', flush=True)
+    steps = {}
+    for name, path in CNN_CONFIGS:
+        ms, peak, busy = cnn_step_ms(path, card)
+        steps[name] = dict(ms=ms, img_s=TRAIN_BATCH / ms * 1e3, peak_gb=peak,
+                           kernel_ms=busy)
+        print(f'cnn-train: {name} step (runner state, the config\'s dtype, '
+              f'preprocess on the card excluded) at batch {TRAIN_BATCH}: '
+              f'median {ms:.1f} ms over {TIMED_STEPS} = '
+              f'{TRAIN_BATCH / ms * 1e3:.1f} img/s, peak {peak:.2f} GB; on '
+              f'{card}', flush=True)
+    ref = phase_cnn_train_ref()
+    return dict(cli_ms=med * 1e3, cli_img_s=TRAIN_BATCH / med,
+                data_time_share=share, peak_gb=peak_gb, k1=k1, k2=k2,
+                steps=steps, ref=ref)
+
+
+def phase_cnn_train_ref():
+    """Two steps of ResNet-50 at full width, f32 with TF32 off, batch 2, on
+    CUDA and on the CPU from the same seeded weights (train_run), and once
+    more on the CPU on one thread: loss, grad_norm, gradients, the
+    parameters' and the BN statistics' change of CUDA against the CPU
+    within CNN_REF_FACTOR times the CPU's own spread plus TRAIN_REF_TOL."""
+    from vitpose_tpu_torch.data.dataset_info import DatasetInfo
+    from vitpose_tpu_torch.data.pipeline import make_preprocess_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = train_inputs(1, 2, DatasetInfo.load('coco'), 'cpu')
+    batch = make_preprocess_fn((192, 256), (48, 64), use_udp=False)(*inputs)
+    cfg = cnn_model_dict(RES50_CFG, 'float32')
+    runs = {dev: train_run(cfg, dev, batch) for dev in ('cuda', 'cpu')}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = train_run(cfg, 'cpu', batch)
+    finally:
+        torch.set_num_threads(threads)
+    dist, params = ref_distances(runs['cuda'], runs['cpu'])
+    spread, _ = ref_distances(one, runs['cpu'])
+    print('cnn-train-ref: ResNet-50 f32 (TF32 off), batch 2, 2 steps, CUDA '
+          f'vs CPU ({threads} threads) / the CPU on 1 thread vs {threads}: '
+          + ', '.join(f'{k} {v:.3e} / {spread[k]:.3e} (tol '
+                      f'{CNN_REF_FACTOR:g}x + {TRAIN_REF_TOL[k]:g})'
+                      for k, v in dist.items())
+          + f'; loss {runs["cpu"][0]["heatmap_loss"]:.6f}; largest '
+          f'per-tensor parameter distances: {worst(params)}', flush=True)
+    for k, v in dist.items():
+        tol = CNN_REF_FACTOR * spread[k] + TRAIN_REF_TOL[k]
+        check(v <= tol, f'cnn-train-ref: {k} differs by {v} (tol {tol})')
+    torch_tf32_defaults()
+    return {'cuda_vs_cpu': {k: float(v) for k, v in dist.items()},
+            'cpu_spread': {k: float(v) for k, v in spread.items()}}
+
+
+def phase_cnn_apps(card):
+    """tools/serve.py and tools/export.py on the HRNet-W32 config with
+    seeded weights saved as a .pth: 1-box requests answer what the direct
+    API call gives, with p50/p99 latency; the export CLI at --batch 8
+    --no-flip, its reloaded program against eager within EXPORT_TOL of max
+    |eager|, both timed; 0 K1 and K2 launches in either."""
+    import base64
+    import http.client
+    import os
+    import tempfile
+    import threading
+    import cv2
+    from vitpose_tpu_torch.api import (inference_top_down_pose_model,
+                                       init_pose_model)
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.tools import export, serve
+    torch_tf32_defaults()
+    rng = np.random.RandomState(7)
+    boxes = grid_boxes(rng, 2, 1)
+    img = scene(7, boxes)
+    body = json.dumps({'image': base64.b64encode(cv2.imencode(
+        '.png', img[..., ::-1])[1].tobytes()).decode(),
+        'bboxes': boxes[:1].tolist()}).encode()
+    with tempfile.TemporaryDirectory() as root:
+        pm = init_pose_model(HRNET_CFG, device='cuda')
+        ckpt = os.path.join(root, 'hrnet_w32.pth')
+        torch.save(pm.model.state_dict(), ckpt)
+        del pm
+        reset_counts()
+        server = serve.build_server(['--config', HRNET_CFG, '--checkpoint',
+                                     ckpt, '--port', '0', '--device',
+                                     'cuda'])
+        pm = server.pose_model
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+
+        def post():
+            conn = http.client.HTTPConnection('127.0.0.1', port, timeout=120)
+            try:
+                conn.request('POST', '/predict', body=body,
+                             headers={'Content-Type': 'application/json'})
+                resp = conn.getresponse()
+                return resp.status, json.loads(resp.read())
+            finally:
+                conn.close()
+
+        try:
+            status, got = post()
+            check(status == 200, f'cnn-apps serve: status {status} {got}')
+            direct, _ = inference_top_down_pose_model(
+                pm, img, [{'bbox': b} for b in boxes[:1]])
+            want = [{'bbox': np.asarray(r['bbox']).tolist(),
+                     'keypoints': np.asarray(r['keypoints']).tolist()}
+                    for r in direct]
+            check(got['pose_results'] == want, 'cnn-apps serve: the response '
+                  'differs from the direct call')
+            times = []
+            for _ in range(CNN_APP_REQUESTS):
+                t0 = time.perf_counter()
+                status, _ = post()
+                times.append((time.perf_counter() - t0) * 1e3)
+                check(status == 200, f'cnn-apps serve: status {status}')
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(60)
+        serve_k = (fused_attention.launches, fused_attention_bwd.launches)
+        check(serve_k == (0, 0), f'cnn-apps serve: K1, K2 launched '
+              f'{serve_k} times')
+        lat = (float(np.percentile(times, 50)), float(np.percentile(times,
+                                                                    99)))
+        del server, pm
+        torch.cuda.empty_cache()
+
+        path = os.path.join(root, 'hrnet_w32_b8.pt2')
+        reset_counts()
+        t0 = time.perf_counter()
+        # without the flip test: half the graph to trace (the ViT export
+        # phase exports the flip-tested function)
+        program, cli_err = export.main([HRNET_CFG, '--checkpoint', ckpt,
+                                        '--out', path, '--batch', '8',
+                                        '--no-flip'])
+        cli_s = time.perf_counter() - t0
+        check('vitpose.attention_fwd' not in program.graph_module.code,
+              'cnn-apps export: the HRNet graph holds an attention op')
+        pm = init_pose_model(HRNET_CFG, checkpoint=ckpt, device='cuda')
+        eager = export.InferModule(pm.model).eval()
+        x = torch.randn((8, 256, 192, 3),
+                        generator=torch.Generator().manual_seed(1)).cuda()
+        run = program.module()
+        with torch.no_grad():
+            out = run(x)
+            ref = eager(x)
+            err = (out - ref).abs().max().item()
+            bound = EXPORT_TOL * ref.abs().max().item()
+            check(torch.isfinite(out).all().item() and err <= bound,
+                  f'cnn-apps export: {err} from eager, bound {bound}')
+            ms, turns = in_turns(
+                {'exported': lambda: wall_ms(lambda: run(x), EXPORT_REPS),
+                 'eager': lambda: wall_ms(lambda: eager(x), EXPORT_REPS)})
+        export_k = (fused_attention.launches, fused_attention_bwd.launches)
+        check(export_k == (0, 0), f'cnn-apps export: K1, K2 launched '
+              f'{export_k} times')
+        size_mb = os.path.getsize(path) / 1e6
+        del program, pm, eager, run
+        torch.cuda.empty_cache()
+    print(f'cnn-apps: tools/serve.py on {HRNET_CFG}: the 1-box response '
+          f'equals the direct call, 0 K1 and 0 K2 launches, latency p50/p99 '
+          f'over {CNN_APP_REQUESTS} requests {lat[0]:.1f}/{lat[1]:.1f} ms; '
+          f'tools/export.py --batch 8 --no-flip wrote {size_mb:.1f} MB in '
+          f'{cli_s:.1f} s (its reload parity {cli_err:.2e}); reloaded '
+          f'against eager max abs err {err:.3e} (bound {bound:.3e}), '
+          f'exported {ms["exported"]:.2f} / eager {ms["eager"]:.2f} ms per '
+          f'call, 0 K1 and 0 K2 launches; on {card}', flush=True)
+    return dict(serve_p50_ms=lat[0], serve_p99_ms=lat[1], export_err=err,
+                export_bound=bound, exported_ms=ms['exported'],
+                eager_ms=ms['eager'], k1=serve_k[0] + export_k[0],
+                k2=serve_k[1] + export_k[1])
+
+
+def cnn_launches(cnn, key):
+    """A kernel's launches on each CNN path ('k1' or 'k2'), for the kernels
+    line's launches_per_path."""
+    return {'cnn_serve': {name: r[key] for name, r in cnn['serve'].items()},
+            'cnn_eval': cnn['eval'][key], 'cnn_train': cnn['train'][key],
+            'cnn_apps': cnn['apps'][key]}
+
+
+def run_cnn_phases(card):
+    """The CNN phases in order, each timed; returns their report."""
+    report, took = {}, {}
+    for name, phase in (('serve', phase_cnn_serve), ('ref', phase_cnn_ref),
+                        ('eval', phase_cnn_eval), ('train', phase_cnn_train),
+                        ('apps', phase_cnn_apps)):
+        t0 = time.perf_counter()
+        report[name] = phase(card)
+        took[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    report['phase_s'] = took
+    print(f'cnn: phases took ' + ', '.join(
+        f'{k} {v:.1f} s' for k, v in took.items())
+        + f' = {sum(took.values()):.1f} s', flush=True)
+    return report
+
+
 def kernel_name(mangled):
     """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
     anonymous namespace; the mangled name where it is not one."""
@@ -3195,6 +3913,8 @@ def main():
         moe_launches, moe_steps, moe_val = phase_moe_train(card)
         torch.cuda.empty_cache()
         phase_moe_ref(card)
+        torch.cuda.empty_cache()
+        cnn = run_cnn_phases(card)
     except Failure as e:
         print(f'chip_smoke: FAIL {e}', file=sys.stderr)
         return 1
@@ -3223,7 +3943,8 @@ def main():
                                   'remat_step': remat_k1,
                                   'moe_train': moe_launches[0],
                                   'moe_train_steps': moe_steps,
-                                  'moe_train_val_batches': moe_val},
+                                  'moe_train_val_batches': moe_val,
+                                  **cnn_launches(cnn, 'k1')},
                 'attention_bwd': {'serve': 0, 'eval': 0, 'export': 0,
                                   'demos_per_frame': 0, 'webcam': 0,
                                   'train': train_launches[1],
@@ -3231,7 +3952,8 @@ def main():
                                   'train_loop_steps': loop_steps,
                                   'remat_step': dict.fromkeys(remat_k1, 12),
                                   'moe_train': moe_launches[1],
-                                  'moe_train_steps': moe_steps}}
+                                  'moe_train_steps': moe_steps,
+                                  **cnn_launches(cnn, 'k2')}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({
@@ -3259,6 +3981,7 @@ def main():
             'eval_int8': eval_int8['int_mm']},
         'shapes': int8,
         'serve_batch_ms': int8_batch_ms}
+    print(json.dumps({'cnn': cnn}))
     print(json.dumps({'kernels': kernels, 'int8_matmul': int8_matmul,
                       'deploy_latency_ms': {
                           m: r['latency_ms'] for m, r in deploy.items()},

@@ -416,8 +416,16 @@ def test_config_file_model_matches_jax():
         dataclasses.asdict(ref.backbone)
     assert bb_port == {k: bb_ref[k] for k in bb_port}
     assert port.backbone.dtype == 'bfloat16' and port.backbone.fused_attention
+    # a CNN backbone builds its GenericTopDown (ROADMAP item 12's CNN
+    # top-down); another family, or an unported backbone, still raises
+    cnn = build_model_from_cfg(dict(
+        mcfg, backbone_type='hrnet',
+        backbone_overrides=dict(width=8, stage_modules=(1, 1),
+                                stage_blocks=1)))
+    assert type(cnn).__name__ == 'GenericTopDown'
+    assert cnn.backbone_type == 'hrnet' and cnn.cfg.backbone.depth == 12
     for bad in (dict(mcfg, family='bottomup'),
-                dict(mcfg, backbone_type='hrnet')):
+                dict(mcfg, backbone_type='resnext')):
         with pytest.raises(NotImplementedError, match='item 12'):
             build_model_from_cfg(bad)
 

@@ -271,12 +271,31 @@ def test_calibration_batches_match_jax(tmp_path, source):
         np.testing.assert_array_equal(a, b)
 
 
-def test_server_refuses_cnn_configs(tmp_path):
-    path = tmp_path / 'res50.py'
-    path.write_text("model = dict(backbone_type='resnet', depth=50)\n"
+def test_server_refuses_cnn_configs(tmp_path, capsys):
+    """A CNN config is served (it was refused before the CNN port; the name
+    stays): a tiny ResNet-18 config answers what the direct call on the
+    server's model gives, and --fast and --int8 print JAX's notes and are
+    ignored."""
+    path = tmp_path / 'res18.py'
+    path.write_text("model = dict(backbone_type='resnet',\n"
+                    "             backbone_overrides=dict(depth=18),\n"
+                    "             img_size=(64, 48), out_channels=17,\n"
+                    "             deconv_filters=(16, 16),\n"
+                    "             deconv_kernels=(4, 4))\n"
                     "data = dict(dataset='coco')\n")
-    with pytest.raises(NotImplementedError, match='item 12'):
-        serve.build_server(['--config', str(path), '--device', 'cpu'])
+    server = serve.build_server(['--config', str(path), '--port', '0',
+                                 '--fast', '--int8', '--device', 'cpu'])
+    printed = capsys.readouterr().out
+    assert 'ignored for CNN backbones' in printed and '--int8' in printed
+    model = server.pose_model
+    assert model.model.backbone_type == 'resnet'
+    assert model.model.cfg.backbone.dtype == 'float32'
+    with serving(server) as port:
+        status, body = request(port, 'POST', '/predict',
+                               {'image': _png(IMG), 'bboxes': BOXES[:1]})
+    assert status == 200
+    assert body['pose_results'] == _direct(model, BOXES[:1])
+    assert len(body['pose_results'][0]['keypoints']) == 17
 
 
 # --- drawing -----------------------------------------------------------------

@@ -30,7 +30,7 @@ from ..ops.decode import keypoints_from_heatmaps
 from ..ops.geometry import (affine_matrix, bbox_xywh2cs, bbox_xyxy2xywh,
                             udp_warp_matrix)
 from ..ops.warp import warp_affine_batch
-from ..train.loop import topdown_config
+from ..train.loop import build_model_from_cfg
 from ..utils.config import load_config
 from ..utils.torch_ckpt import checkpoint_state_dict
 
@@ -121,10 +121,12 @@ def load_checkpoint(model: TopDownModel, checkpoint: str):
     """Load weights into `model`: an .npz written by the JAX package, or a
     .pth (mmpose names; a {'state_dict' | 'model' | 'module'} container and
     a 'module.' prefix are taken off) whose pos embed is regridded and whose
-    patch kernel is padded to the model's geometry (counterpart of the JAX
+    patch kernel is padded to a ViT's geometry; a CNN's (GenericTopDown)
+    routed by its backbone type (counterpart of the JAX
     `load_checkpoint_variables`, vitpose_tpu/api/inference.py:97-120)."""
     model.load_state_dict(
-        checkpoint_state_dict(checkpoint, model.cfg.backbone), strict=True)
+        checkpoint_state_dict(checkpoint, model.cfg.backbone,
+                              model.backbone_type), strict=True)
 
 
 def init_pose_model(config, checkpoint: Optional[str] = None,
@@ -137,9 +139,11 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
     'h'), a dict such as {'variant': 'b', 'image_size': (192, 256), 'dtype':
     'bfloat16', 'backbone_overrides': {'fused_attention': True}}, a config
     file's `model` dict (one that names 'backbone_type' or 'family';
-    `img_size` is (h, w) there), or a TopDownConfig. Without a checkpoint
-    the weights are random, drawn on the CPU from a torch.Generator seeded
-    with 0, so every device gets the same ones.
+    `img_size` is (h, w) there), or a TopDownConfig. A config file or model
+    dict of a CNN (backbone_type 'resnet', 'resnet_v1d', 'hrnet' or
+    'hrnetv2') builds a GenericTopDown. Without a checkpoint the weights are
+    random, drawn on the CPU from a torch.Generator seeded with 0, so every
+    device gets the same ones.
     """
     dev = _device(device)
     dataset_name, padding = 'coco', 1.25
@@ -155,8 +159,10 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
         dataset_name = model_dict.pop('dataset', 'coco')
         padding = model_dict.pop('padding', 1.25)
 
+    model = None
     if model_dict is not None:
-        cfg = topdown_config(model_dict)
+        model = build_model_from_cfg(model_dict)
+        cfg = model.cfg
     elif isinstance(config, str) and config in VIT_VARIANTS:
         cfg = make_config(config, img_size=(256, 192), out_channels=17)
     elif isinstance(config, dict):
@@ -176,7 +182,8 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
         raise ValueError(f'unsupported config {config!r}: expected a config '
                          'file, a variant name, a dict or a TopDownConfig')
 
-    model = TopDownModel(cfg, generator=torch.Generator().manual_seed(0))
+    if model is None:
+        model = TopDownModel(cfg, generator=torch.Generator().manual_seed(0))
     if checkpoint is not None:
         load_checkpoint(model, checkpoint)
     model = model.to(dev).eval()
@@ -243,8 +250,10 @@ _BLOCK_PARTS = ('norm1', 'attn', 'attn.qkv', 'attn.proj', 'norm2', 'mlp',
 
 def _flax_modules(model: TopDownModel):
     """{flax path: (torch module, NCHW output)} of the modules whose outputs
-    `outputs=` captures."""
+    `outputs=` captures; of a CNN model the backbone's and the head's."""
     bb = model.backbone
+    if model.backbone_type != 'vit':
+        return {'backbone': (bb, True), 'head': (model.keypoint_head, True)}
     mods = {'backbone': (bb, False), 'head': (model.keypoint_head, True),
             'backbone.last_norm': (bb.last_norm, False)}
     for i, blk in enumerate(bb.blocks):

@@ -30,12 +30,20 @@ _DECONV_PADDING = {4: (1, 0), 3: (1, 1), 2: (0, 0)}
 
 
 class HeatmapHead(nn.Module):
-    """Deconv stack + 1x1 prediction conv: NHWC features -> NCHW heatmaps in
-    the compute dtype."""
+    """Deconv stack, optional channel-preserving Conv + BN + ReLU layers,
+    then the prediction conv: NHWC features -> NCHW heatmaps in the compute
+    dtype.
+
+    `extra_conv_kernels` (JAX's `extra_conv_kernels`, mmpose's extra
+    num_conv_layers/num_conv_kernels, used by the HRNetV2 heads) turns
+    `final_layer` into mmpose's Sequential: conv (with bias), BN and ReLU
+    at `final_layer.{3i}`, `.{3i+1}`, `.{3i+2}` per extra layer, the
+    prediction conv last.
+    """
 
     def __init__(self, in_channels, out_channels, deconv_filters=(256, 256),
                  deconv_kernels=(4, 4), final_kernel=1, dtype='float32',
-                 generator=None):
+                 generator=None, extra_conv_kernels=()):
         super().__init__()
         self.dtype = compute_dtype(dtype)
         layers = []
@@ -50,11 +58,17 @@ class HeatmapHead(nn.Module):
                        nn.ReLU(inplace=True)]
             c = f
         self.deconv_layers = nn.Sequential(*layers)
+        final = []
+        for k in extra_conv_kernels:
+            final += [nn.Conv2d(c, c, k, padding=(k - 1) // 2),
+                      nn.BatchNorm2d(c, eps=1e-5), nn.ReLU(inplace=True)]
         # final_kernel <= 0: no prediction conv, the deconv features are the
         # output (the JAX head's identity final layer)
-        self.final_layer = (nn.Conv2d(c, out_channels, final_kernel,
-                                      padding=(final_kernel - 1) // 2)
-                            if final_kernel > 0 else None)
+        if final_kernel > 0:
+            final.append(nn.Conv2d(c, out_channels, final_kernel,
+                                   padding=(final_kernel - 1) // 2))
+        self.final_layer = (None if not final else final[0]
+                            if len(final) == 1 else nn.Sequential(*final))
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
@@ -65,21 +79,31 @@ class HeatmapHead(nn.Module):
                 normal_(layer.weight, fan_in ** -0.5, generator)
             elif isinstance(layer, nn.BatchNorm2d):
                 layer.reset_parameters()
-        if self.final_layer is not None:
-            init_conv(self.final_layer, generator)
+        final = self.final_layer
+        for layer in ([] if final is None else final.modules()):
+            if isinstance(layer, nn.Conv2d):
+                init_conv(layer, generator)
+            elif isinstance(layer, nn.BatchNorm2d):
+                layer.reset_parameters()
 
     def forward(self, x):
         dt = self.dtype
         x = x.permute(0, 3, 1, 2)
         for i in range(0, len(self.deconv_layers), 3):
             deconv, bn = self.deconv_layers[i], self.deconv_layers[i + 1]
-            x = F.conv_transpose2d(x, deconv.weight.to(dt), None, stride=2,
-                                   padding=deconv.padding,
+            x = F.conv_transpose2d(x.to(dt), deconv.weight.to(dt), None,
+                                   stride=2, padding=deconv.padding,
                                    output_padding=deconv.output_padding)
             x = F.relu(batch_norm(bn, x.float()).to(dt))
         if self.final_layer is None:
             return x
-        return conv(self.final_layer, x, dt)
+        if not isinstance(self.final_layer, nn.Sequential):
+            return conv(self.final_layer, x, dt)
+        for i in range(0, len(self.final_layer) - 1, 3):
+            x = conv(self.final_layer[i], x, dt)
+            x = F.relu(batch_norm(self.final_layer[i + 1], x.float()).to(dt))
+        last = self.final_layer[-1]
+        return conv(last, x, dt) if isinstance(last, nn.Conv2d) else x
 
 
 class SimpleHead(nn.Module):
@@ -112,9 +136,9 @@ def init_conv(layer: nn.Conv2d, generator=None):
 
 
 def conv(layer: nn.Conv2d, x, dtype):
-    """`layer` applied in `dtype`, with its f32 parameters cast."""
-    return F.conv2d(x, layer.weight.to(dtype), layer.bias.to(dtype),
-                    padding=layer.padding)
+    """`layer` applied in `dtype`, with its input and f32 parameters cast."""
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype),
+                    layer.bias.to(dtype), padding=layer.padding)
 
 
 def batch_norm(bn: nn.BatchNorm2d, x):

@@ -1,11 +1,12 @@
-"""Top-down pose estimator (ViT backbone + classic deconv head or simple
-decoder), in PyTorch.
+"""Top-down pose estimators in PyTorch: the ViT with the classic deconv head
+or the simple decoder, and a CNN backbone with the classic head.
 
 Counterpart of vitpose_tpu/models/topdown.py: `TopDownConfig`,
 `make_config`, `TopDownModel` (with the ViTPose+ associate heads),
-`forward`, `infer` (flip test with `flip_back` and the optional 1-pixel
-`shift_heatmap`) and `loss_fn`. Models take NHWC float crops and return
-NCHW float32 heatmaps, as in the JAX package.
+`GenericTopDown` (ResNet, ResNetV1d, HRNet, HRNetV2), `forward`, `infer`
+(flip test with `flip_back` and the optional 1-pixel `shift_heatmap`) and
+`loss_fn`. Models take NHWC float crops and return NCHW float32 heatmaps,
+as in the JAX package.
 
 The mode is explicit, as JAX's `train=` argument is: `forward` sets the
 module's training mode for its call, and `infer` always runs in eval mode,
@@ -32,6 +33,9 @@ class TopDownConfig:
     deconv_filters: tuple = (256, 256)
     deconv_kernels: tuple = (4, 4)
     final_kernel: int = 1
+    # channel-preserving Conv+BN+ReLU layers before the prediction conv
+    # (the HRNetV2 heads)
+    head_extra_convs: tuple = ()
     upsample: int = 4                   # the simple decoder's factor
     # test-time behaviour (reference test_cfg)
     flip_test: bool = True
@@ -40,6 +44,10 @@ class TopDownConfig:
     modulate_kernel: int = 11
     use_udp: bool = True
     target_type: str = 'GaussianHeatmap'
+    # criteria: the DeepPose regression loss and the heatmap loss (only
+    # 'mse' trains; train/step.py refuses the others)
+    reg_loss: str = 'smooth_l1'
+    heatmap_loss: str = 'mse'
     # ViTPose+: associate heads for the other datasets of the mixture
     num_extra_heads: int = 0
     extra_head_channels: tuple = ()
@@ -62,6 +70,7 @@ class TopDownModel(nn.Module):
     float32. ViTPose+ adds `associate_keypoint_heads` (mmpose's name), one
     HeatmapHead like the main one per extra dataset (JAX
     `extra_head_{j}`)."""
+    backbone_type = 'vit'
 
     def __init__(self, cfg: TopDownConfig, generator=None):
         super().__init__()
@@ -101,6 +110,40 @@ class TopDownModel(nn.Module):
         head = (self.keypoint_head if not head_idx
                 else self.associate_keypoint_heads[head_idx - 1])
         return head(feat).float()
+
+
+class GenericTopDown(nn.Module):
+    """A CNN backbone (`backbone`, an NCHW feature module with
+    `out_channels`) + `keypoint_head`, the classic head built from the
+    config's deconv_filters/kernels, final_kernel and head_extra_convs in the
+    placeholder backbone config's dtype (JAX GenericTopDown,
+    vitpose_tpu/models/topdown.py:131-178). Same interface as TopDownModel:
+    `generator`, `expert_idx` and `head_idx` are accepted and ignored, and
+    `all_heads` returns [heatmaps]. `backbone_type` (the config's name,
+    e.g. 'hrnet') routes checkpoints to their converter."""
+
+    def __init__(self, backbone: nn.Module, cfg: TopDownConfig,
+                 backbone_type: str, generator=None):
+        super().__init__()
+        if cfg.head_type in ('vipnas', 'regression'):
+            raise NotImplementedError(
+                f'head_type {cfg.head_type!r} is not ported yet (ROADMAP.md '
+                'queue 1 item 12)')
+        self.cfg = cfg
+        self.backbone_type = backbone_type
+        self.backbone = backbone
+        self.keypoint_head = HeatmapHead(
+            backbone.out_channels, cfg.out_channels, cfg.deconv_filters,
+            cfg.deconv_kernels, cfg.final_kernel, cfg.backbone.dtype,
+            generator, extra_conv_kernels=cfg.head_extra_convs)
+
+    def forward(self, imgs, generator=None, expert_idx=None, head_idx=None,
+                all_heads=False):
+        feat = self.backbone(imgs)
+        # the head takes NHWC: a permuted view of the NCHW features, which
+        # it permutes back
+        out = self.keypoint_head(feat.permute(0, 2, 3, 1)).float()
+        return [out] if all_heads else out
 
 
 def forward(model: TopDownModel, imgs, train=False, generator=None,

@@ -72,7 +72,10 @@ def compute_dtype(name: str) -> torch.dtype:
 
 def normal_(tensor, std, generator=None):
     """In-place normal init cut at two standard deviations; kernels use
-    std = fan_in ** -0.5, flax's default (lecun normal)."""
+    std = fan_in ** -0.5, flax's default (lecun normal). A tensor on the
+    meta device (a model built for its shapes alone) draws nothing."""
+    if tensor.is_meta:
+        return tensor
     with torch.no_grad():
         sample = torch.randn(tensor.shape, generator=generator)
         tensor.copy_(sample.clamp_(-2.0, 2.0) * std)

@@ -13,6 +13,8 @@ and defaults, plus `--device` (CUDA by default; it raises without CUDA):
        (no boxes: one box over the whole image; a bad body: 400)
   GET  /health -> status, model, input_size, num_joints, dataset
 
+A CNN config (ResNet, ResNetV1d, HRNet, HRNetV2) serves its own model;
+`--fast` and `--int8` then print a note and are ignored, as in JAX.
 `--fast` serves in bf16 with K1 attention and tanh GELU. `--int8` runs the
 MLP products W8A8 at static scales calibrated on `_calibration_batches`
 (`--calib-dir` images, else seeded synthetic ones); `--int8-qkv` quantises
@@ -160,25 +162,37 @@ def parse_args(argv=None):
 
 
 def build_model(args):
-    """The PoseModel the server runs, built from the parsed flags."""
+    """The PoseModel the server runs, built from the parsed flags. A CNN
+    config (backbone_type resnet, resnet_v1d, hrnet or hrnetv2) serves its
+    GenericTopDown; `--fast` and `--int8` are ViT options and are ignored
+    for it, with JAX's notes (tools/deployment/serve.py:163-207)."""
+    backbone_type = 'vit'
     if args.config:
         file_cfg = load_config(args.config)
+        backbone_type = file_cfg['model'].get('backbone_type', 'vit')
         model_cfg = topdown_config(file_cfg['model'])
     else:
         model_cfg = make_config(args.variant, img_size=(256, 192),
                                 out_channels=17)
-    if args.fast:
+    if args.fast and backbone_type == 'vit':
         model_cfg = dataclasses.replace(
             model_cfg, backbone=dataclasses.replace(
                 model_cfg.backbone, dtype='bfloat16', fused_attention=True,
                 gelu_approx=True))
-    model = init_pose_model(model_cfg, checkpoint=args.checkpoint,
-                            device=args.device)
+    elif args.fast:
+        print('--fast (bf16 + K1 attention + tanh GELU) is a ViT-path '
+              'option; ignored for CNN backbones', flush=True)
+    model = init_pose_model(model_cfg if backbone_type == 'vit'
+                            else file_cfg['model'],
+                            checkpoint=args.checkpoint, device=args.device)
     if args.config:
         # the config's dataset gives the flip pairs and the metadata
         model.dataset_info = DatasetInfo.load(
             file_cfg['data'].get('dataset', 'coco'))
-    if args.int8:
+    if args.int8 and backbone_type != 'vit':
+        print('--int8 targets the ViT serving path; ignored for CNN '
+              'backbones', flush=True)
+    elif args.int8:
         ih, iw = model_cfg.backbone.img_size
         cal = _calibration_batches(args.calib_dir, ih, iw)
         scales = calibrate_act_scales(model.model, cal, attn=args.int8_qkv)

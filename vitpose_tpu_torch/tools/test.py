@@ -9,9 +9,11 @@ Counterpart of the top-down path of tools/test.py (`build_eval_objects`,
 `_emit_stats`, `main`): the config builds the model and the COCO val
 dataset and loader; the val step runs on the card (`--device cuda`, the
 default; it raises without CUDA) or on the CPU with `--device cpu`; then the
-dataset rescores, applies OKS NMS and computes COCO AP. CHECKPOINT is a
-torch .pth (mmpose names; pos embed regridded, patch kernel padded) or an
-.npz written by the JAX package.
+dataset rescores, applies OKS NMS and computes COCO AP. The config's model
+is the ViT or a CNN (`backbone_type` resnet, resnet_v1d, hrnet, hrnetv2).
+CHECKPOINT is a torch .pth (mmpose names; a ViT's pos embed regridded and
+patch kernel padded) or an .npz written by the JAX package, routed by the
+backbone type as JAX's tools/test.py:250-256 routes it.
 
 `--int8` evaluates the int8 serving path, as JAX's does: static scales
 calibrated on the first two val batches (`calibrate_from_loader`, with
@@ -80,6 +82,11 @@ def _refuse_unported(cfg, args):
     if args.tmpdir:
         raise NotImplementedError('--tmpdir is not ported yet (ROADMAP.md '
                                   'queue 1 item 11)')
+    if args.int8 and cfg['model'].get('backbone_type', 'vit') != 'vit':
+        raise NotImplementedError(
+            '--int8 quantises the ViT blocks; a '
+            f"{cfg['model']['backbone_type']!r} backbone has none (JAX's "
+            'int8 path is the ViT\'s)')
     if args.int8 and cfg['model'].get('num_experts', 0) > 0:
         raise NotImplementedError(
             'int8 serving is not implemented for MoE (num_experts > 0) '

@@ -1,7 +1,9 @@
 """The config-driven training runner and models from a config file.
 
-Counterpart of vitpose_tpu/train/loop.py: `build_model_from_cfg` (the `vit`
-branch of :84-101), `_log` (:33-45), `_pop_freeze_options` and the freezing
+Counterpart of vitpose_tpu/train/loop.py: `build_model_from_cfg`,
+`build_backbone` and `build_generic_topdown` (:84-157, :222-236: the ViT
+and the CNN top-down models of ResNet, ResNetV1d, HRNet and HRNetV2),
+`_log` (:33-45), `_pop_freeze_options` and the freezing
 of `_apply_freeze` (:67-81), `train_model` (the top-down ViT branch of
 :239-479), `train_model_moe` (:520-706, the ViTPose+ runner) and the
 `pretrained` / `load_from` merges (:330-353, :482-517).
@@ -36,7 +38,10 @@ from ..data import topdown_dataset_cls
 from ..data.loader import MultiDatasetLoader, TopDownLoader
 from ..data.pipeline import AugmentConfig, make_preprocess_fn
 from ..eval.loop import PinnedStaging, run_validation
-from ..models.topdown import TopDownConfig, TopDownModel, make_config
+from ..models.hrnet import HRNet, HRNetConfig
+from ..models.resnet import ResNet, ResNetV1d
+from ..models.topdown import (GenericTopDown, TopDownConfig, TopDownModel,
+                              make_config)
 from ..parallel.distributed import PreemptionGuard
 from ..utils.checkpoint import CheckpointManager
 from ..utils.torch_ckpt import (checkpoint_state_dict,
@@ -46,10 +51,44 @@ from .state import create_train_state
 from .step import make_moe_train_step, make_train_step
 
 
-def topdown_config(mcfg: dict) -> TopDownConfig:
-    """A config file's `model` dict -> TopDownConfig (`img_size` is (h, w)
-    there). Only the plain-ViT top-down model is ported: another `family`
-    or `backbone_type` raises."""
+# the rest of the JAX package's backbone registry (vitpose_tpu/train/
+# loop.py:104-157), not ported yet
+_UNPORTED_BACKBONES = (
+    'resnext', 'seresnet', 'seresnext', 'scnet', 'resnest', 'regnet', 'vgg',
+    'alexnet', 'mobilenet_v2', 'mobilenet_v3', 'shufflenet_v1',
+    'shufflenet_v2', 'litehrnet', 'hrformer', 'vipnas_mbv3', 'vipnas_resnet',
+    'cpm', 'hourglass', 'hourglass_ae', 'mspn', 'rsn')
+
+
+def _refuse_unported_backbone(backbone_type: str):
+    if backbone_type in _UNPORTED_BACKBONES:
+        raise NotImplementedError(
+            f'backbone_type {backbone_type!r} is not ported yet (ROADMAP.md '
+            'queue 1 item 12)')
+
+
+def build_backbone(backbone_type: str, generator=None, **bb_kwargs):
+    """Name -> NCHW feature backbone with random weights drawn from
+    `generator` (the JAX package's BACKBONES registry, of which `resnet`,
+    `resnet_v1d`, `hrnet` and `hrnetv2` are ported)."""
+    registry = {
+        'resnet': lambda **kw: ResNet(generator=generator, **kw),
+        'resnet_v1d': lambda **kw: ResNetV1d(generator=generator, **kw),
+        'hrnet': lambda **kw: HRNet(HRNetConfig(**kw), generator),
+        'hrnetv2': lambda **kw: HRNet(
+            HRNetConfig(multiscale_concat=True, **kw), generator),
+    }
+    _refuse_unported_backbone(backbone_type)
+    if backbone_type not in registry:
+        raise KeyError(f'unknown backbone_type {backbone_type}: '
+                       f'{sorted(registry) + sorted(_UNPORTED_BACKBONES)}')
+    return registry[backbone_type](**bb_kwargs)
+
+
+def _model_parts(mcfg: dict):
+    """A config file's `model` dict -> (backbone_type, backbone overrides,
+    TopDownConfig). For a CNN the config's backbone is JAX's placeholder
+    ViT-S config: only its `img_size` and `dtype` (the head's) are read."""
     mcfg = dict(mcfg)
     family = mcfg.pop('family', 'topdown')
     if family != 'topdown':
@@ -57,27 +96,48 @@ def topdown_config(mcfg: dict) -> TopDownConfig:
             f'model family {family!r} is not ported yet (ROADMAP.md queue 1 '
             'item 12)')
     backbone_type = mcfg.pop('backbone_type', 'vit')
-    if backbone_type != 'vit':
-        raise NotImplementedError(
-            f'backbone_type {backbone_type!r} is not ported yet (ROADMAP.md '
-            'queue 1 item 12); only the plain ViT is')
     variant = mcfg.pop('variant', 'b')
-    hw = mcfg.pop('img_size', (256, 192))
-    bb_over = mcfg.pop('backbone_overrides', None)
-    cfg = make_config(variant, img_size=tuple(hw), **mcfg)
-    if bb_over:
-        cfg = dataclasses.replace(
-            cfg, backbone=dataclasses.replace(cfg.backbone, **bb_over))
-    return cfg
+    hw = tuple(mcfg.pop('img_size', (256, 192)))
+    bb_over = dict(mcfg.pop('backbone_overrides', None) or {})
+    if backbone_type == 'vit':
+        cfg = make_config(variant, img_size=hw, **mcfg)
+        if bb_over:
+            cfg = dataclasses.replace(
+                cfg, backbone=dataclasses.replace(cfg.backbone, **bb_over))
+        return backbone_type, {}, cfg
+    _refuse_unported_backbone(backbone_type)
+    if mcfg.get('head') in ('multistage', 'msmu', 'identity'):
+        raise NotImplementedError(
+            f"the multi-stage head {mcfg['head']!r} (GenericMultiStageTopDown)"
+            ' is not ported yet (ROADMAP.md queue 1 item 12)')
+    return backbone_type, bb_over, make_config('s', img_size=hw, **mcfg)
 
 
-def build_model_from_cfg(mcfg: dict, generator=None) -> TopDownModel:
-    """A config file's `model` dict -> TopDownModel with random weights,
-    drawn on the CPU from `generator` (default: a torch.Generator seeded
-    with 0, as in `init_pose_model`)."""
+def topdown_config(mcfg: dict) -> TopDownConfig:
+    """A config file's `model` dict -> TopDownConfig (`img_size` is (h, w)
+    there). Another `family`, or a backbone_type that is not ported,
+    raises."""
+    return _model_parts(mcfg)[2]
+
+
+def build_generic_topdown(backbone_type: str, bb_kwargs: dict,
+                          cfg: TopDownConfig, generator=None):
+    """A CNN top-down model: the backbone, then the classic head, both
+    drawn from `generator`."""
+    backbone = build_backbone(backbone_type, generator, **bb_kwargs)
+    return GenericTopDown(backbone, cfg, backbone_type, generator)
+
+
+def build_model_from_cfg(mcfg: dict, generator=None):
+    """A config file's `model` dict -> TopDownModel (ViT) or GenericTopDown
+    (CNN) with random weights, drawn on the CPU from `generator` (default: a
+    torch.Generator seeded with 0, as in `init_pose_model`)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return TopDownModel(topdown_config(mcfg), generator=generator)
+    backbone_type, bb_over, cfg = _model_parts(mcfg)
+    if backbone_type == 'vit':
+        return TopDownModel(cfg, generator=generator)
+    return build_generic_topdown(backbone_type, bb_over, cfg, generator)
 
 
 def _log(work_dir, record):
@@ -109,7 +169,14 @@ def _freeze_mask(model, freeze_kw):
 
 def load_pretrained(model: TopDownModel, path):
     """`pretrained`: a backbone-only (MAE) checkpoint over the fresh
-    backbone (JAX `_merge_trees`); what it does not hold keeps its init."""
+    backbone (JAX `_merge_trees`); what it does not hold keeps its init.
+    A CNN raises: JAX would read its checkpoint with the ViT converter
+    (:330-339), and no CNN config of the zoo sets `pretrained`."""
+    if model.backbone_type != 'vit':
+        raise NotImplementedError(
+            f'pretrained on a {model.backbone_type!r} backbone: only ViT '
+            'backbone checkpoints are read (JAX reads any with the ViT '
+            'converter); use load_from with a whole-model checkpoint')
     model.backbone.load_state_dict(
         convert_backbone_checkpoint(path, model.cfg.backbone), strict=False)
 
@@ -122,7 +189,8 @@ def load_from(model: TopDownModel, path):
     a head of another number of keypoints."""
     own = model.state_dict()
     keep = {}
-    for k, v in checkpoint_state_dict(path, model.cfg.backbone).items():
+    for k, v in checkpoint_state_dict(path, model.cfg.backbone,
+                                      model.backbone_type).items():
         if k not in own:
             print(f'load_from: skipping unexpected key {k}', flush=True)
         elif tuple(v.shape) != tuple(own[k].shape):
@@ -263,7 +331,8 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
     if num_datasets is None:
         train_step = make_train_step(
             model, target_type=cfg['model'].get('target_type',
-                                                'GaussianHeatmap'))
+                                                'GaussianHeatmap'),
+            heatmap_loss=cfg['model'].get('heatmap_loss', 'mse'))
         val_route = {}
     else:
         if model.cfg.num_extra_heads != num_datasets - 1:

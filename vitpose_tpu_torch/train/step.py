@@ -17,7 +17,8 @@ from ..models.topdown import forward
 from ..ops.decode import pose_pck_accuracy
 
 
-def make_train_step(model, target_type='GaussianHeatmap'):
+def make_train_step(model, target_type='GaussianHeatmap',
+                    heatmap_loss='mse'):
     """Single-dataset step: train_step(state, batch, generator) -> metrics.
 
     `model` is taken for the JAX signature only: the step trains
@@ -28,11 +29,12 @@ def make_train_step(model, target_type='GaussianHeatmap'):
     'grad_norm' (before clipping, as optax.global_norm(grads)),
     'acc_pose'}.
     """
-    if target_type.lower() != 'gaussianheatmap':
+    if target_type.lower() != 'gaussianheatmap' or heatmap_loss != 'mse':
         raise NotImplementedError(
-            f'target_type {target_type!r}: only GaussianHeatmap with the '
-            'joints MSE is ported (regression, CombinedTarget and awing: '
-            'ROADMAP.md queue 1 item 7)')
+            f'target_type {target_type!r} with heatmap_loss {heatmap_loss!r}:'
+            ' only GaussianHeatmap with the joints MSE is ported '
+            '(regression, CombinedTarget and awing: ROADMAP.md queue 1 '
+            'item 7)')
 
     def train_step(state, batch, generator):
         out = forward(state.model, batch['imgs'], train=True,

@@ -10,13 +10,24 @@ experts (JAX's stacked `expert_kernel` [E, hidden, part] and `expert_bias`
 to `mlp.experts.{e}.{weight,bias}`) and the associate heads (`extra_head_{j}`
 to `associate_keypoint_heads.{j}`); variables without 'batch_stats' give a
 state dict without the BN running statistics.
+`cnn_state_dict_from_flax` is the exact inverse of the JAX package's CNN
+converters that `convert_generic_topdown_checkpoint` runs
+(vitpose_tpu/utils/cnn_ckpt.py:124-186 `convert_resnext`, the `resnet`
+one, and `convert_hrnet`, also the `hrnetv2` one;
+vitpose_tpu/models/resnet.py:159 `convert_resnet_checkpoint`, the
+`resnet_v1d` one) and of `convert_head` with its extra convs, for
+GenericTopDown's mmpose names.
 `load_params_npz` reads the flat 'a/b/c' .npz files that the JAX package's
 `save_params_npz` writes (vitpose_tpu/utils/checkpoint.py:160-186).
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
+
+CNN_BACKBONES = ('resnet', 'resnet_v1d', 'hrnet', 'hrnetv2')
 
 
 def load_params_npz(path):
@@ -83,10 +94,26 @@ def _head(p, stats):
             sd[bn + 'running_var'] = _t(stats[f'bn_{i}']['var'])
             sd[bn + 'num_batches_tracked'] = torch.tensor(0)
         i += 1
+    # extra convs (HRNetV2 heads): final_layer becomes a Sequential, the
+    # prediction conv after them
+    i = 0
+    while f'conv_{i}' in p:
+        conv, bn = f'final_layer.{3 * i}.', f'final_layer.{3 * i + 1}.'
+        sd[conv + 'weight'] = _t(np.transpose(p[f'conv_{i}']['kernel'],
+                                              (3, 2, 0, 1)))
+        sd[conv + 'bias'] = _t(p[f'conv_{i}']['bias'])
+        sd[bn + 'weight'] = _t(p[f'conv_bn_{i}']['scale'])
+        sd[bn + 'bias'] = _t(p[f'conv_bn_{i}']['bias'])
+        if f'conv_bn_{i}' in stats:
+            sd[bn + 'running_mean'] = _t(stats[f'conv_bn_{i}']['mean'])
+            sd[bn + 'running_var'] = _t(stats[f'conv_bn_{i}']['var'])
+            sd[bn + 'num_batches_tracked'] = torch.tensor(0)
+        i += 1
+    final = f'final_layer.{3 * i}.' if i else 'final_layer.'
     if 'final' in p:
-        sd['final_layer.weight'] = _t(np.transpose(p['final']['kernel'],
-                                                   (3, 2, 0, 1)))
-        sd['final_layer.bias'] = _t(p['final']['bias'])
+        sd[final + 'weight'] = _t(np.transpose(p['final']['kernel'],
+                                               (3, 2, 0, 1)))
+        sd[final + 'bias'] = _t(p['final']['bias'])
     return sd
 
 
@@ -103,4 +130,90 @@ def state_dict_from_flax(variables) -> dict:
     for flax_name, name in heads:
         sd.update({f'{name}.{k}': v for k, v in
                    _head(params[flax_name], stats.get(flax_name, {})).items()})
+    return sd
+
+
+# flax module name -> mmpose module name, one path component at a time
+# (the inverse of the JAX converters' name maps)
+_CNN_MODULES = [
+    (r'layer(\d+)_(\d+)', r'layer\1.\2'),
+    (r'stage(\d+)_mod(\d+)', r'stage\1.\2'),
+    (r'branch(\d+)_block(\d+)', r'branches.\1.\2'),
+    (r'fuse(\d+)_(\d+)_conv', r'fuse_layers.\1.\2.0'),
+    (r'fuse(\d+)_(\d+)_bn', r'fuse_layers.\1.\2.1'),
+    (r'fuse(\d+)_(\d+)_down(\d+)_conv', r'fuse_layers.\1.\2.\3.0'),
+    (r'fuse(\d+)_(\d+)_down(\d+)_bn', r'fuse_layers.\1.\2.\3.1'),
+    (r'tr(\d+)_conv', r'transition\1.\1.0.0'),
+    (r'tr(\d+)_bn', r'transition\1.\1.0.1'),
+    (r'ds_conv', 'downsample.0'),
+    (r'ds_bn', 'downsample.1'),
+]
+_LEAVES = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
+           'mean': 'running_mean', 'var': 'running_var'}
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _cnn_module_name(path, backbone_type):
+    """The mmpose module name of a flax module path of a CNN backbone."""
+    out = []
+    for part in path:
+        m = re.fullmatch(r'stem_(conv|bn)(\d)', part)
+        if m and backbone_type.startswith('hrnet'):
+            out.append(f'{m.group(1)}{m.group(2)}')       # conv1, bn2, ...
+            continue
+        if m:                             # the ResNetV1d deep stem
+            out.append(f'stem.{int(m.group(2)) - 1}.{m.group(1)}')
+            continue
+        m = re.fullmatch(r'tr1_(conv|bn)(\d)', part)
+        if m:
+            # transition1.0 = Sequential(conv, bn, ReLU), transition1.1 =
+            # Sequential(Sequential(conv, bn, ReLU))
+            idx = '0' if m.group(1) == 'conv' else '1'
+            out.append(f'transition1.{m.group(2)}.'
+                       + ('0.' if m.group(2) == '1' else '') + idx)
+            continue
+        for pattern, repl in _CNN_MODULES:
+            if re.fullmatch(pattern, part):
+                out.append(re.sub(pattern, repl, part))
+                break
+        else:
+            out.append(part)                 # conv1, bn3, ...
+    name = '.'.join(out)
+    if backbone_type == 'resnet_v1d':
+        # a strided avg_down shortcut is [AvgPool, conv, bn]
+        # (vitpose_tpu/models/resnet.py:197-205)
+        name = re.sub(r'^(layer[2-9]\d*\.\d+\.downsample)\.(\d)',
+                      lambda m: f'{m.group(1)}.{int(m.group(2)) + 1}', name)
+    return name
+
+
+def cnn_state_dict_from_flax(variables, backbone_type) -> dict:
+    """flax GenericTopDown variables of a `backbone_type` CNN (resnet,
+    resnet_v1d, hrnet, hrnetv2) with the classic head -> {mmpose name: f32
+    CPU tensor}, BN statistics included where the variables hold them."""
+    if backbone_type not in CNN_BACKBONES:
+        raise KeyError(f'backbone_type {backbone_type!r}: the port converts '
+                       f'{CNN_BACKBONES}')
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    sd = {}
+    for tree in (params['backbone'], stats.get('backbone', {})):
+        for path, v in _flat(tree):
+            name = (f'backbone.{_cnn_module_name(path[:-1], backbone_type)}.'
+                    f'{_LEAVES[path[-1]]}')
+            v = np.asarray(v)
+            sd[name] = _t(np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4
+                          else v)
+            if path[-1] == 'mean':
+                sd[name.replace('running_mean', 'num_batches_tracked')] = \
+                    torch.tensor(0)
+    sd.update({f'keypoint_head.{k}': v for k, v in
+               _head(params.get('head', {}), stats.get('head', {})).items()})
     return sd

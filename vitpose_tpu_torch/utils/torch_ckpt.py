@@ -16,7 +16,11 @@ The port's own copy of vitpose_tpu/utils/torch_ckpt.py:36-170 and :320
     last `part_dim` rows of fc2, and fc2 keeps the rest.
 The port keeps the mmpose parameter names, so no name map is needed. The
 regrid and the pad work on host numpy arrays, as in the JAX package.
-`checkpoint_state_dict` also reads the JAX package's .npz exports.
+`checkpoint_state_dict` also reads the JAX package's .npz exports, and
+routes a CNN model's checkpoint by its backbone type: a .pth in mmpose names
+as it is, an .npz through `cnn_state_dict_from_flax` (the counterpart of
+vitpose_tpu/api/inference.py:97-120 and
+vitpose_tpu/utils/cnn_ckpt.py:872 `convert_generic_topdown_checkpoint`).
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .convert import load_params_npz, state_dict_from_flax
+from .convert import (cnn_state_dict_from_flax, load_params_npz,
+                      state_dict_from_flax)
 
 # the backbone entries the JAX package's `convert_backbone` carries
 # (vitpose_tpu/utils/torch_ckpt.py:182-226); the rest of an MAE checkpoint
@@ -54,15 +59,22 @@ def load_torch_state_dict(path):
     return sd
 
 
-def checkpoint_state_dict(checkpoint: str, backbone_cfg) -> dict:
+def checkpoint_state_dict(checkpoint: str, backbone_cfg,
+                          backbone_type: str = 'vit') -> dict:
     """The state dict of a whole-model checkpoint file for a model whose
-    backbone is `backbone_cfg` (a ViTConfig): an .npz written by the JAX
-    package, or a .pth adapted to the backbone's geometry."""
+    backbone is `backbone_cfg` (a ViTConfig) or, for a CNN, of type
+    `backbone_type`: an .npz written by the JAX package, or a .pth, adapted
+    to a ViT backbone's geometry (a CNN's loads as it is: no position
+    embedding to regrid)."""
     if checkpoint.endswith('.npz'):
-        return state_dict_from_flax(load_params_npz(checkpoint))
+        variables = load_params_npz(checkpoint)
+        if backbone_type == 'vit':
+            return state_dict_from_flax(variables)
+        return cnn_state_dict_from_flax(variables, backbone_type)
     if checkpoint.endswith('.pth'):
-        return adapt_state_dict(load_torch_state_dict(checkpoint),
-                                backbone_cfg)
+        sd = load_torch_state_dict(checkpoint)
+        return (adapt_state_dict(sd, backbone_cfg) if backbone_type == 'vit'
+                else sd)
     raise ValueError(f'unsupported checkpoint {checkpoint!r}: expected .npz '
                      '(JAX export) or .pth')
 
