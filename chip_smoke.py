@@ -190,12 +190,42 @@ no result:
             the direct call, p50/p99) and tools/export.py at --batch 8
             --no-flip (the reloaded program against eager, both timed)
 
-Then the cnn JSON line (the CNN phases' numbers), the kernels JSON line (per kernel: the design the main path takes, its
+  bu-serve  HigherHRNet-W32 512 (f32, seeded weights, the heatmap biases
+            shifted so that at most about BU_KEEP peaks per joint pass the
+            parser's threshold on each image of the phase and the tags
+            scaled so that they group into a few people, as trained
+            weights give) through init_pose_model,
+            inference_bottom_up_multi_scale and
+            inference_bottom_up_pose_model over 8 images of mixed sizes:
+            every tensor of the forward + flip + reduction on the card,
+            finite poses, 0 K1/K2; per image the card's half (resize,
+            forward, flip, aggregation) and the host's grouping timed
+            apart, images/s, the card's idle share
+  bu-ref    the flagship, its UDP twin and the HRNet-W32 AE simple head,
+            CUDA against the CPU in f32 (TF32 off) on 2 images: aggregated
+            heatmaps and tags within BU_MAP_RTOL, grouped poses within
+            BU_POSE_TOL_PX where both keep the same candidates (the images
+            where they do not are counted)
+  bu-eval   the evaluation CLI on the flagship config over 32 synthetic
+            images (a crowd region in compressed RLE, one in polygons; GT
+            from the seeded model's jittered poses): AP in (0, 1], 0
+            K1/K2, images/s, the card's and the host's share
+  bu-train  the training CLI on the flagship config at batch 24, 512 ->
+            (128, 256): 2 epochs of 2 steps; 1 epoch then --resume equals
+            it bit for bit; step time, img/s, data_time share, peak
+            memory, one profiled step's kernel time and launches
+  bu-apps   the 3 bottom-up demos (ViT-S f32 base 256, K1) on an image and
+            a 16-frame video: 24 K1 launches per frame at held shapes,
+            frames/s
+
+Then the cnn and bottomup JSON lines (those phases' numbers), the kernels
+JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, int8
 serve call, server request per mode, eval run, int8 eval run, train step,
 train-loop run, remat step, moe-train run, exported call, demo frame,
-webcam run and each CNN phase (0); beside the kernels, the
+webcam run, each CNN and bottom-up phase (0) and bottom-up demo frame;
+beside the kernels, the
 int8 product's launches per path and times, the server's latencies and the
 int8 AP, the dispatcher's price, the exported program's times and the
 demos' and webcam's frames/s), the nvidia-smi card line and the result
@@ -251,6 +281,9 @@ KERNEL_CASES = [
     ((3, 48, 5, 32), torch.float32, 'ragged'),
     ((1, 192, 12, 64), torch.bfloat16, 'webcam whole-frame box, 1 box'),
     ((4, 192, 12, 64), torch.bfloat16, 'demo 3 boxes, bucket 4'),
+    ((1, 256, 12, 32), torch.float32, 'bottom-up demos, ViT-S base 256'),
+    ((1, 256, 12, 32), torch.bfloat16, 'bottom-up ViT-S base 256, bf16'),
+    ((1, 1024, 12, 32), torch.bfloat16, 'bottom-up ViT-S base 512, bf16'),
 ]
 BWD_CASES = [
     ((64, 192, 12, 64), torch.bfloat16, 'training batch 64, ViT-B'),
@@ -3811,6 +3844,639 @@ def run_cnn_phases(card):
     return report
 
 
+HIGHER_CFG = 'vitpose_tpu/configs/coco/higherhrnet_w32_coco_512x512.py'
+HIGHER_UDP_CFG = 'vitpose_tpu/configs/coco/higherhrnet_w32_coco_512x512_udp.py'
+AE_HRNET_CFG = 'vitpose_tpu/configs/coco/hrnet_w32_ae_coco_512x512.py'
+BU_BASE = 512                        # the configs' input_size
+# bu-serve: 8 images of mixed sizes and aspect ratios
+BU_SIZES = ((480, 640), (640, 480), (512, 512), (360, 640), (720, 1280),
+            (600, 400), (300, 300), (427, 640))
+# random weights put hundreds of local maxima per joint above the parser's
+# 0.1 threshold and give every candidate a tag of its own (hundreds of
+# people, each refined over maps as large as the image, seconds per
+# image): on the phase's images the heatmap biases are shifted so that at
+# most about BU_KEEP per joint pass in each, and the tag channels scaled
+# to a spread of BU_TAG_STD (the matching joins tags less than 1 apart),
+# so that the candidates group into a few people, as trained weights give
+BU_KEEP = 3
+BU_TAG_STD = 0.1
+# bu-ref f32 (TF32 off): maps within this of max |CPU map| (summation order
+# through HRNet-W32's convs), grouped poses within BU_POSE_TOL_PX where both
+# devices keep the same candidates
+BU_MAP_RTOL = 1e-4
+BU_POSE_TOL_PX = 1e-2
+BU_EVAL_IMAGES = 32
+BU_TRAIN_BATCH = 24                  # the flagship config's batch
+BU_TRAIN_IMAGES = 2 * BU_TRAIN_BATCH  # 2 steps per epoch
+BU_DEMO_K1_PER_FRAME = 24            # 12 ViT blocks x (image, flip)
+
+
+def bu_scene(seed, hw):
+    """A dim random (h, w) image with 2 to 4 bright blobs, textured like
+    the rest: a flat patch would give the maps plateaus, every pixel of
+    which NMS keeps as a candidate."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    img = rng.randint(0, 60, (h, w, 3)).astype(np.float32)
+    ys, xs = np.mgrid[0:h, 0:w]
+    for _ in range(rng.randint(2, 5)):
+        cx, cy = rng.uniform(20, w - 20), rng.uniform(20, h - 20)
+        img += 190 * np.exp(-((xs - cx) ** 2 + (ys - cy) ** 2)
+                            / (2 * 12.0 ** 2))[..., None]
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def bu_final_convs(est):
+    head = est.keypoint_head
+    return (list(head.final_layers) if hasattr(head, 'final_layers')
+            else [head.final_layer])
+
+
+def bu_model(path, device, imgs=None, shift=None):
+    """init_pose_model on the bottom-up config `path` (seeded weights),
+    its heatmap biases shifted and its tag channels scaled by `shift` =
+    (bias shift, tag scale), or by those that leave at most about BU_KEEP
+    local maxima per joint above 0.1 in each of `imgs`' flip-tested maps
+    and give the first one's tags a spread of BU_TAG_STD. Returns
+    (estimator, shift)."""
+    from vitpose_tpu_torch.api import init_pose_model
+    from vitpose_tpu_torch.api.inference import multi_scale_maps
+    from vitpose_tpu_torch.ops.group import heatmap_nms
+    est = init_pose_model(path, device=device)
+    k = est.num_joints
+    if shift is None:
+        kth, scale = [], None
+        for img in imgs:
+            hm, tags = multi_scale_maps(est, img, base_size=BU_BASE)[:2]
+            top = heatmap_nms(hm).flatten(2).sort(-1, descending=True)[0]
+            kth.append(top[0, :, BU_KEEP - 1:BU_KEEP + 1].mean(-1).cpu())
+            scale = scale or (BU_TAG_STD / tags.std()).item()
+        shift = 0.1 - torch.stack(kth).amax(0), scale
+    head, convs = est.keypoint_head, bu_final_convs(est)
+    bias, scale = shift
+    with torch.no_grad():
+        # the heatmaps average the outputs: the last one, which feeds
+        # nothing, moves them all
+        convs[-1].bias[:k] += len(convs) * bias.to(convs[-1].bias.device)
+        # the tags are the first output's; HigherHRNet's deconv takes that
+        # output too, so its weight for the tag channels undoes the scale
+        convs[0].weight[k:] *= scale
+        convs[0].bias[k:] *= scale
+        if hasattr(head, 'final_layers') and head.cat_output[0]:
+            deconv = head.deconv_layers[0][0][0]
+            deconv.weight[-(convs[0].out_channels - k):] /= scale
+    return est, shift
+
+
+def bu_timed(run):
+    """run() (bottom-up API calls, or the CLI that makes them) timed in two
+    halves: the host's grouping (`group_bottom_up`, which each API call
+    makes last; wrapped here, after a synchronize) and the rest (resize on
+    the host, forward + flip + aggregation on the card). Returns (run()'s
+    result, the rest's s, grouping s)."""
+    from vitpose_tpu_torch.api import inference
+    group, spent = inference.group_bottom_up, []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = group(*a, **k)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    inference.group_bottom_up = timed
+    try:
+        t0 = time.perf_counter()
+        out = run()
+        total = time.perf_counter() - t0
+    finally:
+        inference.group_bottom_up = group
+    return out, total - sum(spent), sum(spent)
+
+
+def bu_grouping_profile(est, img):
+    """cProfile of the host half of one multi-scale call on `img`: the
+    functions that take the most of it, (name, s) by own time."""
+    import cProfile
+    import pstats
+    from vitpose_tpu_torch.api.inference import (group_bottom_up,
+                                                 multi_scale_maps)
+    maps = multi_scale_maps(est, img, base_size=BU_BASE)
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    group_bottom_up(est, *maps, est.dataset_info)
+    prof.disable()
+    st = pstats.Stats(prof).stats
+    top = sorted(st.items(), key=lambda kv: -kv[1][2])[:6]
+    rows = [(f'{os.path.basename(f)}:{n}' if f != '~' else n, tt)
+            for (f, _, n), (_, _, tt, _, _) in top]
+    total = sum(v[2] for v in st.values())
+    print(f'bu-serve: grouping of one {img.shape[1]}x{img.shape[0]} image '
+          f'(maps {tuple(maps[0].shape[2:])}) by cProfile, {total * 1e3:.1f} '
+          'ms: ' + '; '.join(f'{n} {t * 1e3:.1f} ms' for n, t in rows),
+          flush=True)
+    return rows
+
+
+def check_poses(what, results):
+    kp = [r['keypoints'] for res in results for r in res]
+    check(kp and all(k.shape == (17, 3) and np.isfinite(k).all() for k in kp)
+          and all(np.isfinite(r['score']) for res in results for r in res),
+          f'{what}: {len(kp)} poses, not all finite [17, 3]')
+    return len(kp)
+
+
+def phase_bu_serve(card):
+    """HigherHRNet-W32 512 (f32, TF32 as torch defaults it, seeded weights)
+    through init_pose_model, inference_bottom_up_multi_scale and
+    inference_bottom_up_pose_model over 8 images of mixed sizes: every
+    parameter and every tensor of the forward + flip + reduction on the
+    card, finite poses, 0 K1 and K2 launches; each image's device half
+    (resize, forward, flip, aggregation) and host half (grouping) timed
+    apart, images/s, and the card's busy time over 2 of the images."""
+    from vitpose_tpu_torch.api import (inference_bottom_up_multi_scale,
+                                       inference_bottom_up_pose_model)
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    torch_tf32_defaults()
+    imgs = [bu_scene(20 + i, hw) for i, hw in enumerate(BU_SIZES)]
+    t0 = time.perf_counter()
+    est, _ = bu_model(HIGHER_CFG, 'cuda', imgs)
+    build_s = time.perf_counter() - t0
+    check(all(p.is_cuda for p in est.parameters()), 'bu-serve: a parameter '
+          'is off the card')
+    reset_counts()
+    apis = {'multi_scale': inference_bottom_up_multi_scale,
+            'single': inference_bottom_up_pose_model}
+    x = torch.randn(1, BU_BASE, BU_BASE, 3, device='cuda')
+    flip = torch.tensor(est.dataset_info.flip_index, device='cuda')
+    audit = DeviceAudit()
+    with audit:
+        est.infer(x, flip)
+    torch.cuda.synchronize()
+    check(not audit.off_device, f'bu-serve: off-card tensors: '
+          f'{sorted(audit.off_device)[:5]}')
+    out = {}
+    for name, api in apis.items():
+        api(est, imgs[0], base_size=BU_BASE)               # warm-up
+        results, t_maps, t_group = bu_timed(
+            lambda: [api(est, im, base_size=BU_BASE)[0] for im in imgs])
+        poses = check_poses(f'bu-serve {name}', results)
+        n = len(imgs)
+        busy_ms, prof_ms = device_busy_ms(
+            lambda: [api(est, im, base_size=BU_BASE) for im in imgs[:2]])
+        idle = None if busy_ms is None else 1 - busy_ms / prof_ms
+        out[name] = dict(img_s=n / (t_maps + t_group),
+                         device_half_ms=t_maps / n * 1e3,
+                         host_grouping_ms=t_group / n * 1e3,
+                         busy_ms=busy_ms, profiled_ms=prof_ms,
+                         idle_share=idle, poses=poses)
+        print(f'bu-serve: {name} ({HIGHER_CFG}, HigherHRNet-W32 f32, flip, '
+              f'8 images of {len(set(BU_SIZES))} sizes): {poses} finite '
+              f'poses; per image {t_maps / n * 1e3:.1f} ms resize + forward '
+              f'+ flip + aggregation (card) and {t_group / n * 1e3:.1f} ms '
+              f'grouping (host) = {n / (t_maps + t_group):.2f} img/s; card '
+              'busy over 2 of the images ' + (
+                  'not measured' if busy_ms is None else
+                  f'{busy_ms:.1f} ms of {prof_ms:.1f} ms, idle share '
+                  f'{idle:.3f}') + f'; on {card}', flush=True)
+    k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+    check(k1 == 0 and k2 == 0, f'bu-serve: K1 {k1} and K2 {k2} launches, '
+          'expected none')
+    out['grouping_top'] = bu_grouping_profile(est, imgs[4])
+    print(f'bu-serve: model build {build_s:.1f} s, every tensor of the '
+          f'forward + flip + reduction on CUDA ({audit.ops} ops), 0 K1 and '
+          f'0 K2 launches', flush=True)
+    del est
+    torch.cuda.empty_cache()
+    out.update(k1=k1, k2=k2)
+    return out
+
+
+def phase_bu_ref(card):
+    """The flagship, its UDP twin and the HRNet-W32 AE simple head at full
+    width, the same seeded (and shifted) weights on CUDA and on the CPU, f32
+    with TF32 off, on 2 images through the multi-scale protocol: the
+    aggregated heatmaps and tags within BU_MAP_RTOL of their largest value;
+    where both devices keep the same candidates (the parser's top values
+    and cells per joint), the grouped poses within BU_POSE_TOL_PX; the
+    images where they do not are counted."""
+    import copy
+    from vitpose_tpu_torch.api.inference import (group_bottom_up,
+                                                 multi_scale_maps)
+    from vitpose_tpu_torch.ops.group import topk_candidates
+    from vitpose_tpu_torch.utils.config import load_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    imgs = [bu_scene(40, (480, 640)), bu_scene(41, (640, 427))]
+    report = {}
+    for name, path in (('higherhrnet_w32', HIGHER_CFG),
+                       ('higherhrnet_w32_udp', HIGHER_UDP_CFG),
+                       ('hrnet_w32_ae', AE_HRNET_CFG)):
+        use_udp = load_config(path)['data'].get('use_udp', False)
+        t0 = time.perf_counter()
+        ests = {}
+        ests['cuda'], _ = bu_model(path, 'cuda', imgs)
+        ests['cpu'] = copy.deepcopy(ests['cuda']).cpu()
+        errs, pose_err, differ, poses = [0.0, 0.0], 0.0, 0, 0
+        for img in imgs:
+            maps = {d: multi_scale_maps(e, img, base_size=BU_BASE,
+                                        use_udp=use_udp)
+                    for d, e in ests.items()}
+            for i in range(2):
+                ref = maps['cpu'][i]
+                err = (maps['cuda'][i].cpu() - ref).abs().max().item()
+                rel = err / ref.abs().max().item()
+                errs[i] = max(errs[i], rel)
+                check(rel <= BU_MAP_RTOL, f'bu-ref {name}: CUDA and CPU '
+                      f'{("heatmaps", "tags")[i]} differ by {err} '
+                      f'({rel:.2e} of the largest), bound {BU_MAP_RTOL}')
+            thr = ests['cpu'].parser.detection_threshold
+            kept = {}
+            for d, m in maps.items():
+                c = topk_candidates(m[0], m[1],
+                                    ests[d].parser.max_num_people)
+                above = c['val_k'].cpu() > thr
+                kept[d] = (above, c['loc_k'].cpu()[above])
+            same = all(torch.equal(a, b) for a, b in zip(kept['cuda'],
+                                                          kept['cpu']))
+            res = {d: group_bottom_up(ests[d], *maps[d], None, use_udp, None)
+                   for d in maps}
+            if not same or len(res['cuda']) != len(res['cpu']):
+                differ += 1
+                continue
+            poses += len(res['cpu'])
+            for a, b in zip(res['cuda'], res['cpu']):
+                pose_err = max(pose_err, float(np.abs(
+                    a['keypoints'][:, :2] - b['keypoints'][:, :2]).max()))
+        check(pose_err <= BU_POSE_TOL_PX, f'bu-ref {name}: grouped poses '
+              f'differ by {pose_err} px where the candidates agree')
+        check(poses > 0 or differ == len(imgs), f'bu-ref {name}: no poses')
+        report[name] = dict(heatmap_rel_err=errs[0], tag_rel_err=errs[1],
+                            pose_err_px=pose_err, images_differ=differ,
+                            poses_compared=poses)
+        print(f'bu-ref: {name} ({path}, f32, TF32 off), 2 images, CUDA vs '
+              f'CPU: heatmaps {errs[0]:.2e} and tags {errs[1]:.2e} of their '
+              f'largest value apart (bound {BU_MAP_RTOL:g}); the same '
+              f'candidates on {len(imgs) - differ} of {len(imgs)} images, '
+              f'where the {poses} grouped poses lie within {pose_err:.2e} px '
+              f'(tol {BU_POSE_TOL_PX}); {time.perf_counter() - t0:.1f} s '
+              f'with the model build', flush=True)
+        del ests
+        torch.cuda.empty_cache()
+    torch_tf32_defaults()
+    return report
+
+
+def bu_people(rng, h, w, n):
+    """n seeded people, each 17 joints around a centre, COCO visibilities."""
+    out = []
+    for _ in range(n):
+        c = np.array([rng.uniform(40, w - 40), rng.uniform(60, h - 60)])
+        kp = c + rng.normal(0, [20, 40], (17, 2))
+        out.append(np.concatenate([kp, np.where(
+            rng.rand(17, 1) < 0.85, 2, 0)], 1))
+    return out
+
+
+def write_bu_set(root, seed, n, people_of):
+    """n JPEGs of mixed sizes in root/img and a COCO keypoint json:
+    people_of(i, img) -> [[17, 3] keypoints]; image 0 also gets a crowd
+    region in compressed RLE and image 1 one in polygons. Returns (json
+    path, image prefix, the images)."""
+    import cv2
+    from vitpose_tpu_torch.data.mask import encode_compressed_rle, mask_to_rle
+    prefix = os.path.join(root, 'img')
+    os.makedirs(prefix, exist_ok=True)
+    images, anns, arrays = [], [], []
+    for i in range(n):
+        hw = BU_SIZES[i % len(BU_SIZES)]
+        img = bu_scene(seed + i, hw)
+        name = f'{i + 1:012d}.jpg'
+        cv2.imwrite(os.path.join(prefix, name), img[..., ::-1])
+        images.append(dict(id=i + 1, file_name=name, width=hw[1],
+                           height=hw[0]))
+        arrays.append(img)
+        for kp in people_of(i, img):
+            x0, y0 = kp[:, :2].min(0)
+            x1, y1 = kp[:, :2].max(0)
+            anns.append(dict(
+                id=len(anns) + 1, image_id=i + 1, category_id=1, iscrowd=0,
+                bbox=[float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                area=float(max((x1 - x0) * (y1 - y0), 1.0)),
+                keypoints=np.asarray(kp, np.float64).ravel().tolist(),
+                num_keypoints=int((kp[:, 2] > 0).sum())))
+        if i < 2:
+            h, w = hw
+            m = np.zeros((h, w), np.uint8)
+            m[10:90, 20:140] = 1
+            segm = (dict(counts=encode_compressed_rle(
+                mask_to_rle(m)['counts']), size=[h, w]) if i == 0 else
+                [[200.0, 100.0, 300.0, 100.0, 300.0, 220.0, 200.0, 220.0]])
+            anns.append(dict(id=len(anns) + 1, image_id=i + 1,
+                             category_id=1, iscrowd=1, keypoints=[0] * 51,
+                             num_keypoints=0, bbox=[20, 10, 120, 80],
+                             area=9600.0, segmentation=segm))
+    path = os.path.join(root, 'ann.json')
+    with open(path, 'w') as f:
+        json.dump(dict(images=images, annotations=anns,
+                       categories=[dict(id=1, name='person')]), f)
+    return path, prefix + '/', arrays
+
+
+def phase_bu_eval(card):
+    """The evaluation CLI on the flagship config over a synthetic COCO set
+    of BU_EVAL_IMAGES images (a crowd region in compressed RLE and one in
+    polygons) whose GT people are the seeded model's own poses on the same
+    images, jittered, so that AP lies in (0, 1]; the weights saved as a
+    .pth: 0 K1 and K2 launches, the stats, the CLI's img/s with the card's
+    half apart from the host's grouping; the same per-image work through
+    the API on the raw images, and the card's idle share over 4 of them."""
+    import io
+    import tempfile
+    from vitpose_tpu_torch.api import inference_bottom_up_multi_scale as api
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.tools import test as cli
+    torch_tf32_defaults()
+    imgs = [bu_scene(300 + i, BU_SIZES[i % len(BU_SIZES)])
+            for i in range(BU_EVAL_IMAGES)]
+    n = len(imgs)
+    with tempfile.TemporaryDirectory() as root:
+        est, _ = bu_model(HIGHER_CFG, 'cuda', imgs)
+        api(est, imgs[0], base_size=BU_BASE)                 # warm-up
+        poses, t_maps, t_group = bu_timed(
+            lambda: [api(est, im, base_size=BU_BASE, pose_nms_thr=None)[0]
+                     for im in imgs])
+        rng = np.random.RandomState(31)
+
+        def jittered(i, img):
+            out = []
+            for r in poses[i][:4]:
+                kp = r['keypoints'].astype(np.float64)
+                kp[:, :2] += rng.normal(0, 2.0, (17, 2))
+                kp[:, 2] = np.where(rng.rand(17) < 0.8, 2, 0)
+                out.append(kp)
+            return out
+
+        ann, prefix, _ = write_bu_set(root, 300, n, jittered)
+        ckpt = os.path.join(root, 'higherhrnet_w32.pth')
+        torch.save(est.state_dict(), ckpt)
+        busy_ms, prof_ms = device_busy_ms(
+            lambda: [api(est, im, base_size=BU_BASE) for im in imgs[:4]])
+        idle = None if busy_ms is None else 1 - busy_ms / prof_ms
+        del est
+        torch.cuda.empty_cache()
+        options = [f'data.val.ann_file={ann}', f'data.val.img_prefix={prefix}']
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats, cli_rest, cli_group = bu_timed(lambda: cli.main(
+                [HIGHER_CFG, ckpt, '--cfg-options', *options]))
+        cli_s = cli_rest + cli_group
+        k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+        check(k1 == 0 and k2 == 0, f'bu-eval: K1 {k1} and K2 {k2} launches, '
+              'expected none')
+        check(0 < stats['AP'] <= 1, f'bu-eval: AP {stats["AP"]}')
+    print(f'bu-eval: CLI on {HIGHER_CFG} (HigherHRNet-W32 f32, scale 1 + '
+          f'flip, grouping), {n} synthetic JPEGs of {len(set(BU_SIZES))} '
+          f'sizes, GT from the seeded model\'s own poses jittered: 0 K1 and '
+          f'0 K2 launches; stats ' + ', '.join(
+              f'{k} {v:.4f}' for k, v in stats.items())
+          + f'; {cli_s:.1f} s = {n / cli_s:.2f} img/s with model build, '
+          f'checkpoint load, JPEG decode and scoring, {cli_group:.1f} s of '
+          f'it grouping (host); the API alone on the raw images '
+          f'{n / (t_maps + t_group):.2f} img/s: {t_maps / n * 1e3:.1f} ms '
+          f'resize + forward + flip + aggregation (card) and '
+          f'{t_group / n * 1e3:.1f} ms grouping (host) per image; card busy '
+          'over 4 of the images ' + (
+              'not measured' if busy_ms is None else
+              f'{busy_ms:.1f} ms of {prof_ms:.1f} ms, idle share '
+              f'{idle:.3f}') + f'; on {card}', flush=True)
+    return dict(images=n, ap=stats['AP'], cli_s=cli_s,
+                cli_grouping_s=cli_group, img_s=n / (t_maps + t_group),
+                device_half_ms=t_maps / n * 1e3,
+                host_grouping_ms=t_group / n * 1e3, busy_ms=busy_ms,
+                idle_share=idle, k1=k1, k2=k2)
+
+
+def bu_step_profile(state, batch, step_s, card):
+    """One profiled train step: kernel time, CUDA kernel launches and the
+    idle share against the median step."""
+    from torch.profiler import ProfilerActivity, profile
+    from vitpose_tpu_torch.train.bottomup_loop import make_bottomup_train_step
+    step = make_bottomup_train_step(state.model)
+    step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False)
+               and not e.key.startswith('Optimizer.')]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    if busy == 0:
+        return None, None
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:5]
+    print(f'bu-train: profiler, 1 step at batch {BU_TRAIN_BATCH}: kernels '
+          f'busy {busy:.1f} ms of the {step_s * 1e3:.1f} ms median CLI step '
+          f'(idle share {1 - busy / (step_s * 1e3):.3f}), {launches} kernel '
+          f'launches; top: ' + '; '.join(
+              f'{e.key[:60]} {e.device_time_total / 1e3:.2f} ms x{e.count}'
+              for e in top) + f'; on {card}', flush=True)
+    return busy, launches
+
+
+def phase_bu_train(card):
+    """The training CLI on the flagship config at its batch of 24, 512
+    input, output sizes (128, 256), over a synthetic COCO set of 48 images
+    (2 steps per epoch; crowd regions in RLE and polygons), seeded weights:
+    2 epochs in one run; 1 epoch, then --resume for the second, equals it
+    bit for bit (parameters, BN statistics, Adam's moments; cuDNN
+    deterministic for these runs); 0 K1 and K2 launches, finite losses;
+    step wall time and img/s, the data_time share, peak memory, and one
+    profiled step's kernel time and launches."""
+    import tempfile
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.train.bottomup_loop import (batch_to_device,
+                                                       build_bottomup_loader)
+    from vitpose_tpu_torch.utils.config import apply_options, load_config
+    torch_tf32_defaults()
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            rng = np.random.RandomState(50)
+            ann, prefix, _ = write_bu_set(
+                root, 500, BU_TRAIN_IMAGES,
+                lambda i, img: bu_people(rng, *img.shape[:2],
+                                         rng.randint(1, 5)))
+            options = [f'data.train.ann_file={ann}',
+                       f'data.train.img_prefix={prefix}',
+                       'runtime.log_interval=1']
+            runs = {}
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            for name, extra in (('whole', ['optimizer.total_epochs=2']),
+                                ('cut', ['optimizer.total_epochs=1']),
+                                ('resumed', ['optimizer.total_epochs=2'])):
+                work = os.path.join(root, 'cut' if name == 'resumed'
+                                    else name)
+                t0 = time.perf_counter()
+                args = [HIGHER_CFG, '--work-dir', work, '--cfg-options',
+                        *options, *extra]
+                if name == 'resumed':
+                    args.insert(1, '--resume')
+                runs[name] = (*run_train_cli(args),
+                              time.perf_counter() - t0)
+                if name == 'whole':
+                    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+            check(k1 == 0 and k2 == 0, f'bu-train: K1 {k1} and K2 {k2} '
+                  'launches, expected none')
+            whole, log, whole_s = runs['whole']
+            resumed, rlog, _ = runs['resumed']
+            train = [r for r in log if r['mode'] == 'train']
+            check(len(train) == whole.step == resumed.step == 4,
+                  f'bu-train: {len(train)} logged steps, states at '
+                  f'{whole.step} and {resumed.step}, expected 4')
+            check(all(np.isfinite(r[k]) for r in train for k in (
+                'heatmap_loss', 'push_loss', 'pull_loss', 'grad_norm')),
+                'bu-train: a non-finite training metric')
+            a, b = whole.model.state_dict(), resumed.model.state_dict()
+            same = [k for k in a if not torch.equal(a[k], b[k])]
+            oa, ob = whole.optimizer.state_dict(), \
+                resumed.optimizer.state_dict()
+            moments = [(i, k) for i in oa['state'] for k in ('exp_avg',
+                                                           'exp_avg_sq')
+                       if not torch.equal(oa['state'][i][k],
+                                          ob['state'][i][k])]
+            check(not same and not moments, f'bu-train: the resumed run '
+                  f'differs from the uninterrupted one in {len(same)} '
+                  f'tensors ({same[:3]}) and {len(moments)} Adam moments')
+            rtrain = [r for r in rlog if r['mode'] == 'train'
+                      and r['epoch'] == 1]
+            check([r['total_loss'] for r in rtrain] == [
+                r['total_loss'] for r in train if r['epoch'] == 1],
+                'bu-train: the resumed epoch logged other losses')
+            times = step_times(log)
+            med = statistics.median(times)
+            share = train[-1]['data_time'] / train[-1]['time']
+            cfg = apply_options(load_config(HIGHER_CFG), options)
+            batch = batch_to_device(next(iter(build_bottomup_loader(cfg))),
+                                    'cuda')
+            busy, launches = bu_step_profile(whole, batch, med, card)
+            del whole, resumed, runs, batch
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    print(f'bu-train: CLI on {HIGHER_CFG} (HigherHRNet-W32 f32, TF32 on for '
+          f'convs, batch {BU_TRAIN_BATCH}, 512 -> (128, 256)), 2 epochs of 2 '
+          f'steps: 0 K1 and 0 K2 launches; the resumed run (1 epoch, then '
+          f'--resume) equals the uninterrupted one bit for bit (every '
+          f'parameter, BN statistic and Adam moment); step wall time median '
+          f'{med * 1e3:.1f} ms ({min(times) * 1e3:.1f}-'
+          f'{max(times) * 1e3:.1f}) = {BU_TRAIN_BATCH / med:.1f} img/s; '
+          f'data_time share {share:.3f}; losses ' + ', '.join(
+              f'{r["total_loss"]:.4f}' for r in train)
+          + f'; whole run {whole_s:.1f} s; peak device memory {peak_gb:.2f} '
+          f'GB; on {card}', flush=True)
+    return dict(step_ms=med * 1e3, img_s=BU_TRAIN_BATCH / med,
+                data_time_share=share, peak_gb=peak_gb, kernel_ms=busy,
+                kernel_launches_per_step=launches, k1=k1, k2=k2)
+
+
+def phase_bu_apps(card):
+    """The three bottom-up demos (ViT-S f32 at base 256 with K1, as JAX's
+    build_estimator) on the card: the image demo on a 480x640 scene and the
+    video and tracking demos on a 16-frame MJPG video of it: every output
+    written, videos read back frame for frame, exactly BU_DEMO_K1_PER_FRAME
+    K1 launches per frame and image, at shapes KERNEL_CASES holds;
+    frames/s over each main()."""
+    import io
+    import tempfile
+    from vitpose_tpu_torch.demo import (bottom_up_img_demo,
+                                        bottom_up_pose_tracking_demo,
+                                        bottom_up_video_demo)
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    import cv2
+    img = bu_scene(60, (480, 640))
+    fps, k1 = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, 'scene.jpg')
+        cv2.imwrite(path, img[..., ::-1])
+        video = write_video(os.path.join(root, 'scene.avi'), img,
+                            DEMO_FRAMES)
+        reset_counts()
+        for name, demo, args, frames in (
+                ('bottom_up_img_demo', bottom_up_img_demo,
+                 [path, '--out-img-root', root], 1),
+                ('bottom_up_video_demo', bottom_up_video_demo,
+                 [video, '--out-video-root', root], DEMO_FRAMES),
+                ('bottom_up_pose_tracking_demo',
+                 bottom_up_pose_tracking_demo,
+                 [video, '--out-video-root', root], DEMO_FRAMES)):
+            before = fused_attention.launches
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                out = demo.main(args)
+            secs = time.perf_counter() - t0
+            launches = fused_attention.launches - before
+            check(launches == BU_DEMO_K1_PER_FRAME * frames,
+                  f'bu-apps {name}: {launches} K1 launches over {frames} '
+                  f'frames, expected {BU_DEMO_K1_PER_FRAME} per frame')
+            written = out[1]
+            check(os.path.exists(written), f'bu-apps {name}: no output')
+            if frames > 1:
+                check(out[0] == frames and count_frames(written) == frames,
+                      f'bu-apps {name}: {out[0]} frames, read back '
+                      f'{count_frames(written)}')
+            fps[name] = frames / secs
+            k1[name] = launches / frames
+        check(fused_attention_bwd.launches == 0, 'bu-apps: K2 launched')
+        check_shapes_held('bu-apps')
+    print(f'bu-apps: the 3 bottom-up demos (ViT-S f32, base 256, K1) on the '
+          f'card: {BU_DEMO_K1_PER_FRAME} K1 launches per frame, all at held '
+          f'shapes, outputs written and read back; frames/s (model build '
+          f'included) ' + ', '.join(f'{k} {v:.2f}' for k, v in fps.items())
+          + f'; on {card}', flush=True)
+    return dict(frames_per_s=fps, k1_per_frame=k1, k2=0)
+
+
+def run_bu_phases(card):
+    """The bottom-up phases in order, each timed; returns their report."""
+    report, took = {}, {}
+    for name, phase in (('serve', phase_bu_serve), ('ref', phase_bu_ref),
+                        ('eval', phase_bu_eval), ('train', phase_bu_train),
+                        ('apps', phase_bu_apps)):
+        t0 = time.perf_counter()
+        report[name] = phase(card)
+        took[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    report['phase_s'] = took
+    print('bu: phases took ' + ', '.join(
+        f'{k} {v:.1f} s' for k, v in took.items())
+        + f' = {sum(took.values()):.1f} s', flush=True)
+    return report
+
+
+def bu_launches(bu, key):
+    """A kernel's launches on each bottom-up path ('k1' or 'k2')."""
+    return {'bu_serve': bu['serve'][key], 'bu_eval': bu['eval'][key],
+            'bu_train': bu['train'][key],
+            'bu_apps_per_frame': (bu['apps']['k1_per_frame'] if key == 'k1'
+                                  else 0)}
+
+
 def kernel_name(mangled):
     """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
     anonymous namespace; the mangled name where it is not one."""
@@ -3915,6 +4581,7 @@ def main():
         phase_moe_ref(card)
         torch.cuda.empty_cache()
         cnn = run_cnn_phases(card)
+        bu = run_bu_phases(card)
     except Failure as e:
         print(f'chip_smoke: FAIL {e}', file=sys.stderr)
         return 1
@@ -3944,7 +4611,8 @@ def main():
                                   'moe_train': moe_launches[0],
                                   'moe_train_steps': moe_steps,
                                   'moe_train_val_batches': moe_val,
-                                  **cnn_launches(cnn, 'k1')},
+                                  **cnn_launches(cnn, 'k1'),
+                                  **bu_launches(bu, 'k1')},
                 'attention_bwd': {'serve': 0, 'eval': 0, 'export': 0,
                                   'demos_per_frame': 0, 'webcam': 0,
                                   'train': train_launches[1],
@@ -3953,7 +4621,8 @@ def main():
                                   'remat_step': dict.fromkeys(remat_k1, 12),
                                   'moe_train': moe_launches[1],
                                   'moe_train_steps': moe_steps,
-                                  **cnn_launches(cnn, 'k2')}}
+                                  **cnn_launches(cnn, 'k2'),
+                                  **bu_launches(bu, 'k2')}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({
@@ -3982,6 +4651,7 @@ def main():
         'shapes': int8,
         'serve_batch_ms': int8_batch_ms}
     print(json.dumps({'cnn': cnn}))
+    print(json.dumps({'bottomup': bu}))
     print(json.dumps({'kernels': kernels, 'int8_matmul': int8_matmul,
                       'deploy_latency_ms': {
                           m: r['latency_ms'] for m, r in deploy.items()},

@@ -384,7 +384,7 @@ def test_cli_refuses_unported(tmp_path, monkeypatch, flag):
     int8 path, as in JAX."""
     args = [_small_config(tmp_path), 'none.npz', '--device', 'cpu']
     if flag == 'family':
-        args += ['--cfg-options', 'model.family=bottomup']
+        args += ['--cfg-options', 'model.family=pose_lifter']
     elif flag == 'cuda':
         monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
         args = args[:2] + ['--device', 'cuda']
@@ -424,7 +424,7 @@ def test_config_file_model_matches_jax():
                                 stage_blocks=1)))
     assert type(cnn).__name__ == 'GenericTopDown'
     assert cnn.backbone_type == 'hrnet' and cnn.cfg.backbone.depth == 12
-    for bad in (dict(mcfg, family='bottomup'),
+    for bad in (dict(mcfg, family='pose_lifter'),
                 dict(mcfg, backbone_type='resnext')):
         with pytest.raises(NotImplementedError, match='item 12'):
             build_model_from_cfg(bad)

@@ -371,7 +371,7 @@ def test_cli_refuses_unported(fixture, tmp_path, monkeypatch, case):
         monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
         args[4] = 'cuda'
     elif case == 'family':
-        args.append('model.family=bottomup')
+        args.append('model.family=pose_lifter')
     elif case == 'moe':
         # a ViTPose+ mixture with a train set whose class is not ported
         args.append("data.train=[{'dataset': 'posetrack18', "

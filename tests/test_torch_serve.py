@@ -525,5 +525,6 @@ def test_api_exports_the_top_down_surface():
         'init_pose_model', 'inference_top_down_pose_model',
         'vis_pose_result', 'process_mmdet_results', 'get_track_id',
         'vis_pose_tracking_result', 'run_validation', 'train_model',
-        'init_random_seed'}
+        'init_random_seed', 'inference_bottom_up_pose_model',
+        'inference_bottom_up_multi_scale'}
     assert all(callable(getattr(api, n)) for n in api.__all__)

@@ -1,11 +1,14 @@
-"""User-facing top-down inference API, in PyTorch.
+"""User-facing top-down and bottom-up inference API, in PyTorch.
 
-Counterpart of the top-down part of vitpose_tpu/api/inference.py
-(`PoseModel`, `init_pose_model`, `inference_top_down_pose_model` with its
-deprecated `dataset=` selector and `outputs=` capture, `_bucket`,
-`process_mmdet_results`, `vis_pose_result`, `imshow_bboxes`) with the same
-call signatures, minus the JAX-only parts (jit caches, the `variables`
-argument). Drawing runs on the host with cv2, as in the JAX package.
+Counterpart of vitpose_tpu/api/inference.py (`PoseModel`,
+`init_pose_model`, `inference_top_down_pose_model` with its deprecated
+`dataset=` selector and `outputs=` capture, `_bucket`,
+`process_mmdet_results`, `vis_pose_result`, `imshow_bboxes`, and the
+bottom-up `inference_bottom_up_pose_model` and
+`inference_bottom_up_multi_scale`) with the same call signatures, minus the
+JAX-only parts (jit caches, the `variables` argument). Drawing runs on the
+host with cv2, as in the JAX package; so does bottom-up grouping, after the
+model, the flip pass and the aggregation on the device.
 
 Entry points run on CUDA unless the caller passes ``device='cpu'``; asking
 for CUDA on a machine without it raises. Person boxes are cropped in one
@@ -22,13 +25,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..data.bottomup import read_rgb
 from ..data.dataset_info import DatasetInfo
 from ..data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+from ..models.bottomup import (BottomUpEstimator, aggregate_scale,
+                               aggregate_stage_flip, flip_feature_maps,
+                               split_ae_outputs)
 from ..models.topdown import TopDownConfig, TopDownModel, infer, make_config
 from ..models.vit import VIT_VARIANTS, compute_dtype
 from ..ops.decode import keypoints_from_heatmaps
 from ..ops.geometry import (affine_matrix, bbox_xywh2cs, bbox_xyxy2xywh,
                             udp_warp_matrix)
+from ..ops.nms import oks_nms
 from ..ops.warp import warp_affine_batch
 from ..train.loop import build_model_from_cfg
 from ..utils.config import load_config
@@ -117,13 +125,20 @@ class PoseModel:
         return preds, maxvals
 
 
-def load_checkpoint(model: TopDownModel, checkpoint: str):
+def load_checkpoint(model, checkpoint: str):
     """Load weights into `model`: an .npz written by the JAX package, or a
     .pth (mmpose names; a {'state_dict' | 'model' | 'module'} container and
     a 'module.' prefix are taken off) whose pos embed is regridded and whose
     patch kernel is padded to a ViT's geometry; a CNN's (GenericTopDown)
     routed by its backbone type (counterpart of the JAX
-    `load_checkpoint_variables`, vitpose_tpu/api/inference.py:97-120)."""
+    `load_checkpoint_variables`, vitpose_tpu/api/inference.py:97-120); a
+    BottomUpEstimator's .npz holds JAX's {'backbone', 'head'} variables."""
+    if isinstance(model, BottomUpEstimator):
+        vit = model.backbone_type == 'vit'
+        model.load_state_dict(checkpoint_state_dict(
+            checkpoint, model.backbone.cfg if vit else None,
+            model.backbone_type, family='bottomup'), strict=True)
+        return
     model.load_state_dict(
         checkpoint_state_dict(checkpoint, model.cfg.backbone,
                               model.backbone_type), strict=True)
@@ -141,9 +156,12 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
     file's `model` dict (one that names 'backbone_type' or 'family';
     `img_size` is (h, w) there), or a TopDownConfig. A config file or model
     dict of a CNN (backbone_type 'resnet', 'resnet_v1d', 'hrnet' or
-    'hrnetv2') builds a GenericTopDown. Without a checkpoint the weights are
-    random, drawn on the CPU from a torch.Generator seeded with 0, so every
-    device gets the same ones.
+    'hrnetv2') builds a GenericTopDown. A bottom-up config (family
+    'bottomup') gives its BottomUpEstimator itself, on the device in eval
+    mode, for the bottom-up functions below (JAX refuses those configs
+    here). Without a checkpoint the weights are random, drawn on the CPU
+    from a torch.Generator seeded with 0, so every device gets the same
+    ones.
     """
     dev = _device(device)
     dataset_name, padding = 'coco', 1.25
@@ -162,6 +180,10 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
     model = None
     if model_dict is not None:
         model = build_model_from_cfg(model_dict)
+        if isinstance(model, BottomUpEstimator):
+            if checkpoint is not None:
+                load_checkpoint(model, checkpoint)
+            return model.to(dev).eval()
         cfg = model.cfg
     elif isinstance(config, str) and config in VIT_VARIANTS:
         cfg = make_config(config, img_size=(256, 192), out_channels=17)
@@ -394,6 +416,184 @@ def inference_top_down_pose_model(model: PoseModel, img, person_results=None,
         res['keypoints'] = np.concatenate([preds[i], maxvals[i]], axis=1)
         pose_results.append(res)
     return pose_results, returned_outputs
+
+
+def _rgb(img):
+    """An RGB array of `img`: an image file path (read with cv2) or an RGB
+    array."""
+    return read_rgb(img) if isinstance(img, str) else np.asarray(img)
+
+
+def _normalised(estimator, img_np):
+    """[H, W, 3] uint8 host image -> [1, H, W, 3] normalised f32 on the
+    estimator's device."""
+    dev = estimator.device
+    x = torch.from_numpy(np.ascontiguousarray(img_np)).to(dev)[None]
+    mean = torch.as_tensor(IMAGENET_MEAN, device=dev)
+    std = torch.as_tensor(IMAGENET_STD, device=dev)
+    return (x.float() / 255.0 - mean) / std
+
+
+def _pose_results(preds, scores, info, pose_nms_thr):
+    """Grouped poses -> [{'keypoints', 'score', 'area'}], the area the
+    keypoints' box, then OKS NMS at `pose_nms_thr` unless it is None."""
+    results = [dict(keypoints=np.asarray(p)[:, :3], score=float(s))
+               for p, s in zip(preds, scores)]
+    for r in results:
+        kp = r['keypoints']
+        r['area'] = float((kp[:, 0].max() - kp[:, 0].min())
+                          * (kp[:, 1].max() - kp[:, 1].min()))
+    if results and pose_nms_thr is not None:
+        keep = oks_nms(results, pose_nms_thr,
+                       sigmas=info.sigmas if info is not None
+                       and len(info.sigmas) else None)
+        results = [results[i] for i in keep]
+    return results
+
+
+def bottom_up_maps(estimator: BottomUpEstimator, img, dataset_info=None,
+                   base_size=512):
+    """The device half of `inference_bottom_up_pose_model`: (heatmaps
+    [1, K, s, s], tags [1, K, s, s, 2] on the estimator's device, center,
+    scale) of the image pasted top-left on the square base canvas."""
+    import cv2
+    img = _rgb(img)
+    h, w = img.shape[:2]
+    info = dataset_info or estimator.dataset_info
+    scale_f = base_size / max(h, w)
+    resized = cv2.resize(img, (int(round(w * scale_f)),
+                               int(round(h * scale_f))))
+    canvas = np.zeros((base_size, base_size, 3), img.dtype)
+    canvas[:resized.shape[0], :resized.shape[1]] = resized
+    flip_index = (info.flip_index if info is not None
+                  else np.arange(estimator.num_joints))
+    heatmaps, tags = estimator.infer(_normalised(estimator, canvas),
+                                     flip_index)
+    # the square canvas covers [0, max(h, w)] on BOTH axes of the image
+    # (top-left paste), so decode around the canvas centre
+    m = float(max(h, w))
+    center = np.array([m / 2.0, m / 2.0], np.float32)
+    scale = np.array([m / 200.0, m / 200.0], np.float32)
+    return heatmaps, tags, center, scale
+
+
+def inference_bottom_up_pose_model(estimator: BottomUpEstimator, img,
+                                   dataset_info=None, pose_nms_thr=0.9,
+                                   base_size=512):
+    """Bottom-up inference on one image (JAX vitpose_tpu/api/inference.py:
+    416, reference apis/inference.py:425): resize onto a square base canvas
+    on the host, the model with the flip pass on the estimator's device,
+    grouping on the host, keypoints back in image coords, OKS NMS at
+    `pose_nms_thr` (None: none, the evaluation protocol).
+
+    Returns (pose_results, []): a list of {'keypoints': [K, 3], 'score',
+    'area'}.
+    """
+    info = dataset_info or estimator.dataset_info
+    maps = bottom_up_maps(estimator, img, info, base_size)
+    return group_bottom_up(estimator, *maps, info,
+                           pose_nms_thr=pose_nms_thr), []
+
+
+def group_bottom_up(estimator: BottomUpEstimator, heatmaps, tags, center,
+                    scale, dataset_info=None, use_udp=False,
+                    pose_nms_thr=0.9):
+    """The host half of both bottom-up functions: the parser's candidates
+    (on the maps' device) and grouping, the poses in image coords, OKS NMS
+    at `pose_nms_thr` unless it is None. Returns the pose results."""
+    preds, scores = estimator.parse(heatmaps, tags, center, scale,
+                                    use_udp=use_udp)
+    return _pose_results(preds, scores, dataset_info, pose_nms_thr)
+
+
+def multi_scale_maps(estimator: BottomUpEstimator, img, dataset_info=None,
+                     test_scale_factor=(1.0,), base_size=512, use_udp=False,
+                     with_flip=True, align_corners=None):
+    """The device half of `inference_bottom_up_multi_scale`: (heatmaps
+    [1, K, h, w], tags [1, K, h, w, L] on the estimator's device, center,
+    scale) aggregated over the scales and the flip."""
+    from ..data.bottomup import get_multi_scale_size, resize_align_multi_scale
+    if align_corners is None:
+        # the reference configs: plain AE configs align_corners=False, UDP
+        # ones True (higherhrnet_w32_*.py:106)
+        align_corners = bool(use_udp)
+    img = _rgb(img)
+    info = dataset_info or estimator.dataset_info
+    flip_index = (info.flip_index if info is not None
+                  else np.arange(estimator.num_joints))
+    k = estimator.num_joints
+    min_scale = min(test_scale_factor)
+    head = estimator.keypoint_head
+    wa = getattr(head, 'with_ae_loss', None)
+    estimator.eval()
+
+    def apply_split(inp):
+        """Model outputs -> (heatmap list, tag list) in NCHW; per-output
+        tag presence follows the head's with_ae_loss."""
+        outs = estimator(inp)
+        with_ae = (list(wa)[:len(outs)]
+                   if isinstance(wa, (list, tuple)) and len(wa) >= len(outs)
+                   else [o.shape[1] > k for o in outs])
+        return split_ae_outputs(outs, k, [True] * len(outs), with_ae,
+                                list(range(len(outs))))
+
+    heatmaps_list, tags_list = [], []
+    # every scale projects to the scale-1 base size, and the decode's
+    # center/scale are those of scale 1 too (reference BottomUpGetImgSize,
+    # bottom_up_transform.py:706)
+    base_wh, center, scale = get_multi_scale_size(
+        img, (base_size, base_size), 1.0, min_scale, use_udp=use_udp)
+    with torch.no_grad():
+        for s in sorted(test_scale_factor, reverse=True):
+            resized, _, _ = resize_align_multi_scale(
+                img, (base_size, base_size), s, min_scale, use_udp=use_udp)
+            x = _normalised(estimator, resized)
+            hms, tags_o = apply_split(x)
+            if with_flip:
+                hms_f, tags_f = apply_split(x.flip(2))
+                hms_f = flip_feature_maps(hms_f, flip_index=flip_index)
+                tags_f = flip_feature_maps(tags_f, flip_index=flip_index)
+            else:
+                hms_f = tags_f = None
+            heatmaps_list.append(aggregate_stage_flip(
+                hms, hms_f, project2image=True,
+                size_projected=tuple(base_wh), align_corners=align_corners,
+                aggregate_stage='average', aggregate_flip='average')[0])
+            if s == 1.0 or len(test_scale_factor) == 1:
+                # tags only at the base scale (reference
+                # associative_embedding.py:188-199); stages and flip both
+                # concatenate along L
+                tags_list.extend(aggregate_stage_flip(
+                    tags_o, tags_f, project2image=True,
+                    size_projected=tuple(base_wh),
+                    align_corners=align_corners,
+                    aggregate_stage='concat', aggregate_flip='concat'))
+        heatmaps = aggregate_scale(heatmaps_list, align_corners=align_corners)
+        tags = aggregate_scale(tags_list, align_corners=align_corners,
+                               aggregate_scale_mode='unsqueeze_concat')
+    return heatmaps, tags, center, scale
+
+
+def inference_bottom_up_multi_scale(estimator: BottomUpEstimator, img,
+                                    dataset_info=None,
+                                    test_scale_factor=(1.0,),
+                                    base_size=512, use_udp=False,
+                                    pose_nms_thr=0.9, with_flip=True,
+                                    align_corners=None):
+    """Multi-scale (optionally UDP-aligned) bottom-up inference, the
+    reference's test protocol (JAX vitpose_tpu/api/inference.py:474,
+    associative_embedding.py:28 `forward_test`): per scale,
+    `resize_align_multi_scale(_udp)` the image on the host, the model on the
+    original and the flipped view on the estimator's device, both projected
+    to the base image size (`aggregate_stage_flip`), the per-scale heatmaps
+    averaged (`aggregate_scale`), the tags of scale 1 only; then grouping on
+    the host and image coords under the same UDP convention, OKS NMS at
+    `pose_nms_thr` unless it is None. Returns (pose_results, [])."""
+    info = dataset_info or estimator.dataset_info
+    maps = multi_scale_maps(estimator, img, info, test_scale_factor,
+                            base_size, use_udp, with_flip, align_corners)
+    return group_bottom_up(estimator, *maps, info, use_udp,
+                           pose_nms_thr), []
 
 
 def process_mmdet_results(mmdet_results, cat_id: int = 1):

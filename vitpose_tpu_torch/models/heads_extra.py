@@ -1,0 +1,115 @@
+"""The bottom-up associative-embedding heads, in PyTorch with mmpose's names.
+
+Counterpart of the AE heads of vitpose_tpu/models/heads_extra.py:
+
+  * `AEHead` (JAX :46, mmpose's `AESimpleHead`): the classic deconv head
+    (`HeatmapHead`: `deconv_layers.{3i}` ConvTranspose2d, `.{3i+1}` BN,
+    `final_layer`) with K heatmap channels and K (or 1) tag channels;
+  * `AEHigherResolutionHead` (JAX :281, mmpose's ae_higher_resolution_head
+    .py:13): `final_layers.{i}` convs with a bias, one per output, and per
+    deconv stage `deconv_layers.{d}.0.0` ConvTranspose2d, `.0.1` BN (ReLU
+    after it) and `.{b+1}.0` BasicBlocks; a stage may take the previous
+    prediction concatenated after its input features.
+
+Both take NCHW features and return a list of NCHW maps in the compute
+dtype, one per output, at increasing resolution. Parameters stay f32; BN has
+flax's semantics (`heads.batch_norm`). The other heads of JAX's module come
+with their families; `AEMultiStageHead` (head 'ae_multi') comes with the
+Hourglass-AE backbone.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .heads import _DECONV_PADDING, HeatmapHead
+from .resnet import BasicBlock, conv2d, init_cnn, norm
+from .vit import compute_dtype, normal_
+
+
+class AEHead(HeatmapHead):
+    """Associative-embedding simple head: K heatmaps + K tag maps (or one
+    shared tag map without `tag_per_joint`; none without `with_ae_loss`)."""
+
+    def __init__(self, in_channels, num_joints, tag_per_joint=True,
+                 with_ae_loss=True, deconv_filters=(), deconv_kernels=(),
+                 final_kernel=1, dtype='float32', generator=None):
+        dim_tag = num_joints if tag_per_joint else 1
+        super().__init__(in_channels,
+                         num_joints + (dim_tag if with_ae_loss else 0),
+                         deconv_filters, deconv_kernels, final_kernel, dtype,
+                         generator)
+        self.with_ae_loss = with_ae_loss
+
+    def forward(self, x):
+        # HeatmapHead takes NHWC: a permuted view of the NCHW features
+        return [super().forward(x.permute(0, 2, 3, 1))]
+
+
+class AEHigherResolutionHead(nn.Module):
+    """HigherHRNet's head: a prediction conv on the input features, then
+    per deconv stage [deconv + BN + ReLU, `num_basic_blocks` BasicBlocks]
+    and that stage's prediction conv."""
+
+    def __init__(self, in_channels, num_joints, tag_per_joint=True,
+                 num_deconv_layers=1, deconv_filters=(32,),
+                 deconv_kernels=(4,), num_basic_blocks=4, cat_output=(True,),
+                 with_ae_loss=(True, False), final_kernel=1,
+                 dtype='float32', generator=None):
+        super().__init__()
+        self.dtype = compute_dtype(dtype)
+        self.with_ae_loss = tuple(with_ae_loss)
+        self.cat_output = tuple(cat_output)
+        dim_tag = num_joints if tag_per_joint else 1
+        outs = [num_joints + dim_tag if self.with_ae_loss[i] else num_joints
+                for i in range(num_deconv_layers + 1)]
+        pad = (final_kernel - 1) // 2
+        widths = [in_channels] + list(deconv_filters[:num_deconv_layers])
+        self.final_layers = nn.ModuleList(
+            nn.Conv2d(widths[i], outs[i], final_kernel, padding=pad)
+            for i in range(num_deconv_layers + 1))
+        stages = []
+        c = in_channels
+        for i in range(num_deconv_layers):
+            cin = c + outs[i] if self.cat_output[i] else c
+            k = deconv_kernels[i]
+            if k not in _DECONV_PADDING:
+                raise ValueError(f'deconv kernel {k}: expected 2, 3 or 4')
+            p, out_pad = _DECONV_PADDING[k]
+            planes = deconv_filters[i]
+            stages.append(nn.Sequential(
+                nn.Sequential(nn.ConvTranspose2d(
+                    cin, planes, k, stride=2, padding=p,
+                    output_padding=out_pad, bias=False),
+                    nn.BatchNorm2d(planes, eps=1e-5), nn.ReLU(inplace=True)),
+                *[nn.Sequential(BasicBlock(planes, planes, dtype=dtype))
+                  for _ in range(num_basic_blocks)]))
+            c = planes
+        self.deconv_layers = nn.ModuleList(stages)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None):
+        init_cnn(self, generator)              # the convs and BN
+        for stage in self.deconv_layers:
+            deconv = stage[0][0]
+            normal_(deconv.weight, (deconv.in_channels
+                                    * deconv.kernel_size[0]
+                                    * deconv.kernel_size[1]) ** -0.5,
+                    generator)
+
+    def forward(self, x):
+        dt = self.dtype
+        outs = [conv2d(self.final_layers[0], x, dt)]
+        for i, stage in enumerate(self.deconv_layers):
+            if self.cat_output[i]:
+                x = torch.cat([x.to(dt), outs[-1]], dim=1)
+            deconv, bn = stage[0][0], stage[0][1]
+            x = F.conv_transpose2d(x.to(dt), deconv.weight.to(dt), None,
+                                   stride=2, padding=deconv.padding,
+                                   output_padding=deconv.output_padding)
+            x = norm(bn, x, dt, relu=True)
+            for block in stage[1:]:
+                x = block[0](x)
+            outs.append(conv2d(self.final_layers[i + 1], x, dt))
+        return outs

@@ -15,6 +15,11 @@ CHECKPOINT is a torch .pth (mmpose names; a ViT's pos embed regridded and
 patch kernel padded) or an .npz written by the JAX package, routed by the
 backbone type as JAX's tools/test.py:250-256 routes it.
 
+A bottom-up config (family 'bottomup') is evaluated per image through the
+multi-scale test protocol (`run_bottomup_eval`, JAX tools/test.py:69);
+`--int8`, `--show-dir` and `--batch-size`, which that path does not read,
+raise there.
+
 `--int8` evaluates the int8 serving path, as JAX's does: static scales
 calibrated on the first two val batches (`calibrate_from_loader`, with
 attention), W8A8 MLP and qkv/proj products, tanh GELU; `--int8-skip K`
@@ -75,10 +80,20 @@ def _emit_stats(stats, args):
 
 def _refuse_unported(cfg, args):
     family = cfg['model'].get('family', 'topdown')
-    if family != 'topdown':
+    if family not in ('topdown', 'bottomup'):
         raise NotImplementedError(f'evaluation of the {family!r} family is '
                                   'not ported yet (ROADMAP.md queue 1 '
                                   'item 12)')
+    if family == 'bottomup':
+        # options JAX's bottom-up path never reads
+        for flag, given in (('--int8', args.int8),
+                            ('--show-dir', args.show_dir),
+                            ('--batch-size', args.batch_size)):
+            if given:
+                raise NotImplementedError(
+                    f'{flag} with a bottom-up config: the bottom-up '
+                    'evaluation (per image, multi-scale + flip + grouping) '
+                    'does not take it')
     if args.tmpdir:
         raise NotImplementedError('--tmpdir is not ported yet (ROADMAP.md '
                                   'queue 1 item 11)')
@@ -128,9 +143,48 @@ def show_results(results, ds, img_prefix, show_dir):
     return len(by_img)
 
 
+def run_bottomup_eval(cfg, args, dev):
+    """The bottom-up evaluation (JAX tools/test.py:69): per val image the
+    reference test protocol, multi-scale resize-align + flip aggregation on
+    the device and grouping on the host (associative_embedding.py:201
+    forward_test, with the config's test_scale_factor and use_udp), then
+    the dataset's evaluate with its use_nms (no pose NMS in the API)."""
+    from ..api.inference import inference_bottom_up_multi_scale
+    from ..data.bottomup import BottomUpCocoDataset
+    model = build_model_from_cfg(cfg['model'])
+    load_checkpoint(model, args.checkpoint)
+    model = model.to(dev).eval()
+    dcfg = cfg['data']
+    vcfg = dcfg['val']
+    ds = BottomUpCocoDataset(vcfg['ann_file'], vcfg.get('img_prefix', ''),
+                             dataset_info=dcfg.get('dataset', 'coco'),
+                             input_size=dcfg.get('base_size', 512),
+                             test_mode=True)
+    results = []
+    for idx in range(len(ds)):
+        rec = ds.record(idx)
+        pose_results, _ = inference_bottom_up_multi_scale(
+            model, rec['image_file'],
+            test_scale_factor=tuple(dcfg.get('test_scale_factor', (1.0,))),
+            base_size=dcfg.get('input_size', 512),
+            use_udp=dcfg.get('use_udp', False), pose_nms_thr=None)
+        results.append(dict(
+            preds=[p['keypoints'] for p in pose_results],
+            scores=[p['score'] for p in pose_results],
+            image_paths=[rec['image_file']]))
+    metric = args.metric or cfg.get('evaluation', {}).get('metric')
+    nms_kw = dict(use_nms=vcfg.get('use_nms', False),
+                  soft_nms=vcfg.get('soft_nms', False),
+                  oks_thr=vcfg.get('oks_thr', 0.9))
+    stats = (ds.evaluate(results, metric=metric, **nms_kw) if metric
+             else ds.evaluate(results, **nms_kw))
+    _emit_stats(stats, args)
+    return stats
+
+
 def main(argv=None):
     """Run the evaluation; prints the stats as JSON and returns them."""
-    ap = argparse.ArgumentParser(description='Evaluate a top-down pose model '
+    ap = argparse.ArgumentParser(description='Evaluate a pose model '
                                  '(PyTorch port)')
     ap.add_argument('config')
     ap.add_argument('checkpoint')
@@ -157,6 +211,8 @@ def main(argv=None):
     cfg = apply_options(load_config(args.config), args.cfg_options)
     _refuse_unported(cfg, args)
     dev = _device(args.device)
+    if cfg['model'].get('family') == 'bottomup':
+        return run_bottomup_eval(cfg, args, dev)
     model, ds, loader = build_eval_objects(cfg, args.batch_size)
     load_checkpoint(model, args.checkpoint)
     model = model.to(dev).eval()

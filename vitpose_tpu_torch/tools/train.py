@@ -9,6 +9,8 @@ PATH_TO_DATA rewrite of its data paths) goes to `train.loop.train_model` on
 the card (`--device cuda`, the default; it raises without CUDA) or on the CPU
 with `--device cpu`. The work dir receives `train.log.json` and `ckpts/`
 (see utils/checkpoint.py); `--resume` goes on from its latest checkpoint.
+A bottom-up config (family 'bottomup') trains through
+train/bottomup_loop.py's runner, as JAX's `train_model` dispatches it.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ def _replace_path_in_dict(d, old, new):
 
 def main(argv=None):
     """Train; returns the final TrainState."""
-    ap = argparse.ArgumentParser(description='Train a top-down pose model '
+    ap = argparse.ArgumentParser(description='Train a pose model '
                                  '(PyTorch port)')
     ap.add_argument('config')
     ap.add_argument('--work-dir', default=None)

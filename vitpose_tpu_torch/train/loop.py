@@ -6,7 +6,9 @@ and the CNN top-down models of ResNet, ResNetV1d, HRNet and HRNetV2),
 `_log` (:33-45), `_pop_freeze_options` and the freezing
 of `_apply_freeze` (:67-81), `train_model` (the top-down ViT branch of
 :239-479), `train_model_moe` (:520-706, the ViTPose+ runner) and the
-`pretrained` / `load_from` merges (:330-353, :482-517).
+`pretrained` / `load_from` merges (:330-353, :482-517), and the bottom-up
+branches of `build_family_model` (:160-186) and of `train_model`
+(:248-251, the runner in train/bottomup_loop.py).
 
 One epoch of `train_model`: the host loader -> pinned staging -> the device
 crop and targets (`make_preprocess_fn`) -> the train step -> json-lines
@@ -34,10 +36,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data import topdown_dataset_cls
+from ..data import DatasetInfo, topdown_dataset_cls
 from ..data.loader import MultiDatasetLoader, TopDownLoader
 from ..data.pipeline import AugmentConfig, make_preprocess_fn
 from ..eval.loop import PinnedStaging, run_validation
+from ..models.bottomup import BottomUpEstimator
+from ..models.heads_extra import AEHead, AEHigherResolutionHead
 from ..models.hrnet import HRNet, HRNetConfig
 from ..models.resnet import ResNet, ResNetV1d
 from ..models.topdown import (GenericTopDown, TopDownConfig, TopDownModel,
@@ -128,12 +132,54 @@ def build_generic_topdown(backbone_type: str, bb_kwargs: dict,
     return GenericTopDown(backbone, cfg, backbone_type, generator)
 
 
+def build_family_model(family: str, mcfg: dict, generator=None):
+    """The non-top-down families of a config's `model` dict (JAX
+    vitpose_tpu/train/loop.py:160-219 `build_family_model`), of which the
+    bottom-up one is ported: the backbone of `backbone_type` (default
+    'hrnet'), the AE head ('ae': AEHead, 'ae_higher':
+    AEHigherResolutionHead; 'ae_multi', Hourglass-AE's, is not ported), the
+    dataset's metadata and the parser options, weights drawn from
+    `generator`."""
+    if family != 'bottomup':
+        raise NotImplementedError(
+            f'model family {family!r} is not ported yet (ROADMAP.md queue 1 '
+            'item 12)')
+    mcfg = dict(mcfg)
+    backbone_type = mcfg.pop('backbone_type', 'hrnet')
+    if backbone_type == 'vit':
+        raise NotImplementedError(
+            'a bottom-up config with the ViT backbone: JAX builds none from '
+            'a config (its registry has no vit); build BottomUpEstimator '
+            'from a ViTConfig')
+    head_kind = mcfg.pop('head', 'ae')
+    if head_kind == 'ae_multi':
+        raise NotImplementedError(
+            "head 'ae_multi' (AEMultiStageHead, with the hourglass_ae "
+            'backbone) is not ported yet (ROADMAP.md queue 1 item 12)')
+    bb = build_backbone(backbone_type, generator,
+                        **(mcfg.pop('backbone_overrides', None) or {}))
+    num_joints = mcfg.pop('num_joints', 17)
+    head_kw = dict(mcfg.pop('head_overrides', None) or {})
+    head_cls = AEHigherResolutionHead if head_kind == 'ae_higher' else AEHead
+    head = head_cls(bb.out_channels, num_joints, generator=generator,
+                    **head_kw)
+    info = DatasetInfo.load(mcfg.pop('dataset_info', 'coco'))
+    return BottomUpEstimator(bb, num_joints=num_joints, head=head,
+                             dataset_info=info,
+                             parser_cfg=mcfg.pop('parser', None),
+                             backbone_type=backbone_type)
+
+
 def build_model_from_cfg(mcfg: dict, generator=None):
-    """A config file's `model` dict -> TopDownModel (ViT) or GenericTopDown
-    (CNN) with random weights, drawn on the CPU from `generator` (default: a
-    torch.Generator seeded with 0, as in `init_pose_model`)."""
+    """A config file's `model` dict -> TopDownModel (ViT), GenericTopDown
+    (CNN) or, for family 'bottomup', BottomUpEstimator, with random
+    weights, drawn on the CPU from `generator` (default: a torch.Generator
+    seeded with 0, as in `init_pose_model`)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    family = mcfg.get('family', 'topdown')
+    if family != 'topdown':
+        return build_family_model(family, mcfg, generator)
     backbone_type, bb_over, cfg = _model_parts(mcfg)
     if backbone_type == 'vit':
         return TopDownModel(cfg, generator=generator)
@@ -203,7 +249,7 @@ def load_from(model: TopDownModel, path):
 
 def _refuse_unported(cfg):
     family = cfg['model'].get('family', 'topdown')
-    if family != 'topdown':
+    if family not in ('topdown', 'bottomup'):
         raise NotImplementedError(f'training the {family!r} family is not '
                                   'ported yet (ROADMAP.md queue 1 item 12)')
     rt = cfg.get('runtime', {})
@@ -311,6 +357,10 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
     on the mixture of its datasets."""
     from ..api.inference import _device
     _refuse_unported(cfg)
+    if cfg['model'].get('family') == 'bottomup':
+        from .bottomup_loop import train_bottomup_model
+        return train_bottomup_model(cfg, work_dir=work_dir, resume=resume,
+                                    max_steps=max_steps, device=device)
     dev = _device(device)
     rt = cfg.get('runtime', {})
     work_dir = work_dir or rt.get('work_dir', 'work_dir')

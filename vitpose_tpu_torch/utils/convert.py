@@ -17,6 +17,9 @@ one, and `convert_hrnet`, also the `hrnetv2` one;
 vitpose_tpu/models/resnet.py:159 `convert_resnet_checkpoint`, the
 `resnet_v1d` one) and of `convert_head` with its extra convs, for
 GenericTopDown's mmpose names.
+`bottomup_state_dict_from_flax` does the same for JAX's BottomUpEstimator
+variables: the ViT or CNN backbone and both AE heads (the inverse of
+vitpose_tpu/utils/family_ckpt.py:102 `convert_bottomup_checkpoint`).
 `load_params_npz` reads the flat 'a/b/c' .npz files that the JAX package's
 `save_params_npz` writes (vitpose_tpu/utils/checkpoint.py:160-186).
 """
@@ -198,22 +201,92 @@ def cnn_state_dict_from_flax(variables, backbone_type) -> dict:
     """flax GenericTopDown variables of a `backbone_type` CNN (resnet,
     resnet_v1d, hrnet, hrnetv2) with the classic head -> {mmpose name: f32
     CPU tensor}, BN statistics included where the variables hold them."""
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    sd = _cnn_backbone(params['backbone'], stats.get('backbone', {}),
+                       backbone_type)
+    sd.update({f'keypoint_head.{k}': v for k, v in
+               _head(params.get('head', {}), stats.get('head', {})).items()})
+    return sd
+
+
+def _cnn_backbone(params, stats, backbone_type):
+    """A CNN backbone's flax params and batch_stats trees -> its entries
+    under 'backbone.' and the mmpose names."""
     if backbone_type not in CNN_BACKBONES:
         raise KeyError(f'backbone_type {backbone_type!r}: the port converts '
                        f'{CNN_BACKBONES}')
-    params = variables['params']
-    stats = variables.get('batch_stats', {})
     sd = {}
-    for tree in (params['backbone'], stats.get('backbone', {})):
+    for tree in (params, stats):
         for path, v in _flat(tree):
             name = (f'backbone.{_cnn_module_name(path[:-1], backbone_type)}.'
                     f'{_LEAVES[path[-1]]}')
-            v = np.asarray(v)
-            sd[name] = _t(np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4
-                          else v)
-            if path[-1] == 'mean':
-                sd[name.replace('running_mean', 'num_batches_tracked')] = \
-                    torch.tensor(0)
-    sd.update({f'keypoint_head.{k}': v for k, v in
-               _head(params.get('head', {}), stats.get('head', {})).items()})
+            sd.update(_leaf(name, path[-1], v))
+    return sd
+
+
+def _leaf(name, leaf, v):
+    """{name: tensor} of one flax leaf, a 4-D kernel [kh, kw, a, b] turned
+    to torch's [b, a, kh, kw] (a conv's [out, in, ...], a transposed conv's
+    [in, out, ...]), with BN's num_batches_tracked beside a running mean."""
+    v = np.asarray(v)
+    out = {name: _t(np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v)}
+    if leaf == 'mean':
+        out[name.replace('running_mean', 'num_batches_tracked')] = \
+            torch.tensor(0)
+    return out
+
+
+# AEHigherResolutionHead: flax module name -> mmpose module name (the
+# inverse of vitpose_tpu/utils/cnn_ckpt.py:480-504 `convert_ae_higher_head`)
+_AE_HIGHER_MODULES = [
+    (r'final_(\d+)', r'final_layers.\1'),
+    (r'deconv_(\d+)', r'deconv_layers.\1.0.0'),
+    (r'deconv_(\d+)_bn', r'deconv_layers.\1.0.1'),
+]
+
+
+def _ae_higher_head(params, stats):
+    sd = {}
+    for tree in (params, stats):
+        for path, v in _flat(tree):
+            module, rest = path[0], '.'.join(path[1:-1])
+            m = re.fullmatch(r'deconv_(\d+)_blk(\d+)', module)
+            if m:
+                name = (f'deconv_layers.{m.group(1)}.{int(m.group(2)) + 1}.0.'
+                        f'{rest}')
+            else:
+                for pattern, repl in _AE_HIGHER_MODULES:
+                    if re.fullmatch(pattern, module):
+                        name = re.sub(pattern, repl, module)
+                        break
+                else:
+                    raise KeyError(f'unknown AEHigherResolutionHead module '
+                                   f'{module!r}')
+            sd.update(_leaf(f'keypoint_head.{name}.{_LEAVES[path[-1]]}',
+                            path[-1], v))
+    return sd
+
+
+def bottomup_state_dict_from_flax(variables, backbone_type) -> dict:
+    """flax BottomUpEstimator variables ({'backbone': {'params',
+    'batch_stats'}, 'head': {...}}, as JAX's `init` and its bottom-up
+    runner's .npz hold them) -> {mmpose name: f32 CPU tensor}: the backbone
+    through the ViT (`backbone_type` 'vit') or the CNN naming, the head as
+    AEHead (flax `deconv_head`, the classic head's names) or
+    AEHigherResolutionHead."""
+    bb, head = variables['backbone'], variables['head']
+    if backbone_type == 'vit':
+        sd = {f'backbone.{k}': v
+              for k, v in _backbone(bb['params']).items()}
+    else:
+        sd = _cnn_backbone(bb.get('params', {}), bb.get('batch_stats', {}),
+                           backbone_type)
+    hp, hs = head.get('params', {}), head.get('batch_stats', {})
+    if 'deconv_head' in hp:
+        sd.update({f'keypoint_head.{k}': v for k, v in
+                   _head(hp['deconv_head'], hs.get('deconv_head', {}))
+                   .items()})
+    else:
+        sd.update(_ae_higher_head(hp, hs))
     return sd

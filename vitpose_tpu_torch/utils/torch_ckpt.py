@@ -20,7 +20,8 @@ regrid and the pad work on host numpy arrays, as in the JAX package.
 routes a CNN model's checkpoint by its backbone type: a .pth in mmpose names
 as it is, an .npz through `cnn_state_dict_from_flax` (the counterpart of
 vitpose_tpu/api/inference.py:97-120 and
-vitpose_tpu/utils/cnn_ckpt.py:872 `convert_generic_topdown_checkpoint`).
+vitpose_tpu/utils/cnn_ckpt.py:872 `convert_generic_topdown_checkpoint`),
+and a bottom-up model's .npz through `bottomup_state_dict_from_flax`.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .convert import (cnn_state_dict_from_flax, load_params_npz,
+from .convert import (bottomup_state_dict_from_flax,
+                      cnn_state_dict_from_flax, load_params_npz,
                       state_dict_from_flax)
 
 # the backbone entries the JAX package's `convert_backbone` carries
@@ -60,14 +62,18 @@ def load_torch_state_dict(path):
 
 
 def checkpoint_state_dict(checkpoint: str, backbone_cfg,
-                          backbone_type: str = 'vit') -> dict:
+                          backbone_type: str = 'vit',
+                          family: str = 'topdown') -> dict:
     """The state dict of a whole-model checkpoint file for a model whose
     backbone is `backbone_cfg` (a ViTConfig) or, for a CNN, of type
     `backbone_type`: an .npz written by the JAX package, or a .pth, adapted
     to a ViT backbone's geometry (a CNN's loads as it is: no position
-    embedding to regrid)."""
+    embedding to regrid). A bottom-up model's .npz (`family` 'bottomup')
+    holds JAX's {'backbone', 'head'} variables."""
     if checkpoint.endswith('.npz'):
         variables = load_params_npz(checkpoint)
+        if family == 'bottomup':
+            return bottomup_state_dict_from_flax(variables, backbone_type)
         if backbone_type == 'vit':
             return state_dict_from_flax(variables)
         return cnn_state_dict_from_flax(variables, backbone_type)
