@@ -181,14 +181,33 @@ no result:
             boxes/s, the host's share and the card's idle share
   cnn-train the training CLI on the ResNet-50 config, one epoch of 4 steps
             at batch 64 (step time, img/s, data_time share, peak memory,
-            the epoch checkpoint); the HRNet-W32 and ResNet-50 steps at
-            batch 64 with a profiled step each; cnn-train-ref: two
-            ResNet-50 steps, f32 at batch 2, CUDA against the CPU within
-            CNN_REF_FACTOR times the CPU's own spread (one thread against
-            all)
+            the epoch checkpoint), then --resume for a second epoch; the
+            HRNet-W32 and ResNet-50 steps at batch 64 with a profiled step
+            each; cnn-train-ref: two ResNet-50 steps at batch 2, f32 on
+            CUDA and on the CPU against float64 on the CPU: CUDA's
+            distance within CNN_REF_FACTOR times the CPU's
   cnn-apps  tools/serve.py on the HRNet-W32 config (1-box requests equal
             the direct call, p50/p99) and tools/export.py at --batch 8
             --no-flip (the reloaded program against eager, both timed)
+
+  cnn-more-serve  the single-stage backbones of ROADMAP item 12a: ten zoo
+            configs at 256x192, full width and depth, seeded weights
+            (coco/{resnext50, seresnet50, seresnext50, scnet50, resnest50
+            (bf16), vgg16_bn (bf16), alexnet (bf16), shufflenetv1,
+            vipnas_res50, vipnas_mbv3}_coco_256x192.py) as cnn-serve runs
+            them, after count_ops is held to a hand count of a grouped
+            conv and a grouped transposed conv
+  cnn-more-ref  all ten in f32 (TF32 off), CUDA against the CPU on 4
+            boxes, as cnn-ref; ResNeSt-50 and ViPNAS-MobileNetV3 also in
+            bf16 under its BF16_FACTOR rule
+  cnn-more-train  the training CLI on vipnas_res50 (one epoch of 4 steps at
+            batch 64, then --resume for a second epoch), the other nine's
+            steps at batch 64, and two ViPNAS-ResNet-50 steps at batch 2,
+            full width and depth, f32 CUDA and CPU against f64 (grouped
+            convs, context blocks, the grouped deconv head) under
+            cnn-train-ref's rule
+  cnn-more-eval  the evaluation CLI on vipnas_mbv3 over 256 synthetic
+            boxes, as cnn-eval
 
   bu-serve  HigherHRNet-W32 512 (f32, seeded weights, the heatmap biases
             shifted so that at most about BU_KEEP peaks per joint pass the
@@ -218,15 +237,14 @@ no result:
             a 16-frame video: 24 K1 launches per frame at held shapes,
             frames/s
 
-Then the cnn and bottomup JSON lines (those phases' numbers), the kernels
-JSON line (per kernel: the design the main path takes, its
+Then the cnn, cnn_more and bottomup JSON lines (those phases' numbers),
+the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, int8
 serve call, server request per mode, eval run, int8 eval run, train step,
 train-loop run, remat step, moe-train run, exported call, demo frame,
-webcam run, each CNN and bottom-up phase (0) and bottom-up demo frame;
-beside the kernels, the
-int8 product's launches per path and times, the server's latencies and the
+webcam run, each CNN, cnn-more and bottom-up phase (0) and bottom-up demo
+frame; beside the kernels, the int8 product's launches per path and times, the server's latencies and the
 int8 AP, the dispatcher's price, the exported program's times and the
 demos' and webcam's frames/s), the nvidia-smi card line and the result
 line.
@@ -1159,10 +1177,34 @@ def validate(model, loader):
                           target_type=c.target_type)
 
 
+def device_kernels(prof):
+    """The device events of a torch.profiler run, less the ranges that
+    annotate the device timeline (Optimizer.step#...)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)
+            and not e.name.startswith('Optimizer.')]
+
+
+def busy_ms(events):
+    """ms of the union of the events' device intervals: kernels that run at
+    once (cuDNN may put a conv's parts on streams of its own) count once."""
+    busy, end = 0.0, None
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e3
+
+
 def device_busy_ms(run):
-    """(CUDA time of all device events of one run(), by torch.profiler,
-    copies included; the profiled run's wall ms), or (None, wall) where the
-    profiler saw no device time."""
+    """(the card's busy ms during one run(), by torch.profiler: the union of
+    its device intervals, copies included; the profiled run's wall ms), or
+    (None, wall) where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1171,10 +1213,7 @@ def device_busy_ms(run):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, 'is_user_annotation', False)]
-    busy = sum(e.device_time_total for e in events) / 1e3
+    busy = busy_ms(device_kernels(prof))
     if busy == 0:
         return None, wall_ms
     check(busy <= wall_ms, f'profiler device time {busy:.1f} ms exceeds the '
@@ -1673,12 +1712,12 @@ def phase_train():
 
 
 def profile_steps(run_step, step_s, steps=2, label='train'):
-    """Device time of `steps` profiled steps by torch.profiler: CUDA kernel
-    time per step, the idle share against the unprofiled median step time
-    `step_s` (unclamped), and the kernels that take the most time. Fails if
-    the kernel time exceeds the profiled steps' own wall time, which only a
-    miscount (a kernel summed twice) can give. Returns the kernel ms per
-    step, or None where the profiler saw no device time."""
+    """Device time of `steps` profiled steps by torch.profiler: the card's
+    busy time per step (the union of the kernels' intervals), the idle
+    share against the unprofiled median step time `step_s` (unclamped), and
+    the kernels that take the most time. Fails if the busy time exceeds the
+    profiled steps' own wall time, which only a miscount can give. Returns
+    the busy ms per step, or None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1688,62 +1727,64 @@ def profile_steps(run_step, step_s, steps=2, label='train'):
             run_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    # device events, less the ranges that annotate the device timeline
-    # (Optimizer.step#...), which would count their kernels twice
+    busy = busy_ms(device_kernels(prof)) / steps
+    if busy == 0:
+        print(f'{label}: device time not measured (the profiler saw no '
+              'CUDA kernels)', flush=True)
+        return None
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, 'is_user_annotation', False)
                and not e.key.startswith('Optimizer.')]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
-    if busy_ms == 0:
-        print(f'{label}: device time not measured (the profiler saw no '
-              'CUDA kernels)', flush=True)
-        return None
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
-    check(busy_ms <= wall_ms, f'profiler kernel time {busy_ms:.3f} ms per '
-          f'step exceeds the profiled steps\' wall time {wall_ms:.3f} ms: '
-          'kernels counted twice')
-    print(f'{label}: profiler, {steps} steps: kernels busy {busy_ms:.1f} ms '
+    check(busy <= wall_ms, f'profiler busy time {busy:.3f} ms per step '
+          f'exceeds the profiled steps\' wall time {wall_ms:.3f} ms')
+    print(f'{label}: profiler, {steps} steps: kernels busy {busy:.1f} ms '
           f'per step of the {step_s * 1e3:.1f} ms median step, idle share '
-          f'{1 - busy_ms / (step_s * 1e3):.3f} (profiled steps: '
+          f'{1 - busy / (step_s * 1e3):.3f} (profiled steps: '
           f'{wall_ms:.1f} ms each); top kernels (ms '
           f'per step, launches per step): ' + '; '.join(
               f'{e.key[:70]} {e.device_time_total / 1e3 / steps:.2f} '
               f'{e.count // steps}' for e in top), flush=True)
-    return busy_ms
+    return busy
 
 
 def train_run(cfg, device, batch):
     """Two steps on `batch`: (metrics of step 1, gradients of step 1 after
     the clip, the 2-step change of every parameter and BN statistic), all
-    on the CPU in f32."""
+    on the CPU in f64. A float64 `cfg` runs with its weights in f64."""
     state, step, _, _ = train_setup(cfg, device)
+    if cfg.get('dtype') == 'float64':
+        state.model.double()          # the optimizer holds the same tensors
     batch = {k: v.to(device) for k, v in batch.items()}
     gen = torch.Generator(device=device).manual_seed(0)
     before = snapshot(state.model)
     m = step(state, batch, gen)
     metrics = {k: v.item() for k, v in m.items()}
-    grads = {n: p.grad.float().cpu()
+    grads = {n: p.grad.double().cpu()
              for n, p in state.model.named_parameters()}
     step(state, batch, gen)
     after = snapshot(state.model)
-    delta = {n: (after[n] - before[n]).float().cpu() for n in after}
+    delta = {n: (after[n] - before[n]).double().cpu() for n in after}
     return metrics, grads, delta
 
 
-def ref_distances(run, ref):
+def ref_distances(run, ref, noise_only=()):
     """Distances of a train_run from the reference run: relative |loss| and
     |grad_norm|; for the gradients and the 2-step change of the BN
     statistics the max over tensors of max|x - ref| / max|ref|; for the
     2-step change of the parameters the max over tensors of the RMS of
-    x - ref over the RMS of ref. Also returns that RMS ratio per parameter
+    x - ref over the RMS of ref. The `noise_only` parameters, whose
+    gradient is nought but for rounding, are left out of the gradients' and
+    the parameters' distances. Also returns that RMS ratio per parameter
     tensor."""
     (m, g, d), (mr, gr, dr) = run, ref
     rel = {k: abs(m[k] - mr[k]) / abs(mr[k])
            for k in ('heatmap_loss', 'grad_norm')}
+    held = [n for n in gr if n not in noise_only]
     rel['grads'] = max(((g[n] - gr[n]).abs().max() / gr[n].abs().max())
-                       .item() for n in gr)
-    params = {n: ((d[n] - dr[n]).norm() / dr[n].norm()).item() for n in gr}
+                       .item() for n in held)
+    params = {n: ((d[n] - dr[n]).norm() / dr[n].norm()).item() for n in held}
     rel['params'] = max(params.values())
     rel['bn_stats'] = max(((d[n] - dr[n]).abs().max() / dr[n].abs().max())
                           .item() for n in dr if n not in gr)
@@ -3167,14 +3208,18 @@ CNN_DECISIVE_BOUNDS = 10
 CNN_EVAL_IMAGES = (60, 4)            # 256 boxes, 4 batches of 64
 CNN_TRAIN_IMAGES = (74, 0)           # 259 GT persons: 4 steps of 64
 CNN_APP_REQUESTS = 10
-# cnn-train-ref f32, CUDA against the CPU, ResNet-50 at batch 2, in the
-# units of ref_distances: at most CNN_REF_FACTOR times the CPU's own spread
-# (one thread against all of them: summation order alone) plus the f32
-# floor of train-ref (TRAIN_REF_TOL). A BN over two crops whose channels
-# are nearly constant (crops padded outside the canvas) takes its variance
-# as E[x^2] - E[x]^2, flax's formula, and loses most digits there, so the
-# spread, not f32's epsilon, sets the scale
+# cnn-train-ref, ResNet-50 at batch 2, in the units of ref_distances: CUDA
+# f32 from an f64 run on the CPU at most CNN_REF_FACTOR times the CPU f32's
+# own distance from it, plus the f32 floor of train-ref (TRAIN_REF_TOL). A
+# BN over two crops whose channels are nearly constant (crops padded
+# outside the canvas) takes its variance as E[x^2] - E[x]^2, flax's
+# formula, and loses most digits there, so the CPU's f32 error, not f32's
+# epsilon, sets the scale
 CNN_REF_FACTOR = 4.0
+# a gradient below this share of the largest in the f64 run is nought but
+# for rounding (a context block's conv_mask bias: its softmax over H x W
+# does not change when one constant is added to every logit)
+GRAD_NOISE_FLOOR = 1e-6
 
 
 def torch_tf32_defaults():
@@ -3191,14 +3236,16 @@ def cnn_model_dict(path, dtype=None):
     mdict = dict(load_config(path)['model'])
     if dtype:
         mdict['dtype'] = dtype
-        mdict['backbone_overrides'] = dict(mdict['backbone_overrides'],
-                                           dtype=dtype)
+        mdict['backbone_overrides'] = dict(
+            mdict.get('backbone_overrides', {}), dtype=dtype)
     return mdict
 
 
-def conv_counts(pm):
-    """(conv and deconv MACs, BatchNorm'd elements) of one crop through
-    pm.model, counted from the shapes of one forward on the card."""
+def count_ops(run):
+    """(conv and deconv MACs, BatchNorm'd elements) of the F.conv2d,
+    F.conv_transpose2d and F.batch_norm calls of run(), from their shapes:
+    a conv's MACs are its outputs times in/groups times the kernel's area,
+    a transposed conv's its inputs times out/groups times the area."""
     calls = {'macs': 0, 'bn': 0}
     conv, deconv, bn = F.conv2d, F.conv_transpose2d, F.batch_norm
 
@@ -3215,14 +3262,41 @@ def conv_counts(pm):
         calls['bn'] += x.numel()
         return bn(x, *a, **k)
 
-    iw, ih = pm.image_size
     F.conv2d, F.conv_transpose2d, F.batch_norm = conv_c, deconv_c, bn_c
     try:
         with torch.no_grad():
-            pm.model(torch.zeros(1, ih, iw, 3, device=pm.device))
+            run()
     finally:
         F.conv2d, F.conv_transpose2d, F.batch_norm = conv, deconv, bn
     return calls['macs'], calls['bn']
+
+
+def conv_counts(pm):
+    """count_ops of one crop through pm.model, on the card."""
+    iw, ih = pm.image_size
+    return count_ops(lambda: pm.model(torch.zeros(1, ih, iw, 3,
+                                                  device=pm.device)))
+
+
+def check_grouped_counts():
+    """count_ops against a hand count for a grouped conv (ResNeXt-50's
+    layer1 conv2: 128 channels in 32 groups, 3x3, on 64x48) and a grouped
+    transposed conv (the ViPNAS-MobileNetV3 head's first: 160 channels in
+    160 groups, 4x4/2, 8x6 -> 16x12); returns their MACs."""
+    x = torch.zeros(1, 128, 64, 48, device='cuda')
+    w = torch.zeros(128, 4, 3, 3, device='cuda')
+    conv_macs, _ = count_ops(lambda: F.conv2d(x, w, padding=1, groups=32))
+    # every output: 4 inputs of its group times 9 taps
+    check(conv_macs == 128 * 64 * 48 * 4 * 9, f'count_ops: grouped conv '
+          f'{conv_macs} MACs, by hand {128 * 64 * 48 * 4 * 9}')
+    x = torch.zeros(1, 160, 8, 6, device='cuda')
+    w = torch.zeros(160, 1, 4, 4, device='cuda')
+    deconv_macs, _ = count_ops(lambda: F.conv_transpose2d(
+        x, w, stride=2, padding=1, groups=160))
+    # every input scatters to 1 output channel over the 4x4 taps
+    check(deconv_macs == 160 * 8 * 6 * 16, f'count_ops: grouped deconv '
+          f'{deconv_macs} MACs, by hand {160 * 8 * 6 * 16}')
+    return conv_macs, deconv_macs
 
 
 def cnn_bound_ms(macs, bn_elems, dtype, n):
@@ -3235,9 +3309,10 @@ def cnn_bound_ms(macs, bn_elems, dtype, n):
             2 * size * bn_elems * n / HBM_BYTES_PER_S * 1e3)
 
 
-def phase_cnn_serve(card):
-    """init_pose_model on the HRNet-W32 (bf16) and ResNet-50 (f32) configs
-    on the card, seeded random weights, TF32 as torch defaults it: one
+def phase_cnn_serve(card, configs=CNN_CONFIGS, label='cnn-serve'):
+    """init_pose_model on each (name, config) of `configs` (by default the
+    HRNet-W32 (bf16) and ResNet-50 (f32) configs) on the card, seeded
+    random weights, TF32 as torch defaults it: one
     8-box call through inference_top_down_pose_model (every tensor on the
     card, keypoints finite and inside their padded boxes), then 256-crop
     batches with the flip test and the config's decode: ms per batch
@@ -3258,10 +3333,10 @@ def phase_cnn_serve(card):
                     rng.uniform(60, 160, n), rng.uniform(120, 220, n)],
                    1).astype(np.float32)
     out = {}
-    for name, path in CNN_CONFIGS:
+    for name, path in configs:
         pm = init_pose_model(path, device='cuda')
         check(all(p.is_cuda for p in pm.model.parameters()),
-              f'cnn-serve {name}: a parameter is off the card')
+              f'{label} {name}: a parameter is off the card')
         dtype = next(pm.model.backbone.modules()).dtype
         macs, bn_elems = conv_counts(pm)
         reset_counts()
@@ -3269,7 +3344,7 @@ def phase_cnn_serve(card):
             pm, img, persons, return_heatmap=True)
         kp = np.stack([r['keypoints'] for r in results])
         check(kp.shape == (8, 17, 3) and np.isfinite(kp).all(),
-              f'cnn-serve {name}: keypoints not finite or of shape '
+              f'{label} {name}: keypoints not finite or of shape '
               f'{kp.shape}')
         # random weights leave some heatmaps below 0 everywhere: the
         # decode puts those joints at heatmap cell (-1, -1), as mmpose does;
@@ -3282,7 +3357,7 @@ def phase_cnn_serve(card):
                if not inside[i, j].all()]
         hm = out_hm[0]['heatmap']
         check(not bad and scored.mean() > 0.5,
-              f'cnn-serve {name}: {len(bad)} of the {scored.sum()} joints '
+              f'{label} {name}: {len(bad)} of the {scored.sum()} joints '
               'with a positive score outside their padded boxes: ' + '; '.join(
                   f'box {i} joint {j} at {kp[i, j].tolist()}, box centre '
                   f'{center[i].tolist()} size {size[i].tolist()}, heatmap max '
@@ -3297,7 +3372,7 @@ def phase_cnn_serve(card):
         with audit:
             pm.infer_batch(image[None].expand(8, *image.shape), c, s)
         torch.cuda.synchronize()
-        check(not audit.off_device, f'cnn-serve {name}: off-card tensors: '
+        check(not audit.off_device, f'{label} {name}: off-card tensors: '
               f'{sorted(audit.off_device)[:5]}')
         with torch.no_grad():
             feat = pm.model.backbone(torch.zeros(1, ih, iw, 3, device=dev))
@@ -3316,17 +3391,17 @@ def phase_cnn_serve(card):
             if i:                                        # first is warm-up
                 times.append(time.perf_counter() - t0)
             check(torch.isfinite(preds).all().item(),
-                  f'cnn-serve {name}: non-finite batch keypoints')
+                  f'{label} {name}: non-finite batch keypoints')
         med = statistics.median(times)
         busy_ms, prof_ms = device_busy_ms(lambda: pm.infer_batch(imgs, c, s))
         k1, k2 = fused_attention.launches, fused_attention_bwd.launches
-        check(k1 == 0 and k2 == 0, f'cnn-serve {name}: K1 {k1} and K2 {k2} '
+        check(k1 == 0 and k2 == 0, f'{label} {name}: K1 {k1} and K2 {k2} '
               'launches, expected none')
         conv_ms, bn_ms = cnn_bound_ms(macs, bn_elems, dtype, 2 * n)
         busy = ('not measured' if busy_ms is None else
                 f'{busy_ms:.1f} ms busy (idle share '
                 f'{1 - busy_ms / prof_ms:.3f} of the profiled {prof_ms:.1f})')
-        print(f'cnn-serve: {name} ({path}, {str(dtype)[6:]}, flip test, '
+        print(f'{label}: {name} ({path}, {str(dtype)[6:]}, flip test, '
               f'{pm.cfg.post_process} decode, use_udp={pm.cfg.use_udp}): '
               f'8-box call keypoints finite, those of the '
               f'{scored.sum()}/{scored.size} joints with a positive score '
@@ -3369,12 +3444,14 @@ def decisive_joints(hm, bound):
             & (np.abs(dy) > bound) & (np.abs(top2[..., 1]) > bound))
 
 
-def phase_cnn_ref(card):
-    """HRNet-W32 and ResNet-50 at full width on 4 boxes, the same seeded
-    weights on CUDA and on the CPU: f32 with TF32 off, heatmaps within
-    CNN_HM_RTOL of their largest value and decisive keypoints within
-    KP_TOL_PX; HRNet-W32 also in bf16: CUDA's heatmaps as close to the f32
-    CPU answer as the bf16 CPU path's are (BF16_FACTOR), and every joint
+def phase_cnn_ref(card, f32_cases=CNN_CONFIGS,
+                  bf16_cases=(('hrnet_w32', HRNET_CFG),), label='cnn-ref'):
+    """Each (name, config) of `f32_cases` (by default HRNet-W32 and
+    ResNet-50) at full width on 4 boxes, the same seeded weights on CUDA
+    and on the CPU: f32 with TF32 off, heatmaps within CNN_HM_RTOL of their
+    largest value and decisive keypoints within KP_TOL_PX; those of
+    `bf16_cases` (HRNet-W32) also in bf16: CUDA's heatmaps as close to the
+    f32 CPU answer as the bf16 CPU path's are (BF16_FACTOR), and every joint
     decoded at a cell whose f32 value is within twice that error of the
     f32 maximum."""
     from vitpose_tpu_torch.api import (inference_top_down_pose_model,
@@ -3385,9 +3462,8 @@ def phase_cnn_ref(card):
     img = scene(4, boxes)
     persons = [{'bbox': b} for b in boxes]
     runs = {}
-    cases = [('hrnet_w32', HRNET_CFG, 'float32'), ('res50', RES50_CFG,
-                                                   'float32'),
-             ('hrnet_w32', HRNET_CFG, 'bfloat16')]
+    cases = [(n, p, 'float32') for n, p in f32_cases] + [
+        (n, p, 'bfloat16') for n, p in bf16_cases]
     for name, path, dtype in cases:
         for dev in ('cuda', 'cpu'):
             t0 = time.perf_counter()
@@ -3399,23 +3475,23 @@ def phase_cnn_ref(card):
                 hm[0]['heatmap'], time.perf_counter() - t0)
             del pm
     report = {}
-    for name, _, _ in cases[:2]:
+    for name, _ in f32_cases:
         kp_c, hm_c, s_cuda = runs[name, 'float32', 'cuda']
         kp_r, hm_r, s_cpu = runs[name, 'float32', 'cpu']
         top = np.abs(hm_r).max()
         bound = CNN_HM_RTOL * top
         hm_err = np.abs(hm_c - hm_r).max()
-        check(hm_err <= bound, f'cnn-ref {name} f32: CUDA and CPU heatmaps '
+        check(hm_err <= bound, f'{label} {name} f32: CUDA and CPU heatmaps '
               f'differ by {hm_err}, bound {bound}')
         dec = decisive_joints(hm_r, CNN_DECISIVE_BOUNDS * bound)
-        check(dec.mean() >= 0.25, f'cnn-ref {name}: only {dec.sum()} of '
+        check(dec.mean() >= 0.25, f'{label} {name}: only {dec.sum()} of '
               f'{dec.size} joints decisive')
         kp_err = np.abs(kp_c - kp_r).max(-1)[dec].max()
-        check(kp_err <= KP_TOL_PX, f'cnn-ref {name} f32: decisive keypoints '
+        check(kp_err <= KP_TOL_PX, f'{label} {name} f32: decisive keypoints '
               f'differ by {kp_err} px')
         report[name] = dict(hm_err=float(hm_err), hm_bound=float(bound),
                             kp_err_px=float(kp_err), decisive=int(dec.sum()))
-        print(f'cnn-ref: {name} f32 (TF32 off), 4 boxes, CUDA vs CPU: '
+        print(f'{label}: {name} f32 (TF32 off), 4 boxes, CUDA vs CPU: '
               f'heatmap max abs diff {hm_err:.3e} (bound {bound:.3e} = '
               f'{CNN_HM_RTOL:g} of max |heatmap| {top:.3e}), decisive '
               f'keypoints max diff {kp_err:.3e} px (tol {KP_TOL_PX}) over '
@@ -3426,46 +3502,51 @@ def phase_cnn_ref(card):
     # the f32 heatmap decodes every joint at a cell whose f32 value is
     # within 2e of the f32 maximum, whatever the ties (random weights make
     # near-ties common): that holds the keypoints' cells
-    kp_r, hm_r, _ = runs['hrnet_w32', 'float32', 'cpu']
-    errs, short = {}, {}
-    flat_r = hm_r.reshape(*hm_r.shape[:2], -1)
-    for dev in ('cuda', 'cpu'):
-        _, hm, _ = runs['hrnet_w32', 'bfloat16', dev]
-        errs[dev] = (np.abs(hm - hm_r).max(),
-                     np.sqrt(np.mean((hm - hm_r) ** 2)))
-        cells = hm.reshape(*hm.shape[:2], -1).argmax(-1)
-        short[dev] = (flat_r.max(-1) - np.take_along_axis(
-            flat_r, cells[..., None], -1)[..., 0]).max()
-    bound = 2 * BF16_FACTOR * errs['cpu'][0]
-    gb, cb = runs['hrnet_w32', 'bfloat16', 'cuda'][1], \
-        runs['hrnet_w32', 'bfloat16', 'cpu'][1]
-    print(f'cnn-ref: hrnet_w32 bf16 against the f32 CPU answer, 4 boxes, '
-          f'CUDA / CPU: heatmap max abs {errs["cuda"][0]:.3e} / '
-          f'{errs["cpu"][0]:.3e}, RMS {errs["cuda"][1]:.3e} / '
-          f'{errs["cpu"][1]:.3e} (CUDA at most {BF16_FACTOR}x CPU); the '
-          f'decoded cells fall short of the f32 maximum by at most '
-          f'{short["cuda"]:.3e} / {short["cpu"]:.3e} (bound {bound:.3e} = '
-          f'2 x {BF16_FACTOR:g} x the CPU error); CUDA vs CPU bf16 heatmaps '
-          f'{np.abs(gb - cb).max():.3e}; max |f32 heatmap| '
-          f'{np.abs(hm_r).max():.3e}; on {card}', flush=True)
-    for i, what in enumerate(('heatmap max', 'heatmap RMS')):
-        check(errs['cuda'][i] <= BF16_FACTOR * errs['cpu'][i],
-              f'cnn-ref hrnet_w32 bf16: CUDA {what} error {errs["cuda"][i]} '
-              f'from the f32 answer, the bf16 CPU path {errs["cpu"][i]}')
-    check(max(short.values()) <= bound, f'cnn-ref hrnet_w32 bf16: decoded '
-          f'cells {short} short of the f32 maximum, bound {bound}')
-    report['hrnet_w32_bf16'] = dict(
-        hm_err_cuda=float(errs['cuda'][0]), hm_err_cpu=float(errs['cpu'][0]),
-        hm_rms_cuda=float(errs['cuda'][1]), hm_rms_cpu=float(errs['cpu'][1]),
-        cell_short_cuda=float(short['cuda']),
-        cell_short_cpu=float(short['cpu']), cell_bound=float(bound),
-        cuda_vs_cpu_bf16=float(np.abs(gb - cb).max()))
+    for name, _ in bf16_cases:
+        kp_r, hm_r, _ = runs[name, 'float32', 'cpu']
+        errs, short = {}, {}
+        flat_r = hm_r.reshape(*hm_r.shape[:2], -1)
+        for dev in ('cuda', 'cpu'):
+            _, hm, _ = runs[name, 'bfloat16', dev]
+            errs[dev] = (np.abs(hm - hm_r).max(),
+                         np.sqrt(np.mean((hm - hm_r) ** 2)))
+            cells = hm.reshape(*hm.shape[:2], -1).argmax(-1)
+            short[dev] = (flat_r.max(-1) - np.take_along_axis(
+                flat_r, cells[..., None], -1)[..., 0]).max()
+        bound = 2 * BF16_FACTOR * errs['cpu'][0]
+        gb, cb = runs[name, 'bfloat16', 'cuda'][1], \
+            runs[name, 'bfloat16', 'cpu'][1]
+        print(f'{label}: {name} bf16 against the f32 CPU answer, 4 boxes, '
+              f'CUDA / CPU: heatmap max abs {errs["cuda"][0]:.3e} / '
+              f'{errs["cpu"][0]:.3e}, RMS {errs["cuda"][1]:.3e} / '
+              f'{errs["cpu"][1]:.3e} (CUDA at most {BF16_FACTOR}x CPU); the '
+              f'decoded cells fall short of the f32 maximum by at most '
+              f'{short["cuda"]:.3e} / {short["cpu"]:.3e} (bound {bound:.3e} = '
+              f'2 x {BF16_FACTOR:g} x the CPU error); CUDA vs CPU bf16 '
+              f'heatmaps {np.abs(gb - cb).max():.3e}; max |f32 heatmap| '
+              f'{np.abs(hm_r).max():.3e}; on {card}', flush=True)
+        for i, what in enumerate(('heatmap max', 'heatmap RMS')):
+            check(errs['cuda'][i] <= BF16_FACTOR * errs['cpu'][i],
+                  f'{label} {name} bf16: CUDA {what} error {errs["cuda"][i]} '
+                  f'from the f32 answer, the bf16 CPU path {errs["cpu"][i]}')
+        check(max(short.values()) <= bound, f'{label} {name} bf16: decoded '
+              f'cells {short} short of the f32 maximum, bound {bound}')
+        report[f'{name}_bf16'] = dict(
+            hm_err_cuda=float(errs['cuda'][0]),
+            hm_err_cpu=float(errs['cpu'][0]),
+            hm_rms_cuda=float(errs['cuda'][1]),
+            hm_rms_cpu=float(errs['cpu'][1]),
+            cell_short_cuda=float(short['cuda']),
+            cell_short_cpu=float(short['cpu']), cell_bound=float(bound),
+            cuda_vs_cpu_bf16=float(np.abs(gb - cb).max()))
     return report
 
 
-def phase_cnn_eval(card):
-    """The evaluation CLI on the HRNet-W32 config (bf16 as it sets it, flip
-    test, the 'default' decode with shift_heatmap) over a synthetic COCO
+def phase_cnn_eval(card, path=HRNET_CFG, what='HRNet-W32 bf16',
+                   label='cnn-eval'):
+    """The evaluation CLI on a zoo config (by default HRNet-W32, `what`:
+    bf16 as it sets it; flip test, the 'default' decode with
+    shift_heatmap) over a synthetic COCO
     val set (CNN_EVAL_IMAGES) and seeded weights saved as a .pth: 0 K1 and
     K2 launches, the ten stats, AP in [0, 1]; --int8 raises; then
     run_validation timed: boxes/s, the host's decode alone, the card's busy
@@ -3483,8 +3564,8 @@ def phase_cnn_eval(card):
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         files, n_boxes = write_eval_set(root, 5, *CNN_EVAL_IMAGES)
-        pm = init_pose_model(HRNET_CFG, device='cuda')
-        ckpt = os.path.join(root, 'hrnet_w32.pth')
+        pm = init_pose_model(path, device='cuda')
+        ckpt = os.path.join(root, 'weights.pth')
         torch.save(pm.model.state_dict(), ckpt)
         del pm
         write_s = time.perf_counter() - t0
@@ -3494,27 +3575,27 @@ def phase_cnn_eval(card):
         reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
-            stats = cli.main([HRNET_CFG, ckpt, '--out', out_json,
+            stats = cli.main([path, ckpt, '--out', out_json,
                               '--cfg-options', *options])
         cli_s = time.perf_counter() - t0
         k1, k2 = fused_attention.launches, fused_attention_bwd.launches
-        check(k1 == 0 and k2 == 0, f'cnn-eval: K1 {k1} and K2 {k2} '
+        check(k1 == 0 and k2 == 0, f'{label}: K1 {k1} and K2 {k2} '
               'launches, expected none')
         with open(out_json) as f:
             written = json.load(f)
         check(sorted(written) == sorted(COCO_KPT_STAT_NAMES)
               and written == {k: float(v) for k, v in stats.items()},
-              f'cnn-eval: the CLI wrote {written}')
-        check(0 <= stats['AP'] <= 1, f'cnn-eval: AP {stats["AP"]}')
+              f'{label}: the CLI wrote {written}')
+        check(0 <= stats['AP'] <= 1, f'{label}: AP {stats["AP"]}')
         try:
             with contextlib.redirect_stdout(io.StringIO()):
-                cli.main([HRNET_CFG, ckpt, '--int8', '--cfg-options',
+                cli.main([path, ckpt, '--int8', '--cfg-options',
                           *options])
-            raise Failure('cnn-eval: --int8 on a CNN config did not raise')
+            raise Failure(f'{label}: --int8 on a CNN config did not raise')
         except NotImplementedError as e:
             int8_msg = str(e)
         model, ds, loader = eval_objects(options, ckpt, 'cuda',
-                                         config=HRNET_CFG)
+                                         config=path)
         t0 = time.perf_counter()
         for _ in loader:
             pass
@@ -3527,14 +3608,14 @@ def phase_cnn_eval(card):
         run_s = time.perf_counter() - t0
         kp = np.concatenate([r['preds'] for r in results])
         check(kp.shape == (n_boxes, 17, 3) and np.isfinite(kp).all(),
-              f'cnn-eval: keypoints not finite or of shape {kp.shape}')
+              f'{label}: keypoints not finite or of shape {kp.shape}')
         rescored = ds.evaluate(results)
         drift = max(abs(rescored[k] - stats[k]) for k in stats)
-        check(drift <= EVAL_REF_AP_TOL, f'cnn-eval: the timed run scored '
+        check(drift <= EVAL_REF_AP_TOL, f'{label}: the timed run scored '
               f'stats {drift} away from the CLI run')
         busy_ms, prof_ms = device_busy_ms(lambda: validate(model, loader))
         idle = (None if busy_ms is None else 1 - busy_ms / prof_ms)
-        print(f'cnn-eval: CLI on {HRNET_CFG} (HRNet-W32 bf16, flip test, '
+        print(f'{label}: CLI on {path} ({what}, flip test, '
               f'batch {EVAL_BATCH}), {n_boxes} synthetic boxes in '
               f'{n_batches} batches (set and weights written in '
               f'{write_s:.1f} s): 0 K1 and 0 K2 launches; {cli_s:.1f} s with '
@@ -3562,10 +3643,14 @@ def cnn_step_ms(path, card):
     from vitpose_tpu_torch.train.step import make_train_step
     from vitpose_tpu_torch.utils.config import load_config
     from vitpose_tpu_torch.data.dataset_info import DatasetInfo
-    state = build_train_state(load_config(path), STEPS_PER_EPOCH, 'cuda')
+    cfg = load_config(path)
+    state = build_train_state(cfg, STEPS_PER_EPOCH, 'cuda')
     step = make_train_step(state.model)
-    batch = make_preprocess_fn((192, 256), (48, 64), use_udp=False)(
-        *train_inputs(0, TRAIN_BATCH, DatasetInfo.load('coco'), 'cuda'))
+    # the config's crop and heatmap sizes (AlexNet's heatmaps are 40x56)
+    batch = make_preprocess_fn(
+        cfg['data']['image_size'], cfg['data']['heatmap_size'],
+        use_udp=False)(*train_inputs(0, TRAIN_BATCH,
+                                     DatasetInfo.load('coco'), 'cuda'))
     gen = torch.Generator(device='cuda').manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -3587,13 +3672,16 @@ def cnn_step_ms(path, card):
     return med * 1e3, peak, busy
 
 
-def phase_cnn_train(card):
-    """The training CLI on the ResNet-50 config (f32, TF32 as torch
-    defaults it, MSRA targets, batch 64) for one epoch of 4 steps over a
-    synthetic COCO set, from seeded weights: 0 K1 and K2 launches, finite
-    metrics, the epoch's checkpoint written; step wall time, img/s, the
-    data_time share, peak memory. Then the HRNet-W32 (bf16) step at batch
-    64, and cnn-train-ref."""
+def phase_cnn_train(card, path=RES50_CFG, step_configs=CNN_CONFIGS,
+                    label='cnn-train'):
+    """The training CLI on a zoo config (by default ResNet-50; TF32 as
+    torch defaults it, MSRA targets, batch 64) for one epoch of 4 steps
+    over a synthetic COCO set, from seeded weights: 0 K1 and K2 launches,
+    finite metrics, the epoch's checkpoint written; step wall time, img/s,
+    the data_time share, peak memory. Then the CLI again with --resume for
+    a second epoch: it restores epoch 0 and logs 4 finite steps more. Then
+    the step of each of `step_configs` at batch 64, and cnn-train-ref on
+    `path`'s model."""
     import os
     import tempfile
     from vitpose_tpu_torch.ops.attention import (fused_attention,
@@ -3609,92 +3697,124 @@ def phase_cnn_train(card):
                    f'data.val.ann_file={files["ann"]}',
                    f'data.val.img_prefix={root}/train/',
                    f'data.val.bbox_file={files["det"]}',
-                   'optimizer.total_epochs=1', 'runtime.eval_interval=10',
-                   'runtime.ckpt_interval=1', 'runtime.log_interval=1']
+                   'runtime.eval_interval=10', 'runtime.ckpt_interval=1',
+                   'runtime.log_interval=1']
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state, log = run_train_cli([RES50_CFG, '--work-dir', work_dir,
-                                    '--cfg-options', *options])
+        state, log = run_train_cli([path, '--work-dir', work_dir,
+                                    '--cfg-options', *options,
+                                    'optimizer.total_epochs=1'])
         run_s = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         train = [r for r in log if r['mode'] == 'train']
-        check(len(train) == state.step == 4, f'cnn-train: {len(train)} '
+        check(len(train) == state.step == 4, f'{label}: {len(train)} '
               f'logged steps, state at {state.step}, expected 4')
         check(all(np.isfinite(r[k]) for r in train
                   for k in ('heatmap_loss', 'grad_norm', 'acc_pose')),
-              'cnn-train: a non-finite training metric')
-        k1, k2 = fused_attention.launches, fused_attention_bwd.launches
-        check(k1 == 0 and k2 == 0, f'cnn-train: K1 {k1} and K2 {k2} '
-              'launches, expected none')
+              f'{label}: a non-finite training metric')
         check(os.path.exists(os.path.join(work_dir, 'ckpts', 'epoch_0.pth')),
-              'cnn-train: no epoch checkpoint')
-        times = step_times(log)
+              f'{label}: no epoch checkpoint')
+        del state
+        t1 = time.perf_counter()
+        state, log = run_train_cli([path, '--work-dir', work_dir,
+                                    '--resume', '--cfg-options',
+                                    *options, 'optimizer.total_epochs=2'])
+        later = [r for r in log if r['mode'] == 'train' and r['epoch'] == 1]
+        check(any(r['mode'] == 'resume' and r['epoch'] == 1 for r in log)
+              and len(later) == 4 and state.step == 8
+              and all(np.isfinite(r['heatmap_loss']) for r in later),
+              f'{label}: --resume logged {len(later)} steps of epoch 1, '
+              f'state at {state.step}, expected 4 and 8')
+        check(os.path.exists(os.path.join(work_dir, 'ckpts', 'epoch_1.pth')),
+              f'{label}: no checkpoint of the resumed epoch')
+        resumed = (f'; --resume restored epoch 0 and trained epoch 1 '
+                   f'(losses ' + ', '.join(
+                       f'{r["heatmap_loss"]:.6f}' for r in later)
+                   + f') in {time.perf_counter() - t1:.1f} s')
+        del state
+        k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+        check(k1 == 0 and k2 == 0, f'{label}: K1 {k1} and K2 {k2} '
+              'launches, expected none')
+        times = step_times(train)
         med = statistics.median(times)
         last = train[-1]
         share = last['data_time'] / last['time']
-        del state
         torch.cuda.empty_cache()
-    print(f'cnn-train: CLI on {RES50_CFG} (ResNet-50 f32, TF32 on for '
-          f'convs, batch {TRAIN_BATCH}), 4 steps: 0 K1 and 0 K2 launches; '
+    print(f'{label}: CLI on {path} (the config\'s dtype, TF32 on for convs, batch '
+          f'{TRAIN_BATCH}), 4 steps: 0 K1 and 0 K2 launches; '
           f'step wall time median {med * 1e3:.1f} ms '
           f'({min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}) = '
           f'{TRAIN_BATCH / med:.1f} img/s; data_time share '
           f'{share:.3f} ({last["data_time"]:.2f} of {last["time"]:.2f} s); '
           f'losses ' + ', '.join(f'{r["heatmap_loss"]:.6f}' for r in train)
           + f'; whole run {run_s:.1f} s; peak device memory {peak_gb:.2f} '
-          f'GB; on {card}', flush=True)
+          f'GB{resumed}; on {card}', flush=True)
     steps = {}
-    for name, path in CNN_CONFIGS:
-        ms, peak, busy = cnn_step_ms(path, card)
+    for name, cfg_path in step_configs:
+        ms, peak, busy = cnn_step_ms(cfg_path, card)
         steps[name] = dict(ms=ms, img_s=TRAIN_BATCH / ms * 1e3, peak_gb=peak,
                            kernel_ms=busy)
-        print(f'cnn-train: {name} step (runner state, the config\'s dtype, '
+        print(f'{label}: {name} step (runner state, the config\'s dtype, '
               f'preprocess on the card excluded) at batch {TRAIN_BATCH}: '
               f'median {ms:.1f} ms over {TIMED_STEPS} = '
               f'{TRAIN_BATCH / ms * 1e3:.1f} img/s, peak {peak:.2f} GB; on '
               f'{card}', flush=True)
-    ref = phase_cnn_train_ref()
+    ref = phase_cnn_train_ref(path, f'{label}-ref')
     return dict(cli_ms=med * 1e3, cli_img_s=TRAIN_BATCH / med,
                 data_time_share=share, peak_gb=peak_gb, k1=k1, k2=k2,
                 steps=steps, ref=ref)
 
 
-def phase_cnn_train_ref():
-    """Two steps of ResNet-50 at full width, f32 with TF32 off, batch 2, on
-    CUDA and on the CPU from the same seeded weights (train_run), and once
-    more on the CPU on one thread: loss, grad_norm, gradients, the
-    parameters' and the BN statistics' change of CUDA against the CPU
-    within CNN_REF_FACTOR times the CPU's own spread plus TRAIN_REF_TOL."""
+def phase_cnn_train_ref(path=RES50_CFG, label='cnn-train-ref'):
+    """Two steps of `path`'s model (by default ResNet-50) at full width and
+    depth, batch 2, from the
+    same seeded weights (train_run): f32 with TF32 off on CUDA and on the
+    CPU, and in float64 on the CPU. Loss, grad_norm, gradients, the
+    parameters' and the BN statistics' change of CUDA f32 from the f64 run
+    within CNN_REF_FACTOR times the CPU f32's own distance from it plus
+    TRAIN_REF_TOL. Parameters whose f64 gradient is below GRAD_NOISE_FLOOR
+    of the largest are nought but for rounding (a softmax's shift-free
+    logits' bias): they are left out of the distances, and their f32
+    gradients must stay below that floor on both devices."""
     from vitpose_tpu_torch.data.dataset_info import DatasetInfo
     from vitpose_tpu_torch.data.pipeline import make_preprocess_fn
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     inputs = train_inputs(1, 2, DatasetInfo.load('coco'), 'cpu')
     batch = make_preprocess_fn((192, 256), (48, 64), use_udp=False)(*inputs)
-    cfg = cnn_model_dict(RES50_CFG, 'float32')
-    runs = {dev: train_run(cfg, dev, batch) for dev in ('cuda', 'cpu')}
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        one = train_run(cfg, 'cpu', batch)
-    finally:
-        torch.set_num_threads(threads)
-    dist, params = ref_distances(runs['cuda'], runs['cpu'])
-    spread, _ = ref_distances(one, runs['cpu'])
-    print('cnn-train-ref: ResNet-50 f32 (TF32 off), batch 2, 2 steps, CUDA '
-          f'vs CPU ({threads} threads) / the CPU on 1 thread vs {threads}: '
-          + ', '.join(f'{k} {v:.3e} / {spread[k]:.3e} (tol '
+    cfgs = {dtype: cnn_model_dict(path, dtype)
+            for dtype in ('float32', 'float64')}
+    runs = {dev: train_run(cfgs['float32'], dev, batch)
+            for dev in ('cuda', 'cpu')}
+    exact = train_run(cfgs['float64'], 'cpu', batch)
+    floor = GRAD_NOISE_FLOOR * max(float(g.abs().max())
+                                   for g in exact[1].values())
+    noise = sorted(n for n, g in exact[1].items()
+                   if float(g.abs().max()) <= floor)
+    for dev, run in runs.items():
+        loud = [n for n in noise if float(run[1][n].abs().max()) > floor]
+        check(not loud, f'{label}: {dev} f32 gradients of {loud} exceed '
+              f'{floor:.3e}, where the f64 ones are below it')
+    dist, params = ref_distances(runs['cuda'], exact, noise)
+    cpu, _ = ref_distances(runs['cpu'], exact, noise)
+    print(f'{label}: {os.path.basename(path)}, batch 2, 2 steps, f32 (TF32 off) against f64 '
+          f'on the CPU, CUDA / the CPU: '
+          + ', '.join(f'{k} {v:.3e} / {cpu[k]:.3e} (tol '
                       f'{CNN_REF_FACTOR:g}x + {TRAIN_REF_TOL[k]:g})'
                       for k, v in dist.items())
-          + f'; loss {runs["cpu"][0]["heatmap_loss"]:.6f}; largest '
-          f'per-tensor parameter distances: {worst(params)}', flush=True)
+          + f'; loss {exact[0]["heatmap_loss"]:.6f}; {len(noise)} '
+          f'parameters with f64 gradients below {floor:.3e} left out '
+          f'({", ".join(noise[:4])}{", ..." if len(noise) > 4 else ""}); '
+          f'largest per-tensor parameter distances on CUDA: '
+          f'{worst(params)}', flush=True)
     for k, v in dist.items():
-        tol = CNN_REF_FACTOR * spread[k] + TRAIN_REF_TOL[k]
-        check(v <= tol, f'cnn-train-ref: {k} differs by {v} (tol {tol})')
+        tol = CNN_REF_FACTOR * cpu[k] + TRAIN_REF_TOL[k]
+        check(v <= tol, f'{label}: {k} differs by {v} (tol {tol})')
     torch_tf32_defaults()
-    return {'cuda_vs_cpu': {k: float(v) for k, v in dist.items()},
-            'cpu_spread': {k: float(v) for k, v in spread.items()}}
+    return {'cuda_vs_f64': {k: float(v) for k, v in dist.items()},
+            'cpu_vs_f64': {k: float(v) for k, v in cpu.items()},
+            'noise_only': noise}
 
 
 def phase_cnn_apps(card):
@@ -3819,29 +3939,79 @@ def phase_cnn_apps(card):
                 k2=serve_k[1] + export_k[1])
 
 
-def cnn_launches(cnn, key):
-    """A kernel's launches on each CNN path ('k1' or 'k2'), for the kernels
-    line's launches_per_path."""
-    return {'cnn_serve': {name: r[key] for name, r in cnn['serve'].items()},
-            'cnn_eval': cnn['eval'][key], 'cnn_train': cnn['train'][key],
-            'cnn_apps': cnn['apps'][key]}
+def cnn_launches(cnn, key, prefix='cnn'):
+    """A kernel's launches on each CNN path ('k1' or 'k2') of the `prefix`
+    phases' report, for the kernels line's launches_per_path."""
+    out = {f'{prefix}_serve': {name: r[key]
+                               for name, r in cnn['serve'].items()},
+           f'{prefix}_eval': cnn['eval'][key],
+           f'{prefix}_train': cnn['train'][key]}
+    if 'apps' in cnn:
+        out[f'{prefix}_apps'] = cnn['apps'][key]
+    return out
 
 
-def run_cnn_phases(card):
-    """The CNN phases in order, each timed; returns their report."""
+def run_phases(tag, phases, card):
+    """The (name, phase) pairs in order, each timed and given the card
+    line; returns their report, with the seconds of each under
+    'phase_s'."""
     report, took = {}, {}
-    for name, phase in (('serve', phase_cnn_serve), ('ref', phase_cnn_ref),
-                        ('eval', phase_cnn_eval), ('train', phase_cnn_train),
-                        ('apps', phase_cnn_apps)):
+    for name, phase in phases:
         t0 = time.perf_counter()
         report[name] = phase(card)
         took[name] = time.perf_counter() - t0
         torch.cuda.empty_cache()
     report['phase_s'] = took
-    print(f'cnn: phases took ' + ', '.join(
+    print(f'{tag}: phases took ' + ', '.join(
         f'{k} {v:.1f} s' for k, v in took.items())
         + f' = {sum(took.values()):.1f} s', flush=True)
     return report
+
+
+def run_cnn_phases(card):
+    """The CNN phases in order, each timed; returns their report."""
+    return run_phases('cnn', (
+        ('serve', phase_cnn_serve), ('ref', phase_cnn_ref),
+        ('eval', phase_cnn_eval), ('train', phase_cnn_train),
+        ('apps', phase_cnn_apps)), card)
+
+
+# --- CNN top-down, item 12a: the single-stage backbones --------------------
+
+MORE_CNN_CONFIGS = tuple(
+    (name, f'vitpose_tpu/configs/coco/{name}_coco_256x192.py')
+    for name in ('resnext50', 'seresnet50', 'seresnext50', 'scnet50',
+                 'resnest50', 'vgg16_bn', 'alexnet', 'shufflenetv1',
+                 'vipnas_res50', 'vipnas_mbv3'))
+MORE_CNN_BF16 = ('resnest50', 'vipnas_mbv3')
+
+
+def phase_cnn_more_serve(card):
+    """count_ops against hand counts of a grouped conv and deconv, then
+    phase_cnn_serve on the ten configs."""
+    conv_macs, deconv_macs = check_grouped_counts()
+    print(f'cnn-more-serve: count_ops equals the hand count of a grouped '
+          f'conv ({conv_macs} MACs) and a grouped transposed conv '
+          f'({deconv_macs} MACs)', flush=True)
+    return phase_cnn_serve(card, MORE_CNN_CONFIGS, 'cnn-more-serve')
+
+
+def run_cnn_more_phases(card):
+    """The item-12a phases in order (serve, ref, train, eval), each timed;
+    returns their report."""
+    cfgs = dict(MORE_CNN_CONFIGS)
+    return run_phases('cnn-more', (
+        ('serve', phase_cnn_more_serve),
+        ('ref', lambda c: phase_cnn_ref(
+            c, MORE_CNN_CONFIGS, [(n, cfgs[n]) for n in MORE_CNN_BF16],
+            'cnn-more-ref')),
+        ('train', lambda c: phase_cnn_train(
+            c, cfgs['vipnas_res50'],
+            [(n, p) for n, p in MORE_CNN_CONFIGS if n != 'vipnas_res50'],
+            'cnn-more-train')),
+        ('eval', lambda c: phase_cnn_eval(
+            c, cfgs['vipnas_mbv3'], 'ViPNAS-MobileNetV3 f32',
+            'cnn-more-eval'))), card)
 
 
 HIGHER_CFG = 'vitpose_tpu/configs/coco/higherhrnet_w32_coco_512x512.py'
@@ -4454,19 +4624,10 @@ def phase_bu_apps(card):
 
 def run_bu_phases(card):
     """The bottom-up phases in order, each timed; returns their report."""
-    report, took = {}, {}
-    for name, phase in (('serve', phase_bu_serve), ('ref', phase_bu_ref),
-                        ('eval', phase_bu_eval), ('train', phase_bu_train),
-                        ('apps', phase_bu_apps)):
-        t0 = time.perf_counter()
-        report[name] = phase(card)
-        took[name] = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-    report['phase_s'] = took
-    print('bu: phases took ' + ', '.join(
-        f'{k} {v:.1f} s' for k, v in took.items())
-        + f' = {sum(took.values()):.1f} s', flush=True)
-    return report
+    return run_phases('bu', (
+        ('serve', phase_bu_serve), ('ref', phase_bu_ref),
+        ('eval', phase_bu_eval), ('train', phase_bu_train),
+        ('apps', phase_bu_apps)), card)
 
 
 def bu_launches(bu, key):
@@ -4581,6 +4742,7 @@ def main():
         phase_moe_ref(card)
         torch.cuda.empty_cache()
         cnn = run_cnn_phases(card)
+        cnn_more = run_cnn_more_phases(card)
         bu = run_bu_phases(card)
     except Failure as e:
         print(f'chip_smoke: FAIL {e}', file=sys.stderr)
@@ -4612,6 +4774,8 @@ def main():
                                   'moe_train_steps': moe_steps,
                                   'moe_train_val_batches': moe_val,
                                   **cnn_launches(cnn, 'k1'),
+                                  **cnn_launches(cnn_more, 'k1',
+                                                 'cnn_more'),
                                   **bu_launches(bu, 'k1')},
                 'attention_bwd': {'serve': 0, 'eval': 0, 'export': 0,
                                   'demos_per_frame': 0, 'webcam': 0,
@@ -4622,6 +4786,8 @@ def main():
                                   'moe_train': moe_launches[1],
                                   'moe_train_steps': moe_steps,
                                   **cnn_launches(cnn, 'k2'),
+                                  **cnn_launches(cnn_more, 'k2',
+                                                 'cnn_more'),
                                   **bu_launches(bu, 'k2')}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
@@ -4651,6 +4817,7 @@ def main():
         'shapes': int8,
         'serve_batch_ms': int8_batch_ms}
     print(json.dumps({'cnn': cnn}))
+    print(json.dumps({'cnn_more': cnn_more}))
     print(json.dumps({'bottomup': bu}))
     print(json.dumps({'kernels': kernels, 'int8_matmul': int8_matmul,
                       'deploy_latency_ms': {

@@ -2,8 +2,8 @@
 segmentation masks, every target painter, the training affine and flip, the
 test-time multi-scale sizing, the grouping parser (with the tie order of a
 plateau), both AE heads and both AE losses, the estimator's flip inference,
-the multi-scale API, two training steps, the ViT-backbone estimator and the
-weight converters in both directions.
+the multi-scale and single-canvas APIs, two training steps, the
+ViT-backbone estimator and the weight converters in both directions.
 
 Models: HigherHRNet (HRNet of width 8, one module per stage, one block per
 branch; the flagship head's geometry with deconvs of 8), the AE simple head
@@ -37,6 +37,7 @@ FLIPPED_SHARE of the elements, each within four times lr: Adam's first
 step moves an element by about lr whatever the size of its gradient, so
 near-zero gradients flip with f32 noise; lr is small, see LR).
 """
+import copy
 import functools
 
 import jax
@@ -159,6 +160,11 @@ def jax_infer_fn(est):
     return fn
 
 
+# infer_refs' compiled JAX programs (flip inference and raw outputs of a
+# batch of 2 at 64x64), by model
+_INFER = {}
+
+
 @pytest.fixture(scope='module')
 def infer_refs():
     """{model: (port model, JAX estimator, JAX variables, images, JAX
@@ -174,7 +180,10 @@ def infer_refs():
         def both(v, x, fn=fn, est=est):
             return fn(v, x), est.apply(v, x)
 
-        (hm, tags), raw = _compile_fast(both, v, jnp.asarray(x))
+        xj = jnp.asarray(x)
+        _INFER[name] = jax.jit(both).lower(v, xj).compile(
+            compiler_options={'xla_backend_optimization_level': 0})
+        (hm, tags), raw = _INFER[name](v, xj)
         raw = raw if isinstance(raw, (list, tuple)) else [raw]
         out[name] = (model, est, v, x, (np.asarray(hm), np.asarray(tags)),
                      [np.asarray(r).transpose(0, 3, 1, 2) for r in raw])
@@ -494,6 +503,43 @@ def test_multi_scale_api_matches_jax(align_corners):
     want, jmaps = recording_parse(
         est.parser, lambda: jax_multi_scale(est, v, img, pose_nms_thr=None,
                                             **kw)[0])
+    for a, b in zip(maps, jmaps):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, **TOL)
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a['keypoints'], np.asarray(
+            b['keypoints']), atol=POSE_TOL_PX, rtol=0)
+        np.testing.assert_allclose(a['score'], b['score'], rtol=1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize('name', list(MODELS))
+def test_single_canvas_api_matches_jax(infer_refs, name):
+    """inference_bottom_up_pose_model (bottom_up_maps on the square base
+    canvas, then grouping and OKS NMS) on a square image against JAX's
+    (vitpose_tpu/api/inference.py:416): the parser's maps, the grouped
+    poses and their scores. JAX's flip inference is infer_refs' program,
+    given the canvas twice."""
+    from vitpose_tpu.api.inference import (
+        inference_bottom_up_pose_model as jax_single_canvas)
+    from vitpose_tpu_torch.api.inference import (
+        bottom_up_maps, inference_bottom_up_pose_model)
+    img = np.random.RandomState(40 + list(MODELS).index(name)).randint(
+        0, 256, (48, 48, 3)).astype(np.uint8)
+    model = copy.deepcopy(infer_refs[name][0])
+    hm, _, _, _ = bottom_up_maps(model, img, base_size=64)
+    shift_heatmap_bias(model, hm)
+    est, v = infer_refs[name][1], jax_variables(model, name)
+    got, maps = recording_parse(
+        model.parser, lambda: inference_bottom_up_pose_model(
+            model, img, base_size=64)[0])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(est, 'infer', lambda v, x, flip_index: [
+            m[:1] for m in _INFER[name](v, jnp.concatenate([x, x]))[0]])
+        want, jmaps = recording_parse(
+            est.parser, lambda: jax_single_canvas(est, v, img,
+                                                  base_size=64)[0])
     for a, b in zip(maps, jmaps):
         assert a.shape == b.shape
         np.testing.assert_allclose(a, b, **TOL)

@@ -40,9 +40,9 @@ from vitpose_tpu.ops.decode import keypoints_from_heatmaps as jax_decode
 from vitpose_tpu.ops.geometry import flip_back as jax_flip_back
 from vitpose_tpu.train import optim as joptim
 from vitpose_tpu.train.loop import build_model_from_cfg as jax_build
-from vitpose_tpu.train.state import create_train_state as jax_create_state
+from vitpose_tpu.train.state import TrainState as JaxTrainState
 from vitpose_tpu.train.step import make_train_step as jax_make_train_step
-from vitpose_tpu.utils.cnn_ckpt import (BACKBONE_CONVERTERS,
+from vitpose_tpu.utils.cnn_ckpt import (BACKBONE_CONVERTERS, HEAD_CONVERTERS,
                                         convert_generic_topdown_checkpoint)
 from vitpose_tpu.utils.torch_ckpt import convert_head
 
@@ -304,6 +304,51 @@ def _adam_mu(opt_state):
         opt_state, is_leaf=lambda s: hasattr(s, 'mu')) if hasattr(s, 'mu'))
 
 
+def jax_train_steps(mdict, variables, batch, optim=TRAIN_OPTIM, f64=False):
+    """[(metrics, variables, Adam's first moment) after step 1 and 2] of
+    JAX's train step on `batch` from `variables` with the `optim` options,
+    compiled at XLA level 0; with `f64` the model, its variables and the
+    batch in float64 (64-bit JAX for this call only) and compiled at XLA
+    level 1 (level 0 runs f64 convs in XLA's slow loops; level 1 does not,
+    and compiles faster than the default), returned as float32."""
+    if not f64:
+        return _jax_train_steps(mdict, variables, batch, optim, 0)
+    mdict = dict(mdict, dtype='float64', backbone_overrides=dict(
+        mdict.get('backbone_overrides', {}), dtype='float64'))
+    with jax.enable_x64(True):
+        steps = _jax_train_steps(
+            mdict, jax.tree.map(lambda a: np.asarray(a, np.float64),
+                                variables),
+            {k: np.asarray(a, np.float64) for k, a in batch.items()}, optim,
+            1)
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), steps)
+
+
+def _jax_train_steps(mdict, variables, batch, optim, opt_level):
+    jm = jax_build(mdict)
+    tx = joptim.layer_decay_adamw(variables['params'],
+                                  joptim.OptimConfig(**optim), 1)
+    # JAX's create_train_state with the optimizer's init compiled (it takes
+    # 2 s op by op)
+    state = JaxTrainState(step=jnp.zeros((), jnp.int32),
+                          params=variables['params'],
+                          batch_stats=variables.get('batch_stats', {}),
+                          opt_state=jax.jit(tx.init)(variables['params']),
+                          tx=tx)
+    step = jax.jit(jax_make_train_step(jm)).lower(
+        state, batch, jax.random.PRNGKey(1)).compile(
+            compiler_options={'xla_backend_optimization_level': opt_level})
+    steps = []
+    for _ in range(2):
+        state, metrics = step(state, batch, jax.random.PRNGKey(1))
+        steps.append((
+            jax.tree.map(np.asarray, metrics),
+            {'params': jax.tree.map(np.asarray, state.params),
+             'batch_stats': jax.tree.map(np.asarray, state.batch_stats)},
+            jax.tree.map(np.asarray, _adam_mu(state.opt_state))))
+    return steps
+
+
 @pytest.fixture(scope='module')
 def jax_steps():
     """{case: (weights, batch, [(metrics, variables, mu) after step 1 and
@@ -313,26 +358,11 @@ def jax_steps():
         mdict = model_dict(name)
         model = port_model(mdict, seed=20 + i)
         v = jax_variables(model, mdict['backbone_type'])
-        jm = jax_build(mdict)
         with torch.no_grad():
             hm_hw = model(torch.zeros(1, *mdict['img_size'], 3)).shape[2:]
         batch = train_batch(name, tuple(hm_hw), seed=30 + i)
-        tx = joptim.layer_decay_adamw(v['params'],
-                                      joptim.OptimConfig(**TRAIN_OPTIM), 1)
-        state = jax_create_state(jm, jax.random.PRNGKey(0), batch['imgs'],
-                                 tx, variables=v)
-        step = jax.jit(jax_make_train_step(jm)).lower(
-            state, batch, jax.random.PRNGKey(1)).compile(
-                compiler_options={'xla_backend_optimization_level': 0})
-        steps = []
-        for _ in range(2):
-            state, metrics = step(state, batch, jax.random.PRNGKey(1))
-            steps.append((
-                jax.tree.map(np.asarray, metrics),
-                {'params': jax.tree.map(np.asarray, state.params),
-                 'batch_stats': jax.tree.map(np.asarray, state.batch_stats)},
-                jax.tree.map(np.asarray, _adam_mu(state.opt_state))))
-        out[name] = (model.state_dict(), batch, steps)
+        out[name] = (model.state_dict(), batch,
+                     jax_train_steps(mdict, v, batch))
     return out
 
 
@@ -346,17 +376,28 @@ def test_train_steps_match_jax(jax_steps, name):
     mdict = model_dict(name)
     model = build_model_from_cfg(mdict)
     model.load_state_dict(weights)
-    cfg = OptimConfig(**TRAIN_OPTIM)
-    state = create_train_state(model, layer_decay_adamw(model, cfg, 1),
-                               cfg.grad_clip_norm)
-    step = make_train_step(model)
-    tbatch = {k: torch.from_numpy(x) for k, x in batch.items()}
-    bt = mdict['backbone_type']
     # conv biases before a training-mode BN: gradient 0, so their values are
     # f32 noise on both sides (1e-8 against 0.29 in the model: hence the
     # gradient floor of 1e-6 of the model's largest value)
     noise_only = {f'keypoint_head.final_layer.{3 * j}.bias'
                   for j in range(len(mdict.get('head_extra_convs', ())))}
+    assert_train_steps_match(model, batch, ref, mdict['backbone_type'],
+                             noise_only)
+
+
+def assert_train_steps_match(model, batch, ref, bt, noise_only=(),
+                             optim=TRAIN_OPTIM):
+    """The port's two steps of `model` on `batch` with the `optim` options
+    against JAX's `ref` (jax_train_steps) of a `bt` backbone: metrics, the
+    gradients as Adam's first moment after step 1, and every parameter and
+    BN statistic after each step; the `noise_only` parameters within the
+    steps' lr."""
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    cfg = OptimConfig(**optim)
+    state = create_train_state(model, layer_decay_adamw(model, cfg, 1),
+                               cfg.grad_clip_norm)
+    step = make_train_step(model)
+    tbatch = {k: torch.from_numpy(x) for k, x in batch.items()}
     max_step = 0.0
     for i, (metrics_ref, vars_ref, mu) in enumerate(ref):
         max_step += state.optimizer.param_groups[0]['lr']
@@ -414,6 +455,16 @@ def test_weight_decay_and_lr_scale_sets_match_jax(name):
              for k, v in model.state_dict().items()}
     params = convert_generic_topdown_checkpoint(
         zeros, mdict['backbone_type'])['params']
+    decayed, names = assert_decay_and_lr_scale_sets_match(mdict, params)
+    assert all(n.endswith('.weight') and names[n].ndim == 4
+               for n in decayed)
+
+
+def assert_decay_and_lr_scale_sets_match(mdict, params):
+    """The port's AdamW groups of `mdict`'s model decay exactly the leaves
+    that JAX's `_wd_mask_tree` of the flax `params` decays, and scale every
+    lr by JAX's `_lr_scale_tree` (1 for a CNN); returns (the decayed names,
+    {name: parameter})."""
     cfg = OptimConfig(layer_decay_rate=0.75)
     wd = joptim._wd_mask_tree(params)
     scale = joptim._lr_scale_tree(params, cfg.num_layers, 0.75)
@@ -425,7 +476,8 @@ def test_weight_decay_and_lr_scale_sets_match_jax(name):
                                        mdict['backbone_type'])
     want_scale = cnn_state_dict_from_flax({'params': scales},
                                           mdict['backbone_type'])
-    model = build_model_from_cfg(mdict)
+    with torch.device('meta'):
+        model = build_model_from_cfg(mdict)
     opt, _ = layer_decay_adamw(model, cfg, 1)
     group_of = {id(p): g for g in opt.param_groups for p in g['params']}
     names = dict(model.named_parameters())
@@ -433,16 +485,18 @@ def test_weight_decay_and_lr_scale_sets_match_jax(name):
     decayed = {n for n, p in names.items()
                if group_of[id(p)]['weight_decay'] > 0}
     assert decayed == {n for n, v in want_wd.items() if v.flatten()[0] == 1}
-    assert decayed and all(n.endswith('.weight') and names[n].ndim == 4
-                           for n in decayed)
+    assert decayed
     for n, p in names.items():
         assert group_of[id(p)]['lr_scale'] == pytest.approx(
             float(want_scale[n].flatten()[0])) == 1.0
+    return decayed, names
 
 
 # --- the zoo's CNN top-down configs --------------------------------------------
 
-CNN_BACKBONES = ('resnet', 'resnet_v1d', 'hrnet', 'hrnetv2')
+CNN_BACKBONES = ('resnet', 'resnet_v1d', 'hrnet', 'hrnetv2', 'resnext',
+                 'seresnet', 'seresnext', 'scnet', 'resnest', 'vgg',
+                 'alexnet', 'shufflenet_v1', 'vipnas_resnet', 'vipnas_mbv3')
 
 
 def _zoo_cnn_configs():
@@ -467,10 +521,10 @@ REFUSED = {
     'vitpose_tpu/configs/coco/res50_coco_256x192_awing.py': 'item 7',
     'vitpose_tpu/configs/face/hrnetv2_w18_wflw_256x256_awing.py': 'item 7',
     # the DeepPose regression head
-    'vitpose_tpu/configs/coco/deeppose_res50_coco_256x192.py': 'item 12',
-    'vitpose_tpu/configs/mpii/deeppose_res50_mpii_256x256.py': 'item 12',
+    'vitpose_tpu/configs/coco/deeppose_res50_coco_256x192.py': 'item 7',
+    'vitpose_tpu/configs/mpii/deeppose_res50_mpii_256x256.py': 'item 7',
     **{f'vitpose_tpu/configs/face/deeppose_res50_wflw_256x256{loss}.py':
-       'item 12' for loss in ('', '_softwingloss', '_wingloss')},
+       'item 7' for loss in ('', '_softwingloss', '_wingloss')},
     # the JHMDB and PoseTrack18 dataset classes
     **{f'vitpose_tpu/configs/jhmdb/res50{deconv}_jhmdb_sub{i}_256x256.py':
        'item 12' for deconv in ('', '_2deconv') for i in (1, 2, 3)},
@@ -531,13 +585,14 @@ class _Reads(dict):
 
 @functools.lru_cache(maxsize=None)
 def _converter_reads(backbone_type, keys):
-    """The keys JAX's converter reads of a state dict with these keys
+    """The keys JAX's converters read of a state dict with these keys
     (tiny arrays of each entry's rank stand in for the values)."""
     sd = _Reads({k: np.zeros((1,) * nd, np.float32) for k, nd in keys})
     # what convert_generic_topdown_checkpoint runs, on the recording dict
     # (it copies what it is given)
     BACKBONE_CONVERTERS[backbone_type](sd, prefix='backbone.')
-    convert_head(sd, prefix='keypoint_head.')
+    HEAD_CONVERTERS.get(backbone_type, convert_head)(
+        sd, prefix='keypoint_head.')
     return frozenset(sd.read)
 
 
@@ -545,9 +600,10 @@ def _converter_reads(backbone_type, keys):
 def test_cnn_config_passes_the_ports_refusals_and_builds(path):
     """Each runnable config passes the refusal checks and builds its
     GenericTopDown at full width (on the meta device: shapes without
-    values), whose state-dict keys are exactly those JAX's converter reads
-    (BN's num_batches_tracked aside: mmpose .pth files carry it and JAX
-    does not read it)."""
+    values), whose state-dict keys are exactly those JAX's converters read
+    where JAX has one for the backbone (BN's num_batches_tracked aside:
+    mmpose .pth files carry it and JAX does not read it; the flax-named
+    backbones are held leaf for leaf in tests/test_torch_cnn_more.py)."""
     model = refusal_checks(load_config(os.path.join(ROOT, path)))
     mcfg, backbone_type = model.cfg, model.backbone_type
     assert model.keypoint_head.dtype == {
@@ -556,7 +612,8 @@ def test_cnn_config_passes_the_ports_refusals_and_builds(path):
     sd = model.state_dict()
     keys = frozenset((k, v.ndim) for k, v in sd.items()
                      if not k.endswith('num_batches_tracked'))
-    assert _converter_reads(backbone_type, keys) == {k for k, _ in keys}
+    if backbone_type in BACKBONE_CONVERTERS:
+        assert _converter_reads(backbone_type, keys) == {k for k, _ in keys}
     out = sd['keypoint_head.final_layer.weight'] if \
         'keypoint_head.final_layer.weight' in sd else \
         sd[max((k for k in sd if k.startswith('keypoint_head.final_layer.')
@@ -565,8 +622,8 @@ def test_cnn_config_passes_the_ports_refusals_and_builds(path):
     assert out.shape[0] == mcfg.out_channels
 
 
-def test_the_zoo_has_204_runnable_and_23_refused_cnn_configs():
-    assert len(CNN_CONFIGS) == 227 and len(RUNNABLE) == 204
+def test_the_zoo_has_250_runnable_and_23_refused_cnn_configs():
+    assert len(CNN_CONFIGS) == 273 and len(RUNNABLE) == 250
     assert len(REFUSED) == 23
     for path, item in REFUSED.items():
         cfg = load_config(os.path.join(ROOT, path))

@@ -425,7 +425,7 @@ def test_config_file_model_matches_jax():
     assert type(cnn).__name__ == 'GenericTopDown'
     assert cnn.backbone_type == 'hrnet' and cnn.cfg.backbone.depth == 12
     for bad in (dict(mcfg, family='pose_lifter'),
-                dict(mcfg, backbone_type='resnext')):
+                dict(mcfg, backbone_type='hrformer')):
         with pytest.raises(NotImplementedError, match='item 12'):
             build_model_from_cfg(bad)
 

@@ -40,6 +40,7 @@ from ..ops.nms import oks_nms
 from ..ops.warp import warp_affine_batch
 from ..train.loop import build_model_from_cfg
 from ..utils.config import load_config
+from ..utils.convert import FLAX_NAMED_BACKBONES
 from ..utils.torch_ckpt import checkpoint_state_dict
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -139,9 +140,19 @@ def load_checkpoint(model, checkpoint: str):
             checkpoint, model.backbone.cfg if vit else None,
             model.backbone_type, family='bottomup'), strict=True)
         return
-    model.load_state_dict(
-        checkpoint_state_dict(checkpoint, model.cfg.backbone,
-                              model.backbone_type), strict=True)
+    sd = checkpoint_state_dict(checkpoint, model.cfg.backbone,
+                               model.backbone_type)
+    try:
+        model.load_state_dict(sd, strict=True)
+    except RuntimeError as e:
+        if model.backbone_type not in FLAX_NAMED_BACKBONES:
+            raise
+        raise RuntimeError(
+            f'{checkpoint}: the port names a {model.backbone_type!r} '
+            "backbone's modules after the JAX package's flax paths, as the "
+            'JAX package has no converter from mmpose\'s names for it: a '
+            "reference mmpose .pth does not load; load the port's own .pth "
+            "or the JAX package's .npz") from e
 
 
 def init_pose_model(config, checkpoint: Optional[str] = None,
@@ -155,8 +166,8 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
     'bfloat16', 'backbone_overrides': {'fused_attention': True}}, a config
     file's `model` dict (one that names 'backbone_type' or 'family';
     `img_size` is (h, w) there), or a TopDownConfig. A config file or model
-    dict of a CNN (backbone_type 'resnet', 'resnet_v1d', 'hrnet' or
-    'hrnetv2') builds a GenericTopDown. A bottom-up config (family
+    dict of a CNN (a single-stage backbone of `train.loop.build_backbone`)
+    builds a GenericTopDown. A bottom-up config (family
     'bottomup') gives its BottomUpEstimator itself, on the device in eval
     mode, for the bottom-up functions below (JAX refuses those configs
     here). Without a checkpoint the weights are random, drawn on the CPU

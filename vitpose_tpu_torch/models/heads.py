@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .vit import compute_dtype, normal_
+from .vit import at_least_f32, compute_dtype, normal_
 
 FLAX_BN_MOMENTUM = 0.9
 
@@ -34,6 +34,10 @@ class HeatmapHead(nn.Module):
     then the prediction conv: NHWC features -> NCHW heatmaps in the compute
     dtype.
 
+    `deconv_groups` makes each deconv grouped (the ViPNAS head): one
+    ConvTranspose2d of `groups` g and f // g * g outputs, mmpose's
+    [in, f // g, k, k] weight, for JAX's g flax ConvTransposes.
+
     `extra_conv_kernels` (JAX's `extra_conv_kernels`, mmpose's extra
     num_conv_layers/num_conv_kernels, used by the HRNetV2 heads) turns
     `final_layer` into mmpose's Sequential: conv (with bias), BN and ReLU
@@ -43,17 +47,20 @@ class HeatmapHead(nn.Module):
 
     def __init__(self, in_channels, out_channels, deconv_filters=(256, 256),
                  deconv_kernels=(4, 4), final_kernel=1, dtype='float32',
-                 generator=None, extra_conv_kernels=()):
+                 generator=None, extra_conv_kernels=(), deconv_groups=()):
         super().__init__()
         self.dtype = compute_dtype(dtype)
         layers = []
         c = in_channels
-        for f, k in zip(deconv_filters, deconv_kernels):
+        groups = deconv_groups or (1,) * len(deconv_filters)
+        for f, k, g in zip(deconv_filters, deconv_kernels, groups):
             if k not in _DECONV_PADDING:
                 raise ValueError(f'deconv kernel {k}: expected 2, 3 or 4')
             pad, out_pad = _DECONV_PADDING[k]
+            f = f // g * g                  # g transposed convs of f // g
             layers += [nn.ConvTranspose2d(c, f, k, stride=2, padding=pad,
-                                          output_padding=out_pad, bias=False),
+                                          output_padding=out_pad, groups=g,
+                                          bias=False),
                        nn.BatchNorm2d(f, eps=1e-5),
                        nn.ReLU(inplace=True)]
             c = f
@@ -74,8 +81,8 @@ class HeatmapHead(nn.Module):
     def reset_parameters(self, generator=None):
         for layer in self.deconv_layers:
             if isinstance(layer, nn.ConvTranspose2d):
-                fan_in = layer.in_channels * layer.kernel_size[0] \
-                    * layer.kernel_size[1]
+                fan_in = layer.in_channels // layer.groups \
+                    * layer.kernel_size[0] * layer.kernel_size[1]
                 normal_(layer.weight, fan_in ** -0.5, generator)
             elif isinstance(layer, nn.BatchNorm2d):
                 layer.reset_parameters()
@@ -93,15 +100,17 @@ class HeatmapHead(nn.Module):
             deconv, bn = self.deconv_layers[i], self.deconv_layers[i + 1]
             x = F.conv_transpose2d(x.to(dt), deconv.weight.to(dt), None,
                                    stride=2, padding=deconv.padding,
-                                   output_padding=deconv.output_padding)
-            x = F.relu(batch_norm(bn, x.float()).to(dt))
+                                   output_padding=deconv.output_padding,
+                                   groups=deconv.groups)
+            x = F.relu(batch_norm(bn, at_least_f32(x)).to(dt))
         if self.final_layer is None:
             return x
         if not isinstance(self.final_layer, nn.Sequential):
             return conv(self.final_layer, x, dt)
         for i in range(0, len(self.final_layer) - 1, 3):
             x = conv(self.final_layer[i], x, dt)
-            x = F.relu(batch_norm(self.final_layer[i + 1], x.float()).to(dt))
+            x = F.relu(batch_norm(self.final_layer[i + 1],
+                                  at_least_f32(x)).to(dt))
         last = self.final_layer[-1]
         return conv(last, x, dt) if isinstance(last, nn.Conv2d) else x
 

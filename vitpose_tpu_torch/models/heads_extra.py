@@ -12,7 +12,13 @@ Counterpart of the AE heads of vitpose_tpu/models/heads_extra.py:
     prediction concatenated after its input features.
 
 Both take NCHW features and return a list of NCHW maps in the compute
-dtype, one per output, at increasing resolution. Parameters stay f32; BN has
+dtype, one per output, at increasing resolution.
+
+The top-down `ViPNASHead` (JAX :191, mmpose's ViPNASHeatmapSimpleHead) is
+the classic head with grouped 4x4/2 deconvs (`deconv_layers.{3i}` one
+ConvTranspose2d of g groups, where JAX keeps g flax ConvTransposes
+`deconv_{i}_{gi}`) and a 1x1 `final_layer`; it takes NHWC features as
+`HeatmapHead` does and returns NCHW heatmaps. Parameters stay f32; BN has
 flax's semantics (`heads.batch_norm`). The other heads of JAX's module come
 with their families; `AEMultiStageHead` (head 'ae_multi') comes with the
 Hourglass-AE backbone.
@@ -113,3 +119,18 @@ class AEHigherResolutionHead(nn.Module):
                 x = block[0](x)
             outs.append(conv2d(self.final_layers[i + 1], x, dt))
         return outs
+
+
+class ViPNASHead(HeatmapHead):
+    """ViPNAS's head: per layer a grouped 4x4/2 deconv of f // g * g
+    outputs, BN, ReLU (the pairs of `deconv_filters` and `deconv_groups`,
+    zipped as JAX zips them), then the 1x1 prediction conv. The defaults are
+    the ViPNAS-ResNet recipe (144 wide, 16 groups)."""
+
+    def __init__(self, in_channels, out_channels,
+                 deconv_filters=(144, 144, 144), deconv_groups=(16, 16, 16),
+                 dtype='float32', generator=None):
+        pairs = list(zip(deconv_filters, deconv_groups))
+        super().__init__(in_channels, out_channels, [f for f, _ in pairs],
+                         [4] * len(pairs), 1, dtype, generator,
+                         deconv_groups=[g for _, g in pairs])

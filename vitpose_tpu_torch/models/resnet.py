@@ -23,7 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .heads import batch_norm
-from .vit import compute_dtype, normal_
+from .vit import at_least_f32, compute_dtype, normal_
 
 RESNET_SPECS = {
     18: ('basic', (2, 2, 2, 2)),
@@ -41,30 +41,30 @@ def conv2d(layer: nn.Conv2d, x, dtype):
     """`layer` on `x`, both cast to `dtype` (flax Conv(dtype=dtype))."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias, layer.stride,
-                    layer.padding)
+                    layer.padding, layer.dilation, layer.groups)
 
 
 def norm(bn: nn.BatchNorm2d, x, dtype, relu=False):
-    """`bn` in f32 with flax's semantics, the result cast to `dtype`, with an
-    optional ReLU after it."""
-    y = batch_norm(bn, x.float())
+    """`bn` in f32 (f64 in a float64 model) with flax's semantics, the
+    result cast to `dtype`, with an optional ReLU after it."""
+    y = batch_norm(bn, at_least_f32(x))
     if relu:
         y = F.relu(y)
     return y.to(dtype)
 
 
 def init_cnn(module: nn.Module, generator=None):
-    """Seeded init of every conv below `module` (normal, std fan_in ** -0.5,
-    cut at two deviations; zero biases) and BN (scale 1, bias 0, running
-    mean 0 and variance 1)."""
+    """Seeded init of every conv and linear layer below `module` (normal,
+    std fan_in ** -0.5, cut at two deviations; zero biases), BN (scale 1,
+    bias 0, running mean 0 and variance 1) and LayerNorm (scale 1, bias
+    0)."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels // m.groups * m.kernel_size[0] \
-                * m.kernel_size[1]
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
             normal_(m.weight, fan_in ** -0.5, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
 
 
@@ -217,3 +217,58 @@ def ResNetV1d(depth=50, dtype='float32', generator=None):
     the deep stem and avg_down."""
     return ResNet(depth, deep_stem=True, avg_down=True, dtype=dtype,
                   generator=generator)
+
+
+def bottleneck_layers(make_block, depth):
+    """The blocks of a bottleneck ResNet's four stages with `depth`'s stage
+    counts (JAX reads RESNET_SPECS[depth]'s counts whatever its block kind,
+    so depths 18 and 34 give bottlenecks too): `make_block(inplanes,
+    planes, stride, downsample)` for planes 64, 128, 256, 512, expansion 4,
+    the stride in each stage's first block. Returns (layers, out
+    channels)."""
+    if depth not in RESNET_SPECS:
+        raise KeyError(f'depth {depth}: expected one of '
+                       f'{sorted(RESNET_SPECS)}')
+    layers, inplanes, planes = [], 64, 64
+    for si, n in enumerate(RESNET_SPECS[depth][1]):
+        blocks = []
+        for bi in range(n):
+            s = 2 if si and not bi else 1
+            ds = None
+            if bi == 0 and (s != 1 or inplanes != planes * 4):
+                ds = make_downsample(inplanes, planes * 4, s, False)
+            blocks.append(make_block(inplanes, planes, s, ds))
+            inplanes = planes * 4
+        layers.append(blocks)
+        planes *= 2
+    return layers, inplanes
+
+
+class ResNetTrunk(nn.Module):
+    """The ResNet layout that SE-ResNet, ResNeXt, SCNet, ResNeSt and
+    ViPNAS-ResNet share: `conv1` (k x k, stride 2, no bias), `bn1`, ReLU and
+    the 3x3/2 max pool, then the stages `layer1`, `layer2`, ... (Sequentials
+    of `layers`' blocks). [N, H, W, 3] crops -> [N, out_channels, h, w] in
+    the compute dtype. Weights are drawn from `generator` (`init_cnn`)."""
+
+    def __init__(self, layers, out_channels, stem_width=64, stem_kernel=7,
+                 dtype='float32', generator=None):
+        super().__init__()
+        self.dtype = compute_dtype(dtype)
+        self.conv1 = nn.Conv2d(3, stem_width, stem_kernel, 2,
+                               stem_kernel // 2, bias=False)
+        self.bn1 = nn.BatchNorm2d(stem_width)
+        self.stages = len(layers)
+        for i, blocks in enumerate(layers):
+            self.add_module(f'layer{i + 1}', nn.Sequential(*blocks))
+        self.out_channels = out_channels
+        init_cnn(self, generator)
+
+    def forward(self, imgs):
+        dt = self.dtype
+        x = imgs.permute(0, 3, 1, 2)
+        x = norm(self.bn1, conv2d(self.conv1, x, dt), dt, relu=True)
+        x = F.max_pool2d(x, 3, 2, 1)
+        for i in range(1, self.stages + 1):
+            x = getattr(self, f'layer{i}')(x)
+        return x

@@ -1,12 +1,13 @@
 """Top-down pose estimators in PyTorch: the ViT with the classic deconv head
-or the simple decoder, and a CNN backbone with the classic head.
+or the simple decoder, and a CNN backbone with the classic or the ViPNAS
+head.
 
 Counterpart of vitpose_tpu/models/topdown.py: `TopDownConfig`,
 `make_config`, `TopDownModel` (with the ViTPose+ associate heads),
-`GenericTopDown` (ResNet, ResNetV1d, HRNet, HRNetV2), `forward`, `infer`
-(flip test with `flip_back` and the optional 1-pixel `shift_heatmap`) and
-`loss_fn`. Models take NHWC float crops and return NCHW float32 heatmaps,
-as in the JAX package.
+`GenericTopDown` (every single-stage CNN of `train.loop.build_backbone`),
+`forward`, `infer` (flip test with `flip_back` and the optional 1-pixel
+`shift_heatmap`) and `loss_fn`. Models take NHWC float crops and return
+NCHW float32 heatmaps, as in the JAX package.
 
 The mode is explicit, as JAX's `train=` argument is: `forward` sets the
 module's training mode for its call, and `infer` always runs in eval mode,
@@ -21,8 +22,9 @@ import torch.nn as nn
 
 from ..ops.geometry import flip_back
 from .heads import HeatmapHead, SimpleHead
+from .heads_extra import ViPNASHead
 from .losses import joints_mse_loss
-from .vit import ViT, ViTConfig, VIT_VARIANTS
+from .vit import ViT, ViTConfig, VIT_VARIANTS, at_least_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +34,9 @@ class TopDownConfig:
     out_channels: int = 17
     deconv_filters: tuple = (256, 256)
     deconv_kernels: tuple = (4, 4)
+    # the ViPNAS head's groups per deconv; () keeps its defaults (144 wide,
+    # 16 groups: the ViPNAS-ResNet recipe)
+    deconv_groups: tuple = ()
     final_kernel: int = 1
     # channel-preserving Conv+BN+ReLU layers before the prediction conv
     # (the HRNetV2 heads)
@@ -106,43 +111,52 @@ class TopDownModel(nn.Module):
         feat = self.backbone(imgs, generator, expert_idx)
         if all_heads:
             heads = [self.keypoint_head, *self.associate_keypoint_heads]
-            return [h(feat).float() for h in heads]
+            return [at_least_f32(h(feat)) for h in heads]
         head = (self.keypoint_head if not head_idx
                 else self.associate_keypoint_heads[head_idx - 1])
-        return head(feat).float()
+        return at_least_f32(head(feat))
 
 
 class GenericTopDown(nn.Module):
     """A CNN backbone (`backbone`, an NCHW feature module with
     `out_channels`) + `keypoint_head`, the classic head built from the
-    config's deconv_filters/kernels, final_kernel and head_extra_convs in the
-    placeholder backbone config's dtype (JAX GenericTopDown,
-    vitpose_tpu/models/topdown.py:131-178). Same interface as TopDownModel:
-    `generator`, `expert_idx` and `head_idx` are accepted and ignored, and
-    `all_heads` returns [heatmaps]. `backbone_type` (the config's name,
-    e.g. 'hrnet') routes checkpoints to their converter."""
+    config's deconv_filters/kernels, final_kernel and head_extra_convs, or
+    for head_type 'vipnas' the ViPNAS head from deconv_filters and
+    deconv_groups, in the placeholder backbone config's dtype (JAX
+    GenericTopDown, vitpose_tpu/models/topdown.py:131-178). Same interface
+    as TopDownModel: `generator`, `expert_idx` and `head_idx` are accepted
+    and ignored, and `all_heads` returns [heatmaps]. `backbone_type` (the
+    config's name, e.g. 'hrnet') routes checkpoints to their converter."""
 
     def __init__(self, backbone: nn.Module, cfg: TopDownConfig,
                  backbone_type: str, generator=None):
         super().__init__()
-        if cfg.head_type in ('vipnas', 'regression'):
+        if cfg.head_type == 'regression':
             raise NotImplementedError(
-                f'head_type {cfg.head_type!r} is not ported yet (ROADMAP.md '
-                'queue 1 item 12)')
+                "head_type 'regression' (DeepPose) is not ported yet "
+                '(ROADMAP.md queue 1 item 7)')
         self.cfg = cfg
         self.backbone_type = backbone_type
         self.backbone = backbone
-        self.keypoint_head = HeatmapHead(
-            backbone.out_channels, cfg.out_channels, cfg.deconv_filters,
-            cfg.deconv_kernels, cfg.final_kernel, cfg.backbone.dtype,
-            generator, extra_conv_kernels=cfg.head_extra_convs)
+        if cfg.head_type == 'vipnas':
+            kw = (dict(deconv_filters=cfg.deconv_filters,
+                       deconv_groups=cfg.deconv_groups)
+                  if cfg.deconv_groups else {})
+            self.keypoint_head = ViPNASHead(
+                backbone.out_channels, cfg.out_channels,
+                dtype=cfg.backbone.dtype, generator=generator, **kw)
+        else:
+            self.keypoint_head = HeatmapHead(
+                backbone.out_channels, cfg.out_channels, cfg.deconv_filters,
+                cfg.deconv_kernels, cfg.final_kernel, cfg.backbone.dtype,
+                generator, extra_conv_kernels=cfg.head_extra_convs)
 
     def forward(self, imgs, generator=None, expert_idx=None, head_idx=None,
                 all_heads=False):
         feat = self.backbone(imgs)
         # the head takes NHWC: a permuted view of the NCHW features, which
         # it permutes back
-        out = self.keypoint_head(feat.permute(0, 2, 3, 1)).float()
+        out = at_least_f32(self.keypoint_head(feat.permute(0, 2, 3, 1)))
         return [out] if all_heads else out
 
 

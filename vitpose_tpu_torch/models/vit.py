@@ -34,7 +34,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..ops.attention import attention, keep_outputs, keeping
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
-           'float16': torch.float16}
+           'float16': torch.float16, 'float64': torch.float64}
 
 
 # the products without batch dimensions, the Linear layers: what 'dots'
@@ -68,6 +68,12 @@ _REMAT_CONTEXT = {
 
 def compute_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def at_least_f32(x):
+    """`x` for the f32 statistics of flax's norms and softmax: in f32, or
+    kept in f64 (a float64 model's statistics stay in f64, as flax's do)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def normal_(tensor, std, generator=None):
@@ -407,9 +413,9 @@ class Block(nn.Module):
 
     def forward(self, x, dtype, masks=(None, None), route=None):
         """`route`: the batch's `expert_routing` in an MoE block."""
-        y = self.attn(self.norm1(x.float()).to(dtype), dtype)
+        y = self.attn(self.norm1(at_least_f32(x)).to(dtype), dtype)
         x = x + self.drop_path.drop(y, masks[0])
-        y = self.norm2(x.float()).to(dtype)
+        y = self.norm2(at_least_f32(x)).to(dtype)
         y = self.mlp(y, dtype) if route is None else self.mlp(y, dtype, route)
         return x + self.drop_path.drop(y, masks[1])
 
@@ -550,7 +556,7 @@ class ViT(nn.Module):
         for blk in self.blocks:
             x = self._block(blk, x, dtype, blk.draw_masks(x, generator),
                             route)
-        x = self.last_norm(x.float()).to(dtype)
+        x = self.last_norm(at_least_f32(x)).to(dtype)
         return x.reshape(n, hp, wp, d)
 
     def _block(self, blk, x, dtype, masks, route):

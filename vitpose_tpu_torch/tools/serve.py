@@ -163,7 +163,7 @@ def parse_args(argv=None):
 
 def build_model(args):
     """The PoseModel the server runs, built from the parsed flags. A CNN
-    config (backbone_type resnet, resnet_v1d, hrnet or hrnetv2) serves its
+    config (a single-stage backbone of `train.loop.build_backbone`) serves its
     GenericTopDown; `--fast` and `--int8` are ViT options and are ignored
     for it, with JAX's notes (tools/deployment/serve.py:163-207)."""
     backbone_type = 'vit'

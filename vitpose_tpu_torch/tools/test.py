@@ -10,7 +10,8 @@ Counterpart of the top-down path of tools/test.py (`build_eval_objects`,
 dataset and loader; the val step runs on the card (`--device cuda`, the
 default; it raises without CUDA) or on the CPU with `--device cpu`; then the
 dataset rescores, applies OKS NMS and computes COCO AP. The config's model
-is the ViT or a CNN (`backbone_type` resnet, resnet_v1d, hrnet, hrnetv2).
+is the ViT or a CNN (a single-stage `backbone_type` of the port's
+`train.loop.build_backbone`, with the classic or the ViPNAS head).
 CHECKPOINT is a torch .pth (mmpose names; a ViT's pos embed regridded and
 patch kernel padded) or an .npz written by the JAX package, routed by the
 backbone type as JAX's tools/test.py:250-256 routes it.

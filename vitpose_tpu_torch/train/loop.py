@@ -2,7 +2,8 @@
 
 Counterpart of vitpose_tpu/train/loop.py: `build_model_from_cfg`,
 `build_backbone` and `build_generic_topdown` (:84-157, :222-236: the ViT
-and the CNN top-down models of ResNet, ResNetV1d, HRNet and HRNetV2),
+and the CNN top-down models of every single-stage backbone of JAX's
+registry, with the classic or the ViPNAS head),
 `_log` (:33-45), `_pop_freeze_options` and the freezing
 of `_apply_freeze` (:67-81), `train_model` (the top-down ViT branch of
 :239-479), `train_model_moe` (:520-706, the ViTPose+ runner) and the
@@ -42,8 +43,12 @@ from ..data.pipeline import AugmentConfig, make_preprocess_fn
 from ..eval.loop import PinnedStaging, run_validation
 from ..models.bottomup import BottomUpEstimator
 from ..models.heads_extra import AEHead, AEHigherResolutionHead
+from ..models.classic_cnns import VGG, AlexNet, SEResNet
 from ..models.hrnet import HRNet, HRNetConfig
+from ..models.more_cnns import (MobileNetV3, RegNet, ResNeSt, SCNet,
+                                ShuffleNetV1, ViPNASMobileNetV3, ViPNASResNet)
 from ..models.resnet import ResNet, ResNetV1d
+from ..models.resnext import ResNeXt, SEResNeXt
 from ..models.topdown import (GenericTopDown, TopDownConfig, TopDownModel,
                               make_config)
 from ..parallel.distributed import PreemptionGuard
@@ -56,37 +61,49 @@ from .step import make_moe_train_step, make_train_step
 
 
 # the rest of the JAX package's backbone registry (vitpose_tpu/train/
-# loop.py:104-157), not ported yet
-_UNPORTED_BACKBONES = (
-    'resnext', 'seresnet', 'seresnext', 'scnet', 'resnest', 'regnet', 'vgg',
-    'alexnet', 'mobilenet_v2', 'mobilenet_v3', 'shufflenet_v1',
-    'shufflenet_v2', 'litehrnet', 'hrformer', 'vipnas_mbv3', 'vipnas_resnet',
-    'cpm', 'hourglass', 'hourglass_ae', 'mspn', 'rsn')
+# loop.py:104-157), not ported yet, with the ROADMAP.md item that ports each
+_UNPORTED_BACKBONES = {
+    **dict.fromkeys(('mobilenet_v2', 'shufflenet_v2', 'litehrnet', 'cpm',
+                     'hourglass', 'hourglass_ae', 'mspn', 'rsn'), '12b'),
+    'hrformer': '12c',
+}
 
 
 def _refuse_unported_backbone(backbone_type: str):
     if backbone_type in _UNPORTED_BACKBONES:
         raise NotImplementedError(
             f'backbone_type {backbone_type!r} is not ported yet (ROADMAP.md '
-            'queue 1 item 12)')
+            f'queue 1 item {_UNPORTED_BACKBONES[backbone_type]})')
 
 
 def build_backbone(backbone_type: str, generator=None, **bb_kwargs):
     """Name -> NCHW feature backbone with random weights drawn from
-    `generator` (the JAX package's BACKBONES registry, of which `resnet`,
-    `resnet_v1d`, `hrnet` and `hrnetv2` are ported)."""
+    `generator`: the JAX package's BACKBONES registry but for the
+    multi-stage and lightweight backbones and HRFormer, which raise."""
     registry = {
-        'resnet': lambda **kw: ResNet(generator=generator, **kw),
-        'resnet_v1d': lambda **kw: ResNetV1d(generator=generator, **kw),
-        'hrnet': lambda **kw: HRNet(HRNetConfig(**kw), generator),
-        'hrnetv2': lambda **kw: HRNet(
+        'resnet': ResNet,
+        'resnet_v1d': ResNetV1d,
+        'hrnet': lambda generator, **kw: HRNet(HRNetConfig(**kw), generator),
+        'hrnetv2': lambda generator, **kw: HRNet(
             HRNetConfig(multiscale_concat=True, **kw), generator),
+        'resnext': ResNeXt,
+        'seresnet': SEResNet,
+        'seresnext': SEResNeXt,
+        'scnet': SCNet,
+        'resnest': ResNeSt,
+        'regnet': RegNet,
+        'vgg': VGG,
+        'alexnet': AlexNet,
+        'mobilenet_v3': MobileNetV3,
+        'shufflenet_v1': ShuffleNetV1,
+        'vipnas_mbv3': ViPNASMobileNetV3,
+        'vipnas_resnet': ViPNASResNet,
     }
     _refuse_unported_backbone(backbone_type)
     if backbone_type not in registry:
         raise KeyError(f'unknown backbone_type {backbone_type}: '
                        f'{sorted(registry) + sorted(_UNPORTED_BACKBONES)}')
-    return registry[backbone_type](**bb_kwargs)
+    return registry[backbone_type](generator=generator, **bb_kwargs)
 
 
 def _model_parts(mcfg: dict):
@@ -113,7 +130,7 @@ def _model_parts(mcfg: dict):
     if mcfg.get('head') in ('multistage', 'msmu', 'identity'):
         raise NotImplementedError(
             f"the multi-stage head {mcfg['head']!r} (GenericMultiStageTopDown)"
-            ' is not ported yet (ROADMAP.md queue 1 item 12)')
+            ' is not ported yet (ROADMAP.md queue 1 item 12b)')
     return backbone_type, bb_over, make_config('s', img_size=hw, **mcfg)
 
 
@@ -155,7 +172,7 @@ def build_family_model(family: str, mcfg: dict, generator=None):
     if head_kind == 'ae_multi':
         raise NotImplementedError(
             "head 'ae_multi' (AEMultiStageHead, with the hourglass_ae "
-            'backbone) is not ported yet (ROADMAP.md queue 1 item 12)')
+            'backbone) is not ported yet (ROADMAP.md queue 1 item 12b)')
     bb = build_backbone(backbone_type, generator,
                         **(mcfg.pop('backbone_overrides', None) or {}))
     num_joints = mcfg.pop('num_joints', 17)

@@ -10,7 +10,10 @@ parameter names:
     `backbone.blocks.{i}.*` -> i + 1, everything else (last_norm, the
     head) -> depth + 1;
   * lr scale = layer_decay_rate ** (depth + 1 - layer id);
-  * no weight decay for tensors with ndim <= 1, biases and pos_embed.
+  * no weight decay for tensors with ndim <= 1, LayerNorm weights,
+    biases and pos_embed (flax's LayerNorm scale is 1-D, which JAX never
+    decays, where the ContextBlock's LayerNorm([planes, 1, 1]) keeps
+    mmpose's 3-D shape).
 
 The optax chain clips, then Adam, then decoupled decay, then lr times the
 layer scale; torch's AdamW with a group lr of lr * scale and weight_decay
@@ -137,12 +140,15 @@ def layer_decay_adamw(model, cfg: OptimConfig, steps_per_epoch: int = 1000,
     this one does; PERF.md.)
     """
     depth = cfg.num_layers
+    norm_weights = {id(m.weight) for m in model.modules()
+                    if isinstance(m, torch.nn.LayerNorm)
+                    and m.weight is not None}
     groups = {}
     for name, p in model.named_parameters():
         if not p.requires_grad or (trainable and not trainable[name]):
             continue
         lid = layer_id_for_path(name, depth)
-        decay = _decays(name, p)
+        decay = id(p) not in norm_weights and _decays(name, p)
         if (lid, decay) not in groups:
             groups[lid, decay] = {
                 'params': [],

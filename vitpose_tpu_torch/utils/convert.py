@@ -12,11 +12,18 @@ to `associate_keypoint_heads.{j}`); variables without 'batch_stats' give a
 state dict without the BN running statistics.
 `cnn_state_dict_from_flax` is the exact inverse of the JAX package's CNN
 converters that `convert_generic_topdown_checkpoint` runs
-(vitpose_tpu/utils/cnn_ckpt.py:124-186 `convert_resnext`, the `resnet`
-one, and `convert_hrnet`, also the `hrnetv2` one;
+(vitpose_tpu/utils/cnn_ckpt.py:124-186 `convert_resnext`, the `resnet`,
+`resnext`, `seresnet` and `seresnext` one with the SE layer's 1x1 convs,
+`convert_hrnet`, also the `hrnetv2` one, `convert_scnet` :189,
+`convert_vipnas_mbv3` :280 (its flat `layer{n}` numbering),
+`convert_vipnas_resnet` :303 (mmpose's LayerNorm([planes, 1, 1]));
 vitpose_tpu/models/resnet.py:159 `convert_resnet_checkpoint`, the
-`resnet_v1d` one) and of `convert_head` with its extra convs, for
-GenericTopDown's mmpose names.
+`resnet_v1d` one) and of `convert_head` with its extra convs and
+`convert_vipnas_head` (:685, the grouped deconvs' flax ConvTransposes
+stacked along `in`), for GenericTopDown's mmpose names. The JAX package
+has no converter for the FLAX_NAMED_BACKBONES: the port names their
+modules after the flax paths (`_CNN_MODULES`), one entry per flax leaf,
+Dense kernels as nn.Linear weights.
 `bottomup_state_dict_from_flax` does the same for JAX's BottomUpEstimator
 variables: the ViT or CNN backbone and both AE heads (the inverse of
 vitpose_tpu/utils/family_ckpt.py:102 `convert_bottomup_checkpoint`).
@@ -30,7 +37,13 @@ import re
 import numpy as np
 import torch
 
-CNN_BACKBONES = ('resnet', 'resnet_v1d', 'hrnet', 'hrnetv2')
+# the backbones whose modules take the flax names, for want of a JAX
+# converter from mmpose's: a reference mmpose .pth of them does not load
+FLAX_NAMED_BACKBONES = ('resnest', 'vgg', 'alexnet', 'shufflenet_v1',
+                        'regnet', 'mobilenet_v3')
+CNN_BACKBONES = ('resnet', 'resnet_v1d', 'hrnet', 'hrnetv2', 'resnext',
+                 'seresnet', 'seresnext', 'scnet', 'vipnas_resnet',
+                 'vipnas_mbv3') + FLAX_NAMED_BACKBONES
 
 
 def load_params_npz(path):
@@ -85,11 +98,16 @@ def _head(p, stats):
     statistics are carried where `stats` has them."""
     sd = {}
     i = 0
-    while f'deconv_{i}' in p:
+    while f'deconv_{i}' in p or f'deconv_{i}_0' in p:
         conv, bn = f'deconv_layers.{3 * i}.', f'deconv_layers.{3 * i + 1}.'
-        # flax [kh, kw, out, in] -> torch ConvTranspose2d [in, out, kh, kw]
-        sd[conv + 'weight'] = _t(np.transpose(p[f'deconv_{i}']['kernel'],
-                                              (3, 2, 0, 1)))
+        # flax [kh, kw, out, in] -> torch ConvTranspose2d [in, out, kh, kw];
+        # the ViPNAS head's g flax ConvTransposes `deconv_{i}_{gi}` stack
+        # along `in` into one grouped ConvTranspose2d [in, out / g, kh, kw]
+        kernels = [p[f'deconv_{i}']['kernel']] if f'deconv_{i}' in p else []
+        while f'deconv_{i}_{len(kernels)}' in p:
+            kernels.append(p[f'deconv_{i}_{len(kernels)}']['kernel'])
+        sd[conv + 'weight'] = _t(np.concatenate(
+            [np.transpose(k, (3, 2, 0, 1)) for k in kernels]))
         sd[bn + 'weight'] = _t(p[f'bn_{i}']['scale'])
         sd[bn + 'bias'] = _t(p[f'bn_{i}']['bias'])
         if f'bn_{i}' in stats:
@@ -149,8 +167,29 @@ _CNN_MODULES = [
     (r'tr(\d+)_conv', r'transition\1.\1.0.0'),
     (r'tr(\d+)_bn', r'transition\1.\1.0.1'),
     (r'ds_conv', 'downsample.0'),
+    (r'ds', 'downsample.0'),
     (r'ds_bn', 'downsample.1'),
 ]
+# the families whose JAX converter renames more, per module name
+_SE_MODULES = [(r'se', 'se_layer'), (r'fc(\d)', r'conv\1.conv')]
+_FAMILY_MODULES = {
+    'resnext': _SE_MODULES, 'seresnet': _SE_MODULES,
+    'seresnext': _SE_MODULES,
+    'scnet': [(r'a1', 'conv1'), (r'a1_bn', 'bn1'), (r'a2', 'k1.0'),
+              (r'a2_bn', 'k1.1'), (r'b1', 'conv2'), (r'b1_bn', 'bn2'),
+              (r'out', 'conv3'), (r'out_bn', 'bn3'), (r'k2', 'k2.1'),
+              (r'k2_bn', 'k2.2'), (r'k([34])', r'k\1.0'),
+              (r'k([34])_bn', r'k\1.1')],
+    'vipnas_resnet': [(r'add_fc1', 'channel_add_conv.0'),
+                      (r'add_ln', 'channel_add_conv.1'),
+                      (r'add_fc2', 'channel_add_conv.3')],
+    'vipnas_mbv3': [(r'stem', 'conv1.conv'), (r'stem_bn', 'conv1.bn'),
+                    (r'fc(\d)', r'conv\1.conv')],
+}
+# ViPNAS-MobileNetV3's block modules (s{i}b{j}_*, layer{n} in mmpose)
+_MBV3_BLOCK = re.compile(r's(\d+)b(\d+)_(expand|dw|proj|se)(_bn)?')
+_MBV3_PARTS = {'expand': 'expand_conv', 'dw': 'depthwise_conv',
+               'proj': 'linear_conv'}
 _LEAVES = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
            'mean': 'running_mean', 'var': 'running_var'}
 
@@ -163,10 +202,24 @@ def _flat(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _cnn_module_name(path, backbone_type):
-    """The mmpose module name of a flax module path of a CNN backbone."""
+def _cnn_module_name(path, backbone_type, layer_of=None):
+    """The mmpose module name of a flax module path of a CNN backbone
+    (`layer_of`: ViPNAS-MobileNetV3's {(stage, block): n})."""
     out = []
     for part in path:
+        m = _MBV3_BLOCK.fullmatch(part)
+        if m and backbone_type == 'vipnas_mbv3':
+            n = layer_of[int(m.group(1)), int(m.group(2))]
+            out.append(f'layer{n}.se' if m.group(3) == 'se' else
+                       f'layer{n}.{_MBV3_PARTS[m.group(3)]}.'
+                       + ('bn' if m.group(4) else 'conv'))
+            continue
+        renamed = next((re.sub(pattern, repl, part) for pattern, repl
+                        in _FAMILY_MODULES.get(backbone_type, ())
+                        if re.fullmatch(pattern, part)), None)
+        if renamed:
+            out.append(renamed)
+            continue
         m = re.fullmatch(r'stem_(conv|bn)(\d)', part)
         if m and backbone_type.startswith('hrnet'):
             out.append(f'{m.group(1)}{m.group(2)}')       # conv1, bn2, ...
@@ -198,8 +251,8 @@ def _cnn_module_name(path, backbone_type):
 
 
 def cnn_state_dict_from_flax(variables, backbone_type) -> dict:
-    """flax GenericTopDown variables of a `backbone_type` CNN (resnet,
-    resnet_v1d, hrnet, hrnetv2) with the classic head -> {mmpose name: f32
+    """flax GenericTopDown variables of a `backbone_type` CNN (one of
+    CNN_BACKBONES) with the classic or the ViPNAS head -> {port name: f32
     CPU tensor}, BN statistics included where the variables hold them."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
@@ -216,12 +269,26 @@ def _cnn_backbone(params, stats, backbone_type):
     if backbone_type not in CNN_BACKBONES:
         raise KeyError(f'backbone_type {backbone_type!r}: the port converts '
                        f'{CNN_BACKBONES}')
+    layer_of = None
+    if backbone_type == 'vipnas_mbv3':
+        blocks = {(int(m.group(1)), int(m.group(2))) for m in
+                  map(_MBV3_BLOCK.fullmatch, params) if m}
+        layer_of = {ij: n + 1 for n, ij in enumerate(sorted(blocks))}
     sd = {}
     for tree in (params, stats):
         for path, v in _flat(tree):
-            name = (f'backbone.{_cnn_module_name(path[:-1], backbone_type)}.'
-                    f'{_LEAVES[path[-1]]}')
-            sd.update(_leaf(name, path[-1], v))
+            module = _cnn_module_name(path[:-1], backbone_type, layer_of)
+            v = np.asarray(v)
+            if v.ndim == 2:
+                # a Dense kernel [in, out]: nn.Linear's [out, in], or under
+                # mmpose's names a 1x1 conv's [out, in, 1, 1] (_leaf turns
+                # [1, 1, in, out] to it)
+                v = v.T if backbone_type in FLAX_NAMED_BACKBONES \
+                    else v[None, None]
+            elif module.endswith('channel_add_conv.1'):
+                v = v.reshape(-1, 1, 1)        # LayerNorm([planes, 1, 1])
+            sd.update(_leaf(f'backbone.{module}.{_LEAVES[path[-1]]}',
+                            path[-1], v))
     return sd
 
 
