@@ -209,6 +209,21 @@ no result:
   cnn-more-eval  the evaluation CLI on vipnas_mbv3 over 256 synthetic
             boxes, as cnn-eval
 
+  cnn-ms-serve  the multi-stage and lightweight CNNs of ROADMAP item 12b:
+            seven zoo configs at full width and depth in their dtypes
+            (coco/{mspn50, 3xrsn50, litehrnet_18 (f32), cpm, mobilenetv2,
+            shufflenetv2}_coco_256x192.py, coco/hourglass52_coco_256x256.py)
+            as cnn-serve runs them
+  cnn-ms-ref  all seven in f32 (TF32 off), CUDA against the CPU on 4
+            boxes, as cnn-ref
+  cnn-ms-train  the training CLI on 3xrsn50 (one epoch of 4 steps at batch
+            64, then --resume: multi-stage supervision across three
+            stages' skips), every one's step at batch 64, and two steps of
+            MSPN-50 and of Lite-HRNet-18 at batch 2 under cnn-train-ref's
+            rule
+  cnn-ms-eval  the evaluation CLI on mspn50 (the 'megvii' decode) over 256
+            synthetic boxes, as cnn-eval
+
   bu-serve  HigherHRNet-W32 512 (f32, seeded weights, the heatmap biases
             shifted so that at most about BU_KEEP peaks per joint pass the
             parser's threshold on each image of the phase and the tags
@@ -236,14 +251,21 @@ no result:
   bu-apps   the 3 bottom-up demos (ViT-S f32 base 256, K1) on an image and
             a 16-frame video: 24 K1 launches per frame at held shapes,
             frames/s
+  bu-ms     Hourglass-AE (4 stacks) and MobileNetV2-AE 512 (f32) through
+            both API functions on 4 images of 4 sizes (the stages the model
+            gives and the one the protocol keeps), CUDA against the CPU on
+            2 images as bu-ref, and one training step each at the config's
+            batch: finite losses, BN statistics moved, 0 K1/K2
 
-Then the cnn, cnn_more and bottomup JSON lines (those phases' numbers),
+Then the cnn, cnn_more, cnn_ms, bottomup and bottomup_ms JSON lines (those
+phases' numbers),
 the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, int8
 serve call, server request per mode, eval run, int8 eval run, train step,
 train-loop run, remat step, moe-train run, exported call, demo frame,
-webcam run, each CNN, cnn-more and bottom-up phase (0) and bottom-up demo
+webcam run, each CNN, cnn-more, cnn-ms, bottom-up and bu-ms phase (0)
+and bottom-up demo
 frame; beside the kernels, the int8 product's launches per path and times, the server's latencies and the
 int8 AP, the dispatcher's price, the exported program's times and the
 demos' and webcam's frames/s), the nvidia-smi card line and the result
@@ -3376,6 +3398,8 @@ def phase_cnn_serve(card, configs=CNN_CONFIGS, label='cnn-serve'):
               f'{sorted(audit.off_device)[:5]}')
         with torch.no_grad():
             feat = pm.model.backbone(torch.zeros(1, ih, iw, 3, device=dev))
+        while isinstance(feat, (list, tuple)):      # a multi-stage backbone
+            feat = feat[0]
         layout = ('channels_last' if feat.is_contiguous(
             memory_format=torch.channels_last) and not feat.is_contiguous()
             else 'NCHW')
@@ -3673,7 +3697,7 @@ def cnn_step_ms(path, card):
 
 
 def phase_cnn_train(card, path=RES50_CFG, step_configs=CNN_CONFIGS,
-                    label='cnn-train'):
+                    label='cnn-train', ref_paths=None):
     """The training CLI on a zoo config (by default ResNet-50; TF32 as
     torch defaults it, MSRA targets, batch 64) for one epoch of 4 steps
     over a synthetic COCO set, from seeded weights: 0 K1 and K2 launches,
@@ -3681,7 +3705,7 @@ def phase_cnn_train(card, path=RES50_CFG, step_configs=CNN_CONFIGS,
     the data_time share, peak memory. Then the CLI again with --resume for
     a second epoch: it restores epoch 0 and logs 4 finite steps more. Then
     the step of each of `step_configs` at batch 64, and cnn-train-ref on
-    `path`'s model."""
+    the models of `ref_paths` (by default `path`'s)."""
     import os
     import tempfile
     from vitpose_tpu_torch.ops.attention import (fused_attention,
@@ -3760,7 +3784,8 @@ def phase_cnn_train(card, path=RES50_CFG, step_configs=CNN_CONFIGS,
               f'median {ms:.1f} ms over {TIMED_STEPS} = '
               f'{TRAIN_BATCH / ms * 1e3:.1f} img/s, peak {peak:.2f} GB; on '
               f'{card}', flush=True)
-    ref = phase_cnn_train_ref(path, f'{label}-ref')
+    ref = {os.path.basename(p): phase_cnn_train_ref(p, f'{label}-ref')
+           for p in ref_paths or [path]}
     return dict(cli_ms=med * 1e3, cli_img_s=TRAIN_BATCH / med,
                 data_time_share=share, peak_gb=peak_gb, k1=k1, k2=k2,
                 steps=steps, ref=ref)
@@ -4014,6 +4039,34 @@ def run_cnn_more_phases(card):
             'cnn-more-eval'))), card)
 
 
+# --- CNN top-down, item 12b: the multi-stage and lightweight CNNs ---------
+
+MS_CNN_CONFIGS = tuple(
+    (name, f'vitpose_tpu/configs/coco/{name}_coco_{size}.py')
+    for name, size in (('mspn50', '256x192'), ('3xrsn50', '256x192'),
+                       ('litehrnet_18', '256x192'),
+                       ('hourglass52', '256x256'), ('cpm', '256x192'),
+                       ('mobilenetv2', '256x192'),
+                       ('shufflenetv2', '256x192')))
+
+
+def run_cnn_ms_phases(card):
+    """The item-12b phases in order (serve, ref, train, eval), each timed;
+    returns their report."""
+    cfgs = dict(MS_CNN_CONFIGS)
+    return run_phases('cnn-ms', (
+        ('serve', lambda c: phase_cnn_serve(c, MS_CNN_CONFIGS,
+                                            'cnn-ms-serve')),
+        ('ref', lambda c: phase_cnn_ref(c, MS_CNN_CONFIGS, (),
+                                        'cnn-ms-ref')),
+        ('train', lambda c: phase_cnn_train(
+            c, cfgs['3xrsn50'], MS_CNN_CONFIGS, 'cnn-ms-train',
+            ref_paths=[cfgs['mspn50'], cfgs['litehrnet_18']])),
+        ('eval', lambda c: phase_cnn_eval(
+            c, cfgs['mspn50'], "MSPN-50 bf16, the 'megvii' decode",
+            'cnn-ms-eval'))), card)
+
+
 HIGHER_CFG = 'vitpose_tpu/configs/coco/higherhrnet_w32_coco_512x512.py'
 HIGHER_UDP_CFG = 'vitpose_tpu/configs/coco/higherhrnet_w32_coco_512x512_udp.py'
 AE_HRNET_CFG = 'vitpose_tpu/configs/coco/hrnet_w32_ae_coco_512x512.py'
@@ -4057,7 +4110,13 @@ def bu_scene(seed, hw):
 
 
 def bu_final_convs(est):
+    """The prediction convs whose outputs the maps average (a multi-stage
+    head: the last stage's, the head's or, without one, the backbone's)."""
     head = est.keypoint_head
+    if est.multi_stage:
+        last = head.multi_final_layers[-1]
+        return [last if last is not None
+                else est.backbone.out_convs[-1].conv]
     return (list(head.final_layers) if hasattr(head, 'final_layers')
             else [head.final_layer])
 
@@ -4224,9 +4283,15 @@ def phase_bu_serve(card):
     return out
 
 
-def phase_bu_ref(card):
-    """The flagship, its UDP twin and the HRNet-W32 AE simple head at full
-    width, the same seeded (and shifted) weights on CUDA and on the CPU, f32
+BU_REF_CASES = (('higherhrnet_w32', HIGHER_CFG),
+                ('higherhrnet_w32_udp', HIGHER_UDP_CFG),
+                ('hrnet_w32_ae', AE_HRNET_CFG))
+
+
+def phase_bu_ref(card, cases=BU_REF_CASES, label='bu-ref'):
+    """The (name, config) `cases`, by default the flagship, its UDP twin and
+    the HRNet-W32 AE simple head, at full width, the same seeded (and
+    shifted) weights on CUDA and on the CPU, f32
     with TF32 off, on 2 images through the multi-scale protocol: the
     aggregated heatmaps and tags within BU_MAP_RTOL of their largest value;
     where both devices keep the same candidates (the parser's top values
@@ -4241,9 +4306,7 @@ def phase_bu_ref(card):
     torch.backends.cudnn.allow_tf32 = False
     imgs = [bu_scene(40, (480, 640)), bu_scene(41, (640, 427))]
     report = {}
-    for name, path in (('higherhrnet_w32', HIGHER_CFG),
-                       ('higherhrnet_w32_udp', HIGHER_UDP_CFG),
-                       ('hrnet_w32_ae', AE_HRNET_CFG)):
+    for name, path in cases:
         use_udp = load_config(path)['data'].get('use_udp', False)
         t0 = time.perf_counter()
         ests = {}
@@ -4259,7 +4322,7 @@ def phase_bu_ref(card):
                 err = (maps['cuda'][i].cpu() - ref).abs().max().item()
                 rel = err / ref.abs().max().item()
                 errs[i] = max(errs[i], rel)
-                check(rel <= BU_MAP_RTOL, f'bu-ref {name}: CUDA and CPU '
+                check(rel <= BU_MAP_RTOL, f'{label} {name}: CUDA and CPU '
                       f'{("heatmaps", "tags")[i]} differ by {err} '
                       f'({rel:.2e} of the largest), bound {BU_MAP_RTOL}')
             thr = ests['cpu'].parser.detection_threshold
@@ -4280,13 +4343,13 @@ def phase_bu_ref(card):
             for a, b in zip(res['cuda'], res['cpu']):
                 pose_err = max(pose_err, float(np.abs(
                     a['keypoints'][:, :2] - b['keypoints'][:, :2]).max()))
-        check(pose_err <= BU_POSE_TOL_PX, f'bu-ref {name}: grouped poses '
+        check(pose_err <= BU_POSE_TOL_PX, f'{label} {name}: grouped poses '
               f'differ by {pose_err} px where the candidates agree')
-        check(poses > 0 or differ == len(imgs), f'bu-ref {name}: no poses')
+        check(poses > 0 or differ == len(imgs), f'{label} {name}: no poses')
         report[name] = dict(heatmap_rel_err=errs[0], tag_rel_err=errs[1],
                             pose_err_px=pose_err, images_differ=differ,
                             poses_compared=poses)
-        print(f'bu-ref: {name} ({path}, f32, TF32 off), 2 images, CUDA vs '
+        print(f'{label}: {name} ({path}, f32, TF32 off), 2 images, CUDA vs '
               f'CPU: heatmaps {errs[0]:.2e} and tags {errs[1]:.2e} of their '
               f'largest value apart (bound {BU_MAP_RTOL:g}); the same '
               f'candidates on {len(imgs) - differ} of {len(imgs)} images, '
@@ -4630,6 +4693,167 @@ def run_bu_phases(card):
         ('apps', phase_bu_apps)), card)
 
 
+# --- bottom-up, item 12b: Hourglass-AE and MobileNetV2-AE -------------------
+
+HG_AE_CFG = 'vitpose_tpu/configs/coco/hourglass_ae_coco_512x512.py'
+MBV2_AE_CFG = 'vitpose_tpu/configs/coco/mobilenetv2_ae_coco_512x512.py'
+BU_MS_CONFIGS = (('hourglass_ae', HG_AE_CFG), ('mobilenetv2_ae', MBV2_AE_CFG))
+BU_MS_IMAGES = 4                     # of BU_SIZES' first four sizes
+
+
+def phase_bu_ms(card):
+    """Hourglass-AE (4 stacks) and MobileNetV2-AE (the AE simple head) at
+    full width, f32 as their configs set it, seeded and shifted weights:
+    both API functions on BU_MS_IMAGES images of different sizes on the
+    card (every tensor of the forward + flip + reduction on CUDA, finite
+    poses, 0 K1 and K2 launches, the stages the model gives and the one the
+    test protocol keeps, each image's card and host halves timed apart);
+    CUDA against the CPU on 2 images (phase_bu_ref); one training step at
+    the config's batch over a synthetic set through the config's loader,
+    losses finite and every BN's running statistics moved."""
+    from vitpose_tpu_torch.api import (inference_bottom_up_multi_scale,
+                                       inference_bottom_up_pose_model)
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    torch_tf32_defaults()
+    imgs = [bu_scene(70 + i, hw) for i, hw in enumerate(
+        BU_SIZES[:BU_MS_IMAGES])]
+    apis = {'multi_scale': inference_bottom_up_multi_scale,
+            'single': inference_bottom_up_pose_model}
+    out = {}
+    for name, path in BU_MS_CONFIGS:
+        t0 = time.perf_counter()
+        est, _ = bu_model(path, 'cuda', imgs[:2])
+        build_s = time.perf_counter() - t0
+        check(all(p.is_cuda for p in est.parameters()),
+              f'bu-ms {name}: a parameter is off the card')
+        x = torch.randn(1, BU_BASE, BU_BASE, 3, device='cuda')
+        with torch.no_grad():
+            stages = len(est(x))
+        kept = 1 if est.multi_stage else stages
+        flip = torch.tensor(est.dataset_info.flip_index, device='cuda')
+        reset_counts()
+        audit = DeviceAudit()
+        with audit:
+            est.infer(x, flip)
+        torch.cuda.synchronize()
+        check(not audit.off_device, f'bu-ms {name}: off-card tensors: '
+              f'{sorted(audit.off_device)[:5]}')
+        rows = {}
+        for api_name, api in apis.items():
+            api(est, imgs[0], base_size=BU_BASE)             # warm-up
+            results, t_maps, t_group = bu_timed(
+                lambda: [api(est, im, base_size=BU_BASE)[0] for im in imgs])
+            n = len(imgs)
+            rows[api_name] = dict(
+                poses=check_poses(f'bu-ms {name} {api_name}', results),
+                device_half_ms=t_maps / n * 1e3,
+                host_grouping_ms=t_group / n * 1e3,
+                img_s=n / (t_maps + t_group))
+        busy_ms, prof_ms = device_busy_ms(
+            lambda: [inference_bottom_up_multi_scale(est, im,
+                                                     base_size=BU_BASE)
+                     for im in imgs[:2]])
+        k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+        check(k1 == 0 and k2 == 0, f'bu-ms {name}: K1 {k1} and K2 {k2} '
+              'launches, expected none')
+        idle = None if busy_ms is None else 1 - busy_ms / prof_ms
+        print(f'bu-ms: {name} ({path}, f32, base {BU_BASE}, flip, '
+              f'{len(imgs)} images of {len(imgs)} sizes): the model gives '
+              f'{stages} output(s), the test protocol keeps {kept}; every '
+              f'tensor of the forward + flip + reduction on CUDA '
+              f'({audit.ops} ops), 0 K1 and 0 K2 launches; ' + '; '.join(
+                  f'{a}: {r["poses"]} finite poses, per image '
+                  f'{r["device_half_ms"]:.1f} ms card half and '
+                  f'{r["host_grouping_ms"]:.1f} ms host grouping = '
+                  f'{r["img_s"]:.2f} img/s' for a, r in rows.items())
+              + '; card busy over 2 multi-scale calls ' + (
+                  'not measured' if busy_ms is None else
+                  f'{busy_ms:.1f} ms of {prof_ms:.1f} ms, idle share '
+                  f'{idle:.3f}') + f'; model build {build_s:.1f} s; on '
+              f'{card}', flush=True)
+        out[name] = dict(stages=stages, kept=kept, busy_ms=busy_ms,
+                         idle_share=idle, k1=k1, k2=k2, **rows)
+        del est
+        torch.cuda.empty_cache()
+    out['ref'] = phase_bu_ref(card, BU_MS_CONFIGS, 'bu-ms-ref')
+    out['train'] = {name: bu_ms_train_step(path, name, card)
+                    for name, path in BU_MS_CONFIGS}
+    return out
+
+
+def bu_ms_train_step(path, name, card):
+    """One training step (then a timed second) of `path`'s estimator at the
+    config's batch over a synthetic set through the config's loader and the
+    runner's state and step: finite losses, every BN's running statistics
+    moved, 0 K1 and K2 launches; (step ms, peak GB, losses)."""
+    import tempfile
+    from vitpose_tpu_torch.api import init_pose_model
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.train.bottomup_loop import (
+        batch_to_device, bottomup_train_state, build_bottomup_loader,
+        make_bottomup_train_step)
+    from vitpose_tpu_torch.utils.config import apply_options, load_config
+    torch_tf32_defaults()
+    with tempfile.TemporaryDirectory() as root:
+        cfg = load_config(path)
+        n = cfg['data']['batch_size']
+        rng = np.random.RandomState(80)
+        ann, prefix, _ = write_bu_set(
+            root, 800, n, lambda i, img: bu_people(rng, *img.shape[:2],
+                                                   rng.randint(1, 5)))
+        cfg = apply_options(cfg, [f'data.train.ann_file={ann}',
+                                  f'data.train.img_prefix={prefix}'])
+        batch = batch_to_device(next(iter(build_bottomup_loader(cfg))),
+                                'cuda')
+    est = init_pose_model(path, device='cuda')
+    stats = {k: v.clone() for k, v in est.state_dict().items()
+             if 'running_' in k}
+    state = bottomup_train_state(
+        est, cfg.get('optimizer', {}).get('base_lr', 1.5e-3), [])
+    step = make_bottomup_train_step(est)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    m = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m2 = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = {k: float(v) for k, v in m.items()}
+    check(all(np.isfinite(v) for v in losses.values())
+          and all(np.isfinite(float(v)) for v in m2.values()),
+          f'bu-ms-train {name}: non-finite metrics {losses}')
+    moved = [k for k, v in est.state_dict().items()
+             if k in stats and not torch.equal(v, stats[k])]
+    check(stats and len(moved) == len(stats), f'bu-ms-train {name}: '
+          f'{len(stats) - len(moved)} of {len(stats)} BN statistics did '
+          'not move')
+    k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+    check(k1 == 0 and k2 == 0, f'bu-ms-train {name}: K1 {k1} and K2 {k2} '
+          'launches, expected none')
+    print(f'bu-ms-train: {name} ({path}, f32, TF32 on for convs, batch {n}, '
+          f'{tuple(batch["imgs"].shape[1:3])} -> '
+          f'{tuple(batch["heatmaps"].shape[2:])}): losses ' + ', '.join(
+              f'{k} {v:.5f}' for k, v in losses.items())
+          + f', all finite; {len(moved)} BN statistics moved; second step '
+          f'{step_ms:.1f} ms = {n / step_ms * 1e3:.1f} img/s; peak '
+          f'{peak:.2f} GB; 0 K1 and 0 K2 launches; on {card}', flush=True)
+    del state, est, batch
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, peak_gb=peak, losses=losses, k1=k1, k2=k2)
+
+
+def bu_ms_launches(bu_ms, key):
+    """A kernel's launches on the bu-ms paths ('k1' or 'k2')."""
+    report = bu_ms['bu_ms']
+    return {'bu_ms_serve': {n: report[n][key] for n, _ in BU_MS_CONFIGS},
+            'bu_ms_train': {n: report['train'][n][key]
+                            for n, _ in BU_MS_CONFIGS}}
+
+
 def bu_launches(bu, key):
     """A kernel's launches on each bottom-up path ('k1' or 'k2')."""
     return {'bu_serve': bu['serve'][key], 'bu_eval': bu['eval'][key],
@@ -4743,7 +4967,9 @@ def main():
         torch.cuda.empty_cache()
         cnn = run_cnn_phases(card)
         cnn_more = run_cnn_more_phases(card)
+        cnn_ms = run_cnn_ms_phases(card)
         bu = run_bu_phases(card)
+        bu_ms = run_phases('bu-ms', (('bu_ms', phase_bu_ms),), card)
     except Failure as e:
         print(f'chip_smoke: FAIL {e}', file=sys.stderr)
         return 1
@@ -4776,7 +5002,9 @@ def main():
                                   **cnn_launches(cnn, 'k1'),
                                   **cnn_launches(cnn_more, 'k1',
                                                  'cnn_more'),
-                                  **bu_launches(bu, 'k1')},
+                                  **cnn_launches(cnn_ms, 'k1', 'cnn_ms'),
+                                  **bu_launches(bu, 'k1'),
+                                  **bu_ms_launches(bu_ms, 'k1')},
                 'attention_bwd': {'serve': 0, 'eval': 0, 'export': 0,
                                   'demos_per_frame': 0, 'webcam': 0,
                                   'train': train_launches[1],
@@ -4788,7 +5016,9 @@ def main():
                                   **cnn_launches(cnn, 'k2'),
                                   **cnn_launches(cnn_more, 'k2',
                                                  'cnn_more'),
-                                  **bu_launches(bu, 'k2')}}
+                                  **cnn_launches(cnn_ms, 'k2', 'cnn_ms'),
+                                  **bu_launches(bu, 'k2'),
+                                  **bu_ms_launches(bu_ms, 'k2')}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({
@@ -4818,7 +5048,9 @@ def main():
         'serve_batch_ms': int8_batch_ms}
     print(json.dumps({'cnn': cnn}))
     print(json.dumps({'cnn_more': cnn_more}))
+    print(json.dumps({'cnn_ms': cnn_ms}))
     print(json.dumps({'bottomup': bu}))
+    print(json.dumps({'bottomup_ms': bu_ms}))
     print(json.dumps({'kernels': kernels, 'int8_matmul': int8_matmul,
                       'deploy_latency_ms': {
                           m: r['latency_ms'] for m, r in deploy.items()},

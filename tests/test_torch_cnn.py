@@ -50,13 +50,14 @@ from test_torch_data import ROOT
 from test_torch_models import _compile_fast
 from vitpose_tpu_torch.data import DatasetInfo, topdown_dataset_cls
 from vitpose_tpu_torch.data.pipeline import AugmentConfig, make_preprocess_fn
-from vitpose_tpu_torch.models.topdown import GenericTopDown, infer
+from vitpose_tpu_torch.models.topdown import (GenericMultiStageTopDown,
+                                              GenericTopDown, infer)
 from vitpose_tpu_torch.ops import target as ttarget
 from vitpose_tpu_torch.ops.decode import keypoints_from_heatmaps
 from vitpose_tpu_torch.train import (OptimConfig, create_train_state,
                                      layer_decay_adamw, make_train_step)
-from vitpose_tpu_torch.train.loop import (_model_parts, _refuse_unported,
-                                          build_backbone,
+from vitpose_tpu_torch.train.loop import (MULTI_STAGE_HEADS, _model_parts,
+                                          _refuse_unported, build_backbone,
                                           build_model_from_cfg)
 from vitpose_tpu_torch.utils.config import load_config
 from vitpose_tpu_torch.utils.convert import cnn_state_dict_from_flax
@@ -496,7 +497,9 @@ def assert_decay_and_lr_scale_sets_match(mdict, params):
 
 CNN_BACKBONES = ('resnet', 'resnet_v1d', 'hrnet', 'hrnetv2', 'resnext',
                  'seresnet', 'seresnext', 'scnet', 'resnest', 'vgg',
-                 'alexnet', 'shufflenet_v1', 'vipnas_resnet', 'vipnas_mbv3')
+                 'alexnet', 'shufflenet_v1', 'vipnas_resnet', 'vipnas_mbv3',
+                 'mobilenet_v2', 'shufflenet_v2', 'litehrnet', 'cpm',
+                 'hourglass', 'mspn', 'rsn')
 
 
 def _zoo_cnn_configs():
@@ -528,6 +531,8 @@ REFUSED = {
     # the JHMDB and PoseTrack18 dataset classes
     **{f'vitpose_tpu/configs/jhmdb/res50{deconv}_jhmdb_sub{i}_256x256.py':
        'item 12' for deconv in ('', '_2deconv') for i in (1, 2, 3)},
+    **{f'vitpose_tpu/configs/jhmdb/cpm_jhmdb_sub{i}_368x368.py': 'item 12d'
+       for i in (1, 2, 3)},
     **{f'vitpose_tpu/configs/posetrack/{name}.py': 'item 12' for name in (
         'hrnet_w32_posetrack18_256x192', 'hrnet_w32_posetrack18_384x288',
         'hrnet_w48_posetrack18_256x192', 'hrnet_w48_posetrack18_384x288',
@@ -547,8 +552,10 @@ def refusal_checks(cfg):
     backbone_type, overrides, mcfg = _model_parts(cfg['model'])
     backbone = _meta_backbone(backbone_type,
                               tuple(sorted(overrides.items())))
+    cls = (GenericMultiStageTopDown if mcfg.head_type in MULTI_STAGE_HEADS
+           else GenericTopDown)
     with torch.device('meta'):
-        model = GenericTopDown(backbone, mcfg, backbone_type)
+        model = cls(backbone, mcfg, backbone_type)
     dcfg = cfg['data']
     name = dcfg.get('dataset', 'coco')
     assert DatasetInfo.load(name).num_joints > 0
@@ -599,8 +606,8 @@ def _converter_reads(backbone_type, keys):
 @pytest.mark.parametrize('path', RUNNABLE)
 def test_cnn_config_passes_the_ports_refusals_and_builds(path):
     """Each runnable config passes the refusal checks and builds its
-    GenericTopDown at full width (on the meta device: shapes without
-    values), whose state-dict keys are exactly those JAX's converters read
+    GenericTopDown (or GenericMultiStageTopDown) at full width (on the
+    meta device: shapes without values), whose state-dict keys are exactly those JAX's converters read
     where JAX has one for the backbone (BN's num_batches_tracked aside:
     mmpose .pth files carry it and JAX does not read it; the flax-named
     backbones are held leaf for leaf in tests/test_torch_cnn_more.py)."""
@@ -614,17 +621,38 @@ def test_cnn_config_passes_the_ports_refusals_and_builds(path):
                      if not k.endswith('num_batches_tracked'))
     if backbone_type in BACKBONE_CONVERTERS:
         assert _converter_reads(backbone_type, keys) == {k for k, _ in keys}
-    out = sd['keypoint_head.final_layer.weight'] if \
-        'keypoint_head.final_layer.weight' in sd else \
-        sd[max((k for k in sd if k.startswith('keypoint_head.final_layer.')
-                and k.endswith('.weight')),
-               key=lambda k: int(k.split('.')[2]))]
-    assert out.shape[0] == mcfg.out_channels
+    assert prediction_weight(sd).shape[0] == mcfg.out_channels
+
+
+def prediction_weight(sd):
+    """The weight of the conv that gives the (last) heatmaps: the classic
+    head's final_layer (the last of its Sequential), the multi-stage head's
+    last stage's, the MSMU head's last unit's 3x3, or CPM's last stage's
+    prediction conv in the backbone (its identity head has none)."""
+    def last(prefix, suffix):
+        keys = [k for k in sd if k.startswith(prefix) and k.endswith(suffix)
+                and k[len(prefix):-len(suffix)].isdigit()]
+        return sd[max(keys, key=lambda k: int(k[len(prefix):-len(suffix)]))] \
+            if keys else None
+
+    if 'keypoint_head.final_layer.weight' in sd:
+        return sd['keypoint_head.final_layer.weight']
+    for prefix, suffix in (('keypoint_head.final_layer.', '.weight'),
+                           ('keypoint_head.multi_final_layers.', '.weight'),
+                           ('keypoint_head.predict_layers.',
+                            '.conv_layers.1.conv.weight'),
+                           ('backbone.out_convs.', '.1.conv.weight')):
+        w = last(prefix, suffix)
+        if w is not None:
+            return w
+    raise KeyError('no prediction conv')
 
 
 def test_the_zoo_has_250_runnable_and_23_refused_cnn_configs():
-    assert len(CNN_CONFIGS) == 273 and len(RUNNABLE) == 250
-    assert len(REFUSED) == 23
+    """The counts since item 12b: 311 CNN top-down configs, 285 of them
+    runnable and 26 refused (the name keeps item 12a's counts)."""
+    assert len(CNN_CONFIGS) == 311 and len(RUNNABLE) == 285
+    assert len(REFUSED) == 26
     for path, item in REFUSED.items():
         cfg = load_config(os.path.join(ROOT, path))
         with pytest.raises(NotImplementedError, match=item):

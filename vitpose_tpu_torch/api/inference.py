@@ -142,6 +142,8 @@ def load_checkpoint(model, checkpoint: str):
         return
     sd = checkpoint_state_dict(checkpoint, model.cfg.backbone,
                                model.backbone_type)
+    if model.cfg.head_type == 'msmu':
+        _check_prm(sd, model.cfg.use_prm)
     try:
         model.load_state_dict(sd, strict=True)
     except RuntimeError as e:
@@ -153,6 +155,21 @@ def load_checkpoint(model, checkpoint: str):
             'JAX package has no converter from mmpose\'s names for it: a '
             "reference mmpose .pth does not load; load the port's own .pth "
             "or the JAX package's .npz") from e
+
+
+def _check_prm(sd, use_prm):
+    """The MSMU head's refinement must be in the checkpoint exactly when
+    the config sets use_prm (JAX's convert_msmu_head, cnn_ckpt.py:755)."""
+    has_prm = any('.prm.' in k for k in sd if k.startswith('keypoint_head.'))
+    if has_prm and not use_prm:
+        raise ValueError(
+            'checkpoint contains PRM (Pose Refine Machine) weights but the '
+            'model config has use_prm=False — set model.use_prm=True or '
+            'the refinement would be silently dropped')
+    if use_prm and not has_prm:
+        raise ValueError(
+            'model config has use_prm=True but the checkpoint carries no '
+            'predict_layers.*.prm weights')
 
 
 def init_pose_model(config, checkpoint: Optional[str] = None,
@@ -318,12 +335,18 @@ def _capture_intermediates(model: PoseModel, imgs_b, center, scale, outputs,
     dtype = compute_dtype(model.cfg.backbone.dtype)
     captured = {}
 
+    def to_numpy(out, nchw):
+        # a multi-stage backbone or head gives a (nested) list of maps
+        if isinstance(out, (list, tuple)):
+            return [to_numpy(o, nchw) for o in out]
+        out = out.to(dtype).float()
+        if nchw:
+            out = out.permute(0, 2, 3, 1)
+        return out[:n].cpu().numpy()
+
     def hook(path, nchw):
         def fn(module, args, out):
-            out = out.to(dtype).float()
-            if nchw:
-                out = out.permute(0, 2, 3, 1)
-            captured[path] = out[:n].cpu().numpy()
+            captured[path] = to_numpy(out, nchw)
         return fn
 
     handles = [m.register_forward_hook(hook(path, nchw))
@@ -545,8 +568,11 @@ def multi_scale_maps(estimator: BottomUpEstimator, img, dataset_info=None,
         with_ae = (list(wa)[:len(outs)]
                    if isinstance(wa, (list, tuple)) and len(wa) >= len(outs)
                    else [o.shape[1] > k for o in outs])
-        return split_ae_outputs(outs, k, [True] * len(outs), with_ae,
-                                list(range(len(outs))))
+        # the multi-stage protocol keeps the last stage (reference
+        # hourglass_ae_coco_512x512.py select_output_index=[3])
+        select = ([len(outs) - 1] if estimator.multi_stage
+                  else list(range(len(outs))))
+        return split_ae_outputs(outs, k, [True] * len(outs), with_ae, select)
 
     heatmaps_list, tags_list = [], []
     # every scale projects to the scale-1 base size, and the decode's

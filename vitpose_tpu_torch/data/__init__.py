@@ -21,6 +21,6 @@ def topdown_dataset_cls(name):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f'the {name!r} dataset class is not ported yet (ROADMAP.md queue '
-            '1 item 12: only CNN and PoseWarper configs use it)')
+            '1 item 12d: only CNN and PoseWarper configs use it)')
     return {'mpii': MpiiDataset, 'mpii_trb': MpiiTrbDataset,
             'coco_wholebody': WholeBodyDataset}.get(name, TopDownDataset)

@@ -19,7 +19,14 @@ Resizing: `jax.image.resize(..., 'bilinear')` samples at half-pixel centres
 and antialiases when it shrinks, which is `F.interpolate(mode='bilinear',
 align_corners=False, antialias=True)` (`resize_bilinear`); the
 align-corners path of the UDP configs is `F.interpolate(align_corners=True)`
-without antialiasing (`resize_bilinear_ac`, JAX's multistage_nets.py:56).
+without antialiasing (`multistage_nets.resize_bilinear_ac`, JAX's
+multistage_nets.py:56).
+
+A multi-stage head (`AEMultiStageHead`, Hourglass-AE's) takes the
+backbone's whole per-stack list and gives one output per stack, all of
+which training supervises; at test time only the last stage is kept
+(`multi_stage`; the reference config's select_output_index=[3]), where a
+multi-resolution head's outputs are reduced to one map.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ import torch.nn.functional as F
 
 from ..ops.geometry import transform_preds
 from ..ops.group import HeatmapParser
-from .heads_extra import AEHead
+from .heads_extra import AEHead, AEMultiStageHead
+from .multistage_nets import resize_bilinear_ac
 from .vit import ViT, ViTConfig
 
 
@@ -39,12 +47,6 @@ def resize_bilinear(x, size_hw):
     centres, antialiased when shrinking)."""
     return F.interpolate(x, size=tuple(size_hw), mode='bilinear',
                          align_corners=False, antialias=True)
-
-
-def resize_bilinear_ac(x, size_hw):
-    """NCHW align-corners bilinear resize (JAX's `resize_bilinear_ac`)."""
-    return F.interpolate(x, size=tuple(size_hw), mode='bilinear',
-                         align_corners=True)
 
 
 def reduce_multires_output(outs, num_joints, with_ae=None):
@@ -152,6 +154,7 @@ class BottomUpEstimator(nn.Module):
             channels, num_joints, tag_per_joint=tag_per_joint,
             deconv_filters=(256,), deconv_kernels=(4,), dtype=dtype,
             generator=generator)
+        self.multi_stage = isinstance(self.keypoint_head, AEMultiStageHead)
         self.num_joints = num_joints
         self.parser = HeatmapParser(num_joints=num_joints,
                                     **(parser_cfg or {}))
@@ -162,10 +165,14 @@ class BottomUpEstimator(nn.Module):
         return next(self.parameters()).device
 
     def features(self, imgs):
-        """[N, H, W, 3] -> the backbone's NCHW features."""
+        """[N, H, W, 3] -> the backbone's NCHW features: a multi-stage
+        head's whole list, else the first of a list."""
         feat = self.backbone(imgs)
-        return feat.permute(0, 3, 1, 2) if self.backbone_type == 'vit' \
-            else feat
+        if self.backbone_type == 'vit':
+            return feat.permute(0, 3, 1, 2)
+        if isinstance(feat, (list, tuple)) and not self.multi_stage:
+            return feat[0]
+        return feat
 
     def forward(self, imgs):
         """[N, H, W, 3] -> the head's outputs, a list of [N, C, h, w] f32
@@ -173,20 +180,26 @@ class BottomUpEstimator(nn.Module):
         return [o.float() for o in self.keypoint_head(self.features(imgs))]
 
     def infer(self, imgs, flip_index, with_flip=True):
-        """Eval forward with the flip pass, the outputs of a
-        multi-resolution head reduced to one map: (heatmaps [N, K, H, W],
-        tags [N, K, H, W, L]) on the input's device. `flip_index` is a
+        """Eval forward with the flip pass, the last stage of a multi-stage
+        head or the outputs of a multi-resolution head reduced to one map:
+        (heatmaps [N, K, H, W], tags [N, K, H, W, L]) on the input's
+        device. `flip_index` is a
         sequence or a tensor."""
         self.eval()
         fi = (flip_index.to(imgs.device)
               if isinstance(flip_index, torch.Tensor) else torch.as_tensor(
                   np.asarray(flip_index, np.int64), device=imgs.device))
         with_ae = getattr(self.keypoint_head, 'with_ae_loss', None)
+
+        def apply(x):
+            outs = self(x)
+            if self.multi_stage:
+                return outs[-1]
+            return reduce_multires_output(outs, self.num_joints, with_ae)
+
         with torch.no_grad():
-            return ae_forward_with_flip(
-                lambda x: reduce_multires_output(self(x), self.num_joints,
-                                                 with_ae),
-                imgs, self.num_joints, fi, with_flip=with_flip)
+            return ae_forward_with_flip(apply, imgs, self.num_joints, fi,
+                                        with_flip=with_flip)
 
     def parse(self, heatmaps, tags, center, scale, adjust=True, refine=True,
               use_udp=False):

@@ -4,7 +4,8 @@ squeeze-and-excitation gate they share with SE-ResNeXt and ViPNAS.
 Counterpart of vitpose_tpu/models/classic_cnns.py: `SELayer` (:64, also
 the 'hsigmoid' gate, mmcv's HSigmoid(bias=3, divisor=6)), `SEBottleneck`
 and `SEResNet` (:86-143), `VGG` (:24, with and without BN) and `AlexNet`
-(:44). `CPM` comes with the multi-stage backbones.
+(:44), and `CPM` (:146; flax's padded max pools pad with -inf, as
+torch's do).
 
 Names: SE-ResNet takes mmpose's (`layer{i}.{j}.conv{k}`, `bn{k}`,
 `downsample.{0,1}`, `se_layer.conv{1,2}.conv`: the SE layer is a pair of
@@ -12,7 +13,11 @@ Names: SE-ResNet takes mmpose's (`layer{i}.{j}.conv{k}`, `bn{k}`,
 Dense layers), so a reference .pth loads with strict=True. The JAX package
 has no converter for VGG or AlexNet: their modules take the flax names
 (`conv{stage}_{i}`, `bn{stage}_{i}`; `conv1`...`conv5`), and their
-checkpoints are the port's own or the JAX package's .npz.
+checkpoints are the port's own or the JAX package's .npz. CPM takes
+mmpose's (`stem.{0,2,4,6,7,8}` ConvModules between the max pools and the
+biased `stem.9.conv`; `middle.{0,2,4}`, `middle_conv.{t}.0`,
+`cpm_stages.{t}.model.{0,1,2}`, `out_convs.{t}.0` and the biased
+`out_convs.{t}.1.conv`), which `convert_cpm` reads.
 
 The crops come in NHWC and are read through a permuted view
 (channels_last); convs run in the compute dtype, BN in f32 with flax's
@@ -21,11 +26,12 @@ without padding floor, as flax's 'VALID' pools do.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import (ResNetTrunk, bottleneck_layers, conv2d, init_cnn, norm,
-                     shortcut)
+from .resnet import (BiasConv, ConvModule, ResNetTrunk, bottleneck_layers,
+                     conv2d, init_cnn, norm, shortcut)
 from .vit import compute_dtype
 
 VGG_SPECS = {
@@ -56,14 +62,6 @@ def squeeze_excite(x, fc1, fc2, gate, dtype):
     return x.to(dtype) * s
 
 
-class _Conv(nn.Module):
-    """mmcv's ConvModule without norm or activation: `conv` alone."""
-
-    def __init__(self, cin, cout):
-        super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 1)
-
-
 class SELayer(nn.Module):
     """mmpose's SELayer: average over H and W, `conv1.conv` (1x1, to
     max(int(C / ratio), 1) channels) + ReLU, `conv2.conv` (1x1, back to C),
@@ -74,8 +72,8 @@ class SELayer(nn.Module):
         self.dtype = compute_dtype(dtype)
         self.gate = gate
         squeeze = max(int(channels / ratio), 1)
-        self.conv1 = _Conv(channels, squeeze)
-        self.conv2 = _Conv(squeeze, channels)
+        self.conv1 = BiasConv(channels, squeeze)
+        self.conv2 = BiasConv(squeeze, channels)
 
     def forward(self, x):
         return squeeze_excite(x, self.conv1.conv, self.conv2.conv, self.gate,
@@ -180,3 +178,56 @@ class AlexNet(nn.Module):
             if i in (1, 2, 5):
                 x = F.max_pool2d(x, 3, 2)
         return x
+
+
+class CPM(nn.Module):
+    """Convolutional Pose Machines: `stem` gives the stage-1 maps (three
+    9x9 ConvModules each before a 3x3/2 max pool, 5x5 to 32, 9x9 to 512,
+    1x1 to 512, the 1x1 prediction conv); `middle` the shared features
+    (three 9x9 ConvModules and pools); each later stage t concatenates the
+    previous maps and `middle_conv.{t}` (5x5 to middle_channels) into
+    `cpm_stages.{t}` (three 11x11 ConvModules) and `out_convs.{t}` (a 1x1
+    ConvModule and the prediction conv). [N, H, W, 3] -> a list of
+    num_stages [N, out_channels, H/8, W/8] maps in the compute dtype."""
+
+    def __init__(self, out_channels=17, num_stages=6, feat_channels=128,
+                 middle_channels=32, dtype='float32', generator=None):
+        super().__init__()
+        self.dtype = compute_dtype(dtype)
+        k, f = out_channels, feat_channels
+
+        def cbr(cin, cout, kernel):
+            return ConvModule(cin, cout, kernel, 1, (kernel - 1) // 2, dtype)
+
+        pool = nn.MaxPool2d(3, 2, 1)
+        self.stem = nn.Sequential(
+            cbr(3, 128, 9), pool, cbr(128, 128, 9), pool, cbr(128, 128, 9),
+            pool, cbr(128, 32, 5), cbr(32, 512, 9), cbr(512, 512, 1),
+            BiasConv(512, k))
+        self.middle = nn.Sequential(cbr(3, 128, 9), pool, cbr(128, 128, 9),
+                                    pool, cbr(128, 128, 9), pool)
+        self.middle_conv = nn.ModuleList(
+            nn.Sequential(cbr(128, middle_channels, 5))
+            for _ in range(num_stages - 1))
+        self.cpm_stages = nn.ModuleList(nn.Module() for _ in
+                                        range(num_stages - 1))
+        for stage in self.cpm_stages:
+            stage.model = nn.Sequential(cbr(k + middle_channels, f, 11),
+                                        cbr(f, f, 11), cbr(f, f, 11))
+        self.out_convs = nn.ModuleList(
+            nn.Sequential(cbr(f, f, 1), BiasConv(f, k))
+            for _ in range(num_stages - 1))
+        self.out_channels = k
+        init_cnn(self, generator)
+
+    def forward(self, imgs):
+        dt = self.dtype
+        x = imgs.permute(0, 3, 1, 2)
+        out = conv2d(self.stem[-1].conv, self.stem[:-1](x), dt)
+        m = self.middle(x)
+        outs = [out]
+        for mid, stage, head in zip(self.middle_conv, self.cpm_stages,
+                                    self.out_convs):
+            y = stage.model(torch.cat([outs[-1], mid(m)], 1))
+            outs.append(conv2d(head[1].conv, head[0](y), dt))
+        return outs

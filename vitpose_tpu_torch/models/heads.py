@@ -94,25 +94,29 @@ class HeatmapHead(nn.Module):
                 layer.reset_parameters()
 
     def forward(self, x):
-        dt = self.dtype
-        x = x.permute(0, 3, 1, 2)
-        for i in range(0, len(self.deconv_layers), 3):
-            deconv, bn = self.deconv_layers[i], self.deconv_layers[i + 1]
-            x = F.conv_transpose2d(x.to(dt), deconv.weight.to(dt), None,
-                                   stride=2, padding=deconv.padding,
-                                   output_padding=deconv.output_padding,
-                                   groups=deconv.groups)
-            x = F.relu(batch_norm(bn, at_least_f32(x)).to(dt))
-        if self.final_layer is None:
-            return x
-        if not isinstance(self.final_layer, nn.Sequential):
-            return conv(self.final_layer, x, dt)
-        for i in range(0, len(self.final_layer) - 1, 3):
-            x = conv(self.final_layer[i], x, dt)
-            x = F.relu(batch_norm(self.final_layer[i + 1],
-                                  at_least_f32(x)).to(dt))
-        last = self.final_layer[-1]
-        return conv(last, x, dt) if isinstance(last, nn.Conv2d) else x
+        return run_heatmap_head(self.deconv_layers, self.final_layer,
+                                x.permute(0, 3, 1, 2), self.dtype)
+
+
+def run_heatmap_head(deconv_layers, final_layer, x, dt):
+    """A HeatmapHead's `deconv_layers` and `final_layer` (None: the
+    identity) on NCHW `x` in the compute dtype `dt`."""
+    for i in range(0, len(deconv_layers), 3):
+        deconv, bn = deconv_layers[i], deconv_layers[i + 1]
+        x = F.conv_transpose2d(x.to(dt), deconv.weight.to(dt), None,
+                               stride=2, padding=deconv.padding,
+                               output_padding=deconv.output_padding,
+                               groups=deconv.groups)
+        x = F.relu(batch_norm(bn, at_least_f32(x)).to(dt))
+    if final_layer is None:
+        return x
+    if not isinstance(final_layer, nn.Sequential):
+        return conv(final_layer, x, dt)
+    for i in range(0, len(final_layer) - 1, 3):
+        x = conv(final_layer[i], x, dt)
+        x = F.relu(batch_norm(final_layer[i + 1], at_least_f32(x)).to(dt))
+    last = final_layer[-1]
+    return conv(last, x, dt) if isinstance(last, nn.Conv2d) else x
 
 
 class SimpleHead(nn.Module):

@@ -62,19 +62,25 @@ def _run(seq, x, dtype, relu=False):
     return norm(seq[-1], conv2d(seq[-2], x, dtype), dtype, relu=relu)
 
 
-class ConvBN(nn.Module):
-    """mmcv's ConvModule with BN, its activation left to the caller: `conv`
-    (no bias, padding k // 2) and `bn`."""
+_ACTS = {None: lambda x: x, 'relu': F.relu, 'relu6': F.relu6}
 
-    def __init__(self, cin, cout, k, stride=1, groups=1, dtype='float32'):
+
+class ConvBN(nn.Module):
+    """mmcv's ConvModule with BN: `conv` (no bias, padding k // 2) and `bn`,
+    then `act` (None: left to the caller, 'relu' or 'relu6')."""
+
+    def __init__(self, cin, cout, k, stride=1, groups=1, dtype='float32',
+                 act=None):
         super().__init__()
         self.dtype = compute_dtype(dtype)
+        self.act = act
         self.conv = nn.Conv2d(cin, cout, k, stride, k // 2, groups=groups,
                               bias=False)
         self.bn = nn.BatchNorm2d(cout)
 
     def forward(self, x):
-        return norm(self.bn, conv2d(self.conv, x, self.dtype), self.dtype)
+        return _ACTS[self.act](norm(self.bn, conv2d(self.conv, x, self.dtype),
+                                    self.dtype))
 
 
 # --- SCNet -------------------------------------------------------------------

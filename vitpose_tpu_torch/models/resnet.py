@@ -83,6 +83,15 @@ class ConvModule(nn.Module):
                     relu=True)
 
 
+class BiasConv(nn.Module):
+    """mmcv's ConvModule without a norm or an activation: `conv`, with a
+    bias (padding k // 2)."""
+
+    def __init__(self, cin, cout, k=1):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, k, padding=k // 2)
+
+
 def make_downsample(cin, cout, stride, avg_down):
     """The shortcut of a block whose shape changes: Sequential(conv, bn),
     or with `avg_down` and stride > 1 Sequential(AvgPool2d, stride-1 conv,

@@ -5,9 +5,10 @@ head.
 Counterpart of vitpose_tpu/models/topdown.py: `TopDownConfig`,
 `make_config`, `TopDownModel` (with the ViTPose+ associate heads),
 `GenericTopDown` (every single-stage CNN of `train.loop.build_backbone`),
-`forward`, `infer` (flip test with `flip_back` and the optional 1-pixel
-`shift_heatmap`) and `loss_fn`. Models take NHWC float crops and return
-NCHW float32 heatmaps, as in the JAX package.
+`GenericMultiStageTopDown` (CPM, stacked Hourglass, MSPN and RSN with
+their heads), `forward`, `infer` (flip test with `flip_back` and the
+optional 1-pixel `shift_heatmap`) and `loss_fn`. Models take NHWC float
+crops and return NCHW float32 heatmaps, as in the JAX package.
 
 The mode is explicit, as JAX's `train=` argument is: `forward` sets the
 module's training mode for its call, and `infer` always runs in eval mode,
@@ -22,7 +23,7 @@ import torch.nn as nn
 
 from ..ops.geometry import flip_back
 from .heads import HeatmapHead, SimpleHead
-from .heads_extra import ViPNASHead
+from .heads_extra import MSMUHead, MultiStageHead, ViPNASHead
 from .losses import joints_mse_loss
 from .vit import ViT, ViTConfig, VIT_VARIANTS, at_least_f32
 
@@ -56,6 +57,11 @@ class TopDownConfig:
     # ViTPose+: associate heads for the other datasets of the mixture
     num_extra_heads: int = 0
     extra_head_channels: tuple = ()
+    # the multi-stage backbones' heads (CPM, Hourglass, MSPN, RSN): stage
+    # and unit counts; use_prm appends RSN's Pose Refine Machine
+    num_stages: int = 1
+    num_units: int = 4
+    use_prm: bool = False
 
 
 def make_config(variant='b', img_size=(256, 192), head='heatmap',
@@ -158,6 +164,51 @@ class GenericTopDown(nn.Module):
         # it permutes back
         out = at_least_f32(self.keypoint_head(feat.permute(0, 2, 3, 1)))
         return [out] if all_heads else out
+
+
+class GenericMultiStageTopDown(nn.Module):
+    """A multi-stage CNN backbone (a list of NCHW stage features, or for
+    MSPN and RSN a list of stages of unit features) + `keypoint_head`, one
+    map per stage or (stage, unit): head_type 'msmu' the MSMU head at a
+    quarter of the crop, 'multistage' the classic head per stage,
+    'identity' the backbone's own per-stage maps (CPM; mmpose's multi-stage
+    head without layers), in the placeholder backbone config's dtype (JAX
+    GenericMultiStageTopDown, vitpose_tpu/models/topdown.py:181-233). In
+    training mode, or with `all_heads`, it returns the list of every map
+    in f32, so that every stage is supervised; in eval mode the last one,
+    so that `infer` and its flip test see the final prediction. Same
+    interface as GenericTopDown otherwise."""
+
+    def __init__(self, backbone: nn.Module, cfg: TopDownConfig,
+                 backbone_type: str, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone_type = backbone_type
+        self.backbone = backbone
+        c, dtype = backbone.out_channels, cfg.backbone.dtype
+        if cfg.head_type == 'msmu':
+            ih, iw = cfg.backbone.img_size
+            self.keypoint_head = MSMUHead(
+                c, cfg.out_channels, cfg.num_stages, cfg.num_units,
+                (ih // 4, iw // 4), cfg.use_prm, dtype, generator)
+        elif cfg.head_type == 'identity':
+            self.keypoint_head = MultiStageHead(c, cfg.out_channels,
+                                                cfg.num_stages, (), (), 0,
+                                                dtype)
+        elif cfg.head_type == 'multistage':
+            self.keypoint_head = MultiStageHead(
+                c, cfg.out_channels, cfg.num_stages, cfg.deconv_filters,
+                cfg.deconv_kernels, cfg.final_kernel, dtype, generator)
+        else:
+            raise ValueError(f'head_type {cfg.head_type!r}: a multi-stage '
+                             "model takes 'msmu', 'multistage' or "
+                             "'identity'")
+
+    def forward(self, imgs, generator=None, expert_idx=None, head_idx=None,
+                all_heads=False):
+        outs = [at_least_f32(o)
+                for o in self.keypoint_head(self.backbone(imgs))]
+        return outs if self.training or all_heads else outs[-1]
 
 
 def forward(model: TopDownModel, imgs, train=False, generator=None,

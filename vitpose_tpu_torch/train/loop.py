@@ -2,8 +2,8 @@
 
 Counterpart of vitpose_tpu/train/loop.py: `build_model_from_cfg`,
 `build_backbone` and `build_generic_topdown` (:84-157, :222-236: the ViT
-and the CNN top-down models of every single-stage backbone of JAX's
-registry, with the classic or the ViPNAS head),
+and the CNN top-down models of every backbone of JAX's registry but
+HRFormer, with the classic, the ViPNAS or a multi-stage head),
 `_log` (:33-45), `_pop_freeze_options` and the freezing
 of `_apply_freeze` (:67-81), `train_model` (the top-down ViT branch of
 :239-479), `train_model_moe` (:520-706, the ViTPose+ runner) and the
@@ -42,15 +42,19 @@ from ..data.loader import MultiDatasetLoader, TopDownLoader
 from ..data.pipeline import AugmentConfig, make_preprocess_fn
 from ..eval.loop import PinnedStaging, run_validation
 from ..models.bottomup import BottomUpEstimator
-from ..models.heads_extra import AEHead, AEHigherResolutionHead
-from ..models.classic_cnns import VGG, AlexNet, SEResNet
+from ..models.heads_extra import (AEHead, AEHigherResolutionHead,
+                                  AEMultiStageHead)
+from ..models.classic_cnns import CPM, VGG, AlexNet, SEResNet
 from ..models.hrnet import HRNet, HRNetConfig
+from ..models.lightweight import (Hourglass, HourglassAE, MobileNetV2,
+                                  ShuffleNetV2)
 from ..models.more_cnns import (MobileNetV3, RegNet, ResNeSt, SCNet,
                                 ShuffleNetV1, ViPNASMobileNetV3, ViPNASResNet)
+from ..models.multistage_nets import MSPN, RSN, LiteHRNet
 from ..models.resnet import ResNet, ResNetV1d
 from ..models.resnext import ResNeXt, SEResNeXt
-from ..models.topdown import (GenericTopDown, TopDownConfig, TopDownModel,
-                              make_config)
+from ..models.topdown import (GenericMultiStageTopDown, GenericTopDown,
+                              TopDownConfig, TopDownModel, make_config)
 from ..parallel.distributed import PreemptionGuard
 from ..utils.checkpoint import CheckpointManager
 from ..utils.torch_ckpt import (checkpoint_state_dict,
@@ -62,11 +66,9 @@ from .step import make_moe_train_step, make_train_step
 
 # the rest of the JAX package's backbone registry (vitpose_tpu/train/
 # loop.py:104-157), not ported yet, with the ROADMAP.md item that ports each
-_UNPORTED_BACKBONES = {
-    **dict.fromkeys(('mobilenet_v2', 'shufflenet_v2', 'litehrnet', 'cpm',
-                     'hourglass', 'hourglass_ae', 'mspn', 'rsn'), '12b'),
-    'hrformer': '12c',
-}
+_UNPORTED_BACKBONES = {'hrformer': '12c'}
+# the heads of GenericMultiStageTopDown
+MULTI_STAGE_HEADS = ('multistage', 'msmu', 'identity')
 
 
 def _refuse_unported_backbone(backbone_type: str):
@@ -78,8 +80,9 @@ def _refuse_unported_backbone(backbone_type: str):
 
 def build_backbone(backbone_type: str, generator=None, **bb_kwargs):
     """Name -> NCHW feature backbone with random weights drawn from
-    `generator`: the JAX package's BACKBONES registry but for the
-    multi-stage and lightweight backbones and HRFormer, which raise."""
+    `generator`: the JAX package's BACKBONES registry but for HRFormer,
+    which raises. The multi-stage ones return a list (per stage or stack;
+    MSPN and RSN per stage a list of units)."""
     registry = {
         'resnet': ResNet,
         'resnet_v1d': ResNetV1d,
@@ -98,6 +101,16 @@ def build_backbone(backbone_type: str, generator=None, **bb_kwargs):
         'shufflenet_v1': ShuffleNetV1,
         'vipnas_mbv3': ViPNASMobileNetV3,
         'vipnas_resnet': ViPNASResNet,
+        'mobilenet_v2': MobileNetV2,
+        'shufflenet_v2': ShuffleNetV2,
+        'litehrnet': LiteHRNet,
+        # the multi-stage backbones (GenericMultiStageTopDown, or for
+        # hourglass_ae the bottom-up AEMultiStageHead)
+        'cpm': CPM,
+        'hourglass': Hourglass,
+        'hourglass_ae': HourglassAE,
+        'mspn': MSPN,
+        'rsn': RSN,
     }
     _refuse_unported_backbone(backbone_type)
     if backbone_type not in registry:
@@ -127,10 +140,6 @@ def _model_parts(mcfg: dict):
                 cfg, backbone=dataclasses.replace(cfg.backbone, **bb_over))
         return backbone_type, {}, cfg
     _refuse_unported_backbone(backbone_type)
-    if mcfg.get('head') in ('multistage', 'msmu', 'identity'):
-        raise NotImplementedError(
-            f"the multi-stage head {mcfg['head']!r} (GenericMultiStageTopDown)"
-            ' is not ported yet (ROADMAP.md queue 1 item 12b)')
     return backbone_type, bb_over, make_config('s', img_size=hw, **mcfg)
 
 
@@ -143,10 +152,12 @@ def topdown_config(mcfg: dict) -> TopDownConfig:
 
 def build_generic_topdown(backbone_type: str, bb_kwargs: dict,
                           cfg: TopDownConfig, generator=None):
-    """A CNN top-down model: the backbone, then the classic head, both
-    drawn from `generator`."""
+    """A CNN top-down model: the backbone, then its head, both drawn from
+    `generator`; GenericMultiStageTopDown for the multi-stage heads."""
     backbone = build_backbone(backbone_type, generator, **bb_kwargs)
-    return GenericTopDown(backbone, cfg, backbone_type, generator)
+    cls = (GenericMultiStageTopDown if cfg.head_type in MULTI_STAGE_HEADS
+           else GenericTopDown)
+    return cls(backbone, cfg, backbone_type, generator)
 
 
 def build_family_model(family: str, mcfg: dict, generator=None):
@@ -154,9 +165,9 @@ def build_family_model(family: str, mcfg: dict, generator=None):
     vitpose_tpu/train/loop.py:160-219 `build_family_model`), of which the
     bottom-up one is ported: the backbone of `backbone_type` (default
     'hrnet'), the AE head ('ae': AEHead, 'ae_higher':
-    AEHigherResolutionHead; 'ae_multi', Hourglass-AE's, is not ported), the
-    dataset's metadata and the parser options, weights drawn from
-    `generator`."""
+    AEHigherResolutionHead, 'ae_multi': Hourglass-AE's AEMultiStageHead,
+    whose config sets its out_channels), the dataset's metadata and the
+    parser options, weights drawn from `generator`."""
     if family != 'bottomup':
         raise NotImplementedError(
             f'model family {family!r} is not ported yet (ROADMAP.md queue 1 '
@@ -169,17 +180,18 @@ def build_family_model(family: str, mcfg: dict, generator=None):
             'a config (its registry has no vit); build BottomUpEstimator '
             'from a ViTConfig')
     head_kind = mcfg.pop('head', 'ae')
-    if head_kind == 'ae_multi':
-        raise NotImplementedError(
-            "head 'ae_multi' (AEMultiStageHead, with the hourglass_ae "
-            'backbone) is not ported yet (ROADMAP.md queue 1 item 12b)')
     bb = build_backbone(backbone_type, generator,
                         **(mcfg.pop('backbone_overrides', None) or {}))
     num_joints = mcfg.pop('num_joints', 17)
     head_kw = dict(mcfg.pop('head_overrides', None) or {})
-    head_cls = AEHigherResolutionHead if head_kind == 'ae_higher' else AEHead
-    head = head_cls(bb.out_channels, num_joints, generator=generator,
-                    **head_kw)
+    if head_kind == 'ae_multi':
+        head = AEMultiStageHead(bb.out_channels, generator=generator,
+                                **head_kw)
+    else:
+        head_cls = (AEHigherResolutionHead if head_kind == 'ae_higher'
+                    else AEHead)
+        head = head_cls(bb.out_channels, num_joints, generator=generator,
+                        **head_kw)
     info = DatasetInfo.load(mcfg.pop('dataset_info', 'coco'))
     return BottomUpEstimator(bb, num_joints=num_joints, head=head,
                              dataset_info=info,
@@ -189,9 +201,10 @@ def build_family_model(family: str, mcfg: dict, generator=None):
 
 def build_model_from_cfg(mcfg: dict, generator=None):
     """A config file's `model` dict -> TopDownModel (ViT), GenericTopDown
-    (CNN) or, for family 'bottomup', BottomUpEstimator, with random
-    weights, drawn on the CPU from `generator` (default: a torch.Generator
-    seeded with 0, as in `init_pose_model`)."""
+    or GenericMultiStageTopDown (CNN) or, for family 'bottomup',
+    BottomUpEstimator, with random weights, drawn on the CPU from
+    `generator` (default: a torch.Generator seeded with 0, as in
+    `init_pose_model`)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     family = mcfg.get('family', 'topdown')

@@ -27,7 +27,16 @@ class TrainState:
         every gradient of the model before clipping, frozen parameters'
         too (JAX logs optax.global_norm of all grads), as a 0-dim tensor on
         the parameters' device. The clip's own norm covers the optimizer's
-        parameters only, as the clip inside JAX's freeze_tx does."""
+        parameters only, as the clip inside JAX's freeze_tx does.
+
+        A parameter that the loss does not reach (Lite-HRNet's last fusion
+        of its lower branches) gets a zero gradient: JAX differentiates
+        every leaf, and optax steps it (the moments, AdamW's decay) where
+        torch's optimizers skip a parameter without a gradient."""
+        for group in self.optimizer.param_groups:
+            for p in group['params']:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         grads = [p.grad for group in self.optimizer.param_groups
                  for p in group['params'] if p.grad is not None]
         every = [p.grad for p in self.model.parameters()

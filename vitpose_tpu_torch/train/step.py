@@ -3,7 +3,8 @@
 :140-176 `make_moe_train_step`, the ViTPose+ multi-dataset step).
 
 One step: forward in training mode (BN batch statistics, DropPath from the
-caller's generator), joints MSE, backward (through K3: the K2 kernel on
+caller's generator), joints MSE (a multi-stage model's summed over its
+stages' maps, :41-46 and :75-83), backward (through K3: the K2 kernel on
 CUDA), the global-norm clip and layer-decay AdamW. The metrics stay on the
 device as 0-dim tensors, and nothing in the step reads back to the host; PCK
 is computed on the device as in the JAX step.
@@ -12,9 +13,18 @@ from __future__ import annotations
 
 import torch
 
+from ..models.bottomup import resize_bilinear
 from ..models.losses import joints_mse_loss
 from ..models.topdown import forward
 from ..ops.decode import pose_pck_accuracy
+
+
+def match_target(target, out):
+    """The NCHW `target` resized to `out`'s map size where they differ
+    (jax.image.resize's 'bilinear': `bottomup.resize_bilinear`)."""
+    if target.shape[2:] == out.shape[2:]:
+        return target
+    return resize_bilinear(target, out.shape[2:])
 
 
 def make_train_step(model, target_type='GaussianHeatmap',
@@ -39,7 +49,15 @@ def make_train_step(model, target_type='GaussianHeatmap',
     def train_step(state, batch, generator):
         out = forward(state.model, batch['imgs'], train=True,
                       generator=generator)
-        loss = joints_mse_loss(out, batch['target'], batch['target_weight'])
+        if isinstance(out, list):
+            # a multi-stage model: the sum of every stage's (or unit's) loss
+            # against the target resized to its map; PCK on the last
+            loss = sum(joints_mse_loss(o, match_target(batch['target'], o),
+                                       batch['target_weight']) for o in out)
+            out = out[-1]
+        else:
+            loss = joints_mse_loss(out, batch['target'],
+                                   batch['target_weight'])
         # the model's, not the optimizer's: frozen parameters take
         # gradients too (they count in grad_norm)
         state.model.zero_grad(set_to_none=True)

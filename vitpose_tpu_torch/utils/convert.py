@@ -20,13 +20,22 @@ converters that `convert_generic_topdown_checkpoint` runs
 vitpose_tpu/models/resnet.py:159 `convert_resnet_checkpoint`, the
 `resnet_v1d` one) and of `convert_head` with its extra convs and
 `convert_vipnas_head` (:685, the grouped deconvs' flax ConvTransposes
-stacked along `in`), for GenericTopDown's mmpose names. The JAX package
+stacked along `in`), for GenericTopDown's mmpose names; and, for the
+multi-stage and lightweight backbones (MULTI_STAGE_BACKBONES), of
+`convert_mspn` :241 (also RSN's), `convert_litehrnet` :401,
+`convert_hourglass` :524, `convert_hourglass_ae` :560,
+`convert_mobilenet_v2` :603, `convert_shufflenet_v2` :627, `convert_cpm`
+:655, `convert_multistage_head` :719 and `convert_msmu_head` :755 (its
+num_units read off the flax tree), each run backwards by `_Writer`: the
+same pairs of an mmpose entry and a flax module path, the flax tree
+deciding what exists. The JAX package
 has no converter for the FLAX_NAMED_BACKBONES: the port names their
 modules after the flax paths (`_CNN_MODULES`), one entry per flax leaf,
 Dense kernels as nn.Linear weights.
 `bottomup_state_dict_from_flax` does the same for JAX's BottomUpEstimator
-variables: the ViT or CNN backbone and both AE heads (the inverse of
-vitpose_tpu/utils/family_ckpt.py:102 `convert_bottomup_checkpoint`).
+variables: the ViT or CNN backbone and the AE heads (the inverse of
+vitpose_tpu/utils/family_ckpt.py:102 `convert_bottomup_checkpoint`, with
+`_convert_ae_multi_head` :78).
 `load_params_npz` reads the flat 'a/b/c' .npz files that the JAX package's
 `save_params_npz` writes (vitpose_tpu/utils/checkpoint.py:160-186).
 """
@@ -41,9 +50,13 @@ import torch
 # converter from mmpose's: a reference mmpose .pth of them does not load
 FLAX_NAMED_BACKBONES = ('resnest', 'vgg', 'alexnet', 'shufflenet_v1',
                         'regnet', 'mobilenet_v3')
+# the backbones that `_Writer` converts, by JAX's converters run backwards
+MULTI_STAGE_BACKBONES = ('mspn', 'rsn', 'litehrnet', 'hourglass',
+                         'hourglass_ae', 'mobilenet_v2', 'shufflenet_v2',
+                         'cpm')
 CNN_BACKBONES = ('resnet', 'resnet_v1d', 'hrnet', 'hrnetv2', 'resnext',
                  'seresnet', 'seresnext', 'scnet', 'vipnas_resnet',
-                 'vipnas_mbv3') + FLAX_NAMED_BACKBONES
+                 'vipnas_mbv3') + FLAX_NAMED_BACKBONES + MULTI_STAGE_BACKBONES
 
 
 def load_params_npz(path):
@@ -251,15 +264,22 @@ def _cnn_module_name(path, backbone_type, layer_of=None):
 
 
 def cnn_state_dict_from_flax(variables, backbone_type) -> dict:
-    """flax GenericTopDown variables of a `backbone_type` CNN (one of
-    CNN_BACKBONES) with the classic or the ViPNAS head -> {port name: f32
-    CPU tensor}, BN statistics included where the variables hold them."""
+    """flax GenericTopDown or GenericMultiStageTopDown variables of a
+    `backbone_type` CNN (one of CNN_BACKBONES) with its head -> {port name:
+    f32 CPU tensor}, BN statistics included where the variables hold
+    them."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
     sd = _cnn_backbone(params['backbone'], stats.get('backbone', {}),
                        backbone_type)
-    sd.update({f'keypoint_head.{k}': v for k, v in
-               _head(params.get('head', {}), stats.get('head', {})).items()})
+    head, head_stats = params.get('head', {}), stats.get('head', {})
+    if backbone_type in _MULTI_STAGE_HEADS:
+        w = _Writer(head, head_stats, 'keypoint_head.')
+        _MULTI_STAGE_HEADS[backbone_type](w)
+        sd.update(w.sd)
+    else:
+        sd.update({f'keypoint_head.{k}': v
+                   for k, v in _head(head, head_stats).items()})
     return sd
 
 
@@ -269,6 +289,10 @@ def _cnn_backbone(params, stats, backbone_type):
     if backbone_type not in CNN_BACKBONES:
         raise KeyError(f'backbone_type {backbone_type!r}: the port converts '
                        f'{CNN_BACKBONES}')
+    if backbone_type in MULTI_STAGE_BACKBONES:
+        w = _Writer(params, stats, 'backbone.')
+        _WRITERS[backbone_type](w)
+        return w.sd
     layer_of = None
     if backbone_type == 'vipnas_mbv3':
         blocks = {(int(m.group(1)), int(m.group(2))) for m in
@@ -340,9 +364,11 @@ def bottomup_state_dict_from_flax(variables, backbone_type) -> dict:
     'batch_stats'}, 'head': {...}}, as JAX's `init` and its bottom-up
     runner's .npz hold them) -> {mmpose name: f32 CPU tensor}: the backbone
     through the ViT (`backbone_type` 'vit') or the CNN naming, the head as
-    AEHead (flax `deconv_head`, the classic head's names) or
-    AEHigherResolutionHead."""
-    bb, head = variables['backbone'], variables['head']
+    AEMultiStageHead, AEHead (flax `deconv_head`, the classic head's names)
+    or AEHigherResolutionHead."""
+    # a parameterless head (Hourglass-AE's in the zoo) leaves no 'head' in
+    # an .npz
+    bb, head = variables['backbone'], variables.get('head', {})
     if backbone_type == 'vit':
         sd = {f'backbone.{k}': v
               for k, v in _backbone(bb['params']).items()}
@@ -350,10 +376,362 @@ def bottomup_state_dict_from_flax(variables, backbone_type) -> dict:
         sd = _cnn_backbone(bb.get('params', {}), bb.get('batch_stats', {}),
                            backbone_type)
     hp, hs = head.get('params', {}), head.get('batch_stats', {})
-    if 'deconv_head' in hp:
+    if all(re.fullmatch(r's\d+_(deconv_\d+|bn_\d+|final)', k) for k in hp):
+        # AEMultiStageHead: none at all in the zoo's config
+        w = _Writer(hp, hs, 'keypoint_head.')
+        _multistage_head(w, 's{s}_')
+        sd.update(w.sd)
+    elif 'deconv_head' in hp:
         sd.update({f'keypoint_head.{k}': v for k, v in
                    _head(hp['deconv_head'], hs.get('deconv_head', {}))
                    .items()})
     else:
         sd.update(_ae_higher_head(hp, hs))
     return sd
+
+
+# --- the multi-stage and lightweight CNNs: JAX's converters run backwards ---
+
+class _Writer:
+    """Writes the port's state dict under `prefix` from flax params and
+    batch_stats trees, one call per pair of an mmpose entry and a flax
+    module path ('a/b/c') of a JAX converter (`Cv` in
+    vitpose_tpu/utils/cnn_ckpt.py:17); a call whose flax module does not
+    exist writes nothing and returns False."""
+
+    def __init__(self, params, stats, prefix):
+        self.params, self.stats, self.prefix = params, stats, prefix
+        self.sd = {}
+
+    @staticmethod
+    def _node(tree, fpath):
+        for part in fpath.split('/'):
+            if not isinstance(tree, dict) or part not in tree:
+                return None
+            tree = tree[part]
+        return tree
+
+    def has(self, fpath):
+        return self._node(self.params, fpath) is not None
+
+    def conv(self, tname, fpath):
+        """A conv (or transposed conv) kernel and its bias, if any."""
+        p = self._node(self.params, fpath)
+        if p is None:
+            return False
+        self.sd.update(_leaf(f'{self.prefix}{tname}.weight', 'kernel',
+                             p['kernel']))
+        if 'bias' in p:
+            self.sd[f'{self.prefix}{tname}.bias'] = _t(p['bias'])
+        return True
+
+    def linear(self, tname, fpath, conv=False):
+        """A Dense layer as nn.Linear's [out, in], or with `conv` as a 1x1
+        conv's [out, in, 1, 1] (JAX's `Cv.linear` reads either)."""
+        p = self._node(self.params, fpath)
+        if p is None:
+            return False
+        w = np.asarray(p['kernel']).T
+        self.sd[f'{self.prefix}{tname}.weight'] = _t(
+            w[:, :, None, None] if conv else w)
+        if 'bias' in p:
+            self.sd[f'{self.prefix}{tname}.bias'] = _t(p['bias'])
+        return True
+
+    def bn(self, tname, fpath):
+        p = self._node(self.params, fpath)
+        if p is None:
+            return False
+        name = f'{self.prefix}{tname}.'
+        self.sd[name + 'weight'] = _t(p['scale'])
+        self.sd[name + 'bias'] = _t(p['bias'])
+        s = self._node(self.stats, fpath)
+        if s is not None:
+            self.sd.update(_leaf(name + 'running_mean', 'mean', s['mean']))
+            self.sd[name + 'running_var'] = _t(s['var'])
+        return True
+
+    def conv_module(self, tname, fpath):
+        """mmcv's ConvModule: `{t}.conv` + `{t}.bn` <- `{f}_conv`,
+        `{f}_bn`."""
+        ok = self.conv(f'{tname}.conv', f'{fpath}_conv')
+        self.bn(f'{tname}.bn', f'{fpath}_bn')
+        return ok
+
+    def resnet_block(self, tname, fpath):
+        """A BasicBlock or Bottleneck: conv1..3, bn1..3 and `downsample.0`,
+        `.1` <- ds_conv, ds_bn (cnn_ckpt.py:111 `_resnet_block`)."""
+        for i in (1, 2, 3):
+            self.conv(f'{tname}.conv{i}', f'{fpath}/conv{i}')
+            self.bn(f'{tname}.bn{i}', f'{fpath}/bn{i}')
+        self.conv(f'{tname}.downsample.0', f'{fpath}/ds_conv')
+        self.bn(f'{tname}.downsample.1', f'{fpath}/ds_bn')
+
+    def res_layer(self, tname, fpath):
+        k = 0
+        while self.has(f'{fpath}_{k}'):
+            self.resnet_block(f'{tname}.{k}', f'{fpath}_{k}')
+            k += 1
+
+
+def _mspn(w, stage_key):
+    """convert_mspn (cnn_ckpt.py:241) backwards; `stage_key`
+    'multi_stage_mspn' or 'multi_stage_rsn'."""
+    w.conv_module('top.top.0', 'top')
+    st = 0
+    while w.has(f'stage{st}'):
+        t0, f0 = f'{stage_key}.{st}', f'stage{st}'
+        u = 1
+        while w.has(f'{f0}/downsample/layer{u}_0'):
+            b = 0
+            while w.has(f'{f0}/downsample/layer{u}_{b}'):
+                t = f'{t0}.downsample.layer{u}.{b}'
+                f = f'{f0}/downsample/layer{u}_{b}'
+                if w.has(f'{f}/conv1'):                 # MSPN's bottleneck
+                    for i in (1, 2, 3):
+                        w.conv(f'{t}.conv{i}', f'{f}/conv{i}')
+                        w.bn(f'{t}.bn{i}', f'{f}/bn{i}')
+                    w.conv(f'{t}.downsample.conv', f'{f}/ds_conv')
+                    w.bn(f'{t}.downsample.bn', f'{f}/ds_bn')
+                else:                                   # RSN's RSB
+                    w.conv_module(f'{t}.conv_bn_relu1', f'{f}/conv_bn_relu1')
+                    i = 1
+                    while w.has(f'{f}/conv_bn_relu2_{i}_1_conv'):
+                        for j in range(1, i + 1):
+                            w.conv_module(f'{t}.conv_bn_relu2_{i}_{j}',
+                                          f'{f}/conv_bn_relu2_{i}_{j}')
+                        i += 1
+                    w.conv_module(f'{t}.conv_bn3', f'{f}/conv_bn3')
+                    w.conv_module(f'{t}.downsample', f'{f}/downsample')
+                b += 1
+            u += 1
+        u = 1
+        while w.has(f'{f0}/up{u}/in_skip_conv'):
+            for part in ('in_skip', 'up_conv', 'out_skip1', 'out_skip2',
+                         'cross_conv'):
+                w.conv_module(f'{t0}.upsample.up{u}.{part}',
+                              f'{f0}/up{u}/{part}')
+            u += 1
+        st += 1
+
+
+def _litehrnet(w):
+    """convert_litehrnet (cnn_ckpt.py:401) backwards."""
+    w.conv('stem.conv1.conv', 'stem/conv1')
+    w.bn('stem.conv1.bn', 'stem/conv1_bn')
+    w.conv('stem.branch1.0.conv', 'stem/b1_dw')
+    w.bn('stem.branch1.0.bn', 'stem/b1_dw_bn')
+    w.conv('stem.branch1.1.conv', 'stem/b1_pw')
+    w.bn('stem.branch1.1.bn', 'stem/b1_pw_bn')
+    for t, f in (('expand_conv', 'expand'), ('depthwise_conv', 'dw'),
+                 ('linear_conv', 'linear')):
+        w.conv(f'stem.{t}.conv', f'stem/{f}')
+        w.bn(f'stem.{t}.bn', f'stem/{f}_bn')
+    si = 0
+    while w.has(f'stage{si}_m0_fuse') or w.has(f'stage{si}_m0_blk0'):
+        for b in range(8):
+            t = f'transition{si}.{b}'
+            if w.conv(f'{t}.0', f'tr{si}_{b}_dw'):      # an existing branch
+                w.bn(f'{t}.1', f'tr{si}_{b}_dwbn')
+                w.conv(f'{t}.2', f'tr{si}_{b}_pw')
+                w.bn(f'{t}.3', f'tr{si}_{b}_pwbn')
+            k = 0
+            while w.conv(f'{t}.{k}.0', f'tr{si}_{b}_c{k}_dw'):   # new ones
+                w.bn(f'{t}.{k}.1', f'tr{si}_{b}_c{k}_dwbn')
+                w.conv(f'{t}.{k}.2', f'tr{si}_{b}_c{k}_pw')
+                w.bn(f'{t}.{k}.3', f'tr{si}_{b}_c{k}_pwbn')
+                k += 1
+        m = 0
+        while w.has(f'stage{si}_m{m}_blk0') or w.has(f'stage{si}_m{m}_fuse'):
+            k = 0
+            while w.has(f'stage{si}_m{m}_blk{k}'):
+                t, f = f'stage{si}.{m}.layers.{k}', f'stage{si}_m{m}_blk{k}'
+                crw = f'{t}.cross_resolution_weighting'
+                for c in ('conv1', 'conv2'):
+                    w.conv(f'{crw}.{c}.conv', f'{f}/crw/{c}')
+                    w.bn(f'{crw}.{c}.bn', f'{f}/crw/{c}_bn')
+                b = 0
+                while w.conv(f'{t}.depthwise_convs.{b}.conv', f'{f}/dw{b}'):
+                    w.bn(f'{t}.depthwise_convs.{b}.bn', f'{f}/dw{b}_bn')
+                    for c in ('conv1', 'conv2'):
+                        w.linear(f'{t}.spatial_weighting.{b}.{c}.conv',
+                                 f'{f}/sw{b}/fc{c[-1]}', conv=True)
+                    b += 1
+                k += 1
+            f0 = f'stage{si}_m{m}_fuse'
+            for i in range(8):
+                for j in range(8):
+                    tf = f'stage{si}.{m}.fuse_layers.{i}.{j}'
+                    if j > i:
+                        w.conv(f'{tf}.0', f'{f0}/fuse{i}_{j}_conv')
+                        w.bn(f'{tf}.1', f'{f0}/fuse{i}_{j}_bn')
+                    elif j < i:
+                        for d in range(i - j):
+                            w.conv(f'{tf}.{d}.0', f'{f0}/fuse{i}_{j}_d{d}_dw')
+                            w.bn(f'{tf}.{d}.1', f'{f0}/fuse{i}_{j}_d{d}_dwbn')
+                            w.conv(f'{tf}.{d}.2', f'{f0}/fuse{i}_{j}_d{d}_pw')
+                            w.bn(f'{tf}.{d}.3', f'{f0}/fuse{i}_{j}_d{d}_pwbn')
+            m += 1
+        si += 1
+
+
+def _hourglass_module(w, tname, fname):
+    w.res_layer(f'{tname}.up1', f'{fname}/up1')
+    w.res_layer(f'{tname}.low1', f'{fname}/low1')
+    if w.has(f'{fname}/low2/up1_0'):
+        _hourglass_module(w, f'{tname}.low2', f'{fname}/low2')
+    else:
+        w.res_layer(f'{tname}.low2', f'{fname}/low2')
+    w.res_layer(f'{tname}.low3', f'{fname}/low3')
+
+
+def _hourglass(w):
+    """convert_hourglass (cnn_ckpt.py:524) backwards."""
+    w.conv_module('stem.0', 'stem')
+    w.res_layer('stem.1', 'stem_res')
+    i = 0
+    while w.has(f'hg{i}'):
+        _hourglass_module(w, f'hourglass_modules.{i}', f'hg{i}')
+        w.conv_module(f'out_convs.{i}', f'out_conv{i}')
+        w.conv_module(f'conv1x1s.{i}', f'conv1x1_{i}')
+        w.conv_module(f'remap_convs.{i}', f'remap{i}')
+        if w.has(f'inters_{i}_0'):
+            w.resnet_block(f'inters.{i}', f'inters_{i}_0')
+        i += 1
+
+
+def _hourglass_ae_module(w, tname, fname):
+    for part in ('up1', 'low1'):
+        w.conv_module(f'{tname}.{part}', f'{fname}/{part}')
+    if w.has(f'{fname}/low2/up1_conv'):
+        _hourglass_ae_module(w, f'{tname}.low2', f'{fname}/low2')
+    else:
+        w.conv_module(f'{tname}.low2', f'{fname}/low2')
+    w.conv_module(f'{tname}.low3', f'{fname}/low3')
+
+
+def _hourglass_ae(w):
+    """convert_hourglass_ae (cnn_ckpt.py:560) backwards."""
+    for i, t in enumerate((0, 1, 3, 4)):         # stem.2 is the max pool
+        w.conv_module(f'stem.{t}', f'stem{i}')
+    i = 0
+    while w.has(f'hg{i}'):
+        _hourglass_ae_module(w, f'hourglass_modules.{i}.0', f'hg{i}')
+        w.conv_module(f'hourglass_modules.{i}.1', f'hgc{i}_0')
+        w.conv_module(f'hourglass_modules.{i}.2', f'hgc{i}_1')
+        w.conv(f'out_convs.{i}.conv', f'out_conv{i}_conv')
+        w.conv_module(f'remap_out_convs.{i}', f'remap_out{i}')
+        w.conv_module(f'remap_feature_convs.{i}', f'remap_feat{i}')
+        i += 1
+
+
+def _mobilenet_v2(w):
+    """convert_mobilenet_v2 (cnn_ckpt.py:603) backwards."""
+    w.conv('conv1.conv', 'stem')
+    w.bn('conv1.bn', 'stem_bn')
+    for li in range(1, 8):
+        bi = 0
+        while w.has(f'layer{li - 1}_{bi}'):
+            f = f'layer{li - 1}_{bi}'
+            names = (['expand', 'dw', 'project'] if w.has(f'{f}/expand')
+                     else ['dw', 'project'])
+            for k, nm in enumerate(names):
+                w.conv(f'layer{li}.{bi}.conv.{k}.conv', f'{f}/{nm}')
+                w.bn(f'layer{li}.{bi}.conv.{k}.bn', f'{f}/{nm}_bn')
+            bi += 1
+    w.conv('conv2.conv', 'head_conv')
+    w.bn('conv2.bn', 'head_bn')
+
+
+def _shufflenet_v2(w):
+    """convert_shufflenet_v2 (cnn_ckpt.py:627) backwards."""
+    w.conv('conv1.conv', 'stem')
+    w.bn('conv1.bn', 'stem_bn')
+    for s in range(3):
+        b = 0
+        while w.has(f'stage{s}_{b}'):
+            t, f = f'layers.{s}.{b}', f'stage{s}_{b}'
+            for tn, fconv, fbn in (('branch1.0', 'proj_dw', 'proj_dwbn'),
+                                   ('branch1.1', 'proj_pw', 'proj_bn'),
+                                   ('branch2.0', 'main_pw1', 'main_bn1'),
+                                   ('branch2.1', 'main_dw', 'main_dwbn'),
+                                   ('branch2.2', 'main_pw2', 'main_bn2')):
+                w.conv(f'{t}.{tn}.conv', f'{f}/{fconv}')
+                w.bn(f'{t}.{tn}.bn', f'{f}/{fbn}')
+            b += 1
+    w.conv('layers.3.conv', 'head_conv')
+    w.bn('layers.3.bn', 'head_bn')
+
+
+def _cpm(w):
+    """convert_cpm (cnn_ckpt.py:655) backwards."""
+    for ti, f in ((0, 'stem0'), (2, 'stem1'), (4, 'stem2'), (6, 'stem3'),
+                  (7, 'stem4'), (8, 'stem5')):
+        w.conv_module(f'stem.{ti}', f)
+    w.conv('stem.9.conv', 'stem6_conv')
+    for ti, f in ((0, 'mid0'), (2, 'mid1'), (4, 'mid2')):
+        w.conv_module(f'middle.{ti}', f)
+    t = 0
+    while w.has(f'stage{t}_b0_conv'):
+        w.conv_module(f'middle_conv.{t}.0', f'midconv{t}')
+        for i in range(3):
+            w.conv_module(f'cpm_stages.{t}.model.{i}', f'stage{t}_b{i}')
+        w.conv_module(f'out_convs.{t}.0', f'stage{t}_fc')
+        w.conv(f'out_convs.{t}.1.conv', f'stage{t}_out_conv')
+        t += 1
+
+
+def _multistage_head(w, stage='stage_{s}/'):
+    """convert_multistage_head (cnn_ckpt.py:719) backwards, or with
+    `stage` 's{s}_' `_convert_ae_multi_head` (family_ckpt.py:78)."""
+    s = 0
+    while any(k.startswith(stage.format(s=s).rstrip('/')) for k in w.params):
+        p = stage.format(s=s)
+        d = 0
+        while w.conv(f'multi_deconv_layers.{s}.{3 * d}', f'{p}deconv_{d}'):
+            w.bn(f'multi_deconv_layers.{s}.{3 * d + 1}', f'{p}bn_{d}')
+            d += 1
+        w.conv(f'multi_final_layers.{s}', f'{p}final')
+        s += 1
+
+
+def _msmu_head(w):
+    """convert_msmu_head (cnn_ckpt.py:755) backwards: entry
+    predict_layers.{s * num_units + u} of flax's `s{s}_u{u}_*`."""
+    units = 1 + max(int(re.match(r's0_u(\d+)_', k).group(1))
+                    for k in w.params if k.startswith('s0_u'))
+    s = 0
+    while w.has(f's{s}_u0_conv1'):
+        for u in range(units):
+            nm, t = f's{s}_u{u}', f'predict_layers.{s * units + u}'
+            for ci in (1, 2):
+                w.conv(f'{t}.conv_layers.{ci - 1}.conv', f'{nm}_conv{ci}')
+                w.bn(f'{t}.conv_layers.{ci - 1}.bn', f'{nm}_bn{ci}')
+            prm, pn = f'{t}.prm', f'{nm}_prm'
+            if not w.has(pn):
+                continue
+            w.conv(f'{prm}.conv_bn_relu_prm_1.conv', f'{pn}/prm1_conv')
+            w.bn(f'{prm}.conv_bn_relu_prm_1.bn', f'{pn}/prm1_bn')
+            for i, (fc, bn) in enumerate((('mid_fc1', 'mid_bn1'),
+                                          ('mid_fc2', 'mid_bn2'))):
+                w.linear(f'{prm}.middle_path.{3 * i}', f'{pn}/{fc}')
+                w.bn(f'{prm}.middle_path.{3 * i + 1}', f'{pn}/{bn}')
+            for tn, f in (('bottom_path.0', 'bot'),
+                          ('bottom_path.1.depthwise_conv', 'bot_dw'),
+                          ('bottom_path.1.pointwise_conv', 'bot_pw')):
+                w.conv(f'{prm}.{tn}.conv', f'{pn}/{f}_conv')
+                w.bn(f'{prm}.{tn}.bn', f'{pn}/{f}_bn')
+        s += 1
+
+
+_WRITERS = {
+    'mspn': lambda w: _mspn(w, 'multi_stage_mspn'),
+    'rsn': lambda w: _mspn(w, 'multi_stage_rsn'),
+    'litehrnet': _litehrnet, 'hourglass': _hourglass,
+    'hourglass_ae': _hourglass_ae, 'mobilenet_v2': _mobilenet_v2,
+    'shufflenet_v2': _shufflenet_v2, 'cpm': _cpm,
+}
+# the backbones whose top-down head is not the classic one (JAX's
+# HEAD_CONVERTERS, cnn_ckpt.py:865): CPM's identity head has no entries
+_MULTI_STAGE_HEADS = {'hourglass': _multistage_head, 'mspn': _msmu_head,
+                      'rsn': _msmu_head, 'cpm': lambda w: None}
