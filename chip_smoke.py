@@ -65,7 +65,7 @@ no result:
             ms per call of the exported program beside eager at batch 8 and
             256 (exported in-process), in turns
   demos     the 8 top-down demos (vitpose_tpu_torch.demo.*) on the card, on
-            a seeded 480x640 image with 3 boxes and a 16-frame MJPG video
+            a seeded 480x640 image with 3 boxes and an 8-frame MJPG video
             of it: the six that take --variant get the COCO-B config and the
             shaped .pth (24 K1 launches per frame), the face demos their f32
             ViT-S default with shaped 68-joint weights (0 K1); every output
@@ -74,8 +74,8 @@ no result:
             export and webcam)
   webcam    the examples/pose_estimation.py runner dict as
             tools/run_webcam.py loads it, its pose node on the COCO-B config
-            and the shaped .pth, a 48-frame video as the camera, headless,
-            max_frames 32: threaded (the config's synchronous=False; K1 on
+            and the shaped .pth, a 24-frame video as the camera, headless,
+            max_frames 16: threaded (the config's synchronous=False; K1 on
             the pose node's own thread) and synchronous; no node thread
             raises; frames shown and inferred (at least half the frames
             shown threaded, all of them synchronous), 24 K1 launches per
@@ -85,9 +85,9 @@ no result:
   eval      the evaluation CLI (vitpose_tpu_torch.tools.test) on the COCO-B
             config file (ViTPose-B 256x192 bf16, K1, flip test, UDP, batch
             64, canvas 640), pointed by --cfg-options at a synthetic COCO val
-            set written to a temporary directory (248 JPEGs, 8 of them
-            larger than the canvas; 992 detection boxes, so 16 batches with
-            a ragged last one; GT joints at each box's peak plus seeded
+            set written to a temporary directory (62 JPEGs, 8 of them
+            larger than the canvas; 248 detection boxes, so 3 full batches
+            and a short one of 56; GT joints at each box's peak plus seeded
             jitter) and at the shaped weights saved as a .pth: exactly 24 K1
             launches per batch, all whole-pair, and no K2; the ten COCO
             stats, AP in (0, 1); then the same run timed: every val-step
@@ -122,8 +122,8 @@ no result:
   train-loop the training CLI (vitpose_tpu_torch.tools.train) on the COCO-B
             config file at full width (ViTPose-B 256x192 bf16, K1 + K2,
             drop_path 0.3, batch 64, UDP targets), pointed by --cfg-options
-            at a synthetic COCO train set (1050 persons: 16 steps per epoch)
-            and val set (256 boxes: 4 batches), starting from the shaped
+            at a synthetic COCO train set (266 persons: 4 steps per epoch)
+            and val set (128 boxes: 2 batches), starting from the shaped
             weights (load_from), 2 epochs with an evaluation and a
             checkpoint after each, logging every step: exactly 12 K1 + 12
             K2 launches per step and 24 K1 per val batch, all whole-pair;
@@ -146,7 +146,7 @@ no result:
             part_dim 192, 6 heads of 17/14/16/17/17/133 channels, bf16, UDP,
             batch 128, K1 + K2 turned on by --cfg-options) over six seeded
             synthetic train sets in their own formats (COCO, AIC, MPII,
-            AP-10K, APT-36K, COCO-WholeBody; 2 batches each, 12 steps in one
+            AP-10K, APT-36K, COCO-WholeBody; 1 batch each, 6 steps in one
             epoch) and a COCO val set, `pretrained` the shaped dense ViT-B
             backbone: every expert's features first equal the dense
             backbone's; exactly 12 K1 + 12 K2 launches per step and 24 K1
@@ -170,20 +170,21 @@ no result:
             keypoints finite and inside their boxes), then the 256-crop
             flip-tested batch timed, the card's busy time, conv MACs and
             BN'd elements per crop from the shapes; 0 K1 and K2 launches
-  cnn-ref   both at full width on 4 boxes, CUDA against the CPU: f32 (TF32
+  cnn-ref   both at full width on 2 boxes, CUDA against the CPU: f32 (TF32
             off) heatmaps within CNN_HM_RTOL of their largest value and
             decisive keypoints within KP_TOL_PX; HRNet-W32 in bf16 as close
             to the f32 answer as the bf16 CPU path (BF16_FACTOR), every
             joint decoded at a cell within twice that error of the f32
             maximum
   cnn-eval  the evaluation CLI on the HRNet-W32 config over a synthetic
-            COCO val set of 256 boxes: 0 K1/K2, the stats, --int8 raises,
+            COCO val set of 128 boxes: 0 K1/K2, the stats, --int8 raises,
             boxes/s, the host's share and the card's idle share
-  cnn-train the training CLI on the ResNet-50 config, one epoch of 4 steps
+  cnn-train the training CLI on the ResNet-50 config, one epoch of 2 steps
             at batch 64 (step time, img/s, data_time share, peak memory,
             the epoch checkpoint), then --resume for a second epoch; the
             HRNet-W32 and ResNet-50 steps at batch 64 with a profiled step
-            each; cnn-train-ref: two ResNet-50 steps at batch 2, f32 on
+            each; cnn-train-ref: two ResNet-50 steps at batch 2 of the
+            config's 192x256 crops, f32 on
             CUDA and on the CPU against float64 on the CPU: CUDA's
             distance within CNN_REF_FACTOR times the CPU's
   cnn-apps  tools/serve.py on the HRNet-W32 config (1-box requests equal
@@ -197,16 +198,16 @@ no result:
             vipnas_res50, vipnas_mbv3}_coco_256x192.py) as cnn-serve runs
             them, after count_ops is held to a hand count of a grouped
             conv and a grouped transposed conv
-  cnn-more-ref  all ten in f32 (TF32 off), CUDA against the CPU on 4
+  cnn-more-ref  all ten in f32 (TF32 off), CUDA against the CPU on 2
             boxes, as cnn-ref; ResNeSt-50 and ViPNAS-MobileNetV3 also in
             bf16 under its BF16_FACTOR rule
-  cnn-more-train  the training CLI on vipnas_res50 (one epoch of 4 steps at
+  cnn-more-train  the training CLI on vipnas_res50 (one epoch of 2 steps at
             batch 64, then --resume for a second epoch), the other nine's
             steps at batch 64, and two ViPNAS-ResNet-50 steps at batch 2,
             full width and depth, f32 CUDA and CPU against f64 (grouped
             convs, context blocks, the grouped deconv head) under
             cnn-train-ref's rule
-  cnn-more-eval  the evaluation CLI on vipnas_mbv3 over 256 synthetic
+  cnn-more-eval  the evaluation CLI on vipnas_mbv3 over 128 synthetic
             boxes, as cnn-eval
 
   cnn-ms-serve  the multi-stage and lightweight CNNs of ROADMAP item 12b:
@@ -214,14 +215,14 @@ no result:
             (coco/{mspn50, 3xrsn50, litehrnet_18 (f32), cpm, mobilenetv2,
             shufflenetv2}_coco_256x192.py, coco/hourglass52_coco_256x256.py)
             as cnn-serve runs them
-  cnn-ms-ref  all seven in f32 (TF32 off), CUDA against the CPU on 4
+  cnn-ms-ref  all seven in f32 (TF32 off), CUDA against the CPU on 2
             boxes, as cnn-ref
-  cnn-ms-train  the training CLI on 3xrsn50 (one epoch of 4 steps at batch
+  cnn-ms-train  the training CLI on 3xrsn50 (one epoch of 2 steps at batch
             64, then --resume: multi-stage supervision across three
             stages' skips), every one's step at batch 64, and two steps of
             MSPN-50 and of Lite-HRNet-18 at batch 2 under cnn-train-ref's
             rule
-  cnn-ms-eval  the evaluation CLI on mspn50 (the 'megvii' decode) over 256
+  cnn-ms-eval  the evaluation CLI on mspn50 (the 'megvii' decode) over 128
             synthetic boxes, as cnn-eval
 
   bu-serve  HigherHRNet-W32 512 (f32, seeded weights, the heatmap biases
@@ -230,17 +231,18 @@ no result:
             scaled so that they group into a few people, as trained
             weights give) through init_pose_model,
             inference_bottom_up_multi_scale and
-            inference_bottom_up_pose_model over 8 images of mixed sizes:
+            inference_bottom_up_pose_model over 5 images of mixed sizes:
             every tensor of the forward + flip + reduction on the card,
             finite poses, 0 K1/K2; per image the card's half (resize,
             forward, flip, aggregation) and the host's grouping timed
             apart, images/s, the card's idle share
   bu-ref    the flagship, its UDP twin and the HRNet-W32 AE simple head,
-            CUDA against the CPU in f32 (TF32 off) on 2 images: aggregated
+            CUDA against the CPU in f32 (TF32 off) on 2 images, a
+            landscape and a portrait one: aggregated
             heatmaps and tags within BU_MAP_RTOL, grouped poses within
             BU_POSE_TOL_PX where both keep the same candidates (the images
             where they do not are counted)
-  bu-eval   the evaluation CLI on the flagship config over 32 synthetic
+  bu-eval   the evaluation CLI on the flagship config over 8 synthetic
             images (a crowd region in compressed RLE, one in polygons; GT
             from the seeded model's jittered poses): AP in (0, 1], 0
             K1/K2, images/s, the card's and the host's share
@@ -249,23 +251,45 @@ no result:
             it bit for bit; step time, img/s, data_time share, peak
             memory, one profiled step's kernel time and launches
   bu-apps   the 3 bottom-up demos (ViT-S f32 base 256, K1) on an image and
-            a 16-frame video: 24 K1 launches per frame at held shapes,
+            an 8-frame video: 24 K1 launches per frame at held shapes,
             frames/s
   bu-ms     Hourglass-AE (4 stacks) and MobileNetV2-AE 512 (f32) through
-            both API functions on 4 images of 4 sizes (the stages the model
+            both API functions on 2 images of 2 sizes (the stages the model
             gives and the one the protocol keeps), CUDA against the CPU on
             2 images as bu-ref, and one training step each at the config's
             batch: finite losses, BN statistics moved, 0 K1/K2
 
-Then the cnn, cnn_more, cnn_ms, bottomup and bottomup_ms JSON lines (those
-phases' numbers),
+  td-rest-serve  the rest of top-down: HRFormer-B (f32) and DeepPose-Res50
+            (f32, the regression head) as cnn-serve runs them;
+            td-rest-attention: HRFormer-B's window attention in the
+            256-crop batch by CUDA events around every call (the partition
+            copies, the qkv and proj Linears, the einsums with the bias and
+            softmax), its MACs and bytes, and the batch's top kernels
+  td-rest-ref  HRFormer-B and -S in f32 (TF32 off), CUDA against the CPU
+            on 4 boxes, as cnn-ref
+  td-rest-train  steps at batch 64 of HRFormer-B, DeepPose (smooth L1),
+            HRNet-W32 with CombinedTarget and ResNet-50 with AdaptiveWing;
+            HRFormer-B's train-ref under cnn-train-ref's rule at 96x128
+            crops (HRFORMER_REF_CROP; its float64 run starts in a child
+            process, F64Run, before the cnn group); the training
+            CLI on the photometric config for 4 steps (data_time share)
+  td-rest-eval  the evaluation CLI on DeepPose over 256 synthetic boxes
+            (the regression decode) and on the udp_regress config over 128
+            (the UDP CombinedTarget decode), as cnn-eval
+  td-rest-video  the evaluation CLI on the PoseTrack18 HRNet-W32 config
+            (1080x1920 frames in two videos, head boxes; poseval's AP per
+            part) and the Sub-JHMDB ResNet-50 config (PCK and tPCK per
+            part) over small synthetic sets, 0 K1/K2
+
+Then the cnn, cnn_more, cnn_ms, bottomup, bottomup_ms and td_rest JSON
+lines (those phases' numbers),
 the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, int8
 serve call, server request per mode, eval run, int8 eval run, train step,
 train-loop run, remat step, moe-train run, exported call, demo frame,
-webcam run, each CNN, cnn-more, cnn-ms, bottom-up and bu-ms phase (0)
-and bottom-up demo
+webcam run, each CNN, cnn-more, cnn-ms, bottom-up, bu-ms and td-rest
+phase (0) and bottom-up demo
 frame; beside the kernels, the int8 product's launches per path and times, the server's latencies and the
 int8 AP, the dispatcher's price, the exported program's times and the
 demos' and webcam's frames/s), the nvidia-smi card line and the result
@@ -967,7 +991,7 @@ def phase_serve_int8(card):
     return out, ms
 
 
-DEPLOY_REQUESTS = 30                 # timed requests per mode and box count
+DEPLOY_REQUESTS = 10                 # timed requests per mode and box count
 DEPLOY_DIRECT_CALLS = 10             # timed direct API calls of the same
 
 
@@ -1097,8 +1121,8 @@ def phase_deploy(card, root):
 
 COCO_B = 'vitpose_tpu/configs/coco/vitpose_b_coco_256x192.py'
 EVAL_BATCH = 64                      # the COCO-B config's batch size
-EVAL_SMALL, EVAL_BIG = 240, 8        # 480x640 images, and 960x1280 ones
-BOXES_PER_IMAGE = 4                  # 992 boxes: 15 full batches + 32
+EVAL_SMALL, EVAL_BIG = 54, 8         # 480x640 images, and 960x1280 ones
+BOXES_PER_IMAGE = 4                  # 248 boxes: 3 full batches + 56
 EVAL_REF_IMAGES = 4                  # eval-ref: their 16 boxes
 GT_JITTER_PX = 3.0                   # GT joints: box centre + this sigma
 
@@ -1229,7 +1253,7 @@ def device_busy_ms(run):
     (None, wall) where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         run()
@@ -1742,7 +1766,7 @@ def profile_steps(run_step, step_s, steps=2, label='train'):
     the busy ms per step, or None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -1796,7 +1820,10 @@ def ref_distances(run, ref, noise_only=()):
     |grad_norm|; for the gradients and the 2-step change of the BN
     statistics the max over tensors of max|x - ref| / max|ref|; for the
     2-step change of the parameters the max over tensors of the RMS of
-    x - ref over the RMS of ref. The `noise_only` parameters, whose
+    x - ref over the RMS of ref; a statistic's change is measured against
+    at least STAT_NOISE_FLOOR of the largest (a change that is nought in
+    the reference would divide by its rounding). The `noise_only`
+    parameters, whose
     gradient is nought but for rounding, are left out of the gradients' and
     the parameters' distances. Also returns that RMS ratio per parameter
     tensor."""
@@ -1808,9 +1835,19 @@ def ref_distances(run, ref, noise_only=()):
                        .item() for n in held)
     params = {n: ((d[n] - dr[n]).norm() / dr[n].norm()).item() for n in held}
     rel['params'] = max(params.values())
-    rel['bn_stats'] = max(((d[n] - dr[n]).abs().max() / dr[n].abs().max())
-                          .item() for n in dr if n not in gr)
+    stats = [n for n in dr if n not in gr]
+    floor = STAT_NOISE_FLOOR * max(dr[n].abs().max().item() for n in stats)
+    rel['bn_stats'] = max(((d[n] - dr[n]).abs().max()
+                           / max(dr[n].abs().max().item(), floor)).item()
+                          for n in stats)
     return rel, params
+
+
+# a BN statistic whose 2-step change in the reference run is below this
+# share of the largest change is taken as that share in ref_distances: a
+# change that is nought but for rounding (Lite-HRNet's statistics behind
+# the fusion that the loss does not reach) read 1e9 divided by itself
+STAT_NOISE_FLOOR = 1e-6
 
 
 def worst(dist, k=3):
@@ -1868,13 +1905,14 @@ def phase_train_ref():
               f'the bf16 CPU path {cpu[k]}')
 
 
-# train-loop: the training CLI on the COCO-B config. The train set: 292
-# 480x640 and 8 960x1280 images of 4 boxes, 1050 GT persons, so 16 steps of
-# 64 per epoch (drop_last); the val set: 60 + 4 images, 256 detection
-# boxes, 4 batches of 64. The run starts from the shaped weights
+# train-loop: the training CLI on the COCO-B config. The train set: 74
+# 480x640 and 2 960x1280 images of 4 boxes, 266 GT persons, so 4 steps of
+# 64 per epoch (drop_last); the val set: 28 + 4 images, 128 detection
+# boxes, 2 batches of 64. The run starts from the shaped weights
 # (`load_from`), so that AP is not 0 on the synthetic GT.
-LOOP_TRAIN_IMAGES = (292, 8)
-LOOP_VAL_IMAGES = (60, 4)
+LOOP_TRAIN_IMAGES = (74, 2)
+LOOP_STEPS_PER_EPOCH = 4
+LOOP_VAL_IMAGES = (28, 4)
 LOOP_EPOCHS = 2
 
 
@@ -1964,9 +2002,10 @@ def phase_train_loop(card, busy_ms):
         epochs = [r for r in log if r['mode'] == 'epoch']
         steps = len(train)
         per_epoch = steps // LOOP_EPOCHS
-        check(state.step == steps == LOOP_EPOCHS * per_epoch == 32,
+        check(state.step == steps == LOOP_EPOCHS * per_epoch
+              == LOOP_EPOCHS * LOOP_STEPS_PER_EPOCH,
               f'{steps} logged steps, state at step {state.step}, expected '
-              f'{LOOP_EPOCHS} epochs of 16')
+              f'{LOOP_EPOCHS} epochs of {LOOP_STEPS_PER_EPOCH}')
         check(all(np.isfinite(r[k]) for r in train
                   for k in ('heatmap_loss', 'grad_norm', 'acc_pose')),
               'a non-finite training metric')
@@ -2119,7 +2158,7 @@ def phase_train_resume(root, work_dir, options, log, card):
 
 REMAT_POLICIES = ('none', 'full', 'attn', 'dots')
 REMAT_K1 = {'none': 12, 'full': 24, 'attn': 12, 'dots': 24}
-REMAT_STEPS = 3                      # timed steps per turn, two turns each
+REMAT_STEPS = 2                      # timed steps per turn, two turns each
 # remat against no remat, in the units of ref_distances' 'grads': one bf16
 # rounding step (2^-8 of a value). A recompute runs the same kernels on the
 # same inputs: every policy read 0 on an H100 80GB HBM3 at 700 W.
@@ -2194,17 +2233,18 @@ def phase_remat(card):
 # moe-train: ViTPose+-B on six seeded synthetic train sets, each in its own
 # dataset's format, sharing one folder of 480x640 JPEGs with four persons
 # each (COCO and COCO-WholeBody share COCO's images in the real config too):
-# 80 images, so 320 persons per set and 2 batches of 128 (the loader drops
-# the ragged rest), 12 steps per epoch (the real mixture has some 9,000).
-# The val set is COCO-format, 512 detection boxes: 4 batches of 128.
+# 40 images, so 160 persons per set and 1 batch of 128 (the loader drops
+# the ragged rest), 6 steps per epoch (the real mixture has some 9,000).
+# The val set is COCO-format, 128 detection boxes: 1 batch of 128.
 PLUS_B = 'vitpose_tpu/configs/coco/vitpose_plus_b_6datasets_256x192.py'
 MOE_BATCH = 128                      # the ViTPose+-B config's batch size
 MOE_SETS = (('coco', 17), ('aic', 14), ('mpii', 16), ('ap10k', 17),
             ('ap10k', 17), ('coco_wholebody', 17))       # the config's order
 MOE_PARTS = (('foot_kpts', 6), ('face_kpts', 68), ('lefthand_kpts', 21),
              ('righthand_kpts', 21))
-MOE_IMAGES = 80
-MOE_VAL_IMAGES = (124, 4)
+MOE_IMAGES = 40                      # 160 persons a set: 1 step of 128
+MOE_STEPS_PER_SET = 1
+MOE_VAL_IMAGES = (28, 4)             # 128 boxes: 1 batch of 128
 MOE_AP_TOL = 0.002                   # split checkpoint vs the runner's AP
 MOE_FEATURE_TOL = 2.0 ** -8          # one bf16 step of the largest output
 
@@ -2272,7 +2312,7 @@ def write_moe_sets(root, seed):
 def moe_step_profile(cfg, step_s, card):
     """The kernel time of a ViTPose+-B step: a runner's train state for
     `cfg` on the card, one COCO and one WholeBody batch of the synthetic
-    sets through the MoE step, then two steps under torch.profiler."""
+    sets through the MoE step, then one step under torch.profiler."""
     from vitpose_tpu_torch.eval.loop import PinnedStaging
     from vitpose_tpu_torch.train.loop import (_batch_to_device, _train_data,
                                               build_train_state)
@@ -2294,7 +2334,7 @@ def moe_step_profile(cfg, step_s, card):
         turn[0] += 1
     for _ in range(2):
         run_step()
-    busy_ms = profile_steps(run_step, step_s, label='moe-train')
+    busy_ms = profile_steps(run_step, step_s, steps=1, label='moe-train')
     del state, batches
     torch.cuda.empty_cache()
     return busy_ms
@@ -2302,7 +2342,7 @@ def moe_step_profile(cfg, step_s, card):
 
 def phase_moe_train(card):
     """ViTPose+-B multi-dataset MoE training through the training CLI on the
-    shipped config, one epoch of 12 steps on six synthetic train sets, with
+    shipped config, one epoch of 6 steps on six synthetic train sets, with
     `pretrained` the shaped dense ViT-B backbone (so its fc2 is split into
     the experts) and the shaped classic head by `load_from`; then
     model_split of its best.pth and the evaluation CLI on the COCO part
@@ -2391,8 +2431,9 @@ def phase_moe_train(card):
         (epoch,) = [r for r in log if r['mode'] == 'epoch']
         steps = len(train_recs)
         val_batches = -(-sum(MOE_VAL_IMAGES) * 4 // MOE_BATCH)
-        check(state.step == steps == 2 * len(MOE_SETS), f'{steps} logged '
-              f'steps, state at step {state.step}, expected 2 per set')
+        check(state.step == steps == MOE_STEPS_PER_SET * len(MOE_SETS),
+              f'{steps} logged steps, state at step {state.step}, expected '
+              f'{MOE_STEPS_PER_SET} per set')
         launches = check_launches('moe-train', steps, val_batches)
         del state
         torch.cuda.empty_cache()
@@ -2478,7 +2519,7 @@ def phase_moe_train(card):
         times['profile'] = time.perf_counter() - t0
     print('moe-train: kernel time per step '
           + ('not measured' if busy_ms is None else f'{busy_ms:.1f} ms')
-          + ' (torch.profiler, two MoE steps alone), card idle share of the '
+          + ' (torch.profiler, one MoE step alone), card idle share of the '
           'runner\'s median step '
           + ('not measured' if busy_ms is None
              else f'{1 - busy_ms / (step_s * 1e3):.3f}')
@@ -2960,11 +3001,11 @@ def phase_export(card, root, ckpt):
     return launches, rows
 
 
-# demos: the top-down demos on a 480x640 image with 3 boxes and a 16-frame
-# video of it; the webcam on a 48-frame video (max_frames binds at 32)
-DEMO_FRAMES = 16
-WEBCAM_FRAMES = 48
-WEBCAM_MAX_FRAMES = 32
+# demos: the top-down demos on a 480x640 image with 3 boxes and an 8-frame
+# video of it; the webcam on a 24-frame video (max_frames binds at 16)
+DEMO_FRAMES = 8
+WEBCAM_FRAMES = 24
+WEBCAM_MAX_FRAMES = 16
 
 
 def write_video(path, img, frames):
@@ -3220,15 +3261,19 @@ def phase_webcam(card, root, ckpt):
 HRNET_CFG = 'vitpose_tpu/configs/coco/hrnet_w32_coco_256x192.py'
 RES50_CFG = 'vitpose_tpu/configs/coco/res50_coco_256x192.py'
 CNN_CONFIGS = (('hrnet_w32', HRNET_CFG), ('res50', RES50_CFG))
-CNN_SERVE_TURNS = 5                  # timed 256-crop batches per model
+CNN_SERVE_TURNS = 2                  # timed 256-crop batches per model
+CNN_TIMED_STEPS = 2                  # timed train steps per model
 # cnn-ref f32 (TF32 off): heatmaps within CNN_HM_RTOL of max |CPU heatmap|
 # (summation order through 50 to 300 convs), and a keypoint is decisive
 # where its top-2 gap and both neighbour differences at the argmax (the
 # quarter-pixel shift of the 'default' decode) exceed 10 such bounds
 CNN_HM_RTOL = 1e-4
 CNN_DECISIVE_BOUNDS = 10
-CNN_EVAL_IMAGES = (60, 4)            # 256 boxes, 4 batches of 64
-CNN_TRAIN_IMAGES = (74, 0)           # 259 GT persons: 4 steps of 64
+CNN_EVAL_IMAGES = (28, 4)            # 128 boxes, 2 batches of 64
+TD_EVAL_IMAGES = (60, 4)             # 256 boxes, 4 batches of 64
+CNN_TRAIN_IMAGES = (40, 0)           # 140 GT persons: 2 steps of 64
+CNN_CLI_STEPS = 2
+PHOTOMETRIC_IMAGES = (74, 0)         # 259 GT persons: 4 steps of 64
 CNN_APP_REQUESTS = 10
 # cnn-train-ref, ResNet-50 at batch 2, in the units of ref_distances: CUDA
 # f32 from an f64 run on the CPU at most CNN_REF_FACTOR times the CPU f32's
@@ -3336,14 +3381,17 @@ def phase_cnn_serve(card, configs=CNN_CONFIGS, label='cnn-serve'):
     HRNet-W32 (bf16) and ResNet-50 (f32) configs) on the card, seeded
     random weights, TF32 as torch defaults it: one
     8-box call through inference_top_down_pose_model (every tensor on the
-    card, keypoints finite and inside their padded boxes), then 256-crop
-    batches with the flip test and the config's decode: ms per batch
-    (median of CNN_SERVE_TURNS) and img/s, the card's busy time per batch
-    (torch.profiler), and 0 K1 or K2 launches."""
+    card, keypoints finite and inside their padded boxes; a DeepPose
+    model's random coordinates are not bounded, its scores are one), then
+    256-crop batches with the flip test and the config's decode: ms per
+    batch (median of CNN_SERVE_TURNS) and img/s, the card's busy time per
+    batch (torch.profiler), and 0 K1 or K2 launches. A model with window
+    attention (HRFormer) also gets window_attention_probe's report."""
     from vitpose_tpu_torch.api import (inference_top_down_pose_model,
                                        init_pose_model)
     from vitpose_tpu_torch.ops.attention import (fused_attention,
                                                  fused_attention_bwd)
+    from vitpose_tpu_torch.models.hrformer import WindowMSA
     from vitpose_tpu_torch.ops.geometry import bbox_xywh2cs
     torch_tf32_defaults()
     rng = np.random.RandomState(3)
@@ -3374,6 +3422,10 @@ def phase_cnn_serve(card, configs=CNN_CONFIGS, label='cnn-serve'):
         center, size = padded_boxes(boxes, pm)
         inside = np.abs(kp[..., :2] - center[:, None]) \
             <= size[:, None] / 2 + 1e-3
+        if pm.cfg.head_type == 'regression':
+            check((kp[..., 2] == 1).all(), f'{label} {name}: DeepPose '
+                  'scores other than one')
+            inside[:] = True
         scored = kp[..., 2] > 0
         bad = [(i, j) for i, j in np.argwhere(scored)
                if not inside[i, j].all()]
@@ -3442,6 +3494,9 @@ def phase_cnn_serve(card, configs=CNN_CONFIGS, label='cnn-serve'):
                          bn_melems_per_crop=bn_elems / 1e6,
                          conv_bound_ms=conv_ms, bn_bound_ms=bn_ms,
                          layout=layout, k1=k1, k2=k2)
+        if any(isinstance(m, WindowMSA) for m in pm.model.modules()):
+            out[name]['window_attention'] = window_attention_probe(
+                pm, imgs, c, s, med)
         del pm, imgs, image
         torch.cuda.empty_cache()
     return out
@@ -3469,9 +3524,11 @@ def decisive_joints(hm, bound):
 
 
 def phase_cnn_ref(card, f32_cases=CNN_CONFIGS,
-                  bf16_cases=(('hrnet_w32', HRNET_CFG),), label='cnn-ref'):
+                  bf16_cases=(('hrnet_w32', HRNET_CFG),), label='cnn-ref',
+                  grid=(2, 1)):
     """Each (name, config) of `f32_cases` (by default HRNet-W32 and
-    ResNet-50) at full width on 4 boxes, the same seeded weights on CUDA
+    ResNet-50) at full width on a (cols, rows) `grid` of boxes, the same
+    seeded weights on CUDA
     and on the CPU: f32 with TF32 off, heatmaps within CNN_HM_RTOL of their
     largest value and decisive keypoints within KP_TOL_PX; those of
     `bf16_cases` (HRNet-W32) also in bf16: CUDA's heatmaps as close to the
@@ -3482,7 +3539,7 @@ def phase_cnn_ref(card, f32_cases=CNN_CONFIGS,
                                        init_pose_model)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    boxes = grid_boxes(np.random.RandomState(4), 2, 2)
+    boxes = grid_boxes(np.random.RandomState(4), *grid)
     img = scene(4, boxes)
     persons = [{'bbox': b} for b in boxes]
     runs = {}
@@ -3515,7 +3572,8 @@ def phase_cnn_ref(card, f32_cases=CNN_CONFIGS,
               f'differ by {kp_err} px')
         report[name] = dict(hm_err=float(hm_err), hm_bound=float(bound),
                             kp_err_px=float(kp_err), decisive=int(dec.sum()))
-        print(f'{label}: {name} f32 (TF32 off), 4 boxes, CUDA vs CPU: '
+        print(f'{label}: {name} f32 (TF32 off), {len(boxes)} boxes, CUDA vs '
+              f'CPU: '
               f'heatmap max abs diff {hm_err:.3e} (bound {bound:.3e} = '
               f'{CNN_HM_RTOL:g} of max |heatmap| {top:.3e}), decisive '
               f'keypoints max diff {kp_err:.3e} px (tol {KP_TOL_PX}) over '
@@ -3540,7 +3598,8 @@ def phase_cnn_ref(card, f32_cases=CNN_CONFIGS,
         bound = 2 * BF16_FACTOR * errs['cpu'][0]
         gb, cb = runs[name, 'bfloat16', 'cuda'][1], \
             runs[name, 'bfloat16', 'cpu'][1]
-        print(f'{label}: {name} bf16 against the f32 CPU answer, 4 boxes, '
+        print(f'{label}: {name} bf16 against the f32 CPU answer, '
+              f'{len(boxes)} boxes, '
               f'CUDA / CPU: heatmap max abs {errs["cuda"][0]:.3e} / '
               f'{errs["cpu"][0]:.3e}, RMS {errs["cuda"][1]:.3e} / '
               f'{errs["cpu"][1]:.3e} (CUDA at most {BF16_FACTOR}x CPU); the '
@@ -3567,11 +3626,12 @@ def phase_cnn_ref(card, f32_cases=CNN_CONFIGS,
 
 
 def phase_cnn_eval(card, path=HRNET_CFG, what='HRNet-W32 bf16',
-                   label='cnn-eval'):
+                   label='cnn-eval', images=CNN_EVAL_IMAGES):
     """The evaluation CLI on a zoo config (by default HRNet-W32, `what`:
     bf16 as it sets it; flip test, the 'default' decode with
     shift_heatmap) over a synthetic COCO
-    val set (CNN_EVAL_IMAGES) and seeded weights saved as a .pth: 0 K1 and
+    val set (`images`: small and big ones) and seeded weights saved as a
+    .pth: 0 K1 and
     K2 launches, the ten stats, AP in [0, 1]; --int8 raises; then
     run_validation timed: boxes/s, the host's decode alone, the card's busy
     time and idle share."""
@@ -3587,7 +3647,7 @@ def phase_cnn_eval(card, path=HRNET_CFG, what='HRNet-W32 bf16',
     torch_tf32_defaults()
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        files, n_boxes = write_eval_set(root, 5, *CNN_EVAL_IMAGES)
+        files, n_boxes = write_eval_set(root, 5, *images)
         pm = init_pose_model(path, device='cuda')
         ckpt = os.path.join(root, 'weights.pth')
         torch.save(pm.model.state_dict(), ckpt)
@@ -3661,36 +3721,48 @@ def phase_cnn_eval(card, path=HRNET_CFG, what='HRNet-W32 bf16',
 def cnn_step_ms(path, card):
     """Train steps of `path`'s model at batch TRAIN_BATCH on synthetic
     inputs through the runner's state (build_train_state) and step, the
-    config's dtype: (median ms over TIMED_STEPS, peak GB)."""
+    config's dtype, target type and losses: (median ms over
+    CNN_TIMED_STEPS after one warm-up step, peak GB, kernel ms)."""
     from vitpose_tpu_torch.data.pipeline import make_preprocess_fn
     from vitpose_tpu_torch.train.loop import build_train_state
     from vitpose_tpu_torch.train.step import make_train_step
     from vitpose_tpu_torch.utils.config import load_config
     from vitpose_tpu_torch.data.dataset_info import DatasetInfo
+    t_build = time.perf_counter()
     cfg = load_config(path)
     state = build_train_state(cfg, STEPS_PER_EPOCH, 'cuda')
-    step = make_train_step(state.model)
+    build_s = time.perf_counter() - t_build
+    mcfg = cfg['model']
+    target_type = mcfg.get('target_type', 'GaussianHeatmap')
+    step = make_train_step(state.model, target_type=target_type,
+                           reg_loss=mcfg.get('reg_loss', 'smooth_l1'),
+                           heatmap_loss=mcfg.get('heatmap_loss', 'mse'))
     # the config's crop and heatmap sizes (AlexNet's heatmaps are 40x56)
+    # and target type (CombinedTarget and DeepPose's paint their own)
     batch = make_preprocess_fn(
         cfg['data']['image_size'], cfg['data']['heatmap_size'],
-        use_udp=False)(*train_inputs(0, TRAIN_BATCH,
-                                     DatasetInfo.load('coco'), 'cuda'))
+        use_udp=False, target_type=target_type)(
+            *train_inputs(0, TRAIN_BATCH, DatasetInfo.load('coco'), 'cuda'))
     gen = torch.Generator(device='cuda').manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(TIMED_STEPS + 2):
+    for i in range(CNN_TIMED_STEPS + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = step(state, batch, gen)
         torch.cuda.synchronize()
-        if i >= 2:
+        if i:                                        # first is warm-up
             times.append(time.perf_counter() - t0)
     check(all(np.isfinite(v.item()) for v in m.values()),
           f'cnn-train {path}: non-finite metrics {m}')
     peak = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(times)
+    t_prof = time.perf_counter()
     busy = profile_steps(lambda: step(state, batch, gen), med, steps=1,
                          label=f'cnn-train {os.path.basename(path)}')
+    prof_s = time.perf_counter() - t_prof
+    print(f'cnn-train {os.path.basename(path)}: state built in {build_s:.1f} '
+          f's, the profiled step and its report {prof_s:.1f} s', flush=True)
     del state, step, batch
     torch.cuda.empty_cache()
     return med * 1e3, peak, busy
@@ -3699,7 +3771,7 @@ def cnn_step_ms(path, card):
 def phase_cnn_train(card, path=RES50_CFG, step_configs=CNN_CONFIGS,
                     label='cnn-train', ref_paths=None):
     """The training CLI on a zoo config (by default ResNet-50; TF32 as
-    torch defaults it, MSRA targets, batch 64) for one epoch of 4 steps
+    torch defaults it, MSRA targets, batch 64) for one epoch of 2 steps
     over a synthetic COCO set, from seeded weights: 0 K1 and K2 launches,
     finite metrics, the epoch's checkpoint written; step wall time, img/s,
     the data_time share, peak memory. Then the CLI again with --resume for
@@ -3732,8 +3804,9 @@ def phase_cnn_train(card, path=RES50_CFG, step_configs=CNN_CONFIGS,
         run_s = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         train = [r for r in log if r['mode'] == 'train']
-        check(len(train) == state.step == 4, f'{label}: {len(train)} '
-              f'logged steps, state at {state.step}, expected 4')
+        check(len(train) == state.step == CNN_CLI_STEPS, f'{label}: '
+              f'{len(train)} logged steps, state at {state.step}, expected '
+              f'{CNN_CLI_STEPS}')
         check(all(np.isfinite(r[k]) for r in train
                   for k in ('heatmap_loss', 'grad_norm', 'acc_pose')),
               f'{label}: a non-finite training metric')
@@ -3746,10 +3819,12 @@ def phase_cnn_train(card, path=RES50_CFG, step_configs=CNN_CONFIGS,
                                     *options, 'optimizer.total_epochs=2'])
         later = [r for r in log if r['mode'] == 'train' and r['epoch'] == 1]
         check(any(r['mode'] == 'resume' and r['epoch'] == 1 for r in log)
-              and len(later) == 4 and state.step == 8
+              and len(later) == CNN_CLI_STEPS
+              and state.step == 2 * CNN_CLI_STEPS
               and all(np.isfinite(r['heatmap_loss']) for r in later),
               f'{label}: --resume logged {len(later)} steps of epoch 1, '
-              f'state at {state.step}, expected 4 and 8')
+              f'state at {state.step}, expected {CNN_CLI_STEPS} and '
+              f'{2 * CNN_CLI_STEPS}')
         check(os.path.exists(os.path.join(work_dir, 'ckpts', 'epoch_1.pth')),
               f'{label}: no checkpoint of the resumed epoch')
         resumed = (f'; --resume restored epoch 0 and trained epoch 1 '
@@ -3766,7 +3841,7 @@ def phase_cnn_train(card, path=RES50_CFG, step_configs=CNN_CONFIGS,
         share = last['data_time'] / last['time']
         torch.cuda.empty_cache()
     print(f'{label}: CLI on {path} (the config\'s dtype, TF32 on for convs, batch '
-          f'{TRAIN_BATCH}), 4 steps: 0 K1 and 0 K2 launches; '
+          f'{TRAIN_BATCH}), {CNN_CLI_STEPS} steps: 0 K1 and 0 K2 launches; '
           f'step wall time median {med * 1e3:.1f} ms '
           f'({min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}) = '
           f'{TRAIN_BATCH / med:.1f} img/s; data_time share '
@@ -3781,19 +3856,74 @@ def phase_cnn_train(card, path=RES50_CFG, step_configs=CNN_CONFIGS,
                            kernel_ms=busy)
         print(f'{label}: {name} step (runner state, the config\'s dtype, '
               f'preprocess on the card excluded) at batch {TRAIN_BATCH}: '
-              f'median {ms:.1f} ms over {TIMED_STEPS} = '
+              f'median {ms:.1f} ms over {CNN_TIMED_STEPS} = '
               f'{TRAIN_BATCH / ms * 1e3:.1f} img/s, peak {peak:.2f} GB; on '
               f'{card}', flush=True)
+    t0 = time.perf_counter()
     ref = {os.path.basename(p): phase_cnn_train_ref(p, f'{label}-ref')
            for p in ref_paths or [path]}
+    print(f'{label}: the train-refs took {time.perf_counter() - t0:.1f} s',
+          flush=True)
     return dict(cli_ms=med * 1e3, cli_img_s=TRAIN_BATCH / med,
                 data_time_share=share, peak_gb=peak_gb, k1=k1, k2=k2,
                 steps=steps, ref=ref)
 
 
-def phase_cnn_train_ref(path=RES50_CFG, label='cnn-train-ref'):
+def ref_batch(crop):
+    """The train-refs' batch on the CPU: 2 synthetic COCO records through
+    the pipeline at `crop` (w, h), heatmaps a quarter of its size."""
+    from vitpose_tpu_torch.data.dataset_info import DatasetInfo
+    from vitpose_tpu_torch.data.pipeline import make_preprocess_fn
+    inputs = train_inputs(1, 2, DatasetInfo.load('coco'), 'cpu')
+    return make_preprocess_fn(crop, tuple(v // 4 for v in crop),
+                              use_udp=False)(*inputs)
+
+
+def f64_run_child(path, crop, out):
+    """phase_cnn_train_ref's float64 run of `path` at `crop` on
+    F64_RUN_THREADS CPU threads, saved to `out` (F64Run's child)."""
+    torch.set_num_threads(F64_RUN_THREADS)
+    run = train_run(cnn_model_dict(path, 'float64'), 'cpu', ref_batch(crop))
+    torch.save(run, out + '.part')
+    os.replace(out + '.part', out)
+
+
+class F64Run:
+    """phase_cnn_train_ref's float64 run of `path` at `crop`, started in a
+    child process while other phases run (HRFormer's: the CPU runs an f64
+    depthwise conv channel by channel, over a minute). result() waits for
+    it and returns (run, seconds waited); stop() ends the child."""
+
+    def __init__(self, path, crop):
+        import multiprocessing
+        self.root = tempfile.mkdtemp(prefix='f64run')
+        self.out = os.path.join(self.root, 'run.pt')
+        self.proc = multiprocessing.get_context('spawn').Process(
+            target=f64_run_child, args=(path, crop, self.out), daemon=True)
+        self.proc.start()
+
+    def result(self):
+        t0 = time.perf_counter()
+        self.proc.join()
+        ok = self.proc.exitcode == 0 and os.path.exists(self.out)
+        run = torch.load(self.out) if ok else None
+        self.stop()
+        check(ok, 'the float64 train-ref run failed in its process (exit '
+              f'code {self.proc.exitcode})')
+        return run, time.perf_counter() - t0
+
+    def stop(self):
+        import shutil
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def phase_cnn_train_ref(path=RES50_CFG, label='cnn-train-ref',
+                        crop=(192, 256), f64_run=None):
     """Two steps of `path`'s model (by default ResNet-50) at full width and
-    depth, batch 2, from the
+    depth, batch 2 of `crop` (w, h) crops (by default the configs'), from the
     same seeded weights (train_run): f32 with TF32 off on CUDA and on the
     CPU, and in float64 on the CPU. Loss, grad_norm, gradients, the
     parameters' and the BN statistics' change of CUDA f32 from the f64 run
@@ -3801,18 +3931,20 @@ def phase_cnn_train_ref(path=RES50_CFG, label='cnn-train-ref'):
     TRAIN_REF_TOL. Parameters whose f64 gradient is below GRAD_NOISE_FLOOR
     of the largest are nought but for rounding (a softmax's shift-free
     logits' bias): they are left out of the distances, and their f32
-    gradients must stay below that floor on both devices."""
-    from vitpose_tpu_torch.data.dataset_info import DatasetInfo
-    from vitpose_tpu_torch.data.pipeline import make_preprocess_fn
+    gradients must stay below that floor on both devices. An F64Run
+    `f64_run` of the same path and crop gives the float64 run."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    inputs = train_inputs(1, 2, DatasetInfo.load('coco'), 'cpu')
-    batch = make_preprocess_fn((192, 256), (48, 64), use_udp=False)(*inputs)
-    cfgs = {dtype: cnn_model_dict(path, dtype)
-            for dtype in ('float32', 'float64')}
-    runs = {dev: train_run(cfgs['float32'], dev, batch)
-            for dev in ('cuda', 'cpu')}
-    exact = train_run(cfgs['float64'], 'cpu', batch)
+    batch = ref_batch(crop)
+    cfg = cnn_model_dict(path, 'float32')
+    runs = {dev: train_run(cfg, dev, batch) for dev in ('cuda', 'cpu')}
+    if f64_run is None:
+        exact = train_run(cnn_model_dict(path, 'float64'), 'cpu', batch)
+    else:
+        exact, wait_s = f64_run.result()
+        print(f'{label}: the float64 run came from its own process '
+              f'({F64_RUN_THREADS} CPU threads), waited for {wait_s:.1f} s',
+              flush=True)
     floor = GRAD_NOISE_FLOOR * max(float(g.abs().max())
                                    for g in exact[1].values())
     noise = sorted(n for n, g in exact[1].items()
@@ -3823,7 +3955,8 @@ def phase_cnn_train_ref(path=RES50_CFG, label='cnn-train-ref'):
               f'{floor:.3e}, where the f64 ones are below it')
     dist, params = ref_distances(runs['cuda'], exact, noise)
     cpu, _ = ref_distances(runs['cpu'], exact, noise)
-    print(f'{label}: {os.path.basename(path)}, batch 2, 2 steps, f32 (TF32 off) against f64 '
+    print(f'{label}: {os.path.basename(path)}, batch 2 of '
+          f'{crop[0]}x{crop[1]}, 2 steps, f32 (TF32 off) against f64 '
           f'on the CPU, CUDA / the CPU: '
           + ', '.join(f'{k} {v:.3e} / {cpu[k]:.3e} (tol '
                       f'{CNN_REF_FACTOR:g}x + {TRAIN_REF_TOL[k]:g})'
@@ -3839,7 +3972,7 @@ def phase_cnn_train_ref(path=RES50_CFG, label='cnn-train-ref'):
     torch_tf32_defaults()
     return {'cuda_vs_f64': {k: float(v) for k, v in dist.items()},
             'cpu_vs_f64': {k: float(v) for k, v in cpu.items()},
-            'noise_only': noise}
+            'noise_only': len(noise), 'noise_only_first': noise[:4]}
 
 
 def phase_cnn_apps(card):
@@ -4071,7 +4204,9 @@ HIGHER_CFG = 'vitpose_tpu/configs/coco/higherhrnet_w32_coco_512x512.py'
 HIGHER_UDP_CFG = 'vitpose_tpu/configs/coco/higherhrnet_w32_coco_512x512_udp.py'
 AE_HRNET_CFG = 'vitpose_tpu/configs/coco/hrnet_w32_ae_coco_512x512.py'
 BU_BASE = 512                        # the configs' input_size
-# bu-serve: 8 images of mixed sizes and aspect ratios
+# bu-serve: the first BU_SERVE_IMAGES of 8 image sizes and aspect ratios
+# (bu-eval takes all eight)
+BU_SERVE_IMAGES = 5
 BU_SIZES = ((480, 640), (640, 480), (512, 512), (360, 640), (720, 1280),
             (600, 400), (300, 300), (427, 640))
 # random weights put hundreds of local maxima per joint above the parser's
@@ -4088,7 +4223,7 @@ BU_TAG_STD = 0.1
 # devices keep the same candidates
 BU_MAP_RTOL = 1e-4
 BU_POSE_TOL_PX = 1e-2
-BU_EVAL_IMAGES = 32
+BU_EVAL_IMAGES = 8
 BU_TRAIN_BATCH = 24                  # the flagship config's batch
 BU_TRAIN_IMAGES = 2 * BU_TRAIN_BATCH  # 2 steps per epoch
 BU_DEMO_K1_PER_FRAME = 24            # 12 ViT blocks x (image, flip)
@@ -4219,7 +4354,8 @@ def check_poses(what, results):
 def phase_bu_serve(card):
     """HigherHRNet-W32 512 (f32, TF32 as torch defaults it, seeded weights)
     through init_pose_model, inference_bottom_up_multi_scale and
-    inference_bottom_up_pose_model over 8 images of mixed sizes: every
+    inference_bottom_up_pose_model over BU_SERVE_IMAGES images of mixed
+    sizes: every
     parameter and every tensor of the forward + flip + reduction on the
     card, finite poses, 0 K1 and K2 launches; each image's device half
     (resize, forward, flip, aggregation) and host half (grouping) timed
@@ -4229,7 +4365,8 @@ def phase_bu_serve(card):
     from vitpose_tpu_torch.ops.attention import (fused_attention,
                                                  fused_attention_bwd)
     torch_tf32_defaults()
-    imgs = [bu_scene(20 + i, hw) for i, hw in enumerate(BU_SIZES)]
+    imgs = [bu_scene(20 + i, hw) for i, hw in enumerate(
+        BU_SIZES[:BU_SERVE_IMAGES])]
     t0 = time.perf_counter()
     est, _ = bu_model(HIGHER_CFG, 'cuda', imgs)
     build_s = time.perf_counter() - t0
@@ -4262,7 +4399,7 @@ def phase_bu_serve(card):
                          busy_ms=busy_ms, profiled_ms=prof_ms,
                          idle_share=idle, poses=poses)
         print(f'bu-serve: {name} ({HIGHER_CFG}, HigherHRNet-W32 f32, flip, '
-              f'8 images of {len(set(BU_SIZES))} sizes): {poses} finite '
+              f'{len(imgs)} images of {len(imgs)} sizes): {poses} finite '
               f'poses; per image {t_maps / n * 1e3:.1f} ms resize + forward '
               f'+ flip + aggregation (card) and {t_group / n * 1e3:.1f} ms '
               f'grouping (host) = {n / (t_maps + t_group):.2f} img/s; card '
@@ -4292,7 +4429,8 @@ def phase_bu_ref(card, cases=BU_REF_CASES, label='bu-ref'):
     """The (name, config) `cases`, by default the flagship, its UDP twin and
     the HRNet-W32 AE simple head, at full width, the same seeded (and
     shifted) weights on CUDA and on the CPU, f32
-    with TF32 off, on 2 images through the multi-scale protocol: the
+    with TF32 off, on a landscape and a portrait image through the
+    multi-scale protocol: the
     aggregated heatmaps and tags within BU_MAP_RTOL of their largest value;
     where both devices keep the same candidates (the parser's top values
     and cells per joint), the grouped poses within BU_POSE_TOL_PX; the
@@ -4349,7 +4487,8 @@ def phase_bu_ref(card, cases=BU_REF_CASES, label='bu-ref'):
         report[name] = dict(heatmap_rel_err=errs[0], tag_rel_err=errs[1],
                             pose_err_px=pose_err, images_differ=differ,
                             poses_compared=poses)
-        print(f'{label}: {name} ({path}, f32, TF32 off), 2 images, CUDA vs '
+        print(f'{label}: {name} ({path}, f32, TF32 off), {len(imgs)} '
+              f'images, CUDA vs '
               f'CPU: heatmaps {errs[0]:.2e} and tags {errs[1]:.2e} of their '
               f'largest value apart (bound {BU_MAP_RTOL:g}); the same '
               f'candidates on {len(imgs) - differ} of {len(imgs)} images, '
@@ -4501,7 +4640,7 @@ def bu_step_profile(state, batch, step_s, card):
     step = make_bottomup_train_step(state.model)
     step(state, batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         step(state, batch)
         torch.cuda.synchronize()
@@ -4630,7 +4769,7 @@ def phase_bu_train(card):
 def phase_bu_apps(card):
     """The three bottom-up demos (ViT-S f32 at base 256 with K1, as JAX's
     build_estimator) on the card: the image demo on a 480x640 scene and the
-    video and tracking demos on a 16-frame MJPG video of it: every output
+    video and tracking demos on an 8-frame MJPG video of it: every output
     written, videos read back frame for frame, exactly BU_DEMO_K1_PER_FRAME
     K1 launches per frame and image, at shapes KERNEL_CASES holds;
     frames/s over each main()."""
@@ -4698,7 +4837,7 @@ def run_bu_phases(card):
 HG_AE_CFG = 'vitpose_tpu/configs/coco/hourglass_ae_coco_512x512.py'
 MBV2_AE_CFG = 'vitpose_tpu/configs/coco/mobilenetv2_ae_coco_512x512.py'
 BU_MS_CONFIGS = (('hourglass_ae', HG_AE_CFG), ('mobilenetv2_ae', MBV2_AE_CFG))
-BU_MS_IMAGES = 4                     # of BU_SIZES' first four sizes
+BU_MS_IMAGES = 2                     # of BU_SIZES' first two sizes
 
 
 def phase_bu_ms(card):
@@ -4708,7 +4847,7 @@ def phase_bu_ms(card):
     card (every tensor of the forward + flip + reduction on CUDA, finite
     poses, 0 K1 and K2 launches, the stages the model gives and the one the
     test protocol keeps, each image's card and host halves timed apart);
-    CUDA against the CPU on 2 images (phase_bu_ref); one training step at
+    CUDA against the CPU as phase_bu_ref; one training step at
     the config's batch over a synthetic set through the config's loader,
     losses finite and every BN's running statistics moved."""
     from vitpose_tpu_torch.api import (inference_bottom_up_multi_scale,
@@ -4862,6 +5001,302 @@ def bu_launches(bu, key):
                                   else 0)}
 
 
+# --- top-down, the rest: HRFormer (item 12c), DeepPose, CombinedTarget,
+# AdaptiveWing and the image augmentations (item 7), PoseTrack18 and
+# Sub-JHMDB (item 12d's datasets) ---------------------------------------
+
+TD_CONFIGS = {name: f'vitpose_tpu/configs/{path}.py' for name, path in (
+    ('hrformer_base', 'coco/hrformer_base_coco_256x192'),
+    ('hrformer_small', 'coco/hrformer_small_coco_256x192'),
+    ('deeppose_res50', 'coco/deeppose_res50_coco_256x192'),
+    ('udp_regress', 'coco/hrnet_w32_coco_256x192_udp_regress'),
+    ('awing_res50', 'coco/res50_coco_256x192_awing'),
+    ('photometric', 'coco/hrnet_w32_coco_256x192_photometric'),
+    ('posetrack', 'posetrack/hrnet_w32_posetrack18_256x192'),
+    ('jhmdb', 'jhmdb/res50_jhmdb_sub1_256x256'))}
+# HRFormer-B's train-ref crops (w, h): half the config's 192x256 in each
+# axis. Its float64 run on the CPU (the depthwise convs and the window
+# attention in f64) costs about 80 s more at 192x256. On 48x64 crops the
+# lowest branch is 2x2 (8 values per BN channel over 2 crops, most of a
+# 7x7 window padding), f32 loses most digits there on either device, and
+# CUDA's grad_norm left the f64 one by 185x the CPU's distance
+HRFORMER_REF_CROP = (96, 128)
+# CPU threads of F64Run's child (the host has 8 cores): the f64 depthwise
+# convs are bound by one thread's dispatch, and the phases beside it keep
+# the rest
+F64_RUN_THREADS = 2
+# the video sets: (images, people per image, joints, image (h, w))
+TD_VIDEO_SETS = {'posetrack': (8, 3, 17, (1080, 1920)),
+                 'jhmdb': (16, 1, 15, (240, 320))}
+
+
+def window_attention_probe(pm, imgs, c, s, med_s):
+    """HRFormer's window attention in the 256-crop serve batch: its MACs
+    and the bytes its products read and write (from the shapes each block
+    sees), and its card time by CUDA events around every WindowMSA call,
+    split into the partition and merge copies, the qkv and proj Linears,
+    and the rest (the two einsums, the bias gather and the softmax); then
+    torch.profiler's top kernels of the batch."""
+    from vitpose_tpu_torch.models import hrformer
+    spans = {'window_attention': [], 'partition_merge': [], 'linear': []}
+    shapes = []
+    saved = {k: getattr(hrformer, k) for k in
+             ('window_partition', 'window_merge', 'linear')}
+    forward = hrformer.WindowMSA.forward
+
+    def timed(name, fn):
+        def run(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            spans[name].append(ev)
+            return out
+        return run
+
+    def msa(self, x, dtype):
+        ws = self.window_size
+        h, w = x.shape[1:3]
+        hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+        shapes.append((x.shape[0] * hp * wp // ws ** 2, self.num_heads,
+                       ws * ws, x.shape[3] // self.num_heads,
+                       x.element_size()))
+        return timed('window_attention', forward)(self, x, dtype)
+
+    hrformer.WindowMSA.forward = msa
+    hrformer.window_partition = timed('partition_merge',
+                                      saved['window_partition'])
+    hrformer.window_merge = timed('partition_merge', saved['window_merge'])
+    hrformer.linear = timed('linear', saved['linear'])
+    try:
+        pm.infer_batch(imgs, c, s)
+        torch.cuda.synchronize()
+    finally:
+        hrformer.WindowMSA.forward = forward
+        for k, v in saved.items():
+            setattr(hrformer, k, v)
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    ms['einsum_bias_softmax'] = (ms['window_attention']
+                                 - ms['partition_merge'] - ms['linear'])
+    # QK^T and PV: 2 * b * heads * T^2 * d MACs; q, k and v read and the
+    # output written once (the logits need not leave the chip); f32 at the
+    # CUDA cores' peak (matmul TF32 is off, as torch starts)
+    macs = sum(2 * b * h * t * t * d for b, h, t, d, _ in shapes)
+    nbytes = sum(4 * b * h * t * d * e for b, h, t, d, e in shapes)
+    bound = max(2 * macs / (67e12 if shapes[0][4] == 4 else 989e12),
+                nbytes / HBM_BYTES_PER_S) * 1e3
+    busy = profile_steps(lambda: pm.infer_batch(imgs, c, s), med_s, steps=1,
+                         label='td-rest-attention')
+    share = None if busy is None else ms['window_attention'] / busy
+    print(f'td-rest-attention: HRFormer-B 256-crop batch ({med_s * 1e3:.1f} '
+          f'ms): {len(shapes)} window-attention calls, '
+          f'{macs / 1e9:.1f} GMAC and {nbytes / 1e9:.2f} GB in its products '
+          f'(bound {bound:.2f} ms); card ms by CUDA events: ' + ', '.join(
+              f'{k} {v:.1f}' for k, v in ms.items())
+          + (f'; {share:.3f} of the {busy:.1f} ms the card was busy'
+             if busy else '; card busy time not measured'), flush=True)
+    return dict(calls=len(shapes), gmac=macs / 1e9, gbytes=nbytes / 1e9,
+                bound_ms=bound, ms=ms, busy_ms=busy, share=share)
+
+
+def write_video_set(root, seed, name):
+    """A synthetic set of `name` ('posetrack' or 'jhmdb', TD_VIDEO_SETS) in
+    `root`: dim random JPEGs with a bright square per person, people with
+    boxes and joints around the box centre; PoseTrack's images in two
+    videos (vid_id, the last frame unlabelled) and its people with head
+    boxes. Returns the annotation file and the number of people."""
+    import cv2
+    n_img, per, k, (h, w) = TD_VIDEO_SETS[name]
+    rng = np.random.RandomState(seed)
+    images, anns = [], []
+    for i in range(n_img):
+        img = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+        file_name = f'{i:06d}.jpg'
+        im = dict(id=i + 1, file_name=file_name, width=w, height=h)
+        if name == 'posetrack':
+            im.update(vid_id=f'{1 + i % 2:06d}', frame_id=i,
+                      is_labeled=i < n_img - 2)
+        images.append(im)
+        for p in range(per):
+            bw, bh = w / (per + 1) * 0.8, h * 0.7
+            x, y = w * (p + 0.6) / (per + 1) - bw / 2, h * 0.15
+            cx, cy = int(x + bw / 2), int(y + bh / 2)
+            img[cy - 12:cy + 12, cx - 12:cx + 12] = 255
+            xy = np.array([x + bw / 2, y + bh / 2]) + rng.normal(
+                0, 6, (k, 2))
+            v = np.where(rng.rand(k) < 0.9, 2, 0)
+            ann = dict(id=len(anns) + 1, image_id=i + 1, category_id=1,
+                       bbox=[float(x), float(y), float(bw), float(bh)],
+                       area=float(bw * bh), iscrowd=0,
+                       num_keypoints=int((v > 0).sum()),
+                       keypoints=np.concatenate([xy, v[:, None]], 1)
+                       .ravel().tolist())
+            if name == 'posetrack':
+                ann.update(bbox_head=[cx - 20.0, y, 40.0, 40.0], track_id=p)
+            anns.append(ann)
+        cv2.imwrite(os.path.join(root, file_name), img[..., ::-1])
+    path = os.path.join(root, 'ann.json')
+    with open(path, 'w') as f:
+        json.dump(dict(images=images, annotations=anns,
+                       categories=[dict(id=1, name='person')]), f)
+    return path, len(anns)
+
+
+def phase_td_video_eval(card):
+    """The evaluation CLI on the PoseTrack18 (HRNet-W32 bf16; the config's
+    1280-pixel canvas, so the 1080x1920 frames shrink) and Sub-JHMDB
+    (ResNet-50) configs with seeded weights saved as a .pth, each on a
+    small synthetic set: the tables it writes (poseval's AP per part, PCK
+    and tPCK per part), in range, 0 K1 and K2 launches, the CLI's wall
+    time."""
+    import io
+    from vitpose_tpu_torch.api import init_pose_model
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.tools import test as cli
+    torch_tf32_defaults()
+    out = {}
+    for name, lead in (('posetrack', 'Total AP'), ('jhmdb', 'Mean PCK')):
+        path = TD_CONFIGS[name]
+        with tempfile.TemporaryDirectory() as root:
+            ann, people = write_video_set(root, 7, name)
+            pm = init_pose_model(path, device='cuda')
+            ckpt = os.path.join(root, 'weights.pth')
+            torch.save(pm.model.state_dict(), ckpt)
+            del pm
+            out_json = os.path.join(root, 'stats.json')
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                stats = cli.main([path, ckpt, '--out', out_json,
+                                  '--cfg-options',
+                                  f'data.val.ann_file={ann}',
+                                  f'data.val.img_prefix={root}/'])
+            cli_s = time.perf_counter() - t0
+            k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+        top = 100 if name == 'posetrack' else 1
+        check(k1 == 0 and k2 == 0, f'td-rest-video {name}: K1 {k1} and K2 '
+              f'{k2} launches, expected none')
+        check(all(np.isfinite(v) and 0 <= v <= top for v in stats.values())
+              and lead in stats, f'td-rest-video {name}: stats {stats}')
+        print(f'td-rest-video: CLI on {path} over {people} synthetic people '
+              f'in {TD_VIDEO_SETS[name][0]} images '
+              f'({TD_VIDEO_SETS[name][3][1]}x{TD_VIDEO_SETS[name][3][0]}): '
+              f'{cli_s:.1f} s with model build and checkpoint load, 0 K1 and '
+              f'0 K2 launches; table (random weights) ' + ', '.join(
+                  f'{k} {v:.4f}' for k, v in stats.items())
+              + f'; on {card}', flush=True)
+        out[name] = dict(stats={k: float(v) for k, v in stats.items()},
+                         cli_s=cli_s, k1=k1, k2=k2)
+    return out
+
+
+def phase_td_train(card, hrformer_f64=None):
+    """One timed train step at the config's batch of HRFormer-B, DeepPose
+    (smooth L1), HRNet-W32 with CombinedTarget and ResNet-50 with the
+    adaptive wing loss (each the median of CNN_TIMED_STEPS, with its kernels
+    profiled); the HRFormer-B train-ref (its float64 run from the F64Run
+    `hrformer_f64` where given); then the training CLI on the
+    photometric config for one epoch of 4 steps at batch 64: step wall
+    time and the data_time share (the photometric distortion runs on the
+    host, per canvas)."""
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    torch_tf32_defaults()
+    reset_counts()
+    steps = {}
+    for name in ('hrformer_base', 'deeppose_res50', 'udp_regress',
+                 'awing_res50'):
+        ms, peak, busy = cnn_step_ms(TD_CONFIGS[name], card)
+        steps[name] = dict(ms=ms, img_s=TRAIN_BATCH / ms * 1e3,
+                           peak_gb=peak, kernel_ms=busy)
+        print(f'td-rest-train: {name} step (runner state, the config\'s '
+              f'dtype, target and loss) at batch {TRAIN_BATCH}: median '
+              f'{ms:.1f} ms over {CNN_TIMED_STEPS} = '
+              f'{TRAIN_BATCH / ms * 1e3:.1f} img/s, peak {peak:.2f} GB; on '
+              f'{card}', flush=True)
+    t0 = time.perf_counter()
+    ref = phase_cnn_train_ref(TD_CONFIGS['hrformer_base'],
+                              'td-rest-train-ref', HRFORMER_REF_CROP,
+                              hrformer_f64)
+    print(f'td-rest-train: the train-ref took {time.perf_counter() - t0:.1f} '
+          's', flush=True)
+    path = TD_CONFIGS['photometric']
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, 'train'))
+        files, _ = write_eval_set(os.path.join(root, 'train'), 6,
+                                  *PHOTOMETRIC_IMAGES)
+        work_dir = os.path.join(root, 'work')
+        t0 = time.perf_counter()
+        state, log = run_train_cli([
+            path, '--work-dir', work_dir, '--cfg-options',
+            f'data.train.ann_file={files["ann"]}',
+            f'data.train.img_prefix={root}/train/',
+            f'data.val.ann_file={files["ann"]}',
+            f'data.val.img_prefix={root}/train/',
+            f'data.val.bbox_file={files["det"]}',
+            'runtime.eval_interval=10', 'runtime.ckpt_interval=10',
+            'runtime.log_interval=1', 'optimizer.total_epochs=1'])
+        run_s = time.perf_counter() - t0
+    train = [r for r in log if r['mode'] == 'train']
+    check(len(train) == state.step == 4 and all(
+        np.isfinite(r[k]) for r in train
+        for k in ('heatmap_loss', 'grad_norm', 'acc_pose')),
+        f'td-rest-train photometric: {len(train)} steps, state at '
+        f'{state.step}, metrics {train[-1:]}')
+    del state
+    times = step_times(train)
+    med = statistics.median(times)
+    last = train[-1]
+    share = last['data_time'] / last['time']
+    k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+    check(k1 == 0 and k2 == 0, f'td-rest-train: K1 {k1} and K2 {k2} '
+          'launches, expected none')
+    print(f'td-rest-train: CLI on {path} (photometric distortion on the '
+          f'host canvas), 4 steps at batch {TRAIN_BATCH}: step wall time '
+          f'median {med * 1e3:.1f} ms ({min(times) * 1e3:.1f}-'
+          f'{max(times) * 1e3:.1f}), data_time share {share:.3f} '
+          f'({last["data_time"]:.2f} of {last["time"]:.2f} s); whole run '
+          f'{run_s:.1f} s; 0 K1 and 0 K2 launches in every step; on {card}',
+          flush=True)
+    return dict(steps=steps, ref=ref, photometric_cli_ms=med * 1e3,
+                photometric_data_time_share=share, k1=k1, k2=k2)
+
+
+def run_td_rest_phases(card, hrformer_f64=None):
+    """The new top-down paths in order (serve, ref, train, eval, video),
+    each timed (`hrformer_f64` as phase_td_train takes it); returns their
+    report."""
+    cfgs = TD_CONFIGS
+    return run_phases('td-rest', (
+        ('serve', lambda c: phase_cnn_serve(
+            c, [(n, cfgs[n]) for n in ('hrformer_base', 'deeppose_res50')],
+            'td-rest-serve')),
+        ('ref', lambda c: phase_cnn_ref(
+            c, [(n, cfgs[n]) for n in ('hrformer_base', 'hrformer_small')],
+            (), 'td-rest-ref', grid=(2, 2))),
+        ('train', lambda c: phase_td_train(c, hrformer_f64)),
+        ('eval_deeppose', lambda c: phase_cnn_eval(
+            c, cfgs['deeppose_res50'], 'DeepPose-Res50 f32, the regression '
+            'decode', 'td-rest-eval', TD_EVAL_IMAGES)),
+        ('eval_udp_regress', lambda c: phase_cnn_eval(
+            c, cfgs['udp_regress'], 'HRNet-W32 bf16, the UDP CombinedTarget '
+            'decode', 'td-rest-eval')),
+        ('video', phase_td_video_eval)), card)
+
+
+def td_rest_launches(td, key):
+    """A kernel's launches on each of the new top-down paths ('k1' or
+    'k2')."""
+    return {'td_rest_serve': {n: r[key] for n, r in td['serve'].items()},
+            'td_rest_train': td['train'][key],
+            'td_rest_eval': {'deeppose_res50': td['eval_deeppose'][key],
+                             'udp_regress': td['eval_udp_regress'][key]},
+            'td_rest_video_eval': {n: r[key]
+                                   for n, r in td['video'].items()}}
+
+
 def kernel_name(mangled):
     """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
     anonymous namespace; the mangled name where it is not one."""
@@ -4916,11 +5351,17 @@ def main():
     except ImportError as e:
         print(f'chip_smoke: run from the repo root ({e})', file=sys.stderr)
         return 1
+    hrformer_f64 = None
     try:
         card = card_line()
         print(f'env: {card}; torch {torch.__version__}, CUDA '
               f'{torch.version.cuda}, python {sys.version.split()[0]}',
               flush=True)
+
+        laps = [('start', time.perf_counter())]
+
+        def lap(name):
+            laps.append((name, time.perf_counter()))
 
         t0 = time.perf_counter()
         logs = _build.build_all()
@@ -4929,50 +5370,86 @@ def main():
         print(f'build: {", ".join(logs)} built by nvcc (sm_90a) in '
               f'{build_s:.1f} s', flush=True)
 
+        lap('build')
         k1 = phase_kernel()
+        lap('kernel')
         model, serve_launches, batch_s, img_s = phase_serve()
         print(f'serve: 256-crop batch (warp, bf16 ViT-B + K1, flip test, UDP '
               f'decode) median {batch_s * 1e3:.1f} ms = {img_s:.1f} img/s on '
               f'{card}', flush=True)
+        lap('serve')
         ops = phase_ops(model, card)
+        lap('ops')
         del model
         torch.cuda.empty_cache()
         phase_serve_ref()
+        lap('serve-ref')
         int8 = phase_int8(card)
+        lap('int8')
         serve_int8, int8_batch_ms = phase_serve_int8(card)
+        lap('serve-int8')
         with tempfile.TemporaryDirectory() as root:
             deploy = phase_deploy(card, root)
+        lap('deploy')
         with tempfile.TemporaryDirectory() as root:
             ckpt = peaks_checkpoint(root, COCO_B, 'vitpose_b_peaks')
             export_k1, export_rows = phase_export(card, root, ckpt)
+            lap('export')
             demo_k1, demo_fps = phase_demos(card, root, ckpt)
+            lap('demos')
             webcam = phase_webcam(card, root, ckpt)
+            lap('webcam')
         torch.cuda.empty_cache()
         eval_launches, eval_int8 = phase_eval(card)
+        lap('eval')
         k2 = phase_kernel_bwd()
+        lap('kernel-bwd')
         train_launches, step_s, train_img_s, busy_ms = phase_train()
         print(f'train: step (preprocess on the card, forward, backward, '
               f'clip, AdamW) median {step_s * 1e3:.1f} ms over '
               f'{TIMED_STEPS} steps = {train_img_s:.1f} img/s on {card}',
               flush=True)
         torch.cuda.empty_cache()
+        lap('train')
         phase_train_ref()
+        lap('train-ref')
         torch.cuda.empty_cache()
         loop_launches, loop_steps, loop_val = phase_train_loop(card, busy_ms)
+        lap('train-loop')
         remat_k1 = phase_remat(card)
+        lap('remat')
         torch.cuda.empty_cache()
         moe_launches, moe_steps, moe_val = phase_moe_train(card)
+        lap('moe-train')
         torch.cuda.empty_cache()
         phase_moe_ref(card)
+        lap('moe-ref')
         torch.cuda.empty_cache()
+        # HRFormer-B's float64 train-ref run goes on in its own process
+        # through the CNN and bottom-up groups
+        hrformer_f64 = F64Run(TD_CONFIGS['hrformer_base'], HRFORMER_REF_CROP)
         cnn = run_cnn_phases(card)
+        lap('cnn')
         cnn_more = run_cnn_more_phases(card)
+        lap('cnn-more')
         cnn_ms = run_cnn_ms_phases(card)
+        lap('cnn-ms')
         bu = run_bu_phases(card)
+        lap('bu')
         bu_ms = run_phases('bu-ms', (('bu_ms', phase_bu_ms),), card)
+        lap('bu-ms')
+        td_rest = run_td_rest_phases(card, hrformer_f64)
+        lap('td-rest')
+        print('phases: wall s ' + ', '.join(
+            f'{name} {t - laps[i][1]:.1f}'
+            for i, (name, t) in enumerate(laps[1:]))
+            + f'; total {laps[-1][1] - laps[0][1]:.1f}', flush=True)
     except Failure as e:
         print(f'chip_smoke: FAIL {e}', file=sys.stderr)
         return 1
+    finally:
+        if hrformer_f64 is not None:
+            hrformer_f64.stop()
 
     kernels = []
     loop_k1, loop_k2 = loop_launches
@@ -5004,7 +5481,8 @@ def main():
                                                  'cnn_more'),
                                   **cnn_launches(cnn_ms, 'k1', 'cnn_ms'),
                                   **bu_launches(bu, 'k1'),
-                                  **bu_ms_launches(bu_ms, 'k1')},
+                                  **bu_ms_launches(bu_ms, 'k1'),
+                                  **td_rest_launches(td_rest, 'k1')},
                 'attention_bwd': {'serve': 0, 'eval': 0, 'export': 0,
                                   'demos_per_frame': 0, 'webcam': 0,
                                   'train': train_launches[1],
@@ -5018,7 +5496,8 @@ def main():
                                                  'cnn_more'),
                                   **cnn_launches(cnn_ms, 'k2', 'cnn_ms'),
                                   **bu_launches(bu, 'k2'),
-                                  **bu_ms_launches(bu_ms, 'k2')}}
+                                  **bu_ms_launches(bu_ms, 'k2'),
+                                  **td_rest_launches(td_rest, 'k2')}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({
@@ -5051,6 +5530,7 @@ def main():
     print(json.dumps({'cnn_ms': cnn_ms}))
     print(json.dumps({'bottomup': bu}))
     print(json.dumps({'bottomup_ms': bu_ms}))
+    print(json.dumps({'td_rest': td_rest}))
     print(json.dumps({'kernels': kernels, 'int8_matmul': int8_matmul,
                       'deploy_latency_ms': {
                           m: r['latency_ms'] for m, r in deploy.items()},

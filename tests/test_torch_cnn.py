@@ -499,7 +499,7 @@ CNN_BACKBONES = ('resnet', 'resnet_v1d', 'hrnet', 'hrnetv2', 'resnext',
                  'seresnet', 'seresnext', 'scnet', 'resnest', 'vgg',
                  'alexnet', 'shufflenet_v1', 'vipnas_resnet', 'vipnas_mbv3',
                  'mobilenet_v2', 'shufflenet_v2', 'litehrnet', 'cpm',
-                 'hourglass', 'mspn', 'rsn')
+                 'hourglass', 'mspn', 'rsn', 'hrformer')
 
 
 def _zoo_cnn_configs():
@@ -514,32 +514,32 @@ def _zoo_cnn_configs():
 
 
 CNN_CONFIGS = _zoo_cnn_configs()
-# the configs that wait for later items, with the ROADMAP item each cites
-REFUSED = {
-    **{f'vitpose_tpu/configs/coco/hrnet_w32_coco_256x192_{aug}.py': 'item 7'
-       for aug in ('coarsedropout', 'gridmask', 'photometric')},
-    # CombinedTarget, awing
-    'vitpose_tpu/configs/coco/hrnet_w32_coco_256x192_udp_regress.py':
-        'item 7',
-    'vitpose_tpu/configs/coco/res50_coco_256x192_awing.py': 'item 7',
-    'vitpose_tpu/configs/face/hrnetv2_w18_wflw_256x256_awing.py': 'item 7',
-    # the DeepPose regression head
-    'vitpose_tpu/configs/coco/deeppose_res50_coco_256x192.py': 'item 7',
-    'vitpose_tpu/configs/mpii/deeppose_res50_mpii_256x256.py': 'item 7',
-    **{f'vitpose_tpu/configs/face/deeppose_res50_wflw_256x256{loss}.py':
-       'item 7' for loss in ('', '_softwingloss', '_wingloss')},
-    # the JHMDB and PoseTrack18 dataset classes
-    **{f'vitpose_tpu/configs/jhmdb/res50{deconv}_jhmdb_sub{i}_256x256.py':
-       'item 12' for deconv in ('', '_2deconv') for i in (1, 2, 3)},
-    **{f'vitpose_tpu/configs/jhmdb/cpm_jhmdb_sub{i}_368x368.py': 'item 12d'
-       for i in (1, 2, 3)},
-    **{f'vitpose_tpu/configs/posetrack/{name}.py': 'item 12' for name in (
+# the configs that wait for later items, with the ROADMAP item each cites:
+# none since items 7, 12c and 12d's datasets
+REFUSED = {}
+RUNNABLE = [p for p in CNN_CONFIGS if p not in REFUSED]
+# the 30 configs that items 7, 12c and 12d's datasets made runnable
+SLICE_13 = [
+    *(f'vitpose_tpu/configs/coco/hrformer_{size}_coco_{hw}.py'
+      for size in ('small', 'base') for hw in ('256x192', '384x288')),
+    *(f'vitpose_tpu/configs/coco/hrnet_w32_coco_256x192_{aug}.py'
+      for aug in ('coarsedropout', 'gridmask', 'photometric')),
+    'vitpose_tpu/configs/coco/hrnet_w32_coco_256x192_udp_regress.py',
+    'vitpose_tpu/configs/coco/res50_coco_256x192_awing.py',
+    'vitpose_tpu/configs/face/hrnetv2_w18_wflw_256x256_awing.py',
+    'vitpose_tpu/configs/coco/deeppose_res50_coco_256x192.py',
+    'vitpose_tpu/configs/mpii/deeppose_res50_mpii_256x256.py',
+    *(f'vitpose_tpu/configs/face/deeppose_res50_wflw_256x256{loss}.py'
+      for loss in ('', '_softwingloss', '_wingloss')),
+    *(f'vitpose_tpu/configs/jhmdb/res50{deconv}_jhmdb_sub{i}_256x256.py'
+      for deconv in ('', '_2deconv') for i in (1, 2, 3)),
+    *(f'vitpose_tpu/configs/jhmdb/cpm_jhmdb_sub{i}_368x368.py'
+      for i in (1, 2, 3)),
+    *(f'vitpose_tpu/configs/posetrack/{name}.py' for name in (
         'hrnet_w32_posetrack18_256x192', 'hrnet_w32_posetrack18_384x288',
         'hrnet_w48_posetrack18_256x192', 'hrnet_w48_posetrack18_384x288',
         'hrnet_w48_posetrack18_384x288_posewarper_stage1',
-        'res50_posetrack18_256x192')},
-}
-RUNNABLE = [p for p in CNN_CONFIGS if p not in REFUSED]
+        'res50_posetrack18_256x192'))]
 
 
 def refusal_checks(cfg):
@@ -563,7 +563,7 @@ def refusal_checks(cfg):
     AugmentConfig(**dcfg.get('aug', {}))
     make_preprocess_fn(target_type=mcfg.target_type)
     make_train_step(model, target_type=mcfg.target_type,
-                    heatmap_loss=mcfg.heatmap_loss)
+                    reg_loss=mcfg.reg_loss, heatmap_loss=mcfg.heatmap_loss)
     return model
 
 
@@ -621,7 +621,9 @@ def test_cnn_config_passes_the_ports_refusals_and_builds(path):
                      if not k.endswith('num_batches_tracked'))
     if backbone_type in BACKBONE_CONVERTERS:
         assert _converter_reads(backbone_type, keys) == {k for k, _ in keys}
-    assert prediction_weight(sd).shape[0] == mcfg.out_channels
+    # DeepPose's fc gives (x, y) per joint
+    per_joint = 2 if mcfg.head_type == 'regression' else 1
+    assert prediction_weight(sd).shape[0] == per_joint * mcfg.out_channels
 
 
 def prediction_weight(sd):
@@ -635,8 +637,10 @@ def prediction_weight(sd):
         return sd[max(keys, key=lambda k: int(k[len(prefix):-len(suffix)]))] \
             if keys else None
 
-    if 'keypoint_head.final_layer.weight' in sd:
-        return sd['keypoint_head.final_layer.weight']
+    for name in ('keypoint_head.final_layer.weight',
+                 'keypoint_head.fc.weight'):
+        if name in sd:
+            return sd[name]
     for prefix, suffix in (('keypoint_head.final_layer.', '.weight'),
                            ('keypoint_head.multi_final_layers.', '.weight'),
                            ('keypoint_head.predict_layers.',
@@ -649,11 +653,18 @@ def prediction_weight(sd):
 
 
 def test_the_zoo_has_250_runnable_and_23_refused_cnn_configs():
-    """The counts since item 12b: 311 CNN top-down configs, 285 of them
-    runnable and 26 refused (the name keeps item 12a's counts)."""
-    assert len(CNN_CONFIGS) == 311 and len(RUNNABLE) == 285
-    assert len(REFUSED) == 26
-    for path, item in REFUSED.items():
-        cfg = load_config(os.path.join(ROOT, path))
-        with pytest.raises(NotImplementedError, match=item):
-            refusal_checks(cfg)
+    """The counts since items 7, 12c and 12d's datasets: 315 CNN top-down
+    configs (the four HRFormer ones among them), all runnable (the name
+    keeps item 12a's counts). The 30 that this slice made runnable, which
+    earlier raised here, each pass the refusal checks, and the head of each
+    fits its target: a 3K-channel head for CombinedTarget (its config
+    inherits 17 channels, the joints), the regression head for DeepPose."""
+    assert len(CNN_CONFIGS) == 315 and len(RUNNABLE) == 315
+    assert not REFUSED and len(SLICE_13) == len(set(SLICE_13)) == 30
+    assert set(SLICE_13) <= set(RUNNABLE)
+    for path in SLICE_13:
+        model = refusal_checks(load_config(os.path.join(ROOT, path)))
+        cfg = model.cfg
+        if cfg.target_type.lower() == 'combinedtarget':
+            assert cfg.out_channels == 51
+        assert (cfg.head_type == 'regression') == ('deeppose' in path)

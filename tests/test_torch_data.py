@@ -231,14 +231,15 @@ def test_dataset_records_match_jax(coco, mode):
 
 
 def test_topdown_dataset_cls():
-    """COCO-format datasets use TopDownDataset (MPII, MPII-TRB and
-    COCO-WholeBody their own classes, tests/test_torch_zoo_data.py); the
-    video datasets wait for the model families that use them."""
+    """COCO-format datasets use TopDownDataset (MPII, MPII-TRB,
+    COCO-WholeBody, PoseTrack18 and Sub-JHMDB their own classes,
+    tests/test_torch_zoo_data.py and tests/test_torch_video_sets.py)."""
     assert topdown_dataset_cls('coco') is TopDownDataset
     assert topdown_dataset_cls('crowdpose') is TopDownDataset
-    for name in ('posetrack18', 'jhmdb'):
-        with pytest.raises(NotImplementedError, match='queue 1 item 12'):
-            topdown_dataset_cls(name)
+    for name, cls in (('posetrack18', 'PoseTrackDataset'),
+                      ('jhmdb', 'JhmdbDataset')):
+        assert topdown_dataset_cls(name).__name__ == cls
+        assert issubclass(topdown_dataset_cls(name), TopDownDataset)
 
 
 # --- loader -----------------------------------------------------------------

@@ -331,13 +331,21 @@ def test_run_validation_matches_jax(val_setup, decode_mode):
 
 
 def test_run_validation_refuses_unported(val_setup):
-    coco, variables, _ = val_setup
-    model = _port_model(_small(make_config, out_channels=17), variables)
-    loader = _port_loader(coco)
-    # (ViTPose+ expert and head selection: tests/test_torch_moe*.py)
-    for kw, item in ((dict(target_type='Regression'), 'item 12'),):
-        with pytest.raises(NotImplementedError, match=item):
-            run_validation(model, loader, **kw)
+    """Nothing of run_validation is refused since item 7: target_type
+    'Regression' takes the DeepPose decode (a DeepPose model's
+    coordinates, maxvals of one; held to JAX's in
+    tests/test_torch_td_rest.py). (ViTPose+ expert and head selection:
+    tests/test_torch_moe*.py.)"""
+    coco, _, _ = val_setup
+    model = build_model_from_cfg(dict(
+        backbone_type='resnet', backbone_overrides=dict(depth=18),
+        img_size=(64, 48), out_channels=17, head='regression',
+        target_type='Regression', use_udp=False))
+    results = run_validation(model, _port_loader(coco), use_udp=False,
+                             target_type='Regression')
+    preds = np.concatenate([r['preds'] for r in results])
+    assert preds.shape == (10, 17, 3) and np.isfinite(preds).all()
+    assert (preds[..., 2] == 1).all()
 
 
 # --- the CLI ---------------------------------------------------------------
@@ -417,17 +425,22 @@ def test_config_file_model_matches_jax():
     assert bb_port == {k: bb_ref[k] for k in bb_port}
     assert port.backbone.dtype == 'bfloat16' and port.backbone.fused_attention
     # a CNN backbone builds its GenericTopDown (ROADMAP item 12's CNN
-    # top-down); another family, or an unported backbone, still raises
+    # top-down; HRFormer since item 12c); another family still raises
     cnn = build_model_from_cfg(dict(
         mcfg, backbone_type='hrnet',
         backbone_overrides=dict(width=8, stage_modules=(1, 1),
                                 stage_blocks=1)))
     assert type(cnn).__name__ == 'GenericTopDown'
     assert cnn.backbone_type == 'hrnet' and cnn.cfg.backbone.depth == 12
-    for bad in (dict(mcfg, family='pose_lifter'),
-                dict(mcfg, backbone_type='hrformer')):
-        with pytest.raises(NotImplementedError, match='item 12'):
-            build_model_from_cfg(bad)
+    with pytest.raises(NotImplementedError, match='item 12'):
+        build_model_from_cfg(dict(mcfg, family='pose_lifter'))
+    former = build_model_from_cfg(dict(
+        mcfg, backbone_type='hrformer', backbone_overrides=dict(
+            width=8, stage_modules=(1,), num_heads=(1, 2),
+            blocks_per_module=1)))
+    assert type(former.backbone).__name__ == 'HRFormer'
+    assert former.backbone_type == 'hrformer'
+
 
 
 @pytest.mark.parametrize('source', ['file', 'model_dict'])

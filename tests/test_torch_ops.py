@@ -203,8 +203,16 @@ def test_argmax_ties_go_to_the_first_max(jax_decoded):
 
 
 def test_combined_target_decode_is_not_ported_yet():
+    """Since item 7 the UDP CombinedTarget decode runs (held to JAX's in
+    tests/test_torch_td_rest.py); another target type under UDP raises
+    JAX's ValueError."""
     hm = torch.zeros(1, 3, 8, 6)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    hm[0, 0, 5, 2] = 1.0
+    preds, maxvals = tdec.keypoints_from_heatmaps(
+        hm, torch.zeros(1, 2), torch.ones(1, 2), use_udp=True,
+        target_type='CombinedTarget')
+    assert preds.shape == (1, 1, 2) and maxvals.shape == (1, 1, 1)
+    assert float(maxvals) > 0
+    with pytest.raises(ValueError, match='bad target_type'):
         tdec.keypoints_from_heatmaps(hm, torch.zeros(1, 2), torch.ones(1, 2),
-                                     use_udp=True,
-                                     target_type='CombinedTarget')
+                                     use_udp=True, target_type='Other')

@@ -47,7 +47,8 @@ from vitpose_tpu_torch.data.pipeline import (AugmentConfig,
                                              make_preprocess_fn,
                                              sample_augmentations)
 from vitpose_tpu_torch.models import forward, infer, make_config
-from vitpose_tpu_torch.models.losses import joints_mse_loss
+from vitpose_tpu_torch.models.losses import (combined_target_mse_loss,
+                                             joints_mse_loss)
 from vitpose_tpu_torch.models.topdown import loss_fn
 from vitpose_tpu_torch.models.vit import DropPath
 from vitpose_tpu_torch.ops import geometry as tgeo
@@ -150,8 +151,11 @@ def test_point_warp_pck_and_loss_match_jax():
     loss = joints_mse_loss(out, target, weight)
     np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-6)
     assert loss_fn(out, target, weight)['heatmap_loss'] == loss
-    with pytest.raises(NotImplementedError, match='CombinedTarget'):
-        loss_fn(out, target, weight, 'CombinedTarget')
+    # the CombinedTarget loss over 3K channels (held to JAX's in
+    # tests/test_torch_td_rest.py)
+    out3, target3 = out.repeat(1, 3, 1, 1), target.repeat(1, 3, 1, 1)
+    assert loss_fn(out3, target3, weight, 'CombinedTarget')[
+        'heatmap_loss'] == combined_target_mse_loss(out3, target3, weight)
 
 
 def test_dataset_info_body_halves_match_jax():
@@ -188,8 +192,11 @@ def test_sample_augmentations_bit_identical_to_jax():
         ref = jax_sample_augmentations(jrng, rec, jinfo, 120, jaug, (48, 64))
         for a, b in zip(out, ref):
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match='image-level'):
-        AugmentConfig(photometric=True)
+    # the image-level augmentations are ported (item 7) but for the
+    # albumentations transform
+    assert AugmentConfig(photometric=True).has_image_augs()
+    with pytest.raises(NotImplementedError, match='albumentations'):
+        AugmentConfig(albumentations=[{'type': 'Blur'}])
 
 
 @pytest.mark.parametrize('use_udp', [True, False])
@@ -211,8 +218,9 @@ def test_preprocess_matches_jax(use_udp):
     for key in ('imgs', 'target', 'target_weight'):
         np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]),
                                    rtol=1e-5, atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        make_preprocess_fn(target_type='CombinedTarget')
+    # the ViTPose+ padding takes heatmap targets only, as JAX's
+    with pytest.raises(ValueError, match='Regression'):
+        make_preprocess_fn(target_type='Regression', pad_num_joints=20)
 
 
 SCHED = dict(base_lr=1e-3, warmup_iters=4, warmup_ratio=0.1,

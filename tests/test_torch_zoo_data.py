@@ -1,7 +1,7 @@
 """The port's datasets of the rest of the ViTPose zoo against the JAX package
 on the CPU: every metadata file, `from_mmpose_dict`, MPII and MPII-TRB,
-COCO-WholeBody, the COCO-format AIC, CrowdPose, AP-10K and InterHand2D
-through `TopDownDataset`, the dataset dispatch, the ViTPose+ mixture
+COCO-WholeBody, PoseTrack18 and Sub-JHMDB, the COCO-format AIC, CrowdPose,
+AP-10K and InterHand2D through `TopDownDataset`, the dataset dispatch, the ViTPose+ mixture
 loader with the target padding, and every ViTPose config of the zoo
 through the port's refusal checks.
 
@@ -76,24 +76,34 @@ def _person(rng, k):
 
 
 def write_kpt_fixture(root, seed, k, n_images=4, per_image=2,
-                      wholebody=False, crowd_index=False):
+                      wholebody=False, crowd_index=False, video=False):
     """A COCO-format keypoint set of `k` joints. With `wholebody`, `k` is
     the body's count and each person also carries the foot, face and hand
-    fields (with their validity flags and boxes). Returns {'ann',
-    'prefix'}."""
+    fields (with their validity flags and boxes). With `video` (PoseTrack18
+    style), images belong to two videos (`vid_id`, `frame_id`; the third
+    unlabelled) and people carry a `bbox_head` and a `track_id`. Returns
+    {'ann', 'prefix'}."""
     rng = np.random.RandomState(seed)
     images, anns = [], []
     for i, name in enumerate(_write_images(root, rng, n_images)):
         im = dict(id=i + 1, file_name=name, width=SIZE[1], height=SIZE[0])
         if crowd_index:
             im['crowdIndex'] = float(rng.uniform(0, 1))
+        if video:
+            im.update(vid_id=f'{10001 + i % 2:06d}', frame_id=i + 1,
+                      is_labeled=i != 2)
         images.append(im)
-        for _ in range(per_image):
+        for p in range(per_image):
             bbox, kp = _person(rng, k)
             ann = dict(id=len(anns) + 1, image_id=i + 1, category_id=1,
                        bbox=bbox, area=bbox[2] * bbox[3] * 0.7, iscrowd=0,
                        keypoints=kp.ravel().tolist(),
                        num_keypoints=int((kp[:, 2] > 0).sum()))
+            if video:
+                ann.update(bbox_head=[bbox[0], bbox[1],
+                                      float(rng.uniform(8, 20)),
+                                      float(rng.uniform(8, 20))],
+                           track_id=p)
             if wholebody:
                 for field, n in WHOLEBODY_PARTS:
                     part = _person(rng, n)[1]
@@ -178,7 +188,10 @@ def sets(tmp_path_factory):
         crowdpose=write_kpt_fixture(str(root / 'crowdpose'), 5, 14,
                                     crowd_index=True),
         ap10k=write_kpt_fixture(str(root / 'ap10k'), 6, 17),
-        interhand2d=write_kpt_fixture(str(root / 'interhand'), 7, 21))
+        interhand2d=write_kpt_fixture(str(root / 'interhand'), 7, 21),
+        posetrack18=write_kpt_fixture(str(root / 'posetrack'), 8, 17,
+                                      video=True),
+        jhmdb=write_kpt_fixture(str(root / 'jhmdb'), 9, 15))
 
 
 # --- metadata ---------------------------------------------------------------
@@ -223,7 +236,7 @@ def test_available_datasets_and_mmpose_dict_match_jax():
 
 def test_topdown_dataset_cls_dispatch_matches_jax():
     for name in ('coco', 'aic', 'crowdpose', 'ap10k', 'interhand2d', 'mpii',
-                 'mpii_trb', 'coco_wholebody'):
+                 'mpii_trb', 'coco_wholebody', 'posetrack18', 'jhmdb'):
         assert topdown_dataset_cls(name).__name__ == \
             jax_dataset_cls(name).__name__
 
@@ -262,7 +275,10 @@ def _predictions(ds, seed, noise=1.0):
 DATASETS = {'mpii': ('PCKh',), 'mpii_trb': ('PCKh',),
             'coco_wholebody': ('mAP',), 'aic': ('mAP',),
             'crowdpose': ('mAP',), 'ap10k': ('mAP',),
-            'interhand2d': ('PCK', 'AUC', 'EPE')}
+            'interhand2d': ('PCK', 'AUC', 'EPE'),
+            'posetrack18': ('mAP',), 'jhmdb': ('PCK', 'tPCK')}
+# the stat each protocol leads with
+HEADLINE = {'posetrack18': 'Total AP', 'jhmdb': 'Mean PCK'}
 
 
 @pytest.mark.parametrize('name', sorted(DATASETS))
@@ -284,7 +300,8 @@ def test_dataset_records_and_evaluate_match_jax(sets, name):
     for key, value in ref_stats.items():
         assert stats[key] == value or (np.isnan(stats[key])
                                        and np.isnan(value)), key
-    headline = {'PCKh': 'PCKh', 'mAP': 'AP', 'PCK': 'PCK'}[metric[0]]
+    headline = HEADLINE.get(name, {'PCKh': 'PCKh', 'mAP': 'AP',
+                                   'PCK': 'PCK'}[metric[0]])
     assert 0 < stats[headline] <= 100
 
 

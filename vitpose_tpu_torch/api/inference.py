@@ -33,7 +33,7 @@ from ..models.bottomup import (BottomUpEstimator, aggregate_scale,
                                split_ae_outputs)
 from ..models.topdown import TopDownConfig, TopDownModel, infer, make_config
 from ..models.vit import VIT_VARIANTS, compute_dtype
-from ..ops.decode import keypoints_from_heatmaps
+from ..ops.decode import keypoints_from_heatmaps, keypoints_from_regression
 from ..ops.geometry import (affine_matrix, bbox_xywh2cs, bbox_xyxy2xywh,
                             udp_warp_matrix)
 from ..ops.nms import oks_nms
@@ -98,7 +98,8 @@ class PoseModel:
         rows may alias one image (an `expand` view, stride 0), which is then
         converted once; center, scale: [N, 2] float32 on the same device.
         Returns (preds [N, K, 2], maxvals [N, K, 1]) and, with
-        `return_heatmap`, the [N, K, h, w] heatmaps.
+        `return_heatmap`, the [N, K, h, w] heatmaps (a DeepPose model: its
+        [N, K, 2] normalised coordinates, maxvals of ones).
         """
         cfg = self.cfg
         iw, ih = self.image_size
@@ -117,10 +118,14 @@ class PoseModel:
         hm = infer(self.model, crops,
                    flip_index=self.flip_index_tensor(flip_index)
                    if flip else None)
-        preds, maxvals = keypoints_from_heatmaps(
-            hm, center, scale, post_process=cfg.post_process,
-            kernel=cfg.modulate_kernel, use_udp=cfg.use_udp,
-            target_type=cfg.target_type)
+        if cfg.head_type == 'regression':
+            preds, maxvals = keypoints_from_regression(
+                hm, center, scale, (iw, ih), use_udp=cfg.use_udp)
+        else:
+            preds, maxvals = keypoints_from_heatmaps(
+                hm, center, scale, post_process=cfg.post_process,
+                kernel=cfg.modulate_kernel, use_udp=cfg.use_udp,
+                target_type=cfg.target_type)
         if return_heatmap:
             return preds, maxvals, hm
         return preds, maxvals

@@ -11,6 +11,8 @@ with the same batches for the same datasets, seeds and epoch:
     per-process sharding (each process takes
     records[process_index::process_count], every shard padded to the same
     size),
+  * in training, the configured image-level augmentations change each
+    record's canvas in place, from the record's own RandomState,
   * the crop, normalisation and targets happen later, on the device.
 
 The last batch of an epoch keeps the full batch size, padded with copies of
@@ -26,7 +28,8 @@ from typing import Iterator, Optional
 import numpy as np
 
 from .native import decode_batch_native, native_available
-from .pipeline import AugmentConfig, sample_augmentations
+from .pipeline import (AugmentConfig, apply_image_augmentations,
+                       sample_augmentations)
 
 
 def _bbox_xywh2cs(bbox, aspect_ratio, padding=1.25, pixel_std=200.0):
@@ -88,8 +91,6 @@ class TopDownLoader:
         self.canvas_size = (canvas_size if canvas_size is not None
                             else getattr(dataset, 'canvas_size', 640))
         self.padding = padding
-        # AugmentConfig refuses the image-level augmentations, which are not
-        # ported, so a record's canvas is never changed on the host
         self.aug = aug or AugmentConfig()
         self.seed = seed
         # JPEG decode releases the GIL (libjpeg, cv2), so threads overlap
@@ -154,7 +155,7 @@ class TopDownLoader:
             sfacs[j] = s
         return canvases, sfacs
 
-    def _prepare_record(self, i, rec_rng, sfac):
+    def _prepare_record(self, i, rec_rng, canvas, sfac):
         rec = self.ds.db[i]
         if 'center' in rec and 'scale' in rec:
             # records that carry center/scale directly (e.g. MPII)
@@ -175,6 +176,13 @@ class TopDownLoader:
         vis = rec['joints_3d_visible'][:, 0]
 
         flipped = False
+        if self.is_train and self.aug.has_image_augs():
+            # the image-level augmentations change this record's canvas in
+            # place, from its own RandomState, before its geometry is drawn
+            # (JAX's loader, vitpose_tpu/data/loader.py:168-176); the crop
+            # then samples the changed pixels
+            canvas[...] = apply_image_augmentations(rec_rng, canvas,
+                                                    self.aug)
         if self.is_train:
             r = dict(rec, center=center, scale=scale,
                      joints_3d=np.concatenate(
@@ -209,12 +217,13 @@ class TopDownLoader:
             canvases, sfacs = self._decode_chunk(
                 [self.ds.db[i] for i in chunk])
             recs = [self._prepare_record(i, np.random.RandomState(s),
-                                         sfacs[j])
+                                         canvases[j], sfacs[j])
                     for j, (i, s) in enumerate(zip(chunk, seeds))]
             while len(recs) < bs:          # pad the final batch
                 recs.append(recs[-1])
-            # the canvases pass through unchanged (the flip and the warp
-            # happen on the device), so the decode buffer is the batch
+            # the flip and the warp happen on the device, so the decode
+            # buffer (changed in place by any image-level augmentation) is
+            # the batch
             if len(chunk) == bs:
                 imgs = canvases
             else:

@@ -1,11 +1,15 @@
 """Top-down training input: host-side augmentation parameters, device-side
 pixels and targets.
 
-Counterpart of vitpose_tpu/data/pipeline.py:37-228. The host draws each
-record's flip, half-body crop, scale and rotation (`sample_augmentations`,
-numpy, the same draws as the JAX package from the same RandomState); the
-device warps every crop in one batched gather, normalises it and paints the
-UDP or MSRA heatmap targets (`make_preprocess_fn`, plain tensor code).
+Counterpart of vitpose_tpu/data/pipeline.py:37-228 and :293-418. The host
+draws each record's flip, half-body crop, scale and rotation
+(`sample_augmentations`, numpy, the same draws as the JAX package from the
+same RandomState), and runs the image-level augmentations on the record's
+canvas (`apply_image_augmentations`: photometric distortion, coarse and
+grid dropout; cv2 and numpy); the device warps every crop in one batched
+gather, normalises it and paints the targets: UDP or MSRA heatmaps,
+CombinedTarget maps, or DeepPose's normalised coordinates
+(`make_preprocess_fn`, plain tensor code).
 
 Geometry as in the reference: a flipped record mirrors its joints with
 ``W - 1 - x`` and its center with ``W - 1 - cx`` on the host
@@ -23,7 +27,8 @@ import torch.nn.functional as F
 
 from ..ops.geometry import (affine_matrix, apply_affine_to_points,
                             udp_warp_matrix)
-from ..ops.target import generate_msra_heatmaps, generate_udp_heatmaps
+from ..ops.target import (generate_combined_target, generate_msra_heatmaps,
+                          generate_udp_heatmaps)
 from ..ops.warp import warp_affine_batch
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -42,18 +47,20 @@ class AugmentConfig:
     shift_factor: float = 0.16
     trans_prob: float = 0.0          # TopDownRandomTranslation
     trans_factor: float = 0.15
-    # image-level augs of the JAX loader; not ported, so setting one raises
+    # image-level augmentations, run by the loader on the host canvas before
+    # the warp (JAX's order): True, or a dict of the function's arguments;
+    # the albumentations path needs a package neither machine has
     photometric: object = None
     coarse_dropout: object = None
     grid_dropout: object = None
     albumentations: object = None
 
     def __post_init__(self):
-        if self.has_image_augs():
+        if self.albumentations:
             raise NotImplementedError(
-                'image-level augmentations (photometric, dropouts, '
-                'albumentations) are not ported yet (ROADMAP.md queue 1 '
-                'item 7)')
+                'the albumentations transform needs the `albumentations` '
+                'package, which is not installed (ROADMAP.md "Not queued"); '
+                'photometric, coarse_dropout and grid_dropout are native')
 
     def has_image_augs(self):
         return bool(self.photometric or self.coarse_dropout
@@ -140,6 +147,10 @@ def make_preprocess_fn(image_size=(192, 256), heatmap_size=(48, 64),
        dict(imgs [N, h, w, 3] normalised, target [N, K, hh, hw],
             target_weight [N, K])
 
+    `target_type` 'CombinedTarget' gives target [N, 3K, hh, hw];
+    'Regression' target [N, K, 2] (crop coordinates over the crop size)
+    and target_weight [N, K, 2].
+
     With `pad_num_joints`, target and target_weight are padded with zeros
     to that many joints (ViTPose+).
 
@@ -149,11 +160,11 @@ def make_preprocess_fn(image_size=(192, 256), heatmap_size=(48, 64),
     that sample_augmentations mirrored, at any rotation and with no pixel
     copy.
     """
-    if target_type.lower() != 'gaussianheatmap':
-        raise NotImplementedError(f'target_type {target_type!r}: only '
-                                  'GaussianHeatmap targets are ported '
-                                  '(ROADMAP.md queue 1 item 7)')
     iw, ih = int(image_size[0]), int(image_size[1])
+    kind = target_type.lower()
+    if pad_num_joints is not None and kind == 'regression':
+        raise ValueError('pad_num_joints (ViTPose+ MoE padding) expects '
+                         'heatmap targets, not Regression coordinates')
     norm = {}                        # device -> (mean, std), copied once
 
     def preprocess(imgs, center, scale, rot, joints, vis, flip=None):
@@ -178,7 +189,24 @@ def make_preprocess_fn(image_size=(192, 256), heatmap_size=(48, 64),
         out = {'imgs': crops}
         if with_targets:
             joints_c = apply_affine_to_points(joints, mat)
-            if use_udp:
+            if kind == 'regression':
+                # DeepPose: coordinates normalised to the crop, weight 0 for
+                # joints outside it (reference top_down_transform.py:761)
+                size = torch.tensor([iw, ih], dtype=torch.float32,
+                                    device=dev)
+                inside = ((joints_c[..., 0] >= 0)
+                          & (joints_c[..., 0] <= iw - 1)
+                          & (joints_c[..., 1] >= 0)
+                          & (joints_c[..., 1] <= ih - 1))
+                target = joints_c / size
+                weight = (vis.float() * inside.float())[..., None] \
+                    .expand(*vis.shape, 2).contiguous()
+            elif kind == 'combinedtarget':
+                # [N, K, 3, H, W] laid out as 3K channels
+                t, weight = generate_combined_target(
+                    joints_c, vis, (iw, ih), heatmap_size)
+                target = t.reshape(t.shape[0], -1, *t.shape[-2:])
+            elif use_udp:
                 target, weight = generate_udp_heatmaps(
                     joints_c, vis, (iw, ih), heatmap_size, sigma=sigma)
             else:
@@ -198,3 +226,94 @@ def make_preprocess_fn(image_size=(192, 256), heatmap_size=(48, 64),
         return out
 
     return preprocess
+
+
+# --- image-level augmentations (vitpose_tpu/data/pipeline.py:293-418) -------
+
+def photometric_distortion(rng: np.random.RandomState, img,
+                           brightness_delta=32, contrast_range=(0.5, 1.5),
+                           saturation_range=(0.5, 1.5), hue_delta=18):
+    """Random brightness, contrast (before or after the colour changes),
+    saturation and hue (through uint8 HSV, only where one of them fires)
+    and channel order of a uint8 RGB image, drawn from `rng` in JAX's
+    order, the gates of the branches that do not fire included (reference
+    shared_transform.py:303 `PhotometricDistortion`)."""
+    import cv2
+    img = img.astype(np.float32)
+    if rng.randint(2):
+        img += rng.uniform(-brightness_delta, brightness_delta)
+    contrast_last = rng.randint(2)
+    if not contrast_last and rng.randint(2):
+        img *= rng.uniform(*contrast_range)
+    sat_gate = rng.randint(2)
+    sat_mult = rng.uniform(*saturation_range) if sat_gate else None
+    hue_gate = rng.randint(2)
+    hue_shift = rng.uniform(-hue_delta, hue_delta) if hue_gate else None
+    if sat_gate or hue_gate:
+        hsv = cv2.cvtColor(np.clip(img, 0, 255).astype(np.uint8),
+                           cv2.COLOR_RGB2HSV).astype(np.float32)
+        if sat_gate:
+            hsv[..., 1] *= sat_mult
+        if hue_gate:
+            hsv[..., 0] = (hsv[..., 0] + hue_shift) % 180
+        img = cv2.cvtColor(np.clip(hsv, 0, 255).astype(np.uint8),
+                           cv2.COLOR_HSV2RGB).astype(np.float32)
+    if contrast_last and rng.randint(2):
+        img *= rng.uniform(*contrast_range)
+    if rng.randint(2):
+        img = img[..., rng.permutation(3)]
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def coarse_dropout(rng: np.random.RandomState, img, max_holes=8,
+                   max_height=40, max_width=40, min_holes=1, min_height=10,
+                   min_width=10, p=0.5, fill_value=0):
+    """With probability `p`, between min_holes and max_holes random
+    rectangles of the image set to `fill_value` (Albumentations'
+    CoarseDropout, which hrnet_w32_coco_256x192_coarsedropout.py uses)."""
+    if rng.rand() >= p:
+        return img
+    img = img.copy()
+    h, w = img.shape[:2]
+    for _ in range(rng.randint(min_holes, max_holes + 1)):
+        hh = rng.randint(min_height, max_height + 1)
+        ww = rng.randint(min_width, max_width + 1)
+        y = rng.randint(0, max(1, h - hh + 1))
+        x = rng.randint(0, max(1, w - ww + 1))
+        img[y:y + hh, x:x + ww] = fill_value
+    return img
+
+
+def grid_dropout(rng: np.random.RandomState, img, unit_size_min=10,
+                 unit_size_max=40, ratio=0.5, random_offset=True, p=0.5,
+                 fill_value=0):
+    """With probability `p`, a square grid of `unit`-sized cells, each with
+    a hole of `ratio * unit` at its corner (Albumentations' GridDropout,
+    which hrnet_w32_coco_256x192_gridmask.py uses)."""
+    if rng.rand() >= p:
+        return img
+    img = img.copy()
+    h, w = img.shape[:2]
+    unit = int(rng.randint(unit_size_min, unit_size_max + 1))
+    hole = max(1, int(unit * ratio))
+    oy = int(rng.randint(0, unit)) if random_offset else 0
+    ox = int(rng.randint(0, unit)) if random_offset else 0
+    for y in range(-oy, h, unit):
+        for x in range(-ox, w, unit):
+            img[max(0, y):max(0, y + hole),
+                max(0, x):max(0, x + hole)] = fill_value
+    return img
+
+
+def apply_image_augmentations(rng: np.random.RandomState, img,
+                              aug: AugmentConfig):
+    """The configured image-level augmentations of `aug` in JAX's order
+    (photometric, coarse dropout, grid dropout), each given its dict of
+    arguments or its defaults (True)."""
+    for enabled, fn in ((aug.photometric, photometric_distortion),
+                        (aug.coarse_dropout, coarse_dropout),
+                        (aug.grid_dropout, grid_dropout)):
+        if enabled:
+            img = fn(rng, img, **(enabled if isinstance(enabled, dict)
+                                  else {}))
+    return img

@@ -4,9 +4,10 @@ list that `TopDownDataset.evaluate` scores.
 Counterpart of vitpose_tpu/eval/loop.py:21-172 (`make_val_step`,
 `run_validation`). The val step runs on the model's device: the uint8
 canvases are warped there in canvas coordinates (`center`/`scale`), the
-model runs with the flip test (K1 attention on CUDA), and the heatmaps are
-decoded in original-image coordinates (`center_orig`/`scale_orig`); the two
-frames differ where the loader shrank a large source image onto the canvas.
+model runs with the flip test (K1 attention on CUDA), and the heatmaps (or
+DeepPose's coordinates) are decoded in original-image coordinates
+(`center_orig`/`scale_orig`); the two frames differ where the loader shrank
+a large source image onto the canvas.
 
 JAX stacks `group_size` batches into one `lax.scan` to amortise its dispatch
 latency. PyTorch launches asynchronously already, so the port runs one batch
@@ -24,15 +25,9 @@ import torch
 
 from ..data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from ..models.topdown import TopDownModel, infer
-from ..ops.decode import keypoints_from_heatmaps
+from ..ops.decode import keypoints_from_heatmaps, keypoints_from_regression
 from ..ops.geometry import affine_matrix, udp_warp_matrix
 from ..ops.warp import warp_affine_batch
-
-
-def _check_ported(target_type):
-    if target_type.lower() == 'regression':
-        raise NotImplementedError('the DeepPose regression decode is not '
-                                  'ported yet (ROADMAP.md queue 1 item 12)')
 
 
 def make_val_step(model: TopDownModel, image_size, use_udp=True,
@@ -44,8 +39,8 @@ def make_val_step(model: TopDownModel, image_size, use_udp=True,
     maxvals [N,K,1]) there. `center`/`scale` drive the crop warp (canvas
     coords), `center_orig`/`scale_orig` the decode (original-image
     coords). A ViTPose+ model runs expert `expert_idx` and head `head_idx`
-    (0 or None: the main head)."""
-    _check_ported(target_type)
+    (0 or None: the main head). target_type 'Regression' decodes DeepPose's
+    coordinates (maxvals of ones)."""
     iw, ih = image_size
     dev = next(model.parameters()).device
     mean = torch.as_tensor(IMAGENET_MEAN, device=dev)
@@ -65,6 +60,9 @@ def make_val_step(model: TopDownModel, image_size, use_udp=True,
         crops = (crops - mean) / std
         hm = infer(model, crops, flip_index=flip, expert_idx=expert_idx,
                    head_idx=head_idx)
+        if target_type.lower() == 'regression':
+            return keypoints_from_regression(hm, center_orig, scale_orig,
+                                             (iw, ih), use_udp=use_udp)
         return keypoints_from_heatmaps(
             hm, center_orig, scale_orig, post_process=post_process,
             kernel=modulate_kernel, use_udp=use_udp, target_type=target_type)
@@ -126,7 +124,6 @@ def run_validation(model: TopDownModel, loader, use_udp=True,
     coords), image_paths and bbox_ids, padding rows dropped. A ViTPose+
     model runs every box through expert `expert_idx` and head `head_idx`.
     `group_size` is accepted for the JAX signature and has no effect."""
-    _check_ported(target_type)
     dev = next(model.parameters()).device
     val_step = make_val_step(
         model, loader.image_size, use_udp=use_udp, post_process=post_process,

@@ -34,7 +34,11 @@ of NCHW maps in the compute dtype:
     ReLU, 3x3 to K), the map resized with align corners to `out_shape`,
     and `prm` when `use_prm` is set.
 
-The regression and 3-D heads of JAX's module come with their families.
+`RegressionHead` (JAX :26, mmpose's DeepposeRegressionHead behind the
+GlobalAveragePooling neck): the mean over the NHWC features' H and W, then
+`fc` to [N, K, 2] normalised coordinates in the compute dtype.
+
+The 3-D heads of JAX's module come with their families.
 """
 from __future__ import annotations
 
@@ -46,7 +50,23 @@ from .heads import _DECONV_PADDING, HeatmapHead, run_heatmap_head
 from .more_cnns import ConvBN
 from .multistage_nets import resize_bilinear_ac
 from .resnet import BasicBlock, conv2d, init_cnn, norm
-from .vit import compute_dtype, normal_
+from .vit import compute_dtype, linear, normal_
+
+
+class RegressionHead(nn.Module):
+    """DeepPose: global average pool + `fc` -> [N, K, 2]."""
+
+    def __init__(self, in_channels, num_joints, dtype='float32',
+                 generator=None):
+        super().__init__()
+        self.num_joints = num_joints
+        self.dtype = compute_dtype(dtype)
+        self.fc = nn.Linear(in_channels, num_joints * 2)
+        init_cnn(self, generator)
+
+    def forward(self, x):
+        x = x.to(self.dtype).mean(dim=(1, 2))
+        return linear(self.fc, x, self.dtype).reshape(-1, self.num_joints, 2)
 
 
 class AEHead(HeatmapHead):

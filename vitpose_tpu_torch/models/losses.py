@@ -1,8 +1,12 @@
 """Keypoint losses (counterpart of vitpose_tpu/models/losses.py: the joints
-MSE of the GaussianHeatmap target; and of the bottom-up losses of
-vitpose_tpu/models/losses_regression.py:139-196, `ae_heatmap_loss` and
-`ae_tag_loss`)."""
+MSE of the GaussianHeatmap target, the CombinedTarget MSE and the
+adaptive wing loss; and of vitpose_tpu/models/losses_regression.py: the
+DeepPose criteria `smooth_l1_loss`, `wing_loss` and `soft_wing_loss`
+(:27, :45, :55) and the bottom-up losses `ae_heatmap_loss` and
+`ae_tag_loss` (:139-196))."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -16,6 +20,92 @@ def joints_mse_loss(pred, target, target_weight=None, loss_weight=1.0):
     if target_weight is not None:
         diff = diff * target_weight[:, :, None, None]
     return (diff ** 2).mean((0, 2, 3)).sum() / k * loss_weight
+
+
+def combined_target_mse_loss(pred, target, target_weight, loss_weight=1.0):
+    """UDP CombinedTarget loss over [N, 3K, H, W] maps (response, x and y
+    offsets per joint), target_weight [N, K]: the response channel weighted
+    by visibility, the offsets gated by the weighted target response
+    (reference
+    mse_loss.py:48 `CombinedTargetMSELoss`)."""
+    n, c3, h, w = pred.shape
+    k = c3 // 3
+    p = pred.reshape(n, k, 3, h * w)
+    t = target.reshape(n, k, 3, h * w)
+    wgt = target_weight[:, :, None]
+    hm_t = t[:, :, 0] * wgt
+    loss = 0.5 * ((p[:, :, 0] * wgt - hm_t) ** 2).mean((0, 2))
+    loss = loss + 0.5 * ((hm_t * p[:, :, 1] - hm_t * t[:, :, 1]) ** 2
+                         ).mean((0, 2))
+    loss = loss + 0.5 * ((hm_t * p[:, :, 2] - hm_t * t[:, :, 2]) ** 2
+                         ).mean((0, 2))
+    return loss.sum() / k * loss_weight
+
+
+def adaptive_wing_loss(pred, target, target_weight=None, alpha=2.1,
+                       omega=14.0, epsilon=1.0, theta=0.5, loss_weight=1.0):
+    """Adaptive wing loss on [N, K, H, W] heatmaps in f32 (reference
+    heatmap_loss.py:9 `AdaptiveWingLoss`): omega * log1p((d / epsilon) **
+    (alpha - y)) where d = |y - pred| < theta, A * d - C beyond; the
+    target_weight [N, K] (or [N, K, 1]) multiplies pred and target first."""
+    pred, target = pred.float(), target.float()
+    if target_weight is not None:
+        w = target_weight.reshape(pred.shape[0], pred.shape[1], 1, 1)
+        pred, target = pred * w, target * w
+    delta = (target - pred).abs()
+    ratio = theta / epsilon
+    a = (omega * (1.0 / (1.0 + ratio ** (alpha - target)))
+         * (alpha - target) * ratio ** (alpha - target - 1.0) / epsilon)
+    c = theta * a - omega * torch.log1p(ratio ** (alpha - target))
+    small = omega * torch.log1p((delta / epsilon) ** (alpha - target))
+    return torch.where(delta < theta, small, a * delta - c).mean() \
+        * loss_weight
+
+
+def _weighted(pred, target, target_weight):
+    """pred and target [N, K, D] times target_weight ([N, K, D] or
+    [N, K])."""
+    if target_weight is None:
+        return pred, target
+    w = target_weight
+    if w.ndim == pred.ndim - 1:
+        w = w[..., None]
+    return pred * w, target * w
+
+
+def smooth_l1_loss(pred, target, target_weight=None, loss_weight=1.0):
+    """Huber (beta 1), the elementwise mean (regression_loss.py:12)."""
+    pred, target = _weighted(pred, target, target_weight)
+    d = (pred - target).abs()
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5).mean() * loss_weight
+
+
+def wing_loss(pred, target, target_weight=None, omega=10.0, epsilon=2.0,
+              loss_weight=1.0):
+    """Wing loss (Feng et al., CVPR 2018; regression_loss.py:52): the batch
+    mean of each sample's sum."""
+    pred, target = _weighted(pred, target, target_weight)
+    c = omega * (1.0 - math.log(1.0 + omega / epsilon))
+    d = (target - pred).abs()
+    loss = torch.where(d < omega, omega * torch.log(1.0 + d / epsilon),
+                       d - c)
+    return loss.sum((1, 2)).mean() * loss_weight
+
+
+def soft_wing_loss(pred, target, target_weight=None, omega1=2.0,
+                   omega2=20.0, epsilon=0.5, loss_weight=1.0):
+    """Soft wing loss (Lin et al., TIP 2021; regression_loss.py:122): the
+    batch mean of each sample's sum."""
+    pred, target = _weighted(pred, target, target_weight)
+    b = omega1 - omega2 * math.log(1.0 + omega1 / epsilon)
+    d = (target - pred).abs()
+    loss = torch.where(d < omega1, d,
+                       omega2 * torch.log(1.0 + d / epsilon) + b)
+    return loss.sum((1, 2)).mean() * loss_weight
+
+
+REGRESSION_LOSSES = {'smooth_l1': smooth_l1_loss, 'wing': wing_loss,
+                     'soft_wing': soft_wing_loss}
 
 
 def ae_heatmap_loss(pred, gt, mask, supervise_empty=True, loss_weight=1.0):

@@ -4,11 +4,14 @@ head.
 
 Counterpart of vitpose_tpu/models/topdown.py: `TopDownConfig`,
 `make_config`, `TopDownModel` (with the ViTPose+ associate heads),
-`GenericTopDown` (every single-stage CNN of `train.loop.build_backbone`),
+`GenericTopDown` (every single-stage CNN of `train.loop.build_backbone`,
+with the classic, the ViPNAS or the DeepPose regression head),
 `GenericMultiStageTopDown` (CPM, stacked Hourglass, MSPN and RSN with
 their heads), `forward`, `infer` (flip test with `flip_back` and the
-optional 1-pixel `shift_heatmap`) and `loss_fn`. Models take NHWC float
-crops and return NCHW float32 heatmaps, as in the JAX package.
+optional 1-pixel `shift_heatmap`; for DeepPose the static-centre flip of
+the coordinates) and `loss_fn`. Models take NHWC float crops and return
+NCHW float32 heatmaps (DeepPose: [N, K, 2] float32 normalised
+coordinates), as in the JAX package.
 
 The mode is explicit, as JAX's `train=` argument is: `forward` sets the
 module's training mode for its call, and `infer` always runs in eval mode,
@@ -23,8 +26,8 @@ import torch.nn as nn
 
 from ..ops.geometry import flip_back
 from .heads import HeatmapHead, SimpleHead
-from .heads_extra import MSMUHead, MultiStageHead, ViPNASHead
-from .losses import joints_mse_loss
+from .heads_extra import MSMUHead, MultiStageHead, RegressionHead, ViPNASHead
+from .losses import combined_target_mse_loss, joints_mse_loss
 from .vit import ViT, ViTConfig, VIT_VARIANTS, at_least_f32
 
 
@@ -50,8 +53,8 @@ class TopDownConfig:
     modulate_kernel: int = 11
     use_udp: bool = True
     target_type: str = 'GaussianHeatmap'
-    # criteria: the DeepPose regression loss and the heatmap loss (only
-    # 'mse' trains; train/step.py refuses the others)
+    # criteria: the DeepPose regression loss ('smooth_l1', 'wing',
+    # 'soft_wing') and the heatmap loss ('mse', 'awing')
     reg_loss: str = 'smooth_l1'
     heatmap_loss: str = 'mse'
     # ViTPose+: associate heads for the other datasets of the mixture
@@ -126,10 +129,12 @@ class TopDownModel(nn.Module):
 class GenericTopDown(nn.Module):
     """A CNN backbone (`backbone`, an NCHW feature module with
     `out_channels`) + `keypoint_head`, the classic head built from the
-    config's deconv_filters/kernels, final_kernel and head_extra_convs, or
-    for head_type 'vipnas' the ViPNAS head from deconv_filters and
-    deconv_groups, in the placeholder backbone config's dtype (JAX
-    GenericTopDown, vitpose_tpu/models/topdown.py:131-178). Same interface
+    config's deconv_filters/kernels, final_kernel and head_extra_convs, for
+    head_type 'vipnas' the ViPNAS head from deconv_filters and
+    deconv_groups, or for 'regression' the DeepPose head ([N, K, 2] f32
+    coordinates, not transposed), in the placeholder backbone config's
+    dtype (JAX GenericTopDown, vitpose_tpu/models/topdown.py:131-178). Same
+    interface
     as TopDownModel: `generator`, `expert_idx` and `head_idx` are accepted
     and ignored, and `all_heads` returns [heatmaps]. `backbone_type` (the
     config's name, e.g. 'hrnet') routes checkpoints to their converter."""
@@ -137,10 +142,6 @@ class GenericTopDown(nn.Module):
     def __init__(self, backbone: nn.Module, cfg: TopDownConfig,
                  backbone_type: str, generator=None):
         super().__init__()
-        if cfg.head_type == 'regression':
-            raise NotImplementedError(
-                "head_type 'regression' (DeepPose) is not ported yet "
-                '(ROADMAP.md queue 1 item 7)')
         self.cfg = cfg
         self.backbone_type = backbone_type
         self.backbone = backbone
@@ -151,6 +152,10 @@ class GenericTopDown(nn.Module):
             self.keypoint_head = ViPNASHead(
                 backbone.out_channels, cfg.out_channels,
                 dtype=cfg.backbone.dtype, generator=generator, **kw)
+        elif cfg.head_type == 'regression':
+            self.keypoint_head = RegressionHead(
+                backbone.out_channels, cfg.out_channels, cfg.backbone.dtype,
+                generator)
         else:
             self.keypoint_head = HeatmapHead(
                 backbone.out_channels, cfg.out_channels, cfg.deconv_filters,
@@ -234,6 +239,9 @@ def infer(model: TopDownModel, imgs, flip_index=None, expert_idx=None,
     map shifted right by one pixel when `shift_heatmap` is set (reference
     top_down.py:163-188). The flipped pass is a second forward. A ViTPose+
     model runs expert `expert_idx` and head `head_idx` (0: the main one).
+    A DeepPose model averages its coordinates with the flipped pass's,
+    permuted by `flip_index` and mirrored about the static centre: x ->
+    1 - x (deeppose_regression_head.py:110).
     """
     cfg = model.cfg
     model.eval()
@@ -242,6 +250,10 @@ def infer(model: TopDownModel, imgs, flip_index=None, expert_idx=None,
         return hm
     hm_f = model(imgs.flip(2), expert_idx=expert_idx,      # W axis of NHWC
                  head_idx=head_idx)
+    if cfg.head_type == 'regression':
+        hm_f = hm_f[:, flip_index]
+        hm_f = torch.stack([1.0 - hm_f[..., 0], hm_f[..., 1]], dim=-1)
+        return (hm + hm_f) * 0.5
     hm_f = flip_back(hm_f, flip_index, target_type=cfg.target_type)
     if cfg.shift_heatmap:
         hm_f = torch.cat([hm_f[..., :1], hm_f[..., :-1]], dim=-1)
@@ -251,6 +263,6 @@ def infer(model: TopDownModel, imgs, flip_index=None, expert_idx=None,
 def loss_fn(heatmaps, target, target_weight, target_type='GaussianHeatmap'):
     """Keypoint loss dict (reference TopdownHeatmapSimpleHead.get_loss)."""
     if target_type.lower() == 'combinedtarget':
-        raise NotImplementedError('the CombinedTarget loss is not ported yet '
-                                  '(ROADMAP.md queue 1 item 7)')
+        return {'heatmap_loss': combined_target_mse_loss(
+            heatmaps, target, target_weight)}
     return {'heatmap_loss': joints_mse_loss(heatmaps, target, target_weight)}

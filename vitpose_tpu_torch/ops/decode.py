@@ -1,15 +1,18 @@
 """Heatmap -> keypoint decoding on the device, vectorised over (N, K).
 
-Counterpart of vitpose_tpu/ops/decode.py for GaussianHeatmap targets:
-argmax, the default +-0.25 shift, megvii's Gaussian modulation, DARK
-(unbiased) and UDP Newton refinement, and the un-crop back to image space.
+Counterpart of vitpose_tpu/ops/decode.py: argmax, the default +-0.25
+shift, megvii's Gaussian modulation, DARK (unbiased) and UDP Newton
+refinement of GaussianHeatmap targets, the UDP CombinedTarget decode
+(`decode_combined_target`), the un-crop back to image space, and the
+DeepPose coordinates' (`keypoints_from_regression`).
 
 cv2 compatibility, as in the JAX package:
   * `cv2.getGaussianKernel(k, 0)` uses a fixed table for k in {1, 3, 5, 7}
     and sigma = 0.3*((k-1)*0.5 - 1) + 0.8 otherwise
     (:func:`gaussian_kernel1d`);
-  * `cv2.GaussianBlur` pads with BORDER_REFLECT_101, which is torch's
-    'reflect' mode (:func:`gaussian_blur_reflect`).
+  * `cv2.GaussianBlur` pads with BORDER_REFLECT_101, jnp.pad's 'reflect'
+    (:func:`gaussian_blur_reflect`, by index, so that a pad wider than the
+    map reflects again as jnp.pad does).
 
 The separable blur is a sum of shifted, weighted copies in f32, so it is a
 true f32 computation on every device whatever the TF32 settings are; the
@@ -54,14 +57,25 @@ def _sep_blur(heatmaps, kernel1d):
     return sum(c * x[..., j:j + w] for j, c in enumerate(taps))
 
 
+def _reflect_index(n, pad, device):
+    """Indices of an axis of length n padded by `pad` on each side with
+    BORDER_REFLECT_101, reflected again where the pad exceeds the axis
+    (numpy's and jnp.pad's 'reflect'; F.pad refuses pad >= n)."""
+    idx = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(idx)
+    period = 2 * (n - 1)
+    idx = idx % period
+    return torch.where(idx >= n, period - idx, idx)
+
+
 def gaussian_blur_reflect(heatmaps, ksize: int):
     """cv2.GaussianBlur(ksize, sigma=0) with BORDER_REFLECT_101."""
     pad = (ksize - 1) // 2
-    lead = heatmaps.shape[:-2]
-    x = heatmaps.reshape(-1, 1, *heatmaps.shape[-2:])
-    x = F.pad(x, (pad, pad, pad, pad), mode='reflect')
-    x = _sep_blur(x, gaussian_kernel1d(ksize))[..., pad:-pad, pad:-pad]
-    return x.reshape(*lead, *x.shape[-2:])
+    h, w = heatmaps.shape[-2:]
+    x = heatmaps.index_select(-2, _reflect_index(h, pad, heatmaps.device))
+    x = x.index_select(-1, _reflect_index(w, pad, heatmaps.device))
+    return _sep_blur(x, gaussian_kernel1d(ksize))[..., pad:-pad, pad:-pad]
 
 
 def gaussian_modulate(heatmaps, ksize: int):
@@ -169,24 +183,47 @@ def post_dark_udp(coords, heatmaps, kernel=3):
     return coords - torch.stack([off_x, off_y], dim=-1)
 
 
+def decode_combined_target(heatmaps, kernel=11,
+                           valid_radius_factor=0.0546875):
+    """UDP CombinedTarget maps [N, 3K, H, W] -> (coords [N, K, 2], maxvals
+    [N, K, 1]): the response blurred with 2 * kernel + 1, the offsets with
+    `kernel`, and the offset at the response's argmax, in radius units,
+    added to it (top_down_eval.py:571-585)."""
+    n, c3, h, w = heatmaps.shape
+    hm = heatmaps.reshape(n, c3 // 3, 3, h, w)
+    resp = gaussian_blur_reflect(hm[:, :, 0], 2 * kernel + 1)
+    off_x = gaussian_blur_reflect(hm[:, :, 1], kernel)
+    off_y = gaussian_blur_reflect(hm[:, :, 2], kernel)
+    valid_radius = valid_radius_factor * h
+    coords, maxvals = heatmaps_to_coords(resp)
+    px, py = coords[..., 0].long(), coords[..., 1].long()
+    off = torch.stack([_gather_hm(off_x, px, py), _gather_hm(off_y, px, py)],
+                      dim=-1)
+    return coords + off * valid_radius, maxvals
+
+
 def keypoints_from_heatmaps(heatmaps, center, scale, post_process='default',
                             unbiased=False, kernel=11, use_udp=False,
                             target_type='GaussianHeatmap',
                             valid_radius_factor=0.0546875):
     """Full decode: heatmaps [N, K, H, W] -> (preds [N, K, 2] image coords,
     maxvals [N, K, 1]), for post_process in {None, 'default', 'unbiased',
-    'megvii'} and UDP (reference top_down_eval.py:474)."""
+    'megvii'} and UDP, whose CombinedTarget maps are [N, 3K, H, W]
+    (reference top_down_eval.py:474)."""
     heatmaps = torch.as_tensor(heatmaps, dtype=torch.float32)
     if unbiased:
         post_process = 'unbiased'
-    if target_type.lower() != 'gaussianheatmap':
-        raise NotImplementedError(
-            f'target_type {target_type!r}: only GaussianHeatmap is ported; '
-            'CombinedTarget decode is ROADMAP.md queue 1 item 4')
 
     if use_udp:
-        coords, maxvals = heatmaps_to_coords(heatmaps)
-        coords = post_dark_udp(coords, heatmaps, kernel=kernel)
+        if target_type.lower() == 'gaussianheatmap':
+            coords, maxvals = heatmaps_to_coords(heatmaps)
+            coords = post_dark_udp(coords, heatmaps, kernel=kernel)
+        elif target_type.lower() == 'combinedtarget':
+            coords, maxvals = decode_combined_target(
+                heatmaps, kernel=kernel,
+                valid_radius_factor=valid_radius_factor)
+        else:
+            raise ValueError(f'bad target_type {target_type}')
     else:
         if post_process == 'megvii':
             heatmaps = gaussian_modulate(heatmaps, kernel)
@@ -206,6 +243,31 @@ def keypoints_from_heatmaps(heatmaps, center, scale, post_process='default',
     if post_process == 'megvii':
         maxvals = maxvals / 255.0 + 0.5
     return preds, maxvals
+
+
+def keypoints_from_regression(coords, center, scale, img_size,
+                              use_udp=False):
+    """DeepPose outputs [N, K, 2] (normalised to the crop) -> (preds
+    [N, K, 2] image coords, maxvals [N, K, 1] of ones: a regression has no
+    confidence), on the outputs' device; the crop maps back as
+    `transform_preds` does with `use_udp` (the JAX val step and API,
+    vitpose_tpu/eval/loop.py:56-63; reference top_down_eval.py:441)."""
+    iw, ih = img_size
+    coords = torch.as_tensor(coords, dtype=torch.float32)
+    size = torch.tensor([iw, ih], dtype=torch.float32, device=coords.device)
+    preds = transform_preds(coords * size, center, scale, (iw, ih),
+                            use_udp=use_udp)
+    return preds, torch.ones(*coords.shape[:2], 1, device=coords.device)
+
+
+def regression_pck_accuracy(output, target, target_weight, thr=0.05):
+    """PCK at `thr` of normalised coordinates [N, K, 2] against the
+    target, over the joints whose weight [N, K, 2] is positive, on the
+    device (the JAX regression step's keypoint_pck_accuracy with unit
+    normalisation, vitpose_tpu/train/step.py:122-127)."""
+    vis = target_weight[..., 0] > 0
+    hits = ((output - target).norm(dim=-1) < thr) & vis
+    return hits.sum() / vis.sum().clamp(min=1)
 
 
 def pose_pck_accuracy(output, target, mask, thr=0.05):

@@ -1,8 +1,10 @@
 """Heatmap training targets, vectorised over (batch, joints) as tensor code
 on the input's device.
 
-Counterpart of vitpose_tpu/ops/target.py `generate_msra_heatmaps` and
-`generate_udp_heatmaps` (reference top_down_transform.py:409-623): full-grid
+Counterpart of vitpose_tpu/ops/target.py `generate_msra_heatmaps`,
+`generate_udp_heatmaps`, `generate_combined_target` and
+`generate_megvii_heatmaps` (reference top_down_transform.py:409-653). The
+Gaussian ones are full-grid
 Gaussians masked to the (6 sigma + 1)^2 paste window around the joint's
 rounded position, with the window anchor truncated toward zero as Python's
 int() does, and the joint's weight zeroed when the window misses the map.
@@ -93,3 +95,55 @@ def generate_udp_heatmaps(joints, visible, image_size, heatmap_size,
     g = torch.where(_in_window(mu_i, xs, ys, tmp_size), g, 0.0)
     target = torch.where((weight > 0.5)[..., None, None], g, 0.0)
     return target, weight
+
+
+def generate_combined_target(joints, visible, image_size, heatmap_size,
+                             valid_radius_factor=0.0546875):
+    """UDP CombinedTarget: per joint a response map (1 inside the valid
+    radius around the joint on the unit-length grid, 0 outside) and its x
+    and y offset maps, in radius units (reference
+    top_down_transform.py:625-653). Returns (target [..., K, 3, H, W],
+    weight [..., K] = visible), float32."""
+    joints = torch.as_tensor(joints, dtype=torch.float32)
+    visible = torch.as_tensor(visible, dtype=torch.float32)
+    w, h, xs, ys = _grid(joints, heatmap_size)
+    valid_radius = valid_radius_factor * h
+    mu_x = joints[..., 0] / ((image_size[0] - 1.0) / (w - 1.0))
+    mu_y = joints[..., 1] / ((image_size[1] - 1.0) / (h - 1.0))
+    x_off = (mu_x[..., None, None] - xs[None, :]) / valid_radius
+    y_off = (mu_y[..., None, None] - ys[:, None]) / valid_radius
+    keep = ((x_off ** 2 + y_off ** 2) <= 1.0) \
+        & (visible > 0.5)[..., None, None]
+    target = torch.stack([keep.float(), torch.where(keep, x_off, 0.0),
+                          torch.where(keep, y_off, 0.0)], dim=-3)
+    return target, visible
+
+
+def generate_megvii_heatmaps(joints, visible, image_size, heatmap_size,
+                             kernel=11):
+    """Megvii's target (reference top_down_transform.py:496
+    `_megvii_generate_target`): a delta at the joint's truncated heatmap
+    cell, blurred as cv2.GaussianBlur(kernel, 0) with reflected borders,
+    scaled so that the cell reads 255. Joints outside the map keep no
+    map and, where visible, weight 0. Returns (target [..., K, H, W],
+    weight [..., K]), float32."""
+    from .decode import gaussian_blur_reflect
+    joints = torch.as_tensor(joints, dtype=torch.float32)
+    visible = torch.as_tensor(visible, dtype=torch.float32)
+    w, h, xs, ys = _grid(joints, heatmap_size)
+    tx = torch.trunc(joints[..., 0] * w / image_size[0]).int()
+    ty = torch.trunc(joints[..., 1] * h / image_size[1]).int()
+    inb = (tx >= 0) & (tx < w) & (ty >= 0) & (ty < h)
+    weight = torch.where(visible >= 1, torch.where(inb, visible, 0.0),
+                         visible)
+    paint = (visible >= 1) & inb
+    txc, tyc = tx.clamp(0, w - 1), ty.clamp(0, h - 1)
+    onehot = ((xs[None, :] == txc[..., None, None])
+              & (ys[:, None] == tyc[..., None, None])
+              & paint[..., None, None]).float()
+    blurred = gaussian_blur_reflect(onehot, kernel)
+    peak = torch.gather(
+        torch.gather(blurred, -2, tyc[..., None, None].long().expand(
+            *tyc.shape, 1, w)), -1, txc[..., None, None].long())[..., 0, 0]
+    scale = torch.where(paint, 255.0 / peak.clamp_min(1e-20), 0.0)
+    return blurred * scale[..., None, None], weight

@@ -2,8 +2,8 @@
 
 Counterpart of vitpose_tpu/train/loop.py: `build_model_from_cfg`,
 `build_backbone` and `build_generic_topdown` (:84-157, :222-236: the ViT
-and the CNN top-down models of every backbone of JAX's registry but
-HRFormer, with the classic, the ViPNAS or a multi-stage head),
+and the CNN top-down models of every backbone of JAX's registry, with
+the classic, the ViPNAS, the DeepPose regression or a multi-stage head),
 `_log` (:33-45), `_pop_freeze_options` and the freezing
 of `_apply_freeze` (:67-81), `train_model` (the top-down ViT branch of
 :239-479), `train_model_moe` (:520-706, the ViTPose+ runner) and the
@@ -45,6 +45,7 @@ from ..models.bottomup import BottomUpEstimator
 from ..models.heads_extra import (AEHead, AEHigherResolutionHead,
                                   AEMultiStageHead)
 from ..models.classic_cnns import CPM, VGG, AlexNet, SEResNet
+from ..models.hrformer import HRFormer
 from ..models.hrnet import HRNet, HRNetConfig
 from ..models.lightweight import (Hourglass, HourglassAE, MobileNetV2,
                                   ShuffleNetV2)
@@ -64,25 +65,15 @@ from .state import create_train_state
 from .step import make_moe_train_step, make_train_step
 
 
-# the rest of the JAX package's backbone registry (vitpose_tpu/train/
-# loop.py:104-157), not ported yet, with the ROADMAP.md item that ports each
-_UNPORTED_BACKBONES = {'hrformer': '12c'}
 # the heads of GenericMultiStageTopDown
 MULTI_STAGE_HEADS = ('multistage', 'msmu', 'identity')
 
 
-def _refuse_unported_backbone(backbone_type: str):
-    if backbone_type in _UNPORTED_BACKBONES:
-        raise NotImplementedError(
-            f'backbone_type {backbone_type!r} is not ported yet (ROADMAP.md '
-            f'queue 1 item {_UNPORTED_BACKBONES[backbone_type]})')
-
-
 def build_backbone(backbone_type: str, generator=None, **bb_kwargs):
     """Name -> NCHW feature backbone with random weights drawn from
-    `generator`: the JAX package's BACKBONES registry but for HRFormer,
-    which raises. The multi-stage ones return a list (per stage or stack;
-    MSPN and RSN per stage a list of units)."""
+    `generator`: the JAX package's BACKBONES registry. The multi-stage ones
+    return a list (per stage or stack; MSPN and RSN per stage a list of
+    units)."""
     registry = {
         'resnet': ResNet,
         'resnet_v1d': ResNetV1d,
@@ -104,6 +95,7 @@ def build_backbone(backbone_type: str, generator=None, **bb_kwargs):
         'mobilenet_v2': MobileNetV2,
         'shufflenet_v2': ShuffleNetV2,
         'litehrnet': LiteHRNet,
+        'hrformer': HRFormer,
         # the multi-stage backbones (GenericMultiStageTopDown, or for
         # hourglass_ae the bottom-up AEMultiStageHead)
         'cpm': CPM,
@@ -112,10 +104,9 @@ def build_backbone(backbone_type: str, generator=None, **bb_kwargs):
         'mspn': MSPN,
         'rsn': RSN,
     }
-    _refuse_unported_backbone(backbone_type)
     if backbone_type not in registry:
         raise KeyError(f'unknown backbone_type {backbone_type}: '
-                       f'{sorted(registry) + sorted(_UNPORTED_BACKBONES)}')
+                       f'{sorted(registry)}')
     return registry[backbone_type](generator=generator, **bb_kwargs)
 
 
@@ -132,6 +123,13 @@ def _model_parts(mcfg: dict):
     backbone_type = mcfg.pop('backbone_type', 'vit')
     variant = mcfg.pop('variant', 'b')
     hw = tuple(mcfg.pop('img_size', (256, 192)))
+    if str(mcfg.get('target_type', '')).lower() == 'combinedtarget':
+        # a config's out_channels counts joints; a CombinedTarget head
+        # predicts a response and two offset maps per joint (mmpose's
+        # out_channels=3 * num_output_channels). JAX's udp_regress config
+        # inherits 17 from its base and gives its head 17 channels, on
+        # which JAX's loss and decode fail
+        mcfg['out_channels'] = 3 * mcfg.get('out_channels', 17)
     bb_over = dict(mcfg.pop('backbone_overrides', None) or {})
     if backbone_type == 'vit':
         cfg = make_config(variant, img_size=hw, **mcfg)
@@ -139,7 +137,6 @@ def _model_parts(mcfg: dict):
             cfg = dataclasses.replace(
                 cfg, backbone=dataclasses.replace(cfg.backbone, **bb_over))
         return backbone_type, {}, cfg
-    _refuse_unported_backbone(backbone_type)
     return backbone_type, bb_over, make_config('s', img_size=hw, **mcfg)
 
 
@@ -288,8 +285,9 @@ def _refuse_unported(cfg):
                                   'across devices) is not ported yet '
                                   '(ROADMAP.md queue 1 item 11)')
     if rt.get('tensorboard'):
-        raise NotImplementedError('runtime.tensorboard is not ported yet '
-                                  '(ROADMAP.md queue 1 item 7)')
+        raise NotImplementedError('runtime.tensorboard is not ported: the '
+                                  'card machine has no tensorboard package '
+                                  '(ROADMAP.md "Not queued")')
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -412,6 +410,7 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
         train_step = make_train_step(
             model, target_type=cfg['model'].get('target_type',
                                                 'GaussianHeatmap'),
+            reg_loss=cfg['model'].get('reg_loss', 'smooth_l1'),
             heatmap_loss=cfg['model'].get('heatmap_loss', 'mse'))
         val_route = {}
     else:

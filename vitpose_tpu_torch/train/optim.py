@@ -1,10 +1,10 @@
 """AdamW with ViT layer-wise lr decay, as torch.optim.AdamW parameter groups
 and a LambdaLR schedule.
 
-Counterpart of vitpose_tpu/train/optim.py:26-121 and :165-205
+Counterpart of vitpose_tpu/train/optim.py:26-121 and :143-205
 (`OptimConfig`, `layer_id_for_path`, `make_lr_schedule`,
-`layer_decay_adamw`, `make_freeze_mask`, `freeze_tx`), on the port's
-parameter names:
+`layer_decay_adamw`, `weight_norm_clip`, `make_freeze_mask`, `freeze_tx`),
+on the port's parameter names:
 
   * layer id: `backbone.pos_embed` / `backbone.patch_embed.*` -> 0,
     `backbone.blocks.{i}.*` -> i + 1, everything else (last_norm, the
@@ -37,6 +37,7 @@ import re
 from typing import Optional, Sequence
 
 import torch
+import torch.nn as nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +96,25 @@ def make_lr_schedule(cfg: OptimConfig, steps_per_epoch: int,
                                                      for b in boundaries)
 
     return schedule
+
+
+# the layers whose weight is a flax `kernel` (weight_norm_clip's default)
+_KERNEL_LAYERS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d,
+                  nn.ConvTranspose2d)
+
+
+@torch.no_grad()
+def weight_norm_clip(model, max_norm=1.0):
+    """Scale every linear and conv weight of `model` whose L2 norm exceeds
+    `max_norm` to max_norm / (norm + 1e-6) of itself, in place (JAX's
+    `weight_norm_clip` over the flax kernels; the reference's
+    WeightNormClipHook, regularizations.py:56). No config of the zoo calls
+    it."""
+    for m in model.modules():
+        if isinstance(m, _KERNEL_LAYERS):
+            n = m.weight.norm()
+            if n > max_norm:
+                m.weight.mul_(max_norm / (n + 1e-6))
 
 
 def make_freeze_mask(model, frozen_stages=-1, freeze_attn=False,

@@ -26,7 +26,8 @@ multi-stage and lightweight backbones (MULTI_STAGE_BACKBONES), of
 `convert_hourglass` :524, `convert_hourglass_ae` :560,
 `convert_mobilenet_v2` :603, `convert_shufflenet_v2` :627, `convert_cpm`
 :655, `convert_multistage_head` :719 and `convert_msmu_head` :755 (its
-num_units read off the flax tree), each run backwards by `_Writer`: the
+num_units read off the flax tree), and of `convert_hrformer` :338, each
+run backwards by `_Writer`: the
 same pairs of an mmpose entry and a flax module path, the flax tree
 deciding what exists. The JAX package
 has no converter for the FLAX_NAMED_BACKBONES: the port names their
@@ -53,7 +54,7 @@ FLAX_NAMED_BACKBONES = ('resnest', 'vgg', 'alexnet', 'shufflenet_v1',
 # the backbones that `_Writer` converts, by JAX's converters run backwards
 MULTI_STAGE_BACKBONES = ('mspn', 'rsn', 'litehrnet', 'hourglass',
                          'hourglass_ae', 'mobilenet_v2', 'shufflenet_v2',
-                         'cpm')
+                         'cpm', 'hrformer')
 CNN_BACKBONES = ('resnet', 'resnet_v1d', 'hrnet', 'hrnetv2', 'resnext',
                  'seresnet', 'seresnext', 'scnet', 'vipnas_resnet',
                  'vipnas_mbv3') + FLAX_NAMED_BACKBONES + MULTI_STAGE_BACKBONES
@@ -107,9 +108,14 @@ def _backbone(p):
 
 def _head(p, stats):
     """HeatmapHead (deconvs, then a prediction conv unless its final layer
-    is the identity) or SimpleHead (the prediction conv alone). BN running
-    statistics are carried where `stats` has them."""
+    is the identity), SimpleHead (the prediction conv alone) or DeepPose's
+    RegressionHead (`fc`). BN running statistics are carried where `stats`
+    has them."""
     sd = {}
+    if 'fc' in p:
+        sd['fc.weight'] = _t(np.asarray(p['fc']['kernel']).T)
+        sd['fc.bias'] = _t(p['fc']['bias'])
+        return sd
     i = 0
     while f'deconv_{i}' in p or f'deconv_{i}_0' in p:
         conv, bn = f'deconv_layers.{3 * i}.', f'deconv_layers.{3 * i + 1}.'
@@ -438,6 +444,23 @@ class _Writer:
             self.sd[f'{self.prefix}{tname}.bias'] = _t(p['bias'])
         return True
 
+    def ln(self, tname, fpath):
+        """A LayerNorm's weight and bias <- flax's scale and bias."""
+        p = self._node(self.params, fpath)
+        if p is None:
+            return False
+        self.sd[f'{self.prefix}{tname}.weight'] = _t(p['scale'])
+        self.sd[f'{self.prefix}{tname}.bias'] = _t(p['bias'])
+        return True
+
+    def raw(self, tname, fpath):
+        """A parameter copied as it is from the flax leaf `fpath`."""
+        v = self._node(self.params, fpath)
+        if v is None:
+            return False
+        self.sd[f'{self.prefix}{tname}'] = _t(v)
+        return True
+
     def bn(self, tname, fpath):
         p = self._node(self.params, fpath)
         if p is None:
@@ -724,12 +747,61 @@ def _msmu_head(w):
         s += 1
 
 
+def _hrformer(w):
+    """convert_hrformer (cnn_ckpt.py:338) backwards."""
+    for i in (1, 2):
+        w.conv(f'conv{i}', f'stem{i}')
+        w.bn(f'bn{i}', f'stem{i}_bn')
+    w.res_layer('layer1', 'layer1')
+    w.conv('transition1.0.0', 'tr1_conv0')
+    w.bn('transition1.0.1', 'tr1_bn0')
+    w.conv('transition1.1.0.0', 'tr1_conv1')
+    w.bn('transition1.1.0.1', 'tr1_bn1')
+    for s in (2, 3, 4):
+        st, m = s - 2, 0
+        while w.has(f's{st}_m{m}_b0_t0'):
+            for b in range(4):
+                t = 0
+                while w.has(f's{st}_m{m}_b{b}_t{t}'):
+                    tb = f'stage{s}.{m}.branches.{b}.{t}'
+                    fb = f's{st}_m{m}_b{b}_t{t}'
+                    w.ln(f'{tb}.norm1', f'{fb}/norm1')
+                    w.ln(f'{tb}.norm2', f'{fb}/norm2')
+                    w.linear(f'{tb}.attn.attn.qkv', f'{fb}/attn/qkv')
+                    w.linear(f'{tb}.attn.attn.proj', f'{fb}/attn/proj')
+                    w.raw(f'{tb}.attn.attn.relative_position_bias_table',
+                          f'{fb}/attn/rel_pos_bias_table')
+                    for tn, fn in (('fc1', 'ffn_fc1'), ('norm1', 'ffn_bn1'),
+                                   ('dw3x3', 'ffn_dw'), ('norm2', 'ffn_bn2'),
+                                   ('fc2', 'ffn_fc2'), ('norm3', 'ffn_bn3')):
+                        (w.bn if tn.startswith('norm') else w.conv)(
+                            f'{tb}.ffn.{tn}', f'{fb}/{fn}')
+                    t += 1
+            f0 = f's{st}_m{m}_fuse'
+            for i in range(4):
+                for j in range(4):
+                    tf = f'stage{s}.{m}.fuse_layers.{i}.{j}'
+                    if j > i:
+                        w.conv(f'{tf}.0', f'{f0}/fuse{i}_{j}_conv')
+                        w.bn(f'{tf}.1', f'{f0}/fuse{i}_{j}_bn')
+                    for d in range(i - j):
+                        fd = f'{f0}/fuse{i}_{j}_d{d}'
+                        w.conv(f'{tf}.{d}.0', f'{fd}_dw')
+                        w.bn(f'{tf}.{d}.1', f'{fd}_dwbn')
+                        w.conv(f'{tf}.{d}.2', f'{fd}_pw')
+                        w.bn(f'{tf}.{d}.3', f'{fd}_pwbn')
+            m += 1
+        if s < 4:
+            w.conv(f'transition{s}.{s}.0.0', f'tr{s}')
+            w.bn(f'transition{s}.{s}.0.1', f'tr{s}_bn')
+
+
 _WRITERS = {
     'mspn': lambda w: _mspn(w, 'multi_stage_mspn'),
     'rsn': lambda w: _mspn(w, 'multi_stage_rsn'),
     'litehrnet': _litehrnet, 'hourglass': _hourglass,
     'hourglass_ae': _hourglass_ae, 'mobilenet_v2': _mobilenet_v2,
-    'shufflenet_v2': _shufflenet_v2, 'cpm': _cpm,
+    'shufflenet_v2': _shufflenet_v2, 'cpm': _cpm, 'hrformer': _hrformer,
 }
 # the backbones whose top-down head is not the classic one (JAX's
 # HEAD_CONVERTERS, cnn_ckpt.py:865): CPM's identity head has no entries
