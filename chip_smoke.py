@@ -219,9 +219,9 @@ no result:
             boxes, as cnn-ref
   cnn-ms-train  the training CLI on 3xrsn50 (one epoch of 2 steps at batch
             64, then --resume: multi-stage supervision across three
-            stages' skips), every one's step at batch 64, and two steps of
-            MSPN-50 and of Lite-HRNet-18 at batch 2 under cnn-train-ref's
-            rule
+            stages' skips; its step times), the other six's steps at batch
+            64, and two steps of MSPN-50 and of Lite-HRNet-18 at batch 2
+            under cnn-train-ref's rule
   cnn-ms-eval  the evaluation CLI on mspn50 (the 'megvii' decode) over 128
             synthetic boxes, as cnn-eval
 
@@ -281,16 +281,46 @@ no result:
             part) and the Sub-JHMDB ResNet-50 config (PCK and tPCK per
             part) over small synthetic sets, 0 K1/K2
 
-Then the cnn, cnn_more, cnn_ms, bottomup, bottomup_ms and td_rest JSON
-lines (those phases' numbers),
+  pw-serve  the video and 3D group (after td-rest): the PoseWarper config
+            at full width (HRNet-W48 384x288, the neck at 17 channels, 128
+            inner, 20 BasicBlocks, dilations 3-24, 17 deformable groups),
+            f32, its identity warps replaced by seeded ones (shape_warps:
+            fractional offsets of a few pixels, many samples past the
+            border, checked; perturbed deformable kernels): a 16-window
+            batch of 5 frames with the flip test and the decode, timed
+            (windows/s), its MACs, the neck and the deformable convs alone
+            by CUDA events, peak memory, 0 K1/K2
+  pw-ref    one 5-frame window, CUDA against the CPU in f32 (TF32 off), as
+            cnn-ref
+  pw-eval   the evaluation CLI on the PoseWarper config over a synthetic
+            two-video PoseTrack18 set whose supports are real neighbouring
+            frames (a folder of %06d.jpg per video, nframes): poseval's AP
+  pw-train  the training CLI at batch 16 (2-frame windows), 2 steps, then
+            --resume: trans_layer bit for bit as built; timed steps (peak
+            memory, a profiled step's idle share); the train-ref at
+            PW_REF_CROP against the port's f64 run (a child process started
+            before td-rest)
+  lift      the 243-frame lifter on 1024 windows, timed; the 27-frame
+            semi-supervised lifter (pose and trajectory) CUDA against the
+            CPU; the training CLI, 2 steps and --resume, on the
+            semi-supervised config (the warm-up crossed) and on
+            SimpleBaseline3D (stats .pkl); the evaluation CLI on an H36M
+            set and a 3DHP set (3DPCK, 3DAUC)
+  lift-demos  both body3d demos with the COCO-B config's 2D stage and
+            shaped weights: 24 K1 launches per frame at held shapes, every
+            frame's lifted poses written (the card machine has no
+            matplotlib: lifted_pose_writer stands in for the drawing, which
+            the CPU tests hold)
+
+Then the cnn, cnn_more, cnn_ms, bottomup, bottomup_ms, td_rest and vid3d
+JSON lines (those phases' numbers),
 the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, int8
 serve call, server request per mode, eval run, int8 eval run, train step,
 train-loop run, remat step, moe-train run, exported call, demo frame,
-webcam run, each CNN, cnn-more, cnn-ms, bottom-up, bu-ms and td-rest
-phase (0) and bottom-up demo
-frame; beside the kernels, the int8 product's launches per path and times, the server's latencies and the
+webcam run, each CNN, cnn-more, cnn-ms, bottom-up, bu-ms, td-rest and
+video and 3D phase (0), bottom-up demo frame and body3d demo frame; beside the kernels, the int8 product's launches per path and times, the server's latencies and the
 int8 AP, the dispatcher's price, the exported program's times and the
 demos' and webcam's frames/s), the nvidia-smi card line and the result
 line.
@@ -303,6 +333,7 @@ brightness detector, and carries channel 0 through bump-shaped deconv kernels
 onto every joint (`shape_peaks`). Every other weight stays random.
 """
 import contextlib
+import functools
 import json
 import os
 import re
@@ -1224,27 +1255,44 @@ def validate(model, loader):
 
 
 def device_kernels(prof):
-    """The device events of a torch.profiler run, less the ranges that
-    annotate the device timeline (Optimizer.step#...)."""
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, 'is_user_annotation', False)
-            and not e.name.startswith('Optimizer.')]
+    """(name, start ns, end ns) of every device event of a torch.profiler
+    run, less the ranges that annotate the device timeline
+    (Optimizer.step#...), read from the profiler's raw results: parsing
+    them into FunctionEvents (prof.events(), key_averages()) costs 4-5 s of
+    host time per 15-20 thousand kernels on the card machine."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation() and not e.is_hidden_event()
+                and not e.name().startswith('Optimizer.')):
+            out.append((e.name(), e.start_ns(),
+                        e.start_ns() + e.duration_ns()))
+    return out
 
 
 def busy_ms(events):
     """ms of the union of the events' device intervals: kernels that run at
     once (cuDNN may put a conv's parts on streams of its own) count once."""
-    busy, end = 0.0, None
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
-                              for e in events):
+    busy, end = 0, None
+    for start, stop in sorted((e[1], e[2]) for e in events):
         if end is None or start > end:
             busy += stop - start
             end = stop
         elif stop > end:
             busy += stop - end
             end = stop
-    return busy / 1e3
+    return busy / 1e6
+
+
+def kernel_totals(events):
+    """[(name, device ms, launches)] of device events, most time first."""
+    totals = {}
+    for name, start, stop in events:
+        t = totals.setdefault(name, [0, 0])
+        t[0] += stop - start
+        t[1] += 1
+    return sorted(((n, ns / 1e6, c) for n, (ns, c) in totals.items()),
+                  key=lambda x: -x[1])
 
 
 def device_busy_ms(run):
@@ -1253,8 +1301,7 @@ def device_busy_ms(run):
     (None, wall) where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1766,23 +1813,19 @@ def profile_steps(run_step, step_s, steps=2, label='train'):
     the busy ms per step, or None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             run_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    busy = busy_ms(device_kernels(prof)) / steps
+    events = device_kernels(prof)
+    busy = busy_ms(events) / steps
     if busy == 0:
         print(f'{label}: device time not measured (the profiler saw no '
               'CUDA kernels)', flush=True)
         return None
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, 'is_user_annotation', False)
-               and not e.key.startswith('Optimizer.')]
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+    top = kernel_totals(events)[:8]
     check(busy <= wall_ms, f'profiler busy time {busy:.3f} ms per step '
           f'exceeds the profiled steps\' wall time {wall_ms:.3f} ms')
     print(f'{label}: profiler, {steps} steps: kernels busy {busy:.1f} ms '
@@ -1790,8 +1833,8 @@ def profile_steps(run_step, step_s, steps=2, label='train'):
           f'{1 - busy / (step_s * 1e3):.3f} (profiled steps: '
           f'{wall_ms:.1f} ms each); top kernels (ms '
           f'per step, launches per step): ' + '; '.join(
-              f'{e.key[:70]} {e.device_time_total / 1e3 / steps:.2f} '
-              f'{e.count // steps}' for e in top), flush=True)
+              f'{name[:70]} {ms / steps:.2f} {count // steps}'
+              for name, ms, count in top), flush=True)
     return busy
 
 
@@ -3889,17 +3932,20 @@ def f64_run_child(path, crop, out):
 
 
 class F64Run:
-    """phase_cnn_train_ref's float64 run of `path` at `crop`, started in a
-    child process while other phases run (HRFormer's: the CPU runs an f64
-    depthwise conv channel by channel, over a minute). result() waits for
-    it and returns (run, seconds waited); stop() ends the child."""
+    """A train-ref's float64 run, started in a child process while other
+    phases run: target(*args, out) saves its result to `out` (HRFormer-B's
+    f64_run_child: the CPU runs an f64 depthwise conv channel by channel,
+    over a minute; PoseWarper's pw_f64_child). result() waits for it and
+    returns (run, seconds waited); stop() ends the child and removes its
+    files and the `cleanup` directory."""
 
-    def __init__(self, path, crop):
+    def __init__(self, target, args, cleanup=None):
         import multiprocessing
         self.root = tempfile.mkdtemp(prefix='f64run')
+        self.cleanup = cleanup
         self.out = os.path.join(self.root, 'run.pt')
         self.proc = multiprocessing.get_context('spawn').Process(
-            target=f64_run_child, args=(path, crop, self.out), daemon=True)
+            target=target, args=tuple(args) + (self.out,), daemon=True)
         self.proc.start()
 
     def result(self):
@@ -3918,6 +3964,8 @@ class F64Run:
             self.proc.terminate()
             self.proc.join()
         shutil.rmtree(self.root, ignore_errors=True)
+        if self.cleanup:
+            shutil.rmtree(self.cleanup, ignore_errors=True)
 
 
 def phase_cnn_train_ref(path=RES50_CFG, label='cnn-train-ref',
@@ -3945,6 +3993,21 @@ def phase_cnn_train_ref(path=RES50_CFG, label='cnn-train-ref',
         print(f'{label}: the float64 run came from its own process '
               f'({F64_RUN_THREADS} CPU threads), waited for {wait_s:.1f} s',
               flush=True)
+    report = hold_train_ref(
+        label, runs, exact, f'{os.path.basename(path)}, batch 2 of '
+        f'{crop[0]}x{crop[1]}')
+    torch_tf32_defaults()
+    return report
+
+
+def hold_train_ref(label, runs, exact, desc):
+    """Hold the f32 train_run-layout `runs` on 'cuda' and 'cpu' against
+    the float64 run `exact`: parameters whose f64 gradient is below
+    GRAD_NOISE_FLOOR of the largest are left out of the distances, and their
+    f32 gradients must stay below that floor on both devices; every
+    ref_distances metric of CUDA within CNN_REF_FACTOR times the CPU's plus
+    TRAIN_REF_TOL. Prints one line (`desc` names the model and batch);
+    returns the distances and the CUDA per-tensor parameter distances."""
     floor = GRAD_NOISE_FLOOR * max(float(g.abs().max())
                                    for g in exact[1].values())
     noise = sorted(n for n, g in exact[1].items()
@@ -3955,8 +4018,7 @@ def phase_cnn_train_ref(path=RES50_CFG, label='cnn-train-ref',
               f'{floor:.3e}, where the f64 ones are below it')
     dist, params = ref_distances(runs['cuda'], exact, noise)
     cpu, _ = ref_distances(runs['cpu'], exact, noise)
-    print(f'{label}: {os.path.basename(path)}, batch 2 of '
-          f'{crop[0]}x{crop[1]}, 2 steps, f32 (TF32 off) against f64 '
+    print(f'{label}: {desc}, 2 steps, f32 (TF32 off) against f64 '
           f'on the CPU, CUDA / the CPU: '
           + ', '.join(f'{k} {v:.3e} / {cpu[k]:.3e} (tol '
                       f'{CNN_REF_FACTOR:g}x + {TRAIN_REF_TOL[k]:g})'
@@ -3969,7 +4031,6 @@ def phase_cnn_train_ref(path=RES50_CFG, label='cnn-train-ref',
     for k, v in dist.items():
         tol = CNN_REF_FACTOR * cpu[k] + TRAIN_REF_TOL[k]
         check(v <= tol, f'{label}: {k} differs by {v} (tol {tol})')
-    torch_tf32_defaults()
     return {'cuda_vs_f64': {k: float(v) for k, v in dist.items()},
             'cpu_vs_f64': {k: float(v) for k, v in cpu.items()},
             'noise_only': len(noise), 'noise_only_first': noise[:4]}
@@ -4192,8 +4253,12 @@ def run_cnn_ms_phases(card):
                                             'cnn-ms-serve')),
         ('ref', lambda c: phase_cnn_ref(c, MS_CNN_CONFIGS, (),
                                         'cnn-ms-ref')),
+        # 3xRSN-50's steps are timed by its training CLI run: the step list
+        # leaves it out, as cnn-more's leaves out ViPNAS-ResNet-50
         ('train', lambda c: phase_cnn_train(
-            c, cfgs['3xrsn50'], MS_CNN_CONFIGS, 'cnn-ms-train',
+            c, cfgs['3xrsn50'], tuple(
+                (n, p) for n, p in MS_CNN_CONFIGS if n != '3xrsn50'),
+            'cnn-ms-train',
             ref_paths=[cfgs['mspn50'], cfgs['litehrnet_18']])),
         ('eval', lambda c: phase_cnn_eval(
             c, cfgs['mspn50'], "MSPN-50 bf16, the 'megvii' decode",
@@ -4640,25 +4705,21 @@ def bu_step_profile(state, batch, step_s, card):
     step = make_bottomup_train_step(state.model)
     step(state, batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(state, batch)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, 'is_user_annotation', False)
-               and not e.key.startswith('Optimizer.')]
-    busy = sum(e.device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
+    kernels = kernel_totals(device_kernels(prof))
+    busy = sum(ms for _, ms, _ in kernels)
+    launches = sum(c for _, _, c in kernels)
     if busy == 0:
         return None, None
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:5]
+    top = kernels[:5]
     print(f'bu-train: profiler, 1 step at batch {BU_TRAIN_BATCH}: kernels '
           f'busy {busy:.1f} ms of the {step_s * 1e3:.1f} ms median CLI step '
           f'(idle share {1 - busy / (step_s * 1e3):.3f}), {launches} kernel '
           f'launches; top: ' + '; '.join(
-              f'{e.key[:60]} {e.device_time_total / 1e3:.2f} ms x{e.count}'
-              for e in top) + f'; on {card}', flush=True)
+              f'{name[:60]} {ms:.2f} ms x{count}'
+              for name, ms, count in top) + f'; on {card}', flush=True)
     return busy, launches
 
 
@@ -4771,7 +4832,8 @@ def phase_bu_apps(card):
     build_estimator) on the card: the image demo on a 480x640 scene and the
     video and tracking demos on an 8-frame MJPG video of it: every output
     written, videos read back frame for frame, exactly BU_DEMO_K1_PER_FRAME
-    K1 launches per frame and image, at shapes KERNEL_CASES holds;
+    K1 launches per frame and image, at shapes KERNEL_CASES holds, and no
+    K2 in any demo;
     frames/s over each main()."""
     import io
     import tempfile
@@ -4782,7 +4844,7 @@ def phase_bu_apps(card):
                                                  fused_attention_bwd)
     import cv2
     img = bu_scene(60, (480, 640))
-    fps, k1 = {}, {}
+    fps, k1, k2 = {}, {}, {}
     with tempfile.TemporaryDirectory() as root:
         path = os.path.join(root, 'scene.jpg')
         cv2.imwrite(path, img[..., ::-1])
@@ -4798,11 +4860,15 @@ def phase_bu_apps(card):
                  bottom_up_pose_tracking_demo,
                  [video, '--out-video-root', root], DEMO_FRAMES)):
             before = fused_attention.launches
+            before_bwd = fused_attention_bwd.launches
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 out = demo.main(args)
             secs = time.perf_counter() - t0
             launches = fused_attention.launches - before
+            launches_bwd = fused_attention_bwd.launches - before_bwd
+            check(launches_bwd == 0,
+                  f'bu-apps {name}: {launches_bwd} K2 launches')
             check(launches == BU_DEMO_K1_PER_FRAME * frames,
                   f'bu-apps {name}: {launches} K1 launches over {frames} '
                   f'frames, expected {BU_DEMO_K1_PER_FRAME} per frame')
@@ -4814,14 +4880,14 @@ def phase_bu_apps(card):
                       f'{count_frames(written)}')
             fps[name] = frames / secs
             k1[name] = launches / frames
-        check(fused_attention_bwd.launches == 0, 'bu-apps: K2 launched')
+            k2[name] = launches_bwd / frames
         check_shapes_held('bu-apps')
     print(f'bu-apps: the 3 bottom-up demos (ViT-S f32, base 256, K1) on the '
           f'card: {BU_DEMO_K1_PER_FRAME} K1 launches per frame, all at held '
           f'shapes, outputs written and read back; frames/s (model build '
           f'included) ' + ', '.join(f'{k} {v:.2f}' for k, v in fps.items())
           + f'; on {card}', flush=True)
-    return dict(frames_per_s=fps, k1_per_frame=k1, k2=0)
+    return dict(frames_per_s=fps, k1_per_frame=k1, k2_per_frame=k2)
 
 
 def run_bu_phases(card):
@@ -4997,8 +5063,7 @@ def bu_launches(bu, key):
     """A kernel's launches on each bottom-up path ('k1' or 'k2')."""
     return {'bu_serve': bu['serve'][key], 'bu_eval': bu['eval'][key],
             'bu_train': bu['train'][key],
-            'bu_apps_per_frame': (bu['apps']['k1_per_frame'] if key == 'k1'
-                                  else 0)}
+            'bu_apps_per_frame': bu['apps'][f'{key}_per_frame']}
 
 
 # --- top-down, the rest: HRFormer (item 12c), DeepPose, CombinedTarget,
@@ -5297,6 +5362,897 @@ def td_rest_launches(td, key):
                                    for n, r in td['video'].items()}}
 
 
+# --- video and 3D pose: PoseWarper (item 12d) and the pose lifters (item
+# 12e) ----------------------------------------------------------------------
+
+PW_CFG = 'vitpose_tpu/configs/posetrack/posewarper_hrnet_w48_posetrack18.py'
+PW_BATCH = 16                         # the config's batch of windows
+# the shaped offsets' RMS over the probe windows, pixels of the 1/4 map
+PW_OFFSET_RMS_PX = 2.5
+# the train-ref's crops (w, h), as HRFormer-B's: its float64 run of
+# HRNet-W48 and the 20-block neck on the CPU goes on in a child process
+# (F64Run) through the td-rest group
+PW_REF_CROP = (96, 128)
+# pw-train-ref: CUDA's 2-step parameter distance from f64 (ref_distances)
+# stays below this; Adam moves a parameter by about the lr whatever its
+# gradient, so one whose gradient is mostly rounding flips sign between
+# f32 and f64 (about a third on CUDA and on the CPU alike, PERF.md §6),
+# where a state that did not move reads 1 and one moved the wrong way 2
+PW_REF_PARAMS_CAP = 0.7
+PW_TRAIN_STEPS = 2                    # timed steps after one warm-up
+# the synthetic PoseTrack18 set: videos, frames per video (the last two
+# unlabelled), people per labelled frame, frame (h, w)
+PW_VIDEOS, PW_VIDEO_FRAMES, PW_PEOPLE, PW_FRAME_HW = 2, 10, 2, (720, 1280)
+LIFT_CFGS = {name: f'vitpose_tpu/configs/body3d/{name}.py' for name in (
+    'videopose3d_h36m_243frames', 'videopose3d_h36m_27frames',
+    'videopose3d_h36m_27frames_semi_supervised', 'simplebaseline3d_h36m',
+    'simplebaseline3d_3dhp')}
+LIFT_BATCH = 1024                     # windows in the timed lifter batch
+LIFT_REF_BATCH = 64
+# the synthetic H36M-layout sets: (sequence name, frames); the first
+# camera is in the cameras .pkl, the second takes the nominal sensor
+LIFT_SEQS = (('S1_Directions_1.54138969', 120),
+             ('S5_Walking.55011271', 90))
+LIFT_CAMERA = dict(w=1000, h=1002, f=[[1145.0], [1143.8]],
+                   c=[[512.5], [515.4]], k=[[-0.207], [0.247], [-0.003]],
+                   p=[[-0.0009], [-0.0004]])
+
+
+def pw_mdict(dtype):
+    """The PoseWarper config's model dict, its backbone and neck in
+    `dtype`."""
+    mdict = cnn_model_dict(PW_CFG, dtype)
+    mdict['neck'] = dict(mdict['neck'], dtype=dtype)
+    return mdict
+
+
+@functools.lru_cache(maxsize=1)
+def pw_weights():
+    """The state dict of the PoseWarper config's model at full width on
+    the CPU (f32): weights from torch.Generator 0, then `shape_warps`."""
+    from vitpose_tpu_torch.train.loop import build_model_from_cfg
+    model = build_model_from_cfg(pw_mdict('float32'),
+                                 torch.Generator().manual_seed(0))
+    shape_warps(model, 0)
+    return model.state_dict()
+
+
+def pw_model(dtype='float32'):
+    """The PoseWarper config's model with pw_weights() on the CPU, in
+    `dtype` (float64: the backbone, the neck and the weights)."""
+    from vitpose_tpu_torch.train.loop import build_model_from_cfg
+    with torch.device('meta'):
+        model = build_model_from_cfg(pw_mdict(dtype))
+    model.load_state_dict({k: v.clone() for k, v in pw_weights().items()},
+                          assign=True)
+    return model.double() if dtype == 'float64' else model
+
+
+def shape_warps(model, seed):
+    """The config's neck is an exact identity warp (zero offset convs,
+    identity deformable kernels), which samples nothing between pixels:
+    give each deformable kernel a seeded perturbation of the identity, and
+    the offset convs seeded weights scaled so that the offsets' RMS over
+    two seeded probe windows at PW_REF_CROP (on the CPU, f32) is
+    PW_OFFSET_RMS_PX: fractional offsets of a few pixels, many samples past
+    the border."""
+    neck = model.neck
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for layer in neck.deform_conv_layers:
+            w = layer.weight
+            w.add_(0.5 * torch.randn(w.shape, generator=gen)
+                   / w[0].numel() ** 0.5)
+        w, h = PW_REF_CROP
+        frames = torch.randn(2, 5, h, w, 3, generator=gen)
+        model.float().eval()
+        feats = model.backbone(frames.reshape(10, h, w, 3))
+        sup = neck.trans_layer(feats)
+        key = sup.reshape(2, 5, *sup.shape[1:])[:, 0]
+        diff = neck.offset_feats(key.repeat_interleave(5, 0) - sup)
+        for layer in neck.offset_layers:
+            layer.weight.copy_(torch.randn(layer.weight.shape,
+                                           generator=gen))
+            rms = layer(diff).pow(2).mean().sqrt()
+            layer.weight.mul_(PW_OFFSET_RMS_PX / rms)
+
+
+def warp_probe(model, frames):
+    """(offset RMS, share of offsets with a fraction in [0.05, 0.95], share
+    of bilinear samples past the border) of the neck's warps at every
+    dilation on `frames` [N, T, H, W, 3] (eval mode, key frame 0)."""
+    neck = model.neck
+    with torch.no_grad():
+        n, t = frames.shape[:2]
+        feats = model.backbone(frames.reshape(n * t, *frames.shape[2:]))
+        sup = neck.trans_layer(feats)
+        key = sup.reshape(n, t, *sup.shape[1:])[:, 0]
+        diff = neck.offset_feats(key.repeat_interleave(t, 0) - sup)
+        rms, frac, out = [], [], []
+        for d, layer in zip(neck.dilations, neck.offset_layers):
+            off = layer(diff)
+            m, _, h, w = off.shape
+            xy = off.reshape(m, neck.groups, 3, 3, 2, h, w)
+            taps = (torch.arange(3, device=off.device) - 1) * d
+            y = (torch.arange(h, device=off.device)[:, None]
+                 + taps[:, None, None, None] + xy[..., 0, :, :])
+            x = (torch.arange(w, device=off.device)
+                 + taps[None, :, None, None] + xy[..., 1, :, :])
+            f = off.abs() - off.abs().floor()
+            rms.append(off.pow(2).mean().sqrt().item())
+            frac.append(((f > 0.05) & (f < 0.95)).float().mean().item())
+            out.append(((y < 0) | (y > h - 1) | (x < 0) | (x > w - 1))
+                       .float().mean().item())
+    return rms, frac, out
+
+
+def pw_windows(n, t, hw, seed, device):
+    """`n` seeded windows of `t` normalised frames at `hw` (h, w)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(n, t, *hw, 3, generator=gen).to(device)
+
+
+def pw_decode(heat, device):
+    """keypoints_from_heatmaps of [N, K, 96, 72] maps at a fixed box."""
+    from vitpose_tpu_torch.ops.decode import keypoints_from_heatmaps
+    n = heat.shape[0]
+    c = torch.tensor([[640.0, 360.0]], device=device).expand(n, 2)
+    s = torch.tensor([[1.8, 2.4]], device=device).expand(n, 2)
+    return keypoints_from_heatmaps(heat, c, s)
+
+
+def phase_pw_serve(card):
+    """The PoseWarper config at full width (HRNet-W48 at 384x288, the neck
+    at 17 channels, 128 inner, 20 BasicBlocks, dilations 3-24, 17
+    deformable groups), shape_warps weights, f32 (TF32 as torch starts): a
+    16-window batch of 5 frames with the test frame weights, the flip test
+    and the decode on the card, timed; its conv MACs per frame (count_ops)
+    and the deformable contraction's; the neck and the deformable convs
+    alone by CUDA events; the warps' offsets (fractional, a few pixels,
+    many samples past the border); peak memory; 0 K1 and K2."""
+    from vitpose_tpu_torch.data.dataset_info import DatasetInfo
+    from vitpose_tpu_torch.eval.families import posewarper_heatmaps
+    from vitpose_tpu_torch.models import necks
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    torch_tf32_defaults()
+    t0 = time.perf_counter()
+    model = pw_model().cuda().eval()
+    build_s = time.perf_counter() - t0
+    x = pw_windows(PW_BATCH, 5, (384, 288), 11, 'cuda')
+    fw = torch.tensor([0.3, 0.1, 0.25, 0.25, 0.1], device='cuda')
+    flip = torch.tensor(DatasetInfo.load('posetrack18').flip_index,
+                        device='cuda')
+    rms, frac, past = warp_probe(model, x[:2])
+    check(all(0.5 < r < 50 for r in rms) and min(frac) > 0.5
+          and min(past) > 0.01, f'pw-serve: offsets RMS {rms} px, '
+          f'fractional share {frac}, past the border {past}')
+    macs, bn = count_ops(lambda: model(x[:1], frame_weight=fw,
+                                       key_index=0))
+    macs, bn = macs / 5, bn / 5
+    neck = model.neck
+    # the deformable contraction per frame: 96 x 72 outputs x 17 x 17 x 9
+    # per dilation
+    dcn_macs = 96 * 72 * 17 * 17 * 9 * len(neck.dilations)
+
+    def serve():
+        with torch.no_grad():
+            heat = posewarper_heatmaps(model, x, fw, flip)
+            return pw_decode(heat, 'cuda')
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    preds, maxvals = serve()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(preds).all() and torch.isfinite(maxvals).all()),
+          'pw-serve: non-finite keypoints')
+    ms = time_ms(serve, calls=1, rounds=3, warmup=1)
+    k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+    check(k1 == 0 and k2 == 0, f'pw-serve: K1 {k1} and K2 {k2} launches, '
+          'expected none')
+    # the neck and the deformable convs by CUDA events, in one more batch
+    spans = {'neck': [], 'deform_conv': []}
+    forward, dcn = type(neck).forward, necks.deform_conv2d
+
+    def timed(name, fn):
+        def run(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            spans[name].append(ev)
+            return out
+        return run
+
+    type(neck).forward = timed('neck', forward)
+    necks.deform_conv2d = timed('deform_conv', dcn)
+    try:
+        serve()
+        torch.cuda.synchronize()
+    finally:
+        type(neck).forward = forward
+        necks.deform_conv2d = dcn
+    span_ms = {k: sum(a.elapsed_time(b) for a, b in v)
+               for k, v in spans.items()}
+    frames = PW_BATCH * 5 * 2
+    conv_ms, bn_ms = cnn_bound_ms(macs, bn, torch.float32, frames)
+    print(f'pw-serve: PoseWarper (HRNet-W48 384x288, the 20-block neck, 5 '
+          f'dilations, 17 deformable groups; f32) model built in '
+          f'{build_s:.1f} s; {PW_BATCH} windows of 5 frames, flip test and '
+          f'decode on the card: median {ms:.1f} ms = '
+          f'{PW_BATCH / ms * 1e3:.1f} windows/s ({frames} frame passes); '
+          f'per frame {macs / 1e9:.2f} GMAC of convs, '
+          f'{dcn_macs / 1e9:.3f} GMAC of deformable contraction, '
+          f'{bn / 1e6:.2f} M BN\'d elements (bounds per batch: convs at the '
+          f'TF32 peak {conv_ms:.1f} ms, BN traffic {bn_ms:.1f} ms); by CUDA '
+          f'events the neck {span_ms["neck"]:.1f} ms, of it the deformable '
+          f'convs {span_ms["deform_conv"]:.1f} ms; peak {peak:.2f} GB; '
+          f'offsets RMS ' + '/'.join(f'{r:.2f}' for r in rms)
+          + ' px, fractional ' + '/'.join(f'{v:.2f}' for v in frac)
+          + ', samples past the border ' + '/'.join(f'{v:.3f}' for v in past)
+          + f' per dilation; 0 K1, 0 K2; on {card}', flush=True)
+    del model, x
+    torch.cuda.empty_cache()
+    return dict(ms=ms, windows_s=PW_BATCH / ms * 1e3, gmac_per_frame=macs /
+                1e9, dcn_gmac_per_frame=dcn_macs / 1e9, bn_m_per_frame=bn /
+                1e6, conv_bound_ms=conv_ms, bn_bound_ms=bn_ms,
+                neck_ms=span_ms['neck'],
+                deform_conv_ms=span_ms['deform_conv'], peak_gb=peak,
+                offset_rms_px=rms, past_border=past, k1=k1, k2=k2)
+
+
+def phase_pw_ref(card):
+    """The same weights on CUDA and on the CPU in f32 (TF32 off), one
+    5-frame window at 384x288 with the flip test: heatmaps within
+    CNN_HM_RTOL of their largest value, decisive keypoints within
+    KP_TOL_PX."""
+    from vitpose_tpu_torch.data.dataset_info import DatasetInfo
+    from vitpose_tpu_torch.eval.families import posewarper_heatmaps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = pw_model().eval()
+    x = pw_windows(1, 5, (384, 288), 12, 'cpu')
+    fw = torch.tensor([0.3, 0.1, 0.25, 0.25, 0.1])
+    flip = DatasetInfo.load('posetrack18').flip_index
+    out, took = {}, {}
+    for dev in ('cuda', 'cpu'):
+        model.to(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            heat = posewarper_heatmaps(model, x.to(dev), fw.to(dev),
+                                       torch.tensor(flip, device=dev))
+            preds, _ = pw_decode(heat, dev)
+        out[dev] = heat.cpu().numpy(), preds.cpu().numpy()
+        took[dev] = time.perf_counter() - t0
+    (hm_c, kp_c), (hm_r, kp_r) = out['cuda'], out['cpu']
+    top = np.abs(hm_r).max()
+    bound = CNN_HM_RTOL * top
+    hm_err = np.abs(hm_c - hm_r).max()
+    check(hm_err <= bound, f'pw-ref: CUDA and CPU heatmaps differ by '
+          f'{hm_err}, bound {bound}')
+    dec = decisive_joints(hm_r, CNN_DECISIVE_BOUNDS * bound)
+    check(dec.mean() >= 0.25, f'pw-ref: only {dec.sum()} of {dec.size} '
+          'joints decisive')
+    kp_err = np.abs(kp_c - kp_r).max(-1)[dec].max()
+    check(kp_err <= KP_TOL_PX, f'pw-ref: decisive keypoints differ by '
+          f'{kp_err} px')
+    print(f'pw-ref: PoseWarper f32 (TF32 off), one 5-frame window at '
+          f'384x288 with the flip test, CUDA vs CPU: heatmap max abs diff '
+          f'{hm_err:.3e} (bound {bound:.3e} = {CNN_HM_RTOL:g} of max '
+          f'|heatmap| {top:.3e}), decisive keypoints max diff {kp_err:.3e} '
+          f'px (tol {KP_TOL_PX}) over {dec.sum()}/{dec.size} joints; the '
+          f'call {took["cuda"]:.1f} s on CUDA, {took["cpu"]:.1f} s on the '
+          f'CPU; on {card}', flush=True)
+    torch_tf32_defaults()
+    return dict(hm_err=float(hm_err), hm_bound=float(bound),
+                kp_err_px=float(kp_err), decisive=int(dec.sum()),
+                cpu_s=took['cpu'])
+
+
+def write_posetrack_videos(root, seed):
+    """A synthetic PoseTrack18 set in `root`: PW_VIDEOS videos, each in its
+    own folder of PW_VIDEO_FRAMES consecutive %06d.jpg frames (PW_FRAME_HW,
+    dim noise with a bright square per person that drifts from frame to
+    frame) with `nframes`; PW_PEOPLE people with boxes, joints and head
+    boxes on every frame but the last two. Returns the annotation file and
+    the number of people."""
+    import cv2
+    h, w = PW_FRAME_HW
+    rng = np.random.RandomState(seed)
+    images, anns = [], []
+    for v in range(PW_VIDEOS):
+        vid = f'{v + 1:06d}'
+        os.makedirs(os.path.join(root, 'images', 'val', vid))
+        for f in range(PW_VIDEO_FRAMES):
+            img_id = (v + 1) * 1000 + f
+            name = f'images/val/{vid}/{f:06d}.jpg'
+            img = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+            labelled = f < PW_VIDEO_FRAMES - 2
+            images.append(dict(id=img_id, file_name=name, width=w, height=h,
+                               vid_id=vid, frame_id=img_id,
+                               nframes=PW_VIDEO_FRAMES,
+                               is_labeled=labelled))
+            for p in range(PW_PEOPLE):
+                bw, bh = w / (PW_PEOPLE + 1) * 0.6, h * 0.7
+                x = w * (p + 0.6) / (PW_PEOPLE + 1) - bw / 2 + 4 * f
+                y = h * 0.15
+                cx, cy = int(x + bw / 2), int(y + bh / 2)
+                img[cy - 12:cy + 12, cx - 12:cx + 12] = 255
+                if not labelled:
+                    continue
+                xy = np.array([cx, cy]) + rng.normal(0, 20, (17, 2))
+                vis = np.where(rng.rand(17) < 0.9, 2, 0)
+                anns.append(dict(
+                    id=len(anns) + 1, image_id=img_id, category_id=1,
+                    bbox=[float(x), float(y), float(bw), float(bh)],
+                    area=float(bw * bh), iscrowd=0, track_id=p,
+                    num_keypoints=int((vis > 0).sum()),
+                    keypoints=np.concatenate([xy, vis[:, None]], 1)
+                    .ravel().tolist(),
+                    bbox_head=[cx - 20.0, y, 40.0, 40.0]))
+            cv2.imwrite(os.path.join(root, name), img[..., ::-1])
+    path = os.path.join(root, 'ann.json')
+    with open(path, 'w') as f:
+        json.dump(dict(images=images, annotations=anns,
+                       categories=[dict(id=1, name='person')]), f)
+    return path, len(anns)
+
+
+def phase_pw_eval(card):
+    """The evaluation CLI on the PoseWarper config with shape_warps weights
+    saved as a .pth, over the synthetic two-video set whose supports are
+    real neighbouring frames (5-frame windows, the flip test, batch 16):
+    poseval's AP per part, 0 K1 and K2, the CLI's wall time."""
+    import io
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.tools import test as cli
+    torch_tf32_defaults()
+    with tempfile.TemporaryDirectory() as root:
+        ann, people = write_posetrack_videos(root, 13)
+        ckpt = os.path.join(root, 'posewarper.pth')
+        torch.save(pw_model().state_dict(), ckpt)
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = cli.main([PW_CFG, ckpt, '--cfg-options',
+                              f'data.val.ann_file={ann}',
+                              f'data.val.img_prefix={root}/',
+                              'data.val.bbox_file=None'])
+        cli_s = time.perf_counter() - t0
+    k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+    check(k1 == 0 and k2 == 0, f'pw-eval: K1 {k1} and K2 {k2} launches, '
+          'expected none')
+    check('Total AP' in stats and all(np.isfinite(v) and 0 <= v <= 100
+                                      for v in stats.values()),
+          f'pw-eval: stats {stats}')
+    print(f'pw-eval: CLI on {PW_CFG} over {people} synthetic people in '
+          f'{PW_VIDEOS} videos of {PW_VIDEO_FRAMES} frames '
+          f'({PW_FRAME_HW[1]}x{PW_FRAME_HW[0]}; 5-frame windows of real '
+          f'neighbours, flip test): {cli_s:.1f} s with model build and '
+          f'checkpoint load, 0 K1 and 0 K2; table (random weights) '
+          + ', '.join(f'{k} {v:.4f}' for k, v in stats.items())
+          + f'; on {card}', flush=True)
+    return dict(stats={k: float(v) for k, v in stats.items()}, cli_s=cli_s,
+                people=people, k1=k1, k2=k2)
+
+
+def pw_train_batch(ds, n, crop, seed):
+    """`n` records of the train set through load_window with the config's
+    augmentation (RandomState `seed`) at `crop` (w, h), and their MSRA
+    targets (sigma 3) at a quarter of it, on the CPU."""
+    from vitpose_tpu_torch.ops.target import generate_msra_heatmaps
+    from vitpose_tpu_torch.train.posewarper_loop import load_window
+    rng = np.random.RandomState(seed)
+    wins = [load_window(ds.db[i % len(ds.db)], crop,
+                        flip_pairs=ds.info.flip_pairs, rng=rng,
+                        info=ds.info, half_body_prob=0.3)
+            for i in range(n)]
+    target, weight = generate_msra_heatmaps(
+        torch.from_numpy(np.stack([w[1] for w in wins])),
+        torch.from_numpy(np.stack([w[2] for w in wins])), crop,
+        tuple(v // 4 for v in crop), sigma=3.0)
+    return (torch.from_numpy(np.stack([w[0] for w in wins])), target,
+            weight)
+
+
+def pw_train_run(dtype, device, batch):
+    """Two PoseWarper steps (Adam 1e-4, trans_layer frozen, the train
+    frame weights (0, 1), key frame 0) of pw_model(dtype) on `batch`:
+    (metrics of step 1 with the gradients' global norm, its gradients, the
+    2-step change of every parameter and BN statistic), on the CPU in f64,
+    in train_run's layout for ref_distances."""
+    from vitpose_tpu_torch.train.bottomup_loop import piecewise_constant_lr
+    from vitpose_tpu_torch.train.family_loop import adam
+    from vitpose_tpu_torch.train.posewarper_loop import (posewarper_step,
+                                                         trainable_parameters)
+    from vitpose_tpu_torch.utils.config import load_config
+    model = pw_model(dtype).to(device)
+    cfg = load_config(PW_CFG)
+    optimizer, scheduler = adam(trainable_parameters(model, cfg), 1e-4,
+                                piecewise_constant_lr(1e-4, ()))
+    dt = torch.float64 if dtype == 'float64' else torch.float32
+    frames, target, weight = (t.to(device, dt) for t in batch)
+    fw = torch.tensor([0.0, 1.0], device=device, dtype=dt)
+    trained = {id(p) for p in optimizer.param_groups[0]['params']}
+    names = [n for n, p in model.named_parameters() if id(p) in trained]
+    before = snapshot(model)
+    m = posewarper_step(model, optimizer, scheduler, frames, target, weight,
+                        fw)
+    params = dict(model.named_parameters())
+    grads = {n: params[n].grad.double().cpu() for n in names}
+    metrics = {'heatmap_loss': m['heatmap_loss'].item(),
+               'grad_norm': torch.nn.utils.get_total_norm(
+                   list(grads.values())).item()}
+    posewarper_step(model, optimizer, scheduler, frames, target, weight, fw)
+    after = snapshot(model)
+    # the frozen trans_layer stays out: it does not move on either side
+    return metrics, grads, {n: (after[n] - before[n]).double().cpu()
+                            for n in after
+                            if not n.startswith('neck.trans_layer.')}
+
+
+def pw_f64_child(batch_file, out):
+    """pw_train_run in float64 on the CPU on F64_RUN_THREADS threads, the
+    batch read from `batch_file`, saved to `out` (F64Run's child)."""
+    torch.set_num_threads(F64_RUN_THREADS)
+    run = pw_train_run('float64', 'cpu', torch.load(batch_file))
+    torch.save(run, out + '.part')
+    os.replace(out + '.part', out)
+
+
+def pw_train_set(root):
+    """The synthetic video set as the train split's PoseTrackVideoDataset
+    (one random adjacent support per record, the config's recipe)."""
+    from vitpose_tpu_torch.data.posetrack import PoseTrackVideoDataset
+    ann, _ = write_posetrack_videos(root, 14)
+    return ann, PoseTrackVideoDataset(ann, root + '/', image_size=(288, 384),
+                                      heatmap_size=(72, 96))
+
+
+def phase_pw_train(card, f64_run=None):
+    """The training CLI on the PoseWarper config at batch 16 (2-frame
+    windows, the config's augmentation), 2 steps, then --resume for 2 more:
+    trans_layer bit for bit as built, every other weight moved; steps of
+    the shape_warps model at batch 16 on windows from the set (median of
+    PW_TRAIN_STEPS after a warm-up, peak memory, one profiled step's
+    kernel time and idle share); the train-ref: 2 steps at batch 2 of
+    PW_REF_CROP windows, f32 (TF32 off) on CUDA and the CPU against the
+    float64 run (F64Run `f64_run`, or here) under cnn-train-ref's rule; 0
+    K1 and K2."""
+    import io
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.tools import train as cli
+    from vitpose_tpu_torch.train.bottomup_loop import piecewise_constant_lr
+    from vitpose_tpu_torch.train.family_loop import adam
+    from vitpose_tpu_torch.train.posewarper_loop import (posewarper_step,
+                                                         trainable_parameters)
+    from vitpose_tpu_torch.utils.config import load_config
+    torch_tf32_defaults()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as root:
+        ann, ds = pw_train_set(root)
+        work = os.path.join(root, 'work')
+        args = [PW_CFG, '--work-dir', work, '--max-steps', '2',
+                '--cfg-options', f'data.train.ann_file={ann}',
+                f'data.train.img_prefix={root}/']
+        walls = []
+        for extra in ([], ['--resume']):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                trained, metrics = cli.main(args + extra)
+            walls.append(time.perf_counter() - t0)
+            del trained
+            torch.cuda.empty_cache()
+            check(np.isfinite(metrics['heatmap_loss']),
+                  f'pw-train: CLI metrics {metrics}')
+        final = torch.load(os.path.join(work, 'final.pth'),
+                           weights_only=True)
+        # the CLI builds the config's model from torch.Generator 0, as
+        # pw_weights does before shape_warps, which leaves trans_layer and
+        # the backbone as built
+        built = pw_weights()
+        frozen = [n for n in final if n.startswith('neck.trans_layer.')]
+        check(frozen and all(torch.equal(final[n], built[n])
+                             for n in frozen),
+              'pw-train: trans_layer moved in training')
+        moved = sum(not torch.equal(final[n], built[n]) for n in final
+                    if n.startswith('backbone.') and 'running' not in n
+                    and 'num_batches' not in n)
+        total = sum(n.startswith('backbone.') and 'running' not in n
+                    and 'num_batches' not in n for n in final)
+        check(moved > 0.9 * total, f'pw-train: {moved} of {total} backbone '
+              'tensors moved')
+        batch = pw_train_batch(ds, PW_BATCH, (288, 384), 15)
+        ref_batch_ = pw_train_batch(ds, 2, PW_REF_CROP, 16)
+    del final
+    model = pw_model().cuda()
+    optimizer, scheduler = adam(
+        trainable_parameters(model, load_config(PW_CFG)), 1e-4,
+        piecewise_constant_lr(1e-4, ()))
+    frames, target, weight = (t.cuda() for t in batch)
+    fw = torch.tensor([0.0, 1.0], device='cuda')
+
+    def step():
+        return posewarper_step(model, optimizer, scheduler, frames, target,
+                               weight, fw)
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(PW_TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step()
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    check(np.isfinite(m['heatmap_loss'].item()),
+          f'pw-train: step loss {m}')
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(times)
+    busy = profile_steps(step, med, steps=1, label='pw-train')
+    k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+    check(k1 == 0 and k2 == 0, f'pw-train: K1 {k1} and K2 {k2} launches, '
+          'expected none')
+    print(f'pw-train: CLI on {PW_CFG}, batch {PW_BATCH} of 2-frame windows, '
+          f'2 steps {walls[0]:.1f} s, --resume 2 more {walls[1]:.1f} s '
+          f'(with data and model build); trans_layer bit for bit as built, '
+          f'{moved} of {total} backbone tensors moved; step (f32, TF32 '
+          f'convs) median '
+          f'{med * 1e3:.1f} ms over {PW_TRAIN_STEPS} = '
+          f'{PW_BATCH / med:.1f} windows/s, peak {peak:.2f} GB; 0 K1, 0 K2; '
+          f'on {card}', flush=True)
+    del model, optimizer, frames, target, weight
+    torch.cuda.empty_cache()
+    ref = pw_train_ref(ref_batch_, f64_run)
+    return dict(cli_s=walls, step_ms=med * 1e3, windows_s=PW_BATCH / med,
+                peak_gb=peak, kernel_ms=busy, ref=ref, k1=k1, k2=k2)
+
+
+def pw_train_ref(batch, f64_run=None):
+    """pw_train_run f32 (TF32 off) on CUDA and on the CPU against float64
+    by hold_train_ref, as phase_cnn_train_ref holds the CNNs. Every
+    gradient but the deformable kernels' reaches its parameter through the
+    warps' offsets, where a sample crossing a pixel edge jumps it (a change
+    of the input in its last digits moves them by far more than rounding),
+    so that rule is loose here; three checks hold what is smooth in the
+    sample positions: CUDA's step-1 loss and the deformable kernels' step-1
+    gradients against the CPU's within TRAIN_REF_TOL, and CUDA's 2-step
+    parameter distance from f64 below PW_REF_PARAMS_CAP (a state that did
+    not move reads 1)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {dev: pw_train_run('float32', dev, batch)
+            for dev in ('cuda', 'cpu')}
+    if f64_run is None:
+        exact = pw_train_run('float64', 'cpu', batch)
+    else:
+        exact, wait_s = f64_run.result()
+        print(f'pw-train-ref: the float64 run came from its own process, '
+              f'waited for {wait_s:.1f} s', flush=True)
+    report = hold_train_ref(
+        'pw-train-ref', runs, exact, f'PoseWarper, batch 2 of 2-frame '
+        f'windows at {PW_REF_CROP[0]}x{PW_REF_CROP[1]}')
+    params = report['cuda_vs_f64']['params']
+    (m, g, _), (mc, gc, _) = runs['cuda'], runs['cpu']
+    loss = abs(m['heatmap_loss'] - mc['heatmap_loss']) / mc['heatmap_loss']
+    deform = max(((g[n] - gc[n]).abs().max() / gc[n].abs().max()).item()
+                 for n in gc if n.startswith('neck.deform_conv_layers.'))
+    print(f'pw-train-ref: CUDA against the CPU, f32, step 1: loss '
+          f'{loss:.3e} (tol {TRAIN_REF_TOL["heatmap_loss"]:g}), the '
+          f'deformable kernels\' gradients {deform:.3e} (tol '
+          f'{TRAIN_REF_TOL["grads"]:g}); CUDA parameters {params:.3e} from '
+          f'f64 (cap {PW_REF_PARAMS_CAP:g})', flush=True)
+    check(params <= PW_REF_PARAMS_CAP, f'pw-train-ref: CUDA parameters '
+          f'{params} from f64 (cap {PW_REF_PARAMS_CAP}; unmoved reads 1)')
+    check(loss <= TRAIN_REF_TOL['heatmap_loss'],
+          f'pw-train-ref: step-1 loss CUDA vs CPU {loss}')
+    check(deform <= TRAIN_REF_TOL['grads'], f'pw-train-ref: step-1 '
+          f'deformable kernels\' gradients CUDA vs CPU {deform}')
+    torch_tf32_defaults()
+    return dict(report, cuda_vs_cpu={'heatmap_loss': loss,
+                                     'deform_grads': deform})
+
+
+def start_pw_f64():
+    """The PoseWarper train-ref's float64 run in its own process (F64Run),
+    on a batch written from the synthetic set; returns the F64Run."""
+    root = tempfile.mkdtemp(prefix='pwbatch')
+    _, ds = pw_train_set(root)
+    batch_file = os.path.join(root, 'batch.pt')
+    torch.save(pw_train_batch(ds, 2, PW_REF_CROP, 16), batch_file)
+    return F64Run(pw_f64_child, (batch_file,), cleanup=root)
+
+
+def tcn_macs(kernel_sizes, t, cin=34, width=1024):
+    """Conv1d MACs of one window through a TCN: the stem and, per block, the
+    dilated conv1 and the 1x1 conv2, each output times its fan-in."""
+    k0 = kernel_sizes[0]
+    t = t - k0 + 1
+    macs = t * width * cin * k0
+    dil = k0
+    for k in kernel_sizes[1:]:
+        t -= (k - 1) * dil
+        macs += t * width * width * k + t * width * width
+        dil *= k
+    return macs
+
+
+def write_lift_sets(root, seed):
+    """Synthetic H36M-layout sets in `root` (LIFT_SEQS; 3DHP's with the
+    same layout), a cameras .pkl for the first sequence's camera, and the
+    2D / root-free 3D stats .pkl files. Returns their paths."""
+    import pickle
+    rng = np.random.RandomState(seed)
+    names = [f'{s}_{i:06d}.jpg' for s, n in LIFT_SEQS
+             for i in range(1, n + 1)]
+    n = len(names)
+    out = {}
+    for split in ('train', 'unlabeled', 'val', 'hp_train', 'hp_val'):
+        pose = rng.randn(n, 17, 3) * 250 + [0, 0, 4500]
+        out[split] = os.path.join(root, f'{split}.npz')
+        np.savez(out[split], imgname=np.array(names),
+                 center=rng.uniform(400, 600, (n, 2)),
+                 scale=rng.uniform(1, 3, n),
+                 part=np.concatenate([rng.uniform(150, 850, (n, 17, 2)),
+                                      np.ones((n, 17, 1))], -1),
+                 S=np.concatenate([pose, np.ones((n, 17, 1))], -1))
+    out['cameras'] = os.path.join(root, 'cameras.pkl')
+    with open(out['cameras'], 'wb') as f:
+        pickle.dump({('S1', '54138969'): LIFT_CAMERA}, f)
+    for name, k, d, scale in (('stats2d', 17, 2, 100),
+                              ('stats3d', 16, 3, 250)):
+        out[name] = os.path.join(root, f'{name}.pkl')
+        with open(out[name], 'wb') as f:
+            pickle.dump(dict(mean=rng.randn(k, d) * 10,
+                             std=np.full((k, d), float(scale))), f)
+    return out
+
+
+def lift_options(sets, hp=False, cams=True):
+    """--cfg-options pointing a body3d config at the synthetic sets."""
+    opts = [f'data.train.ann_file={sets["hp_train" if hp else "train"]}',
+            f'data.val.ann_file={sets["hp_val" if hp else "val"]}',
+            f'data.train_unlabeled.ann_file={sets["unlabeled"]}']
+    if cams:
+        opts += [f'data.{s}.camera_param_file={sets["cameras"]}'
+                 for s in ('train', 'val', 'train_unlabeled')]
+    return opts
+
+
+def phase_lift(card):
+    """The pose lifters at full width (TCN 1024 wide): the 243-frame
+    lifter on a 1024-window batch (f32, TF32 convs), timed, with its MACs;
+    the 27-frame semi-supervised lifter (pose and trajectory) on CUDA
+    against the CPU, f32 (TF32 off), 64 windows; the training CLI for 2
+    steps on the semi-supervised config (the warm-up crossed at step 2)
+    and on SimpleBaseline3D (stats .pkl, remove_root, MSE), with --resume;
+    the evaluation CLI on an H36M set (27 frames, cameras) and a 3DHP set
+    (SimpleBaseline3D: MPJPE, P-MPJPE, 3DPCK, 3DAUC); 0 K1 and K2."""
+    import io
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.tools import test as test_cli
+    from vitpose_tpu_torch.tools import train as train_cli
+    from vitpose_tpu_torch.train.loop import build_model_from_cfg
+    from vitpose_tpu_torch.utils.config import load_config
+    torch_tf32_defaults()
+    reset_counts()
+    cfg243 = load_config(LIFT_CFGS['videopose3d_h36m_243frames'])['model']
+    model = build_model_from_cfg(cfg243).cuda().eval()
+    x = torch.randn(LIFT_BATCH, 243, 17, 2,
+                    generator=torch.Generator().manual_seed(17)).cuda()
+
+    def serve():
+        with torch.no_grad():
+            return model(x)
+
+    check(bool(torch.isfinite(serve()).all()), 'lift: non-finite poses')
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(serve, calls=3, rounds=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    macs = tcn_macs(cfg243['kernel_sizes'], 243)
+    bound = max(2 * macs * LIFT_BATCH / 495e12,
+                4 * LIFT_BATCH * 243 * 34 / HBM_BYTES_PER_S) * 1e3
+    del model, x
+    # CUDA against the CPU, the semi-supervised lifter
+    semi = load_config(
+        LIFT_CFGS['videopose3d_h36m_27frames_semi_supervised'])['model']
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lifter = build_model_from_cfg(semi).eval()
+    xr = torch.randn(LIFT_REF_BATCH, 27, 17, 2,
+                     generator=torch.Generator().manual_seed(18))
+    outs = {}
+    for dev in ('cuda', 'cpu'):
+        lifter.to(dev)
+        with torch.no_grad():
+            outs[dev] = [o.cpu().numpy() for o in lifter(xr.to(dev))]
+    errs = [float(np.abs(a - b).max() / np.abs(b).max())
+            for a, b in zip(outs['cuda'], outs['cpu'])]
+    check(max(errs) <= CNN_HM_RTOL, f'lift: CUDA vs CPU pose / trajectory '
+          f'differ by {errs} of their largest')
+    torch_tf32_defaults()
+    del lifter
+    torch.cuda.empty_cache()
+    report = dict(serve_ms=ms, windows_s=LIFT_BATCH / ms * 1e3,
+                  gmac_per_window=macs / 1e9, bound_ms=bound, peak_gb=peak,
+                  ref_err=errs)
+    with tempfile.TemporaryDirectory() as root:
+        sets = write_lift_sets(root, 19)
+        train = {}
+        for name, opts in (
+                ('videopose3d_h36m_27frames_semi_supervised',
+                 lift_options(sets) + ['loss_semi.warmup_iterations=1']),
+                ('simplebaseline3d_h36m', lift_options(sets, cams=False) + [
+                    f'joint_2d_normalize.stats_file={sets["stats2d"]}',
+                    f'joint_3d_normalize.stats_file={sets["stats3d"]}'])):
+            work = os.path.join(root, name)
+            args = [LIFT_CFGS[name], '--work-dir', work, '--max-steps', '2',
+                    '--cfg-options', 'evaluation.interval=0'] + opts
+            walls = []
+            for extra in ([], ['--resume']):
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    _, metrics = train_cli.main(args + extra)
+                walls.append(time.perf_counter() - t0)
+            check(all(np.isfinite(v) for v in metrics.values()),
+                  f'lift: {name} metrics {metrics}')
+            if 'semi' in name:
+                check(metrics['proj_loss'] > 0 and metrics['bone_loss'] > 0,
+                      f'lift: the warm-up did not open: {metrics}')
+            train[name] = dict(cli_s=walls, metrics=metrics)
+        ckpt = os.path.join(root, 'lifter.pth')
+        evals = {}
+        for name, opts in (
+                ('videopose3d_h36m_27frames', lift_options(sets)),
+                ('simplebaseline3d_3dhp', lift_options(
+                    sets, hp=True, cams=False) + [
+                    f'joint_2d_normalize.stats_file={sets["stats2d"]}',
+                    f'joint_3d_normalize.stats_file={sets["stats3d"]}'])):
+            torch.save(build_model_from_cfg(
+                load_config(LIFT_CFGS[name])['model']).state_dict(), ckpt)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                stats = test_cli.main([LIFT_CFGS[name], ckpt,
+                                       '--cfg-options'] + opts)
+            evals[name] = dict(stats=stats, cli_s=time.perf_counter() - t0)
+            check(all(np.isfinite(v) for v in stats.values()),
+                  f'lift: {name} stats {stats}')
+        check(set(evals['simplebaseline3d_3dhp']['stats']) == {
+            'MPJPE', 'P-MPJPE', '3DPCK', '3DAUC'},
+            f'lift: 3DHP table {evals["simplebaseline3d_3dhp"]["stats"]}')
+    k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+    check(k1 == 0 and k2 == 0, f'lift: K1 {k1} and K2 {k2} launches, '
+          'expected none')
+    print(f'lift: 243-frame lifter (TCN 1024 wide, 5 blocks; f32, TF32 '
+          f'convs), {LIFT_BATCH} windows: median {ms:.2f} ms = '
+          f'{LIFT_BATCH / ms * 1e3:.0f} windows/s, '
+          f'{macs / 1e9:.3f} GMAC a window (bound {bound:.3f} ms at the TF32 '
+          f'peak), peak {peak:.2f} GB; 27-frame semi-supervised lifter, '
+          f'CUDA vs CPU f32 (TF32 off), {LIFT_REF_BATCH} windows: pose / '
+          f'trajectory max abs diff {errs[0]:.2e} / {errs[1]:.2e} of their '
+          f'largest (tol {CNN_HM_RTOL:g}); training CLI, 2 steps then '
+          f'--resume (s with data and model build): ' + '; '.join(
+              f'{n} {r["cli_s"][0]:.1f} + {r["cli_s"][1]:.1f}, '
+              + ', '.join(f'{k} {v:.4f}' for k, v in r['metrics'].items())
+              for n, r in train.items())
+          + '; evaluation CLI (random weights): ' + '; '.join(
+              f'{n} {r["cli_s"]:.1f} s, ' + ', '.join(
+                  f'{k} {v:.2f}' for k, v in r['stats'].items())
+              for n, r in evals.items())
+          + f'; 0 K1, 0 K2; on {card}', flush=True)
+    report.update(train={n: dict(cli_s=r['cli_s'], metrics={
+        k: float(v) for k, v in r['metrics'].items()})
+        for n, r in train.items()}, eval={n: dict(cli_s=r['cli_s'], stats={
+            k: float(v) for k, v in r['stats'].items()})
+        for n, r in evals.items()}, k1=k1, k2=k2)
+    return report
+
+
+def lifted_pose_writer(results, skeleton=None, out_file=None, **kw):
+    """The body3d demos' drawing call in the smoke: the card machine has no
+    matplotlib, and drawing is host work, held on the CPU by
+    tests/test_torch_lifter.py::test_body3d_demos_on_the_cpu. Checks the
+    lifted poses (finite, [K, 3]) and writes them to `out_file` as an .npy
+    array [people, K, 3]."""
+    kp = np.stack([np.asarray(r['keypoints_3d']) for r in results])
+    check(kp.ndim == 3 and kp.shape[2] == 3 and np.isfinite(kp).all(),
+          f'body3d demo: lifted poses {kp.shape}, finite '
+          f'{np.isfinite(kp).all()}')
+    with open(out_file, 'wb') as f:
+        np.save(f, kp)
+
+
+def phase_lift_demos(card):
+    """Both body3d demos on the card with the COCO-B config and shaped
+    weights for the 2D stage (bf16, K1): the image demo on a seeded
+    480x640 scene (the whole image one box) and the video demo on an
+    8-frame MJPG video of it; 24 K1 launches per frame at held shapes and
+    no K2, every frame's lifted poses written (lifted_pose_writer in place of the
+    matplotlib drawing), frames/s over main."""
+    import cv2
+    from vitpose_tpu_torch.demo import (body3d_two_stage_img_demo,
+                                        body3d_video_demo)
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    modules = (body3d_two_stage_img_demo, body3d_video_demo)
+    draw = [m.vis_pose_result_3d for m in modules]
+    for m in modules:
+        m.vis_pose_result_3d = lifted_pose_writer
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            ckpt = peaks_checkpoint(root, COCO_B, 'vitpose_b_peaks')
+            boxes = grid_boxes(np.random.RandomState(5), 1, 1)
+            img = scene(5, boxes)
+            img_path = os.path.join(root, 'person.jpg')
+            cv2.imwrite(img_path, np.ascontiguousarray(img[..., ::-1]))
+            video = write_video(os.path.join(root, 'person.avi'), img,
+                                DEMO_FRAMES)
+            out = os.path.join(root, 'vis')
+            runs = {}
+            for name, module, args, frames in (
+                    ('body3d_two_stage_img_demo', body3d_two_stage_img_demo,
+                     [img_path, '--variant', COCO_B, '--pose-checkpoint',
+                      ckpt, '--out-img-root', out], 1),
+                    ('body3d_video_demo', body3d_video_demo,
+                     [video, '--variant', COCO_B, '--checkpoint', ckpt,
+                      '--out-img-root', out], DEMO_FRAMES)):
+                reset_counts()
+                t0 = time.perf_counter()
+                result = module.main(args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                check_shapes_held(name)
+                k1 = fused_attention.launches
+                k2 = fused_attention_bwd.launches
+                check(k1 == 24 * frames, f'{name}: {k1} K1 launches over '
+                      f'{frames} frames, expected 24 per frame')
+                check(k2 == 0, f'{name}: {k2} K2 launches, expected none')
+                paths = [result[1]] if frames == 1 else result[1]
+                check(len(paths) == frames and all(
+                    os.path.getsize(p) > 0 for p in paths),
+                    f'{name}: outputs {paths}')
+                runs[name] = dict(k1_per_frame=k1 / frames,
+                                  k2_per_frame=k2 / frames, wall_s=wall,
+                                  frames_s=frames / wall)
+    finally:
+        for m, fn in zip(modules, draw):
+            m.vis_pose_result_3d = fn
+    print('lift-demos: both body3d demos on the card (ViTPose-B bf16 with '
+          'K1 for the 2D stage, the whole image as the box; the default '
+          '27-frame lifter; each frame\'s lifted poses written where the '
+          'demos draw with matplotlib, which the card machine lacks), K1 '
+          'and K2 launches per frame, wall s of main and frames/s: '
+          + '; '.join(
+              f'{n} {r["k1_per_frame"]:g} and {r["k2_per_frame"]:g}, '
+              f'{r["wall_s"]:.2f} s, '
+              f'{r["frames_s"]:.1f}' for n, r in runs.items())
+          + f'; on {card}', flush=True)
+    return runs
+
+
+def run_vid3d_phases(card, pw_f64=None):
+    """The PoseWarper and lifter phases in order, each timed (`pw_f64` as
+    phase_pw_train takes it); returns their report."""
+    return run_phases('vid3d', (
+        ('pw_serve', phase_pw_serve), ('pw_ref', phase_pw_ref),
+        ('pw_eval', phase_pw_eval),
+        ('pw_train', lambda c: phase_pw_train(c, pw_f64)),
+        ('lift', phase_lift), ('lift_demos', phase_lift_demos)), card)
+
+
+def vid3d_launches(vid, key):
+    """A kernel's launches on each of the video and 3D paths ('k1' or
+    'k2'): none but the body3d demos' K1 per frame."""
+    return {'pw_serve': vid['pw_serve'][key], 'pw_eval': vid['pw_eval'][key],
+            'pw_train': vid['pw_train'][key], 'lift': vid['lift'][key],
+            'lift_demos_per_frame': {
+                n: r[f'{key}_per_frame'] for n, r in vid['lift_demos'].items()}}
+
+
 def kernel_name(mangled):
     """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
     anonymous namespace; the mangled name where it is not one."""
@@ -5351,7 +6307,7 @@ def main():
     except ImportError as e:
         print(f'chip_smoke: run from the repo root ({e})', file=sys.stderr)
         return 1
-    hrformer_f64 = None
+    hrformer_f64 = pw_f64 = None
     try:
         card = card_line()
         print(f'env: {card}; torch {torch.__version__}, CUDA '
@@ -5427,7 +6383,8 @@ def main():
         torch.cuda.empty_cache()
         # HRFormer-B's float64 train-ref run goes on in its own process
         # through the CNN and bottom-up groups
-        hrformer_f64 = F64Run(TD_CONFIGS['hrformer_base'], HRFORMER_REF_CROP)
+        hrformer_f64 = F64Run(f64_run_child, (TD_CONFIGS['hrformer_base'],
+                                              HRFORMER_REF_CROP))
         cnn = run_cnn_phases(card)
         lap('cnn')
         cnn_more = run_cnn_more_phases(card)
@@ -5438,8 +6395,13 @@ def main():
         lap('bu')
         bu_ms = run_phases('bu-ms', (('bu_ms', phase_bu_ms),), card)
         lap('bu-ms')
+        # PoseWarper's float64 train-ref run goes on in its own process
+        # through the td-rest group
+        pw_f64 = start_pw_f64()
         td_rest = run_td_rest_phases(card, hrformer_f64)
         lap('td-rest')
+        vid3d = run_vid3d_phases(card, pw_f64)
+        lap('vid3d')
         print('phases: wall s ' + ', '.join(
             f'{name} {t - laps[i][1]:.1f}'
             for i, (name, t) in enumerate(laps[1:]))
@@ -5448,8 +6410,9 @@ def main():
         print(f'chip_smoke: FAIL {e}', file=sys.stderr)
         return 1
     finally:
-        if hrformer_f64 is not None:
-            hrformer_f64.stop()
+        for run in (hrformer_f64, pw_f64):
+            if run is not None:
+                run.stop()
 
     kernels = []
     loop_k1, loop_k2 = loop_launches
@@ -5482,7 +6445,8 @@ def main():
                                   **cnn_launches(cnn_ms, 'k1', 'cnn_ms'),
                                   **bu_launches(bu, 'k1'),
                                   **bu_ms_launches(bu_ms, 'k1'),
-                                  **td_rest_launches(td_rest, 'k1')},
+                                  **td_rest_launches(td_rest, 'k1'),
+                                  **vid3d_launches(vid3d, 'k1')},
                 'attention_bwd': {'serve': 0, 'eval': 0, 'export': 0,
                                   'demos_per_frame': 0, 'webcam': 0,
                                   'train': train_launches[1],
@@ -5497,7 +6461,8 @@ def main():
                                   **cnn_launches(cnn_ms, 'k2', 'cnn_ms'),
                                   **bu_launches(bu, 'k2'),
                                   **bu_ms_launches(bu_ms, 'k2'),
-                                  **td_rest_launches(td_rest, 'k2')}}
+                                  **td_rest_launches(td_rest, 'k2'),
+                                  **vid3d_launches(vid3d, 'k2')}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({
@@ -5531,6 +6496,7 @@ def main():
     print(json.dumps({'bottomup': bu}))
     print(json.dumps({'bottomup_ms': bu_ms}))
     print(json.dumps({'td_rest': td_rest}))
+    print(json.dumps({'vid3d': vid3d}))
     print(json.dumps({'kernels': kernels, 'int8_matmul': int8_matmul,
                       'deploy_latency_ms': {
                           m: r['latency_ms'] for m, r in deploy.items()},

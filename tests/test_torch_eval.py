@@ -392,7 +392,7 @@ def test_cli_refuses_unported(tmp_path, monkeypatch, flag):
     int8 path, as in JAX."""
     args = [_small_config(tmp_path), 'none.npz', '--device', 'cpu']
     if flag == 'family':
-        args += ['--cfg-options', 'model.family=pose_lifter']
+        args += ['--cfg-options', 'model.family=mesh']
     elif flag == 'cuda':
         monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
         args = args[:2] + ['--device', 'cuda']
@@ -433,7 +433,7 @@ def test_config_file_model_matches_jax():
     assert type(cnn).__name__ == 'GenericTopDown'
     assert cnn.backbone_type == 'hrnet' and cnn.cfg.backbone.depth == 12
     with pytest.raises(NotImplementedError, match='item 12'):
-        build_model_from_cfg(dict(mcfg, family='pose_lifter'))
+        build_model_from_cfg(dict(mcfg, family='mesh'))
     former = build_model_from_cfg(dict(
         mcfg, backbone_type='hrformer', backbone_overrides=dict(
             width=8, stage_modules=(1,), num_heads=(1, 2),

@@ -371,7 +371,7 @@ def test_cli_refuses_unported(fixture, tmp_path, monkeypatch, case):
         monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
         args[4] = 'cuda'
     elif case == 'family':
-        args.append('model.family=pose_lifter')
+        args.append('model.family=mesh')
     elif case == 'moe':
         # a ViTPose+ mixture whose augmentation is not ported: every dataset
         # class is (PoseTrack18 and JHMDB since item 12d); albumentations

@@ -526,5 +526,6 @@ def test_api_exports_the_top_down_surface():
         'vis_pose_result', 'process_mmdet_results', 'get_track_id',
         'vis_pose_tracking_result', 'run_validation', 'train_model',
         'init_random_seed', 'inference_bottom_up_pose_model',
-        'inference_bottom_up_multi_scale'}
+        'inference_bottom_up_multi_scale', 'extract_pose_sequence',
+        'inference_pose_lifter_model', 'vis_3d_pose_result'}
     assert all(callable(getattr(api, n)) for n in api.__all__)

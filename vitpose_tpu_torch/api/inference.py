@@ -3,7 +3,8 @@
 Counterpart of vitpose_tpu/api/inference.py (`PoseModel`,
 `init_pose_model`, `inference_top_down_pose_model` with its deprecated
 `dataset=` selector and `outputs=` capture, `_bucket`,
-`process_mmdet_results`, `vis_pose_result`, `imshow_bboxes`, and the
+`process_mmdet_results`, `vis_pose_result`, `imshow_bboxes`,
+`vis_pose_result_3d` (matplotlib, imported when called), and the
 bottom-up `inference_bottom_up_pose_model` and
 `inference_bottom_up_multi_scale`) with the same call signatures, minus the
 JAX-only parts (jit caches, the `variables` argument). Drawing runs on the
@@ -31,6 +32,8 @@ from ..data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from ..models.bottomup import (BottomUpEstimator, aggregate_scale,
                                aggregate_stage_flip, flip_feature_maps,
                                split_ae_outputs)
+from ..models.pose3d import PoseLifter
+from ..models.posewarper import PoseWarper
 from ..models.topdown import TopDownConfig, TopDownModel, infer, make_config
 from ..models.vit import VIT_VARIANTS, compute_dtype
 from ..ops.decode import keypoints_from_heatmaps, keypoints_from_regression
@@ -145,6 +148,9 @@ def load_checkpoint(model, checkpoint: str):
             checkpoint, model.backbone.cfg if vit else None,
             model.backbone_type, family='bottomup'), strict=True)
         return
+    if isinstance(model, (PoseWarper, PoseLifter)):
+        load_family_checkpoint(model, checkpoint)
+        return
     sd = checkpoint_state_dict(checkpoint, model.cfg.backbone,
                                model.backbone_type)
     if model.cfg.head_type == 'msmu':
@@ -160,6 +166,27 @@ def load_checkpoint(model, checkpoint: str):
             'JAX package has no converter from mmpose\'s names for it: a '
             "reference mmpose .pth does not load; load the port's own .pth "
             "or the JAX package's .npz") from e
+
+
+def load_family_checkpoint(model, checkpoint: str):
+    """A PoseWarper's or a PoseLifter's weights: the port's .pth (mmpose
+    names), a reference .pth, or the JAX package's .npz through the
+    converters. A PoseWarper checkpoint with keypoint_head tensors is
+    refused where the model's head has no parameters (the stage-2 identity
+    head), with JAX's message (vitpose_tpu/utils/family_ckpt.py:222-240)."""
+    posewarper = isinstance(model, PoseWarper)
+    sd = checkpoint_state_dict(
+        checkpoint, None, getattr(model, 'backbone_type', None),
+        family='posewarper' if posewarper else 'pose_lifter')
+    head = sorted(k for k in sd if k.startswith('keypoint_head.'))
+    if posewarper and head and next(model.keypoint_head.parameters(),
+                                    None) is None:
+        raise ValueError(
+            'posewarper checkpoint carries keypoint_head tensors '
+            f'({head}), but the config builds the stage-2 parameter-less '
+            'identity head; set model.head_overrides (deconv_filters/'
+            "deconv_kernels/final_kernel) to the checkpoint's head layout")
+    model.load_state_dict(sd, strict=True)
 
 
 def _check_prm(sd, use_prm):
@@ -192,7 +219,8 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
     builds a GenericTopDown. A bottom-up config (family
     'bottomup') gives its BottomUpEstimator itself, on the device in eval
     mode, for the bottom-up functions below (JAX refuses those configs
-    here). Without a checkpoint the weights are random, drawn on the CPU
+    here); a PoseWarper or pose-lifter config (api/inference_3d.py) its
+    PoseWarper or PoseLifter. Without a checkpoint the weights are random, drawn on the CPU
     from a torch.Generator seeded with 0, so every device gets the same
     ones.
     """
@@ -213,7 +241,7 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
     model = None
     if model_dict is not None:
         model = build_model_from_cfg(model_dict)
-        if isinstance(model, BottomUpEstimator):
+        if isinstance(model, (BottomUpEstimator, PoseWarper, PoseLifter)):
             if checkpoint is not None:
                 load_checkpoint(model, checkpoint)
             return model.to(dev).eval()
@@ -710,3 +738,76 @@ def imshow_bboxes(img, bboxes, labels=None, colors=(0, 255, 0), thickness=1,
     if out_file:
         cv2.imwrite(out_file, img)
     return img
+
+
+def vis_pose_result_3d(pose_results_3d, skeleton=None, out_file=None,
+                       azimuth=70, elevation=15, img=None,
+                       kpt_score_thr=0.3, pose_kpt_color=None,
+                       pose_link_color=None, axis_limit=1.7, axis_dist=10.0,
+                       num_instances=-1):
+    """Render 3D poses with matplotlib on the host (JAX
+    vitpose_tpu/api/inference.py:615, reference
+    core/visualization/image.py:205 `imshow_keypoints_3d`).
+
+    Mirrors the reference layout: an optional 2D input-image panel on the
+    left, then one 3D subplot per pose instance. keypoints_3d may carry a
+    4th score column; joints (and links touching them) below
+    `kpt_score_thr` are hidden. `pose_kpt_color`/`pose_link_color` take
+    [K, 3] / [L, 3] RGB rows (DatasetInfo palettes); `axis_limit` is the
+    half-width of the cube around the pose root, `axis_dist` the camera
+    distance, `num_instances` pads/truncates the subplot count (-1 = one
+    per result).
+    """
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+
+    results = list(pose_results_3d)
+    if num_instances > 0:
+        results = results[:num_instances]
+    n_axes = max(1, len(results)) + (1 if img is not None else 0)
+    fig = plt.figure(figsize=(3 * n_axes, 3))
+    col = 1
+    if img is not None:
+        ax0 = fig.add_subplot(1, n_axes, 1)
+        ax0.imshow(np.asarray(img))
+        ax0.axis('off')
+        col = 2
+    for i, res in enumerate(results):
+        ax = fig.add_subplot(1, n_axes, col + i, projection='3d')
+        kp = np.asarray(res['keypoints_3d'], np.float32)
+        score = kp[:, 3] if kp.shape[1] > 3 else np.ones(len(kp))
+        valid = score >= kpt_score_thr
+        if pose_kpt_color is not None:
+            c = np.asarray(pose_kpt_color, np.float32)[:len(kp)] / 255.0
+            ax.scatter(kp[valid, 0], kp[valid, 1], kp[valid, 2], s=8,
+                       c=c[valid])
+        else:
+            ax.scatter(kp[valid, 0], kp[valid, 1], kp[valid, 2], s=8)
+        for li, (a, b) in enumerate(skeleton or []):
+            # skip links referencing joints outside this pose (e.g. a
+            # wholebody skeleton drawn over body-only keypoints)
+            if a >= len(kp) or b >= len(kp) or not (valid[a] and valid[b]):
+                continue
+            lc = None
+            if pose_link_color is not None and li < len(pose_link_color):
+                lc = np.asarray(pose_link_color[li], np.float32) / 255.0
+            ax.plot([kp[a, 0], kp[b, 0]], [kp[a, 1], kp[b, 1]],
+                    [kp[a, 2], kp[b, 2]], lw=1,
+                    color=tuple(lc) if lc is not None else None)
+        # cube around the pose root (reference axes_3d limits)
+        root = kp[valid, :3].mean(axis=0) if valid.any() else np.zeros(3)
+        ax.set_xlim3d([root[0] - axis_limit, root[0] + axis_limit])
+        ax.set_ylim3d([root[1] - axis_limit, root[1] + axis_limit])
+        ax.set_zlim3d([root[2] - axis_limit, root[2] + axis_limit])
+        # Axes3D.dist was removed in matplotlib 3.8; box-aspect zoom is the
+        # closest camera-distance control (reference default axis_dist=10
+        # maps to zoom 1)
+        ax.set_box_aspect(None, zoom=10.0 / float(axis_dist))
+        ax.view_init(elev=elevation, azim=azimuth)
+        if 'title' in res:
+            ax.set_title(res['title'])
+    if out_file:
+        fig.savefig(out_file, dpi=100)
+        plt.close(fig)
+    return fig

@@ -1,13 +1,17 @@
 """Data of the port: dataset metadata, the top-down datasets (COCO format,
-MPII, MPII-TRB, COCO-WholeBody, PoseTrack18, Sub-JHMDB) and their evaluation, the host loader
+MPII, MPII-TRB, COCO-WholeBody, PoseTrack18 and its PoseWarper windows,
+Sub-JHMDB) and their evaluation, the 3D lifting windows (Human3.6M,
+MPI-INF-3DHP), the host loader
 (native or cv2 JPEG decode) with the ViTPose+ multi-dataset mixture, and
 training augmentation and preprocessing."""
+from .body3d import Body3DH36MDataset, Body3DSemiSupervisionDataset
 from .coco_index import CocoIndex
 from .dataset_info import DatasetInfo, available_datasets
 from .jhmdb import JhmdbDataset
 from .loader import MultiDatasetLoader, TopDownLoader
+from .mpi_inf_3dhp import MpiInf3dhpDataset
 from .mpii import MpiiDataset, MpiiTrbDataset
-from .posetrack import PoseTrackDataset
+from .posetrack import PoseTrackDataset, PoseTrackVideoDataset
 from .topdown import TopDownDataset
 from .wholebody import WholeBodyDataset
 

@@ -10,8 +10,9 @@ scores, score and track_id), and scores every labelled frame with
 `evaluate_posetrack_ap`, a copy of poseval's evaluateAP (per-frame greedy
 matching of poses by PCKh at 0.5 of 0.6 x the head box's diagonal,
 per-joint average precision, the Head/Shou/Elb/Wri/Hip/Knee/Ankl/Total
-table in percent). All host numpy. PoseWarper's `PoseTrackVideoDataset`
-comes with its family (ROADMAP.md queue 1 item 12d).
+table in percent). `PoseTrackVideoDataset` (:220-297) gives PoseWarper its
+windows: the key frame first, then the supporting frames' paths and the
+per-frame weights. All host numpy.
 """
 from __future__ import annotations
 
@@ -216,3 +217,83 @@ class PoseTrackDataset(TopDownDataset):
                 pred_frames.append(preds)
         return evaluate_posetrack_ap(gt_frames, pred_frames,
                                      num_joints=k)
+
+
+class PoseTrackVideoDataset(PoseTrackDataset):
+    """PoseTrack18 video dataset for PoseWarper: each record carries the
+    key frame plus supporting-frame paths and per-frame weights
+    (reference TopDownPoseTrack18VideoDataset,
+    topdown_posetrack18_video_dataset.py:25; frame selection :197-227).
+
+    Supporting frames are ``ref_idx + index`` clipped to [0, nframes-1]
+    and zero-filled to ``ph_fill_len`` digits; a missing frame file falls
+    back to the key frame (reference :216-222). In test mode index 0 is
+    skipped because the key frame is always first in ``image_files``.
+    """
+
+    def __init__(self, ann_file, img_prefix, dataset_info='posetrack18',
+                 frame_indices_test=(-2, -1, 0, 1, 2),
+                 frame_indices_train=None, frame_index_rand=True,
+                 frame_index_range=(-2, 2), num_adj_frames=1,
+                 frame_weight_train=(0.0, 1.0),
+                 frame_weight_test=(0.3, 0.1, 0.25, 0.25, 0.1),
+                 ph_fill_len=6, seed=0, **kw):
+        # frame-selection state must exist before super().__init__ builds
+        # the db (it calls back into _load_db -> _attach_frames)
+        self.frame_indices_test = sorted(frame_indices_test)
+        self.frame_indices_train = (sorted(frame_indices_train)
+                                    if frame_indices_train else None)
+        self.frame_index_rand = frame_index_rand
+        self.frame_index_range = frame_index_range
+        self.num_adj_frames = num_adj_frames
+        self.frame_weight_train = tuple(frame_weight_train)
+        self.frame_weight_test = tuple(frame_weight_test)
+        self.ph_fill_len = ph_fill_len
+        self._frame_rng = np.random.RandomState(seed)
+        super().__init__(ann_file, img_prefix, dataset_info=dataset_info,
+                         **kw)
+
+    @property
+    def num_frames(self):
+        """Static window length T (key frame + supports)."""
+        return len(self.db[0]['image_files']) if self.db else 1
+
+    def _load_db(self):
+        db = super()._load_db()
+        for rec in db:
+            self._attach_frames(rec)
+        return db
+
+    def _attach_frames(self, rec):
+        key_file = rec['image_file']
+        rel = key_file[len(self.img_prefix):].lstrip('/')
+        img_id = (self.name2id[rel] if rel in self.name2id
+                  else self.name2id[os.path.basename(rel)])
+        img = self.coco.imgs[img_id]
+        nframes = int(img.get('nframes', 1))
+        cur_name = os.path.basename(key_file)
+        ref_idx = int(os.path.splitext(cur_name)[0])
+        if not self.test_mode and self.frame_indices_train is not None:
+            indices = self.frame_indices_train
+        elif not self.test_mode and self.frame_index_rand:
+            low, high = self.frame_index_range
+            indices = self._frame_rng.randint(low, high + 1,
+                                              self.num_adj_frames)
+        else:
+            indices = self.frame_indices_test
+        files = [key_file]
+        for index in indices:
+            if self.test_mode and index == 0:
+                continue
+            sup_idx = int(np.clip(ref_idx + index, 0, nframes - 1))
+            sup_file = key_file.replace(
+                cur_name, str(sup_idx).zfill(self.ph_fill_len) + '.jpg')
+            files.append(sup_file if os.path.exists(sup_file) else key_file)
+        rec['image_files'] = files
+        rec['nframes'] = nframes
+        rec['frame_id'] = img.get('frame_id', img_id)
+        fw = np.asarray(self.frame_weight_test if self.test_mode
+                        else self.frame_weight_train, np.float32)
+        if len(fw) != len(files):   # window length diverges from the
+            fw = np.full((len(files),), 1.0 / len(files), np.float32)
+        rec['frame_weight'] = fw

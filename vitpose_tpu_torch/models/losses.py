@@ -2,12 +2,15 @@
 MSE of the GaussianHeatmap target, the CombinedTarget MSE and the
 adaptive wing loss; and of vitpose_tpu/models/losses_regression.py: the
 DeepPose criteria `smooth_l1_loss`, `wing_loss` and `soft_wing_loss`
-(:27, :45, :55) and the bottom-up losses `ae_heatmap_loss` and
-`ae_tag_loss` (:139-196))."""
+(:27, :45, :55), the bottom-up losses `ae_heatmap_loss` and
+`ae_tag_loss` (:139-196), and the pose lifters' `mse_loss`,
+`mpjpe_loss`, `bone_loss`, `project_joints` and `semi_supervision_loss`
+(:40-98, :241-300))."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -163,3 +166,85 @@ def ae_tag_loss(tags, joints, loss_type='exp'):
     push = torch.where(num_people > 1, push, zero)
     pull = torch.where(num_people > 0, pull, zero)
     return push, pull
+
+
+def mse_loss(pred, target, target_weight=None, loss_weight=1.0):
+    """The elementwise mean of the squared error (regression_loss.py)."""
+    pred, target = _weighted(pred, target, target_weight)
+    return ((pred - target) ** 2).mean() * loss_weight
+
+
+def mpjpe_loss(pred, target, target_weight=None, loss_weight=1.0):
+    """Mean per-joint position error (regression_loss.py:200)."""
+    pred, target = _weighted(pred, target, target_weight)
+    return torch.linalg.vector_norm(pred - target, dim=-1).mean() \
+        * loss_weight
+
+
+def bone_loss(pred, target, joint_parents, target_weight=None,
+              loss_weight=1.0):
+    """Bone-length consistency (regression_loss.py:306): each bone's length
+    (self-parented roots left out) averaged over the batch first, then the
+    L1 between the means; `target_weight` weights bones [N, B]."""
+    parents = np.asarray(joint_parents)
+    keep = np.arange(len(parents)) != parents
+    child = torch.as_tensor(np.arange(len(parents))[keep])
+    par = torch.as_tensor(parents[keep])
+    bone_pred = torch.linalg.vector_norm(pred[:, child] - pred[:, par],
+                                         dim=-1)
+    bone_gt = torch.linalg.vector_norm(target[:, child] - target[:, par],
+                                       dim=-1)
+    if target_weight is not None:
+        bone_pred = bone_pred * target_weight
+        bone_gt = bone_gt * target_weight
+    return (bone_pred.mean(0) - bone_gt.mean(0)).abs().mean() * loss_weight
+
+
+def project_joints(x, intrinsics):
+    """Camera-space joints [N, K, 3] -> image-plane [N, K, 2] through
+    intrinsics [N, 4] (f, c) or [N, 9] (f, c, k1 k2 k3, p1 p2) with radial
+    and tangential distortion (regression_loss.py:395-424). A depth within
+    1e-4 of 0 is held at +-1e-4 (an untrained trajectory head can put the
+    root there), and x / z is clipped to [-1, 1]."""
+    intr = torch.as_tensor(intrinsics, dtype=x.dtype, device=x.device)
+    while intr.ndim < x.ndim:
+        intr = intr[:, None]
+    f = intr[..., :2]
+    c = intr[..., 2:4]
+    z = x[..., 2:]
+    z = torch.where(z.abs() < 1e-4,
+                    torch.where(z < 0, -1e-4, 1e-4).to(z.dtype), z)
+    xy = torch.clamp(x[..., :2] / z, -1.0, 1.0)
+    if intr.shape[-1] == 9:
+        k = intr[..., 4:7]
+        p = intr[..., 7:9]
+        r2 = (xy ** 2).sum(-1, keepdim=True)
+        radial = 1 + (k * torch.cat((r2, r2 ** 2, r2 ** 3), -1)).sum(
+            -1, keepdim=True)
+        tan = (p * xy).sum(-1, keepdim=True)
+        xy = xy * (radial + tan) + p * r2
+    return f * xy + c
+
+
+def semi_supervision_loss(labeled_pose, unlabeled_pose, unlabeled_traj,
+                          unlabeled_target_2d, intrinsics, joint_parents,
+                          projection_loss_weight=1.0, bone_loss_weight=1.0,
+                          warmup=None):
+    """VideoPose3D's semi-supervision on unlabelled windows
+    (regression_loss.py:360-449): the MPJPE between the re-projected pose +
+    trajectory and the 2D detections, and the bone-length consistency
+    between the unlabelled and the labelled poses. `warmup` is the host's
+    0/1 gate (n_steps >= warmup iterations): at 0 neither term is computed
+    and both are zeros, as JAX's lax.cond skips the branch (a product with
+    0 would carry an untrained trajectory head's inf into NaN). Returns
+    {'proj_loss', 'bone_loss'}."""
+    if warmup is not None and not float(warmup) > 0.5:
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=unlabeled_pose.device)
+        return {'proj_loss': zero, 'bone_loss': zero.clone()}
+    proj = project_joints(unlabeled_pose + unlabeled_traj, intrinsics)
+    loss_proj = mpjpe_loss(proj, unlabeled_target_2d,
+                           loss_weight=projection_loss_weight)
+    loss_bone = bone_loss(unlabeled_pose, labeled_pose, joint_parents,
+                          loss_weight=bone_loss_weight)
+    return {'proj_loss': loss_proj.float(), 'bone_loss': loss_bone.float()}

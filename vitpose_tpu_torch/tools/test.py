@@ -17,9 +17,12 @@ patch kernel padded) or an .npz written by the JAX package, routed by the
 backbone type as JAX's tools/test.py:250-256 routes it.
 
 A bottom-up config (family 'bottomup') is evaluated per image through the
-multi-scale test protocol (`run_bottomup_eval`, JAX tools/test.py:69);
-`--int8`, `--show-dir` and `--batch-size`, which that path does not read,
-raise there.
+multi-scale test protocol (`run_bottomup_eval`, JAX tools/test.py:69); a
+PoseWarper config over PoseTrack18 frame windows and a pose-lifter config
+over H36M or MPI-INF-3DHP windows (`run_family_eval`, JAX
+tools/test.py:147-170; PoseWarper writes its per-video jsons to
+`--tmpdir`, as JAX's does). `--int8`, `--show-dir` and `--batch-size`
+(but PoseWarper's), which those paths do not read, raise there.
 
 `--int8` evaluates the int8 serving path, as JAX's does: static scales
 calibrated on the first two val batches (`calibrate_from_loader`, with
@@ -79,23 +82,27 @@ def _emit_stats(stats, args):
             json.dump({k: float(v) for k, v in stats.items()}, f)
 
 
+FAMILY_EVALS = ('bottomup', 'posewarper', 'pose_lifter')
+
+
 def _refuse_unported(cfg, args):
     family = cfg['model'].get('family', 'topdown')
-    if family not in ('topdown', 'bottomup'):
+    if family not in ('topdown',) + FAMILY_EVALS:
         raise NotImplementedError(f'evaluation of the {family!r} family is '
                                   'not ported yet (ROADMAP.md queue 1 '
-                                  'item 12)')
-    if family == 'bottomup':
-        # options JAX's bottom-up path never reads
+                                  'item 12f)')
+    if family in FAMILY_EVALS:
+        # options JAX's family paths never read (PoseWarper's takes the
+        # batch size, and --tmpdir as its result folder)
         for flag, given in (('--int8', args.int8),
                             ('--show-dir', args.show_dir),
-                            ('--batch-size', args.batch_size)):
+                            ('--batch-size', args.batch_size
+                             if family != 'posewarper' else None)):
             if given:
                 raise NotImplementedError(
-                    f'{flag} with a bottom-up config: the bottom-up '
-                    'evaluation (per image, multi-scale + flip + grouping) '
-                    'does not take it')
-    if args.tmpdir:
+                    f'{flag} with a {family} config: its evaluation does '
+                    'not take it')
+    if args.tmpdir and family != 'posewarper':
         raise NotImplementedError('--tmpdir is not ported yet (ROADMAP.md '
                                   'queue 1 item 11)')
     if args.int8 and cfg['model'].get('backbone_type', 'vit') != 'vit':
@@ -183,6 +190,26 @@ def run_bottomup_eval(cfg, args, dev):
     return stats
 
 
+def run_family_eval(cfg, args, dev):
+    """PoseWarper (PoseTrack18 mAP over frame windows with the flip test)
+    and the pose lifters (MPJPE, P-MPJPE, N-MPJPE; 3DPCK and 3DAUC on
+    MPI-INF-3DHP): eval/families.py, as JAX tools/test.py:147-170 runs
+    them, on a checkpoint that is the port's .pth, a reference .pth or
+    the JAX package's .npz."""
+    from ..eval.families import evaluate_pose_lifter, evaluate_posewarper
+    model = build_model_from_cfg(cfg['model'])
+    load_checkpoint(model, args.checkpoint)
+    model = model.to(dev).eval()
+    if cfg['model']['family'] == 'posewarper':
+        stats = evaluate_posewarper(cfg, model, batch_size=args.batch_size,
+                                    res_folder=args.tmpdir,
+                                    metric=args.metric)
+    else:
+        stats = evaluate_pose_lifter(cfg, model, metric=args.metric)
+    _emit_stats(stats, args)
+    return stats
+
+
 def main(argv=None):
     """Run the evaluation; prints the stats as JSON and returns them."""
     ap = argparse.ArgumentParser(description='Evaluate a pose model '
@@ -214,6 +241,8 @@ def main(argv=None):
     dev = _device(args.device)
     if cfg['model'].get('family') == 'bottomup':
         return run_bottomup_eval(cfg, args, dev)
+    if cfg['model'].get('family') in FAMILY_EVALS:
+        return run_family_eval(cfg, args, dev)
     model, ds, loader = build_eval_objects(cfg, args.batch_size)
     load_checkpoint(model, args.checkpoint)
     model = model.to(dev).eval()

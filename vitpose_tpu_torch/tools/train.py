@@ -10,7 +10,10 @@ the card (`--device cuda`, the default; it raises without CUDA) or on the CPU
 with `--device cpu`. The work dir receives `train.log.json` and `ckpts/`
 (see utils/checkpoint.py); `--resume` goes on from its latest checkpoint.
 A bottom-up config (family 'bottomup') trains through
-train/bottomup_loop.py's runner, as JAX's `train_model` dispatches it.
+train/bottomup_loop.py's runner, a PoseWarper config through
+train/posewarper_loop.py and a pose-lifter config through
+train/lifter_loop.py (weights only: `final.pth`, `--resume` restarts the
+optimizer), as JAX's `train_model` dispatches them.
 """
 from __future__ import annotations
 

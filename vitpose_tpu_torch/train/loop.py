@@ -7,9 +7,10 @@ the classic, the ViPNAS, the DeepPose regression or a multi-stage head),
 `_log` (:33-45), `_pop_freeze_options` and the freezing
 of `_apply_freeze` (:67-81), `train_model` (the top-down ViT branch of
 :239-479), `train_model_moe` (:520-706, the ViTPose+ runner) and the
-`pretrained` / `load_from` merges (:330-353, :482-517), and the bottom-up
-branches of `build_family_model` (:160-186) and of `train_model`
-(:248-251, the runner in train/bottomup_loop.py).
+`pretrained` / `load_from` merges (:330-353, :482-517), and the bottom-up,
+PoseWarper and pose-lifter branches of `build_family_model` (:160-219) and
+of `train_model` (:248-281, the runners in train/bottomup_loop.py,
+train/posewarper_loop.py and train/lifter_loop.py).
 
 One epoch of `train_model`: the host loader -> pinned staging -> the device
 crop and targets (`make_preprocess_fn`) -> the train step -> json-lines
@@ -23,8 +24,8 @@ set in one mixture of single-dataset batches, targets padded to
 per step, evaluation through expert 0 and the main head. The port runs
 both in this one loop, so the MoE run also gets what JAX's
 `train_model_moe` lacks: `load_from`, the preemption save and the
-`data_time` log. The other
-model families, ZeRO-1 and TensorBoard are not ported yet and raise.
+`data_time` log. The mesh, interhand3d and VoxelPose families (ROADMAP
+item 12f), ZeRO-1 and TensorBoard are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -52,6 +53,8 @@ from ..models.lightweight import (Hourglass, HourglassAE, MobileNetV2,
 from ..models.more_cnns import (MobileNetV3, RegNet, ResNeSt, SCNet,
                                 ShuffleNetV1, ViPNASMobileNetV3, ViPNASResNet)
 from ..models.multistage_nets import MSPN, RSN, LiteHRNet
+from ..models.pose3d import PoseLifter
+from ..models.posewarper import build_posewarper
 from ..models.resnet import ResNet, ResNetV1d
 from ..models.resnext import ResNeXt, SEResNeXt
 from ..models.topdown import (GenericMultiStageTopDown, GenericTopDown,
@@ -159,16 +162,29 @@ def build_generic_topdown(backbone_type: str, bb_kwargs: dict,
 
 def build_family_model(family: str, mcfg: dict, generator=None):
     """The non-top-down families of a config's `model` dict (JAX
-    vitpose_tpu/train/loop.py:160-219 `build_family_model`), of which the
-    bottom-up one is ported: the backbone of `backbone_type` (default
-    'hrnet'), the AE head ('ae': AEHead, 'ae_higher':
-    AEHigherResolutionHead, 'ae_multi': Hourglass-AE's AEMultiStageHead,
-    whose config sets its out_channels), the dataset's metadata and the
-    parser options, weights drawn from `generator`."""
+    vitpose_tpu/train/loop.py:160-219 `build_family_model`), weights drawn
+    from `generator`: 'posewarper' (models/posewarper.py) and 'pose_lifter'
+    (models/pose3d.py, whose 2D input has num_joints joints, one more with
+    `remove_root`), and 'bottomup': the backbone of
+    `backbone_type` (default 'hrnet'), the AE head ('ae': AEHead,
+    'ae_higher': AEHigherResolutionHead, 'ae_multi': Hourglass-AE's
+    AEMultiStageHead, whose config sets its out_channels), the dataset's
+    metadata and the parser options. The other families raise."""
+    if family == 'posewarper':
+        return build_posewarper(mcfg, build_backbone, generator)
+    if family == 'pose_lifter':
+        mcfg = dict(mcfg)
+        mcfg.pop('family', None)
+        mcfg.pop('loss', None)
+        remove_root = bool(mcfg.pop('remove_root', False))
+        num_joints = mcfg.pop('num_joints', 17)
+        return PoseLifter(num_joints=num_joints,
+                          in_joints=num_joints + remove_root,
+                          generator=generator, **mcfg)
     if family != 'bottomup':
         raise NotImplementedError(
             f'model family {family!r} is not ported yet (ROADMAP.md queue 1 '
-            'item 12)')
+            'item 12f)')
     mcfg = dict(mcfg)
     backbone_type = mcfg.pop('backbone_type', 'hrnet')
     if backbone_type == 'vit':
@@ -198,8 +214,9 @@ def build_family_model(family: str, mcfg: dict, generator=None):
 
 def build_model_from_cfg(mcfg: dict, generator=None):
     """A config file's `model` dict -> TopDownModel (ViT), GenericTopDown
-    or GenericMultiStageTopDown (CNN) or, for family 'bottomup',
-    BottomUpEstimator, with random weights, drawn on the CPU from
+    or GenericMultiStageTopDown (CNN) or, for families 'bottomup',
+    'posewarper' and 'pose_lifter', BottomUpEstimator, PoseWarper and
+    PoseLifter, with random weights, drawn on the CPU from
     `generator` (default: a torch.Generator seeded with 0, as in
     `init_pose_model`)."""
     if generator is None:
@@ -274,11 +291,14 @@ def load_from(model: TopDownModel, path):
     model.load_state_dict(keep, strict=False)
 
 
+PORTED_FAMILIES = ('topdown', 'bottomup', 'posewarper', 'pose_lifter')
+
+
 def _refuse_unported(cfg):
     family = cfg['model'].get('family', 'topdown')
-    if family not in ('topdown', 'bottomup'):
+    if family not in PORTED_FAMILIES:
         raise NotImplementedError(f'training the {family!r} family is not '
-                                  'ported yet (ROADMAP.md queue 1 item 12)')
+                                  'ported yet (ROADMAP.md queue 1 item 12f)')
     rt = cfg.get('runtime', {})
     if rt.get('zero1'):
         raise NotImplementedError('runtime.zero1 (sharded optimizer state '
@@ -385,10 +405,20 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
     on the mixture of its datasets."""
     from ..api.inference import _device
     _refuse_unported(cfg)
-    if cfg['model'].get('family') == 'bottomup':
+    family = cfg['model'].get('family')
+    if family == 'bottomup':
         from .bottomup_loop import train_bottomup_model
         return train_bottomup_model(cfg, work_dir=work_dir, resume=resume,
                                     max_steps=max_steps, device=device)
+    if family == 'posewarper':
+        from .posewarper_loop import train_posewarper_model
+        return train_posewarper_model(cfg, work_dir=work_dir, resume=resume,
+                                      max_steps=max_steps, device=device)
+    if family == 'pose_lifter':
+        from .lifter_loop import train_pose_lifter_model
+        return train_pose_lifter_model(cfg, work_dir=work_dir,
+                                       resume=resume, max_steps=max_steps,
+                                       device=device)
     dev = _device(device)
     rt = cfg.get('runtime', {})
     work_dir = work_dir or rt.get('work_dir', 'work_dir')

@@ -37,6 +37,10 @@ Dense kernels as nn.Linear weights.
 variables: the ViT or CNN backbone and the AE heads (the inverse of
 vitpose_tpu/utils/family_ckpt.py:102 `convert_bottomup_checkpoint`, with
 `_convert_ae_multi_head` :78).
+`posewarper_state_dict_from_flax` and `pose_lifter_state_dict_from_flax`
+run JAX's family converters backwards (vitpose_tpu/utils/family_ckpt.py:
+125-155, 191-242, with `convert_tcn`, cnn_ckpt.py:578) for PoseWarper and
+the pose lifters.
 `load_params_npz` reads the flat 'a/b/c' .npz files that the JAX package's
 `save_params_npz` writes (vitpose_tpu/utils/checkpoint.py:160-186).
 """
@@ -807,3 +811,86 @@ _WRITERS = {
 # HEAD_CONVERTERS, cnn_ckpt.py:865): CPM's identity head has no entries
 _MULTI_STAGE_HEADS = {'hourglass': _multistage_head, 'mspn': _msmu_head,
                       'rsn': _msmu_head, 'cpm': lambda w: None}
+
+
+# --- the video and 3D families: JAX's family converters run backwards ---
+
+def posewarper_state_dict_from_flax(variables, backbone_type='hrnet'):
+    """flax PoseWarper variables ({'params': {'backbone', 'neck', 'head'},
+    'batch_stats': ...}, as JAX's init and its loop's .npz hold them) ->
+    {mmpose name: f32 CPU tensor}: the inverse of
+    vitpose_tpu/utils/family_ckpt.py:191-242 (`_convert_posewarper_neck`,
+    `convert_posewarper_checkpoint`): the CNN backbone, the neck's
+    trans_layer, its BasicBlock chain `offset_feats.{i}`, the offset convs
+    and the deformable kernels (flax [kh, kw, in, out] -> [out, in, kh,
+    kw]), and the head where it has parameters (the stage-2 identity head
+    has none)."""
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    sd = _cnn_backbone(params['backbone'], stats.get('backbone', {}),
+                       backbone_type)
+    w = _Writer(params['neck'], stats.get('neck', {}), 'neck.')
+    w.conv('trans_layer', 'trans_layer')
+    i = 0
+    while w.has(f'offset_feats_{i}'):
+        w.resnet_block(f'offset_feats.{i}', f'offset_feats_{i}')
+        i += 1
+    j = 0
+    while w.conv(f'offset_layers.{j}', f'offset_layers_{j}'):
+        j += 1
+    j = 0
+    while w.has(f'deform_conv_{j}'):
+        w.sd.update(_leaf(f'neck.deform_conv_layers.{j}.weight', 'kernel',
+                          w._node(w.params, f'deform_conv_{j}')))
+        j += 1
+    sd.update(w.sd)
+    sd.update({f'keypoint_head.{k}': v for k, v in
+               _head(params.get('head', {}), stats.get('head', {})).items()})
+    return sd
+
+
+def _tcn(w, prefix):
+    """TCN (the inverse of vitpose_tpu/utils/cnn_ckpt.py:578 `convert_tcn`):
+    flax Conv1D kernels [k, in, out] -> Conv1d [out, in, k]."""
+    def conv1d(tname, fpath):
+        p = w._node(w.params, fpath)
+        if p is None:
+            return False
+        w.sd[f'{w.prefix}{prefix}{tname}.weight'] = _t(
+            np.transpose(p['kernel'], (2, 1, 0)))
+        return True
+
+    def bn(tname, fpath):
+        w.bn(f'{prefix}{tname}', fpath)
+
+    conv1d('expand_conv.conv', 'stem_conv')
+    bn('expand_conv.bn', 'stem_bn')
+    i = 0
+    while conv1d(f'tcn_blocks.{i}.conv1.0.conv', f'block{i}_conv1'):
+        bn(f'tcn_blocks.{i}.conv1.0.bn', f'block{i}_bn1')
+        conv1d(f'tcn_blocks.{i}.conv2.0.conv', f'block{i}_conv2')
+        bn(f'tcn_blocks.{i}.conv2.0.bn', f'block{i}_bn2')
+        i += 1
+
+
+def pose_lifter_state_dict_from_flax(variables) -> dict:
+    """flax PoseLifter variables -> the port's state dict: the inverse of
+    `convert_pose_lifter_checkpoint` and `_lifter_head`
+    (vitpose_tpu/utils/family_ckpt.py:125-155): `backbone` and, with the
+    trajectory branch, `traj_backbone` TCNs; the heads' Dense 'fc' ->
+    `keypoint_head.conv` / `traj_head.conv`, a 1x1 Conv1d [out, in, 1]."""
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    sd = {}
+    for flax_bb, flax_head, bb, head in (
+            ('backbone', 'head', 'backbone.', 'keypoint_head.'),
+            ('traj_backbone', 'traj_head', 'traj_backbone.', 'traj_head.')):
+        if flax_bb not in params:
+            continue
+        w = _Writer(params[flax_bb], stats.get(flax_bb, {}), bb)
+        _tcn(w, '')
+        sd.update(w.sd)
+        fc = params[flax_head]['fc']
+        sd[head + 'conv.weight'] = _t(np.asarray(fc['kernel']).T[:, :, None])
+        sd[head + 'conv.bias'] = _t(fc['bias'])
+    return sd
