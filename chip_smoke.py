@@ -65,7 +65,7 @@ no result:
             ms per call of the exported program beside eager at batch 8 and
             256 (exported in-process), in turns
   demos     the 8 top-down demos (vitpose_tpu_torch.demo.*) on the card, on
-            a seeded 480x640 image with 3 boxes and an 8-frame MJPG video
+            a seeded 480x640 image with 3 boxes and a 4-frame MJPG video
             of it: the six that take --variant get the COCO-B config and the
             shaped .pth (24 K1 launches per frame), the face demos their f32
             ViT-S default with shaped 68-joint weights (0 K1); every output
@@ -74,8 +74,8 @@ no result:
             export and webcam)
   webcam    the examples/pose_estimation.py runner dict as
             tools/run_webcam.py loads it, its pose node on the COCO-B config
-            and the shaped .pth, a 24-frame video as the camera, headless,
-            max_frames 16: threaded (the config's synchronous=False; K1 on
+            and the shaped .pth, a 16-frame video as the camera, headless,
+            max_frames 10: threaded (the config's synchronous=False; K1 on
             the pose node's own thread) and synchronous; no node thread
             raises; frames shown and inferred (at least half the frames
             shown threaded, all of them synchronous), 24 K1 launches per
@@ -85,8 +85,8 @@ no result:
   eval      the evaluation CLI (vitpose_tpu_torch.tools.test) on the COCO-B
             config file (ViTPose-B 256x192 bf16, K1, flip test, UDP, batch
             64, canvas 640), pointed by --cfg-options at a synthetic COCO val
-            set written to a temporary directory (62 JPEGs, 8 of them
-            larger than the canvas; 248 detection boxes, so 3 full batches
+            set written to a temporary directory (30 JPEGs, 4 of them
+            larger than the canvas; 120 detection boxes, so a full batch
             and a short one of 56; GT joints at each box's peak plus seeded
             jitter) and at the shaped weights saved as a .pth: exactly 24 K1
             launches per batch, all whole-pair, and no K2; the ten COCO
@@ -122,7 +122,7 @@ no result:
   train-loop the training CLI (vitpose_tpu_torch.tools.train) on the COCO-B
             config file at full width (ViTPose-B 256x192 bf16, K1 + K2,
             drop_path 0.3, batch 64, UDP targets), pointed by --cfg-options
-            at a synthetic COCO train set (266 persons: 4 steps per epoch)
+            at a synthetic COCO train set (140 persons: 2 steps per epoch)
             and val set (128 boxes: 2 batches), starting from the shaped
             weights (load_from), 2 epochs with an evaluation and a
             checkpoint after each, logging every step: exactly 12 K1 + 12
@@ -242,7 +242,7 @@ no result:
             heatmaps and tags within BU_MAP_RTOL, grouped poses within
             BU_POSE_TOL_PX where both keep the same candidates (the images
             where they do not are counted)
-  bu-eval   the evaluation CLI on the flagship config over 8 synthetic
+  bu-eval   the evaluation CLI on the flagship config over 4 synthetic
             images (a crowd region in compressed RLE, one in polygons; GT
             from the seeded model's jittered poses): AP in (0, 1], 0
             K1/K2, images/s, the card's and the host's share
@@ -251,7 +251,7 @@ no result:
             it bit for bit; step time, img/s, data_time share, peak
             memory, one profiled step's kernel time and launches
   bu-apps   the 3 bottom-up demos (ViT-S f32 base 256, K1) on an image and
-            an 8-frame video: 24 K1 launches per frame at held shapes,
+            a 4-frame video: 24 K1 launches per frame at held shapes,
             frames/s
   bu-ms     Hourglass-AE (4 stacks) and MobileNetV2-AE 512 (f32) through
             both API functions on 2 images of 2 sizes (the stages the model
@@ -272,7 +272,7 @@ no result:
             HRFormer-B's train-ref under cnn-train-ref's rule at 96x128
             crops (HRFORMER_REF_CROP; its float64 run starts in a child
             process, F64Run, before the cnn group); the training
-            CLI on the photometric config for 4 steps (data_time share)
+            CLI on the photometric config for 2 steps (data_time share)
   td-rest-eval  the evaluation CLI on DeepPose over 256 synthetic boxes
             (the regression decode) and on the udp_regress config over 128
             (the UDP CombinedTarget decode), as cnn-eval
@@ -312,15 +312,46 @@ no result:
             matplotlib: lifted_pose_writer stands in for the drawing, which
             the CPU tests hold)
 
-Then the cnn, cnn_more, cnn_ms, bottomup, bottomup_ms, td_rest and vid3d
-JSON lines (those phases' numbers),
+  fam-ih    the one-config families (after vid3d): InterHand3D-Res50 at
+            256x256 (the zoo config, full width): inference_interhand_3d_model
+            on a 64-box image (the decode with the soft-argmax root depth,
+            the back-projection), timed; CUDA against the CPU on 2 crops;
+            steps at batch 16; the train-ref at the config's 256x256
+            against the port's f64 run (computed with the other families'
+            in a child process started before the cnn group, FamRefs;
+            family_ref_runs: hold_train_ref's
+            rule, CUDA's parameters below FAM_REF_PARAMS_CAP from f64, its
+            step-1 loss and gradients against the CPU's; an unmoved CUDA
+            state and a zeroed gradient must fail these); the training CLI
+            for 2 steps and --resume and the evaluation CLI on a synthetic
+            InterHand2.6M set
+  fam-mesh  HMR-Res50 at 224x224 with its 1024-wide discriminator: the
+            mesh API on 64 boxes, CUDA against the CPU, adversarial steps at
+            batch 64 (the mean parameters unmoved), the train-ref at
+            224x224, both CLIs on synthetic mixed sets and a Mosh prior
+  fam-vp    VoxelPose at the config's sizes (80x80x20 space, 64^3 cubes, 5
+            views): the forward with its host proposals (the centre net's
+            output bias shifted so that about 5 pass), the projections
+            against the V2VNets by CUDA events; CUDA against the CPU (the
+            centre volume, the joints of 2 proposals given the same ones);
+            steps with 10 candidate cubes; the train-ref on a smaller grid
+            on two weight seeds (the centre and pose nets' gradients each
+            against its own largest; CUDA through ATen's convolutions by
+            hold_train_ref's rule, through cuDNN's by family_holds); both
+            CLIs on a synthetic Panoptic sequence
+  fam-apps  the interhand3d and mesh image demos, and MultiTaskModel on a
+            ResNet-50 trunk with a heatmap and a regression head (forward
+            and one step); 0 K1 and K2 on every fam path
+
+Then the cnn, cnn_more, cnn_ms, bottomup, bottomup_ms, td_rest, vid3d and
+fam JSON lines (those phases' numbers),
 the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, int8
 serve call, server request per mode, eval run, int8 eval run, train step,
 train-loop run, remat step, moe-train run, exported call, demo frame,
-webcam run, each CNN, cnn-more, cnn-ms, bottom-up, bu-ms, td-rest and
-video and 3D phase (0), bottom-up demo frame and body3d demo frame; beside the kernels, the int8 product's launches per path and times, the server's latencies and the
+webcam run, each CNN, cnn-more, cnn-ms, bottom-up, bu-ms, td-rest, video
+and 3D and fam phase (0), bottom-up demo frame and body3d demo frame; beside the kernels, the int8 product's launches per path and times, the server's latencies and the
 int8 AP, the dispatcher's price, the exported program's times and the
 demos' and webcam's frames/s), the nvidia-smi card line and the result
 line.
@@ -431,7 +462,7 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, calls=10, rounds=7, warmup=3):
+def time_ms(fn, calls=10, rounds=5, warmup=3):
     """Time of one fn() on the card: median over `rounds` of a CUDA-event
     timing of `calls` back-to-back calls, divided by `calls`, after warm-up.
     Back to back, the host enqueues the next call while the card runs this
@@ -453,7 +484,7 @@ def time_ms(fn, calls=10, rounds=7, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=10, rounds=7):
+def device_ms(fn, calls=10, rounds=5):
     """Device time of one fn(): `calls` calls captured in one CUDA graph,
     replayed after a warm-up; the median over `rounds` replays, each timed
     by CUDA events, divided by `calls`. No host time enters, unlike
@@ -1022,8 +1053,8 @@ def phase_serve_int8(card):
     return out, ms
 
 
-DEPLOY_REQUESTS = 10                 # timed requests per mode and box count
-DEPLOY_DIRECT_CALLS = 10             # timed direct API calls of the same
+DEPLOY_REQUESTS = 5                  # timed requests per mode and box count
+DEPLOY_DIRECT_CALLS = 5              # timed direct API calls of the same
 
 
 def phase_deploy(card, root):
@@ -1152,8 +1183,8 @@ def phase_deploy(card, root):
 
 COCO_B = 'vitpose_tpu/configs/coco/vitpose_b_coco_256x192.py'
 EVAL_BATCH = 64                      # the COCO-B config's batch size
-EVAL_SMALL, EVAL_BIG = 54, 8         # 480x640 images, and 960x1280 ones
-BOXES_PER_IMAGE = 4                  # 248 boxes: 3 full batches + 56
+EVAL_SMALL, EVAL_BIG = 26, 4         # 480x640 images, and 960x1280 ones
+BOXES_PER_IMAGE = 4                  # 120 boxes: 1 full batch + 56
 EVAL_REF_IMAGES = 4                  # eval-ref: their 16 boxes
 GT_JITTER_PX = 3.0                   # GT joints: box centre + this sigma
 
@@ -1948,13 +1979,13 @@ def phase_train_ref():
               f'the bf16 CPU path {cpu[k]}')
 
 
-# train-loop: the training CLI on the COCO-B config. The train set: 74
-# 480x640 and 2 960x1280 images of 4 boxes, 266 GT persons, so 4 steps of
-# 64 per epoch (drop_last); the val set: 28 + 4 images, 128 detection
-# boxes, 2 batches of 64. The run starts from the shaped weights
+# train-loop: the training CLI on the COCO-B config. The train set: 39
+# 480x640 images and one 960x1280 image of 4 boxes, 140 GT persons, so 2
+# steps of 64 per epoch (drop_last); the val set: 28 + 4 images, 128
+# detection boxes, 2 batches of 64. The run starts from the shaped weights
 # (`load_from`), so that AP is not 0 on the synthetic GT.
-LOOP_TRAIN_IMAGES = (74, 2)
-LOOP_STEPS_PER_EPOCH = 4
+LOOP_TRAIN_IMAGES = (39, 1)
+LOOP_STEPS_PER_EPOCH = 2
 LOOP_VAL_IMAGES = (28, 4)
 LOOP_EPOCHS = 2
 
@@ -2979,7 +3010,7 @@ def peaks_checkpoint(root, config, name):
 # largest value (EXPORT_TOL of max |eager|)
 EXPORT_BATCHES = (8, 256)
 EXPORT_TOL = 2.0 ** -8
-EXPORT_REPS = 5
+EXPORT_REPS = 3
 
 
 def phase_export(card, root, ckpt):
@@ -3044,11 +3075,11 @@ def phase_export(card, root, ckpt):
     return launches, rows
 
 
-# demos: the top-down demos on a 480x640 image with 3 boxes and an 8-frame
-# video of it; the webcam on a 24-frame video (max_frames binds at 16)
-DEMO_FRAMES = 8
-WEBCAM_FRAMES = 24
-WEBCAM_MAX_FRAMES = 16
+# demos: the top-down demos on a 480x640 image with 3 boxes and a 4-frame
+# video of it; the webcam on a 16-frame video (max_frames binds at 10)
+DEMO_FRAMES = 4
+WEBCAM_FRAMES = 16
+WEBCAM_MAX_FRAMES = 10
 
 
 def write_video(path, img, frames):
@@ -3304,7 +3335,7 @@ def phase_webcam(card, root, ckpt):
 HRNET_CFG = 'vitpose_tpu/configs/coco/hrnet_w32_coco_256x192.py'
 RES50_CFG = 'vitpose_tpu/configs/coco/res50_coco_256x192.py'
 CNN_CONFIGS = (('hrnet_w32', HRNET_CFG), ('res50', RES50_CFG))
-CNN_SERVE_TURNS = 2                  # timed 256-crop batches per model
+CNN_SERVE_TURNS = 1                  # timed 256-crop batches per model
 CNN_TIMED_STEPS = 2                  # timed train steps per model
 # cnn-ref f32 (TF32 off): heatmaps within CNN_HM_RTOL of max |CPU heatmap|
 # (summation order through 50 to 300 convs), and a keypoint is decisive
@@ -3316,8 +3347,8 @@ CNN_EVAL_IMAGES = (28, 4)            # 128 boxes, 2 batches of 64
 TD_EVAL_IMAGES = (60, 4)             # 256 boxes, 4 batches of 64
 CNN_TRAIN_IMAGES = (40, 0)           # 140 GT persons: 2 steps of 64
 CNN_CLI_STEPS = 2
-PHOTOMETRIC_IMAGES = (74, 0)         # 259 GT persons: 4 steps of 64
-CNN_APP_REQUESTS = 10
+PHOTOMETRIC_IMAGES = (40, 0)         # 140 GT persons: 2 steps of 64
+CNN_APP_REQUESTS = 5
 # cnn-train-ref, ResNet-50 at batch 2, in the units of ref_distances: CUDA
 # f32 from an f64 run on the CPU at most CNN_REF_FACTOR times the CPU f32's
 # own distance from it, plus the f32 floor of train-ref (TRAIN_REF_TOL). A
@@ -4000,40 +4031,72 @@ def phase_cnn_train_ref(path=RES50_CFG, label='cnn-train-ref',
     return report
 
 
-def hold_train_ref(label, runs, exact, desc):
+def grad_tops(grads, groups=()):
+    """The largest |gradient| that each parameter is measured against: its
+    group's (the first of the name prefixes `groups` that it starts with)
+    largest, else the largest of the parameters in no group."""
+    def group(n):
+        return next((g for g in groups if n.startswith(g)), None)
+    tops = {}
+    for n, g in grads.items():
+        tops[group(n)] = max(tops.get(group(n), 0.0), float(g.abs().max()))
+    return {n: tops[group(n)] for n in grads}
+
+
+def hold_train_ref(label, runs, exact, desc, zero_grad=(), zero_floor=None,
+                   groups=(), left_out=None):
     """Hold the f32 train_run-layout `runs` on 'cuda' and 'cpu' against
     the float64 run `exact`: parameters whose f64 gradient is below
-    GRAD_NOISE_FLOOR of the largest are left out of the distances, and their
-    f32 gradients must stay below that floor on both devices; every
-    ref_distances metric of CUDA within CNN_REF_FACTOR times the CPU's plus
-    TRAIN_REF_TOL. Prints one line (`desc` names the model and batch);
-    returns the distances and the CUDA per-tensor parameter distances."""
-    floor = GRAD_NOISE_FLOOR * max(float(g.abs().max())
-                                   for g in exact[1].values())
+    GRAD_NOISE_FLOOR of the largest (of their group's largest, for the
+    name prefixes `groups`, where separate losses train separate nets) are
+    left out of the distances, and their f32 gradients must stay below
+    that floor on both devices; the `zero_grad` parameters (a gradient
+    nought by the model's structure) are left out too, held below
+    `zero_floor` of the largest; every ref_distances metric of CUDA within
+    CNN_REF_FACTOR times the CPU's plus TRAIN_REF_TOL. Prints one line
+    (`desc` names the model and batch); returns the distances and the
+    CUDA per-tensor parameter distances, and adds the names left out to
+    the list `left_out` where one is given."""
+    tops = grad_tops(exact[1], groups)
     noise = sorted(n for n, g in exact[1].items()
-                   if float(g.abs().max()) <= floor)
+                   if float(g.abs().max()) <= GRAD_NOISE_FLOOR * tops[n]
+                   and n not in zero_grad)
     for dev, run in runs.items():
-        loud = [n for n in noise if float(run[1][n].abs().max()) > floor]
+        loud = [n for n in noise if float(run[1][n].abs().max())
+                > GRAD_NOISE_FLOOR * tops[n]]
+        loud += [n for n in zero_grad
+                 if float(run[1][n].abs().max()) > zero_floor * tops[n]]
         check(not loud, f'{label}: {dev} f32 gradients of {loud} exceed '
-              f'{floor:.3e}, where the f64 ones are below it')
-    dist, params = ref_distances(runs['cuda'], exact, noise)
-    cpu, _ = ref_distances(runs['cpu'], exact, noise)
+              'the floor, where the f64 ones are nought')
+    left = noise + sorted(zero_grad)
+    if left_out is not None:
+        left_out.extend(left)
+    dist, params = ref_distances(runs['cuda'], exact, left)
+    cpu, _ = ref_distances(runs['cpu'], exact, left)
+    floors = ', '.join(f'{GRAD_NOISE_FLOOR * t:.3e}'
+                       for t in sorted(set(tops.values())))
     print(f'{label}: {desc}, 2 steps, f32 (TF32 off) against f64 '
           f'on the CPU, CUDA / the CPU: '
           + ', '.join(f'{k} {v:.3e} / {cpu[k]:.3e} (tol '
                       f'{CNN_REF_FACTOR:g}x + {TRAIN_REF_TOL[k]:g})'
                       for k, v in dist.items())
-          + f'; loss {exact[0]["heatmap_loss"]:.6f}; {len(noise)} '
-          f'parameters with f64 gradients below {floor:.3e} left out '
-          f'({", ".join(noise[:4])}{", ..." if len(noise) > 4 else ""}); '
-          f'largest per-tensor parameter distances on CUDA: '
+          + f'; loss {exact[0]["heatmap_loss"]:.6f}; {len(noise)} of '
+          f'{len(exact[1])} parameters with f64 gradients below {floors} '
+          f'left out ({", ".join(noise[:4])}'
+          f'{", ..." if len(noise) > 4 else ""})'
+          + (f' and {len(zero_grad)} whose gradient is nought by structure '
+             f'(held below {zero_floor:g} of the largest)' if zero_grad
+             else '')
+          + f'; largest per-tensor parameter distances on CUDA: '
           f'{worst(params)}', flush=True)
     for k, v in dist.items():
         tol = CNN_REF_FACTOR * cpu[k] + TRAIN_REF_TOL[k]
         check(v <= tol, f'{label}: {k} differs by {v} (tol {tol})')
     return {'cuda_vs_f64': {k: float(v) for k, v in dist.items()},
             'cpu_vs_f64': {k: float(v) for k, v in cpu.items()},
-            'noise_only': len(noise), 'noise_only_first': noise[:4]}
+            'noise_only': len(noise), 'noise_only_first': noise[:4],
+            'zero_by_structure': len(zero_grad),
+            'parameters': len(exact[1])}
 
 
 def phase_cnn_apps(card):
@@ -4288,7 +4351,7 @@ BU_TAG_STD = 0.1
 # devices keep the same candidates
 BU_MAP_RTOL = 1e-4
 BU_POSE_TOL_PX = 1e-2
-BU_EVAL_IMAGES = 8
+BU_EVAL_IMAGES = 4
 BU_TRAIN_BATCH = 24                  # the flagship config's batch
 BU_TRAIN_IMAGES = 2 * BU_TRAIN_BATCH  # 2 steps per epoch
 BU_DEMO_K1_PER_FRAME = 24            # 12 ViT blocks x (image, flip)
@@ -4494,8 +4557,9 @@ def phase_bu_ref(card, cases=BU_REF_CASES, label='bu-ref'):
     """The (name, config) `cases`, by default the flagship, its UDP twin and
     the HRNet-W32 AE simple head, at full width, the same seeded (and
     shifted) weights on CUDA and on the CPU, f32
-    with TF32 off, on a landscape and a portrait image through the
-    multi-scale protocol: the
+    with TF32 off, the first case on a landscape and a portrait image, the
+    others on one of them each in turns, through the multi-scale protocol:
+    the
     aggregated heatmaps and tags within BU_MAP_RTOL of their largest value;
     where both devices keep the same candidates (the parser's top values
     and cells per joint), the grouped poses within BU_POSE_TOL_PX; the
@@ -4507,9 +4571,12 @@ def phase_bu_ref(card, cases=BU_REF_CASES, label='bu-ref'):
     from vitpose_tpu_torch.utils.config import load_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    imgs = [bu_scene(40, (480, 640)), bu_scene(41, (640, 427))]
+    scenes = [bu_scene(40, (480, 640)), bu_scene(41, (640, 427))]
     report = {}
-    for name, path in cases:
+    for ci, (name, path) in enumerate(cases):
+        # the first case (the flagship) on both images, the others on one
+        # each, the landscape and the portrait one in turns
+        imgs = scenes if ci == 0 else [scenes[ci % len(scenes)]]
         use_udp = load_config(path)['data'].get('use_udp', False)
         t0 = time.perf_counter()
         ests = {}
@@ -4830,7 +4897,7 @@ def phase_bu_train(card):
 def phase_bu_apps(card):
     """The three bottom-up demos (ViT-S f32 at base 256 with K1, as JAX's
     build_estimator) on the card: the image demo on a 480x640 scene and the
-    video and tracking demos on an 8-frame MJPG video of it: every output
+    video and tracking demos on a 4-frame MJPG video of it: every output
     written, videos read back frame for frame, exactly BU_DEMO_K1_PER_FRAME
     K1 launches per frame and image, at shapes KERNEL_CASES holds, and no
     K2 in any demo;
@@ -5263,7 +5330,7 @@ def phase_td_train(card, hrformer_f64=None):
     adaptive wing loss (each the median of CNN_TIMED_STEPS, with its kernels
     profiled); the HRFormer-B train-ref (its float64 run from the F64Run
     `hrformer_f64` where given); then the training CLI on the
-    photometric config for one epoch of 4 steps at batch 64: step wall
+    photometric config for one epoch of 2 steps at batch 64: step wall
     time and the data_time share (the photometric distortion runs on the
     host, per canvas)."""
     from vitpose_tpu_torch.ops.attention import (fused_attention,
@@ -5305,7 +5372,7 @@ def phase_td_train(card, hrformer_f64=None):
             'runtime.log_interval=1', 'optimizer.total_epochs=1'])
         run_s = time.perf_counter() - t0
     train = [r for r in log if r['mode'] == 'train']
-    check(len(train) == state.step == 4 and all(
+    check(len(train) == state.step == 2 and all(
         np.isfinite(r[k]) for r in train
         for k in ('heatmap_loss', 'grad_norm', 'acc_pose')),
         f'td-rest-train photometric: {len(train)} steps, state at '
@@ -5319,7 +5386,7 @@ def phase_td_train(card, hrformer_f64=None):
     check(k1 == 0 and k2 == 0, f'td-rest-train: K1 {k1} and K2 {k2} '
           'launches, expected none')
     print(f'td-rest-train: CLI on {path} (photometric distortion on the '
-          f'host canvas), 4 steps at batch {TRAIN_BATCH}: step wall time '
+          f'host canvas), 2 steps at batch {TRAIN_BATCH}: step wall time '
           f'median {med * 1e3:.1f} ms ({min(times) * 1e3:.1f}-'
           f'{max(times) * 1e3:.1f}), data_time share {share:.3f} '
           f'({last["data_time"]:.2f} of {last["time"]:.2f} s); whole run '
@@ -6159,7 +6226,7 @@ def lifted_pose_writer(results, skeleton=None, out_file=None, **kw):
     lifted poses (finite, [K, 3]) and writes them to `out_file` as an .npy
     array [people, K, 3]."""
     kp = np.stack([np.asarray(r['keypoints_3d']) for r in results])
-    check(kp.ndim == 3 and kp.shape[2] == 3 and np.isfinite(kp).all(),
+    check(kp.ndim == 3 and kp.shape[2] in (3, 4) and np.isfinite(kp).all(),
           f'body3d demo: lifted poses {kp.shape}, finite '
           f'{np.isfinite(kp).all()}')
     with open(out_file, 'wb') as f:
@@ -6170,7 +6237,7 @@ def phase_lift_demos(card):
     """Both body3d demos on the card with the COCO-B config and shaped
     weights for the 2D stage (bf16, K1): the image demo on a seeded
     480x640 scene (the whole image one box) and the video demo on an
-    8-frame MJPG video of it; 24 K1 launches per frame at held shapes and
+    4-frame MJPG video of it; 24 K1 launches per frame at held shapes and
     no K2, every frame's lifted poses written (lifted_pose_writer in place of the
     matplotlib drawing), frames/s over main."""
     import cv2
@@ -6253,6 +6320,1078 @@ def vid3d_launches(vid, key):
                 n: r[f'{key}_per_frame'] for n, r in vid['lift_demos'].items()}}
 
 
+# --- the one-config families, item 12f: InterHand3D, HMR mesh, VoxelPose -
+
+FAM_CFGS = {name: f'vitpose_tpu/configs/{path}.py' for name, path in (
+    ('interhand3d', 'hand/res50_interhand3d_all_256x256'),
+    ('mesh', 'mesh/hmr_res50_mixed_224x224'),
+    ('voxelpose', 'body3d/voxelpose_prn64x64x64_cpn80x80x20_panoptic_cam5'))}
+FAM_SERVE_BOXES = 64                  # the serve batch of crops
+FAM_TIMED = 2                         # timed serve batches and steps
+# the family train-refs, beyond hold_train_ref's rule (whose limits, a
+# factor times the CPU's own distance from f64, do not fail a CUDA step
+# that leaves every parameter where it was: Adam turns the rounding of a
+# near-zero gradient into +-lr, so the CPU's f32 parameters sit 0.4-0.5
+# from f64 in its RMS metric at the configs' crops, where an unmoved state
+# reads 1): each held parameter tensor's 2-step distance from f64 on CUDA
+# below FAM_REF_PARAMS_CAP, or below the CPU's own plus
+# FAM_REF_PARAMS_SLACK where f32 on the CPU strays past the cap (a
+# VoxelPose output conv ahead of the softmax, whose gradient cancels over
+# the cube: 0.84 on the CPU with the weights of seed 1); and step 1
+# against the CPU's f32 step 1, before Adam: the loss within TRAIN_REF_TOL
+# and every held gradient tensor's RMS difference within
+# FAM_STEP1_GRAD_TOL of its RMS (a zeroed tensor reads 1)
+FAM_REF_PARAMS_CAP = 0.7
+FAM_REF_PARAMS_SLACK = 0.1
+FAM_STEP1_GRAD_TOL = 0.1
+# VoxelPose's train-ref: the config's widths (V2VNets 32 wide), a smaller
+# grid (20x20x8 space voxels, 16^3 cubes) so that the CPU's float64 run of
+# the ten candidate cubes takes seconds
+VP_REF_GEOM = dict(space_resolution=(20, 20, 8), cube_resolution=(16, 16, 16))
+VP_CAMS = ('00_12', '00_06', '00_13', '00_04', '00_03')
+VP_HM_SIZE = (128, 240)               # the heatmaps (h, w) of a view
+VP_PEOPLE = 3
+
+
+def fam_mdict(name, dtype=None, **over):
+    """The family config's model dict (its trunk in `dtype` when given),
+    with `over` on top."""
+    from vitpose_tpu_torch.utils.config import load_config
+    mdict = dict(load_config(FAM_CFGS[name])['model'], **over)
+    if dtype and 'backbone_overrides' in mdict:
+        mdict['backbone_overrides'] = dict(mdict['backbone_overrides'],
+                                           dtype=dtype)
+    return mdict
+
+
+def fam_model(name, dtype='float32', seed=0, **over):
+    """The family config's model with seeded weights (torch.Generator
+    `seed`), in float64 (trunk and all) for dtype 'float64'."""
+    from vitpose_tpu_torch.train.loop import build_model_from_cfg
+    model = build_model_from_cfg(fam_mdict(name, dtype, **over),
+                                 torch.Generator().manual_seed(seed))
+    return model.double() if dtype == 'float64' else model
+
+
+def k12():
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    return fused_attention.launches, fused_attention_bwd.launches
+
+
+def check_no_kernels(what):
+    k1, k2 = k12()
+    check(k1 == 0 and k2 == 0, f'{what}: K1 {k1} and K2 {k2} launches, '
+          'expected none')
+    return k1, k2
+
+
+def wall_steps_ms(step, n=FAM_TIMED):
+    """Median wall ms of `n` calls of step() after one warm-up call, each
+    synchronised, and the peak memory (GB) over them."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), torch.cuda.max_memory_allocated() / 1e9
+
+
+def rel_err(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def family_holds(cuda, cpu, exact, left):
+    """The family holds of the CUDA run `cuda` (train_run's layout) given
+    the CPU's f32 run and the f64 run, the parameters `left` left out:
+    [(what, value, limit)] (a value above its limit fails), and the
+    per-tensor step-1 gradient distances."""
+    _, params = ref_distances(cuda, exact, left)
+    _, cpu_params = ref_distances(cpu, exact, left)
+    # each tensor's distance over its limit, the largest
+    over = {n: v / max(FAM_REF_PARAMS_CAP,
+                       cpu_params[n] + FAM_REF_PARAMS_SLACK)
+            for n, v in params.items()}
+    (m, g, _), (mc, gc, _) = cuda, cpu
+    loss = abs(m['heatmap_loss'] - mc['heatmap_loss']) / abs(
+        mc['heatmap_loss'])
+    grads = {n: ((g[n] - gc[n]).norm() / gc[n].norm()).item()
+             for n in gc if n not in left}
+    return [('2-step parameters from f64 over their limit',
+             max(over.values()), 1.0),
+            ('step-1 loss against the CPU', loss,
+             TRAIN_REF_TOL['heatmap_loss']),
+            ('step-1 gradients against the CPU', max(grads.values()),
+             FAM_STEP1_GRAD_TOL)], grads
+
+
+def family_ref_runs(label, run_fn, batch, desc, cudnn_off=False,
+                    exact=None, **hold):
+    """A family's train-ref: run_fn(dtype, device, batch) -> train_run's
+    layout (metrics with 'heatmap_loss', the step's total loss, and
+    'grad_norm'; step 1's gradients; the 2-step change), f32 with TF32 off
+    on CUDA and on the CPU, held against the float64 run on the CPU by
+    hold_train_ref's rule (`hold` its options) and by family_holds; a CUDA
+    run whose steps leave the parameters unmoved, and one with its largest
+    gradient tensor zeroed, must fail family_holds. With `cudnn_off` the
+    CUDA run that hold_train_ref holds runs ATen's own CUDA convolutions,
+    and a second CUDA run through cuDNN is held by family_holds. `exact`,
+    where given, returns the float64 run (FamRefs.exact)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs, secs = {}, {}
+    for dev in ('cuda', 'cpu') + (('cuda (cuDNN)',) if cudnn_off else ()):
+        t0 = time.perf_counter()
+        torch.backends.cudnn.enabled = dev != 'cuda' or not cudnn_off
+        try:
+            runs[dev] = run_fn('float32', dev.split()[0], batch)
+        finally:
+            torch.backends.cudnn.enabled = True
+        secs[dev] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    secs['f64' if exact is None else 'f64 (waited for its process)'] = 0.0
+    exact = run_fn('float64', 'cpu', batch) if exact is None else exact()
+    secs[next(reversed(secs))] = time.perf_counter() - t0
+    torch_tf32_defaults()
+    left = []
+    report = hold_train_ref(label, {d: runs[d] for d in ('cuda', 'cpu')},
+                            exact, desc, left_out=left, **hold)
+    cudas = [d for d in runs if d != 'cpu']
+    holds = {}
+    for dev in cudas:
+        holds[dev], grads = family_holds(runs[dev], runs['cpu'], exact, left)
+        print(f'{label}: {dev} f32 ' + ', '.join(
+            f'{w} {v:.3e} (limit {tol:g})' for w, v, tol in holds[dev])
+            + f'; largest step-1 gradient distances from the CPU: '
+            f'{worst(grads)}', flush=True)
+    m, g, d = runs['cuda']
+    big = max((n for n in g if n not in left), key=lambda n: g[n].norm())
+    noop = (m, g, {n: torch.zeros_like(t) for n, t in d.items()})
+    zeroed = (m, dict(g, **{big: torch.zeros_like(g[big])}), d)
+    broken = {what: [(w, v) for w, v, tol in family_holds(
+        run, runs['cpu'], exact, left)[0] if v > tol]
+        for what, run in (('unmoved', noop), (f'{big} zeroed', zeroed))}
+    per_f64 = {dev: {n: ((r[1][n] - exact[1][n]).abs().max()
+                         / exact[1][n].abs().max()).item()
+                     for n in exact[1] if n not in left}
+               for dev, r in runs.items()}
+    print(f'{label}: largest step-1 gradient distances from f64 (the grads '
+          'metric), ' + '; '.join(f'{dev}: {worst(v)}'
+                                  for dev, v in per_f64.items())
+          + '; a CUDA run fails the holds ' + '; '.join(
+              f'{what} ({", ".join(f"{w} {v:.3g}" for w, v in fails)})'
+              for what, fails in broken.items()) + '; runs took '
+          + ', '.join(f'{k} {v:.1f} s' for k, v in secs.items()),
+          flush=True)
+    for dev in cudas:
+        for w, v, tol in holds[dev]:
+            check(v <= tol, f'{label}: {dev} {w} {v} (limit {tol})')
+    for what, fails in broken.items():
+        check(fails, f'{label}: a CUDA run with {what} passes the holds')
+    return dict(report, held=len(exact[1]) - len(left), run_s=secs, **{
+        f'holds_{dev}': {w: float(v) for w, v, _ in holds[dev]}
+        for dev in cudas})
+
+
+# VoxelPose's V2VNets put a conv with a bias before every BN (and a
+# transposed conv before the upsamplers' BN): those biases' gradient is
+# nought in exact arithmetic, and its f32 sums over the 16^3 x 10 candidate
+# voxels of a 300 mm loss leave more than GRAD_NOISE_FLOOR of the largest
+# gradient (the CPU's measured above 1e-6 on an H100 machine); they
+# are held below VP_ZERO_FLOOR of it. The centre net learns from the centre
+# loss alone and the pose net from the pose loss, whose L1 in mm dwarfs
+# the other: each net's gradients are measured against its own largest
+VP_ZERO_FLOOR = 1e-4
+VP_REF_GROUPS = ('human_detector.', 'pose_regressor.')
+# the train-ref's weight seeds: cuDNN's 3D convolutions put seed 0's CUDA
+# gradients 5.6 times as far from f64 as the CPU's, ATen's own CUDA
+# convolutions 0.4 times, and seed 1's output conv strays past
+# FAM_REF_PARAMS_CAP on both devices (PERF.md §6, PR 15)
+VP_REF_SEEDS = (0, 1)
+
+
+def v2v_zero_grad(names):
+    """Of the parameter `names`, the V2VNet biases that a BN follows."""
+    return tuple(n for n in names
+                 if n.endswith('.conv.bias') or n.endswith('.block.0.bias'))
+
+
+def step_metrics(model, loss):
+    """train_run's metrics and gradients after a step: the loss as
+    'heatmap_loss', the gradients' global norm, every parameter's
+    gradient."""
+    grads = {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+    metrics = {'heatmap_loss': float(loss),
+               'grad_norm': torch.nn.utils.get_total_norm(
+                   list(grads.values())).item()}
+    return metrics, grads
+
+
+# InterHand3D ----------------------------------------------------------------
+
+def write_interhand_set(root, name, seed, n, size=320):
+    """InterHand2.6M-layout annotation, camera and joint jsons for `n`
+    images (JPEGs of `size`^2 with a bright hand region) of two captures,
+    hands of each type; returns the file paths."""
+    import cv2
+    rng = np.random.RandomState(seed)
+    images, anns, joints, cams = [], [], {}, {}
+    for cap in ('0', '1'):
+        cams[cap] = {k: {} for k in ('campos', 'camrot', 'focal',
+                                     'princpt')}
+        for cam in ('400262', '400263'):
+            th = rng.uniform(-0.3, 0.3)
+            cams[cap]['campos'][cam] = rng.uniform(-50, 50, 3).tolist()
+            cams[cap]['camrot'][cam] = [[np.cos(th), 0, np.sin(th)],
+                                        [0, 1, 0],
+                                        [-np.sin(th), 0, np.cos(th)]]
+            cams[cap]['focal'][cam] = rng.uniform(900, 1100, 2).tolist()
+            cams[cap]['princpt'][cam] = [size / 2, size / 2]
+        joints[cap] = {}
+    os.makedirs(os.path.join(root, 'images'), exist_ok=True)
+    for i in range(n):
+        cap, cam = str(i % 2), ('400262', '400263')[i // 2 % 2]
+        wrist = np.array([rng.uniform(-20, 20), rng.uniform(-20, 20),
+                          rng.uniform(700, 900)])
+        joints[cap][str(i)] = {'world_coord': (
+            wrist + rng.randn(42, 3) * [20, 20, 30]).tolist()}
+        file_name = f'images/{name}_{i}.jpg'
+        img = rng.randint(0, 80, (size, size, 3), np.uint8)
+        img[size // 3:2 * size // 3, size // 3:2 * size // 3] = 220
+        cv2.imwrite(os.path.join(root, file_name), img)
+        images.append(dict(id=i, file_name=file_name, capture=int(cap),
+                           camera=cam, frame_idx=i, width=size,
+                           height=size))
+        anns.append(dict(id=100 + i, image_id=i, bbox=[
+            size / 4, size / 4, size / 2, size / 2],
+            joint_valid=np.ones(42, int).tolist(),
+            hand_type=('right', 'left', 'interacting')[i % 3],
+            hand_type_valid=1))
+    paths = {}
+    for key, data in (('ann', dict(images=images, annotations=anns,
+                                   categories=[dict(id=1, name='hand')])),
+                      ('camera', cams), ('joint', joints)):
+        paths[key] = os.path.join(root, f'{name}_{key}.json')
+        with open(paths[key], 'w') as f:
+            json.dump(data, f)
+    return paths
+
+
+def ih_train_run(dtype, device, batch):
+    """Two InterHand3D steps (AdamW 2e-4 as the config's loop) of the
+    config's model in `dtype` on `batch` (interhand_loop batches):
+    train_run's layout, the step's total loss as 'heatmap_loss'."""
+    from vitpose_tpu_torch.train.family_loop import adam
+    from vitpose_tpu_torch.train.interhand_loop import interhand_step
+    model = fam_model('interhand3d', dtype).to(device)
+    dt = torch.float64 if dtype == 'float64' else torch.float32
+    b = {k: torch.as_tensor(v).to(device, dt) for k, v in batch.items()}
+    opt, sched = adam(model.parameters(), 2e-4, lambda c: 2e-4)
+    before = snapshot(model)
+    m = interhand_step(model, opt, sched, b)
+    metrics, grads = step_metrics(model, m['total_loss'])
+    interhand_step(model, opt, sched, b)
+    after = snapshot(model)
+    return metrics, grads, {n: (after[n] - before[n]).double().cpu()
+                            for n in after}
+
+
+def ih_ref_batch(root):
+    """InterHand3D's train-ref batch: a loader batch of 2 crops at the
+    config's 256x256 (64^3 volumes) from a synthetic set written to
+    `root`."""
+    from vitpose_tpu_torch.train.interhand_loop import interhand_loader
+    from vitpose_tpu_torch.utils.config import apply_options, load_config
+    paths = write_interhand_set(root, 'ref', 9, 8)
+    opts = [f'data.train.{k}_file={paths[k]}'
+            for k in ('ann', 'camera', 'joint')]
+    cfg = apply_options(load_config(FAM_CFGS['interhand3d']), opts + [
+        f'data.train.img_prefix={root}', 'data.batch_size=2'])
+    return {k: torch.as_tensor(v)
+            for k, v in next(iter(interhand_loader(cfg))).items()}
+
+
+def fam_f64_child(jobs_file, out):
+    """Each job's run_fn in float64 on the CPU on F64_RUN_THREADS threads,
+    the jobs read from `jobs_file`, {name: run} saved to `out` (F64Run's
+    child)."""
+    torch.set_num_threads(F64_RUN_THREADS)
+    jobs = torch.load(jobs_file, weights_only=False)
+    runs = {name: fn('float64', 'cpu', batch)
+            for name, (fn, batch) in jobs.items()}
+    torch.save(runs, out + '.part')
+    os.replace(out + '.part', out)
+
+
+class FamRefs:
+    """The family train-refs' jobs, {name: (run_fn, batch)}: InterHand3D's
+    ('ih', on ih_ref_batch), HMR's ('mesh', on mesh_ref_batch) and
+    VoxelPose's ('vp_seed<s>', on the loop's
+    frame arrays of a synthetic Panoptic frame for each of VP_REF_SEEDS),
+    made on the host; with `child`, their float64 runs go on in one child
+    process (F64Run) from the start, the jobs handed over in a file (the
+    spawn pipe would hold this process until the child had imported
+    torch). exact(name) returns a job's float64 run (waiting for the
+    child, or running it here without one); stop() ends the child."""
+
+    def __init__(self, child=False):
+        import shutil
+        from vitpose_tpu_torch.data.panoptic_mview import \
+            PanopticMviewDataset
+        from vitpose_tpu_torch.train.voxelpose_loop import frame_arrays
+        root = tempfile.mkdtemp(prefix='famref')
+        self.child = self.runs = None
+        try:
+            self.jobs = {'ih': (ih_train_run, ih_ref_batch(root)),
+                         'mesh': (mesh_train_run, mesh_ref_batch(root))}
+            seq = write_panoptic_seq(root, 'ref_seq', 0, 1)
+            frame = PanopticMviewDataset([seq], cam_names=VP_CAMS,
+                                         num_joints=15)[0]
+            for seed in VP_REF_SEEDS:
+                model = fam_model('voxelpose', seed=seed, **VP_REF_GEOM)
+                self.jobs[f'vp_seed{seed}'] = (
+                    functools.partial(vp_train_run, seed=seed),
+                    frame_arrays(model, frame, VP_HM_SIZE, 10, 2, 200.0))
+            if child:
+                jobs_file = os.path.join(root, 'jobs.pt')
+                torch.save(self.jobs, jobs_file)
+                self.child = F64Run(fam_f64_child, (jobs_file,),
+                                    cleanup=root)
+        finally:
+            if self.child is None:
+                shutil.rmtree(root, ignore_errors=True)
+
+    def exact(self, name):
+        if self.child is None:
+            fn, batch = self.jobs[name]
+            return fn('float64', 'cpu', batch)
+        if self.runs is None:
+            self.runs, _ = self.child.result()
+        return self.runs[name]
+
+    def stop(self):
+        if self.child is not None:
+            self.child.stop()
+
+
+def ih_train_ref(refs):
+    """InterHand3D's train-ref (family_ref_runs) on the FamRefs `refs`'
+    'ih' job."""
+    run_fn, batch = refs.jobs['ih']
+    h, w = batch['imgs'].shape[1:3]
+    return family_ref_runs(
+        'fam-ih-train-ref', run_fn, batch,
+        f'InterHand3D-Res50, batch 2 of {w}x{h}',
+        exact=lambda: refs.exact('ih'))
+
+
+def phase_fam_ih(card, refs=None):
+    """InterHand3D-Res50 at 256x256, the zoo config at full width (ResNet-50,
+    the right and left 3 x 256 deconv stacks to 21 x 64 channels each,
+    64^3 volumes), f32 with TF32 convs: inference_interhand_3d_model on a
+    64-box image (crops on the card, the volumes, the decode with the
+    soft-argmax root depth), timed (the card's busy time by torch.profiler,
+    peak memory); CUDA against the CPU on 2 crops, f32 (TF32 off); steps
+    at the config's batch of 16, timed, peak memory; the train-ref
+    (ih_train_ref); the training CLI for 2 steps on a synthetic InterHand2.6M set, then
+    --resume, and the evaluation CLI (MPJPE, MRRPE, Handedness_acc); 0 K1
+    and K2."""
+    import io
+    from vitpose_tpu_torch.api.inference_3d import \
+        inference_interhand_3d_model
+    from vitpose_tpu_torch.models.interhand3d import backproject_to_camera
+    from vitpose_tpu_torch.tools import test as test_cli
+    from vitpose_tpu_torch.tools import train as train_cli
+    from vitpose_tpu_torch.train.family_loop import adam
+    from vitpose_tpu_torch.train.interhand_loop import interhand_step
+    from vitpose_tpu_torch.utils.config import load_config
+    torch_tf32_defaults()
+    reset_counts()
+    model = fam_model('interhand3d').cuda().eval()
+    rng = np.random.RandomState(30)
+    img = rng.randint(0, 255, (720, 1280, 3), np.uint8)
+    dets = [{'bbox': [float(x), float(y), 120.0, 110.0]}
+            for x, y in zip(rng.uniform(0, 1150, FAM_SERVE_BOXES),
+                            rng.uniform(0, 600, FAM_SERVE_BOXES))]
+
+    def serve():
+        res = inference_interhand_3d_model(model, img, dets)
+        kp = np.stack([r['keypoints_3d'] for r in res])
+        backproject_to_camera(kp[..., :3], [1000.0, 1000.0], [640.0, 360.0],
+                              [600.0, 620.0])
+        return res
+
+    res = serve()
+    check(len(res) == FAM_SERVE_BOXES and all(
+        r['keypoints_3d'].shape == (42, 4)
+        and np.isfinite(r['keypoints_3d']).all() for r in res),
+        'fam-ih: serve results')
+    serve_ms, serve_peak = wall_steps_ms(serve)
+    busy, _ = device_busy_ms(serve)
+    # CUDA against the CPU, f32, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(3))
+    outs = {}
+    for dev in ('cuda', 'cpu'):
+        model.to(dev)
+        outs[dev] = [o.cpu().numpy() for o in model.infer(x.to(dev))]
+    ref_err = [rel_err(a, b) for a, b in zip(outs['cuda'], outs['cpu'])]
+    check(max(ref_err) <= CNN_HM_RTOL, f'fam-ih: CUDA vs CPU volumes, root '
+          f'and hand-type logits differ by {ref_err} of their largest')
+    torch_tf32_defaults()
+    # steps at the config's batch
+    cfg = load_config(FAM_CFGS['interhand3d'])
+    bs = cfg['data']['batch_size']
+    model.cuda()
+    gen = torch.Generator().manual_seed(4)
+    batch = dict(
+        imgs=torch.rand(bs, 256, 256, 3, generator=gen),
+        hm3d=torch.rand(bs, 42, 64, 64, 64, generator=gen) * 0.1,
+        hm_weight=torch.ones(bs, 42), rel_root_mm=torch.randn(
+            bs, generator=gen) * 50, root_weight=torch.ones(bs),
+        hand_type=torch.ones(bs, 2), type_weight=torch.ones(bs))
+    batch = {k: v.cuda() for k, v in batch.items()}
+    opt, sched = adam(model.parameters(), 2e-4, lambda c: 2e-4)
+    step_ms, step_peak = wall_steps_ms(
+        lambda: interhand_step(model, opt, sched, batch))
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    report = dict(serve_ms=serve_ms, crops_s=FAM_SERVE_BOXES / serve_ms * 1e3,
+                  serve_busy_ms=busy, serve_idle=(None if busy is None else
+                                                  1 - busy / serve_ms),
+                  serve_peak_gb=serve_peak, ref_err=ref_err,
+                  step_ms=step_ms, step_img_s=bs / step_ms * 1e3,
+                  step_peak_gb=step_peak)
+    report['train_ref'] = ih_train_ref(refs or FamRefs())
+    with tempfile.TemporaryDirectory() as root:
+        sets = {s: write_interhand_set(root, s, i, n)
+                for i, (s, n) in enumerate((('train', 40), ('val', 20)))}
+        opts = [f'data.{s}.{k}_file={sets[s][k]}' for s in sets
+                for k in ('ann', 'camera', 'joint')]
+        opts += [f'data.{s}.img_prefix={root}' for s in sets]
+        work = os.path.join(root, 'work')
+        args = [FAM_CFGS['interhand3d'], '--work-dir', work, '--max-steps',
+                '2', '--cfg-options', 'evaluation.interval=0'] + opts
+        walls = []
+        for extra in ([], ['--resume']):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, metrics = train_cli.main(args + extra)
+            walls.append(time.perf_counter() - t0)
+        check(all(np.isfinite(v) for v in metrics.values()),
+              f'fam-ih: CLI metrics {metrics}')
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = test_cli.main([FAM_CFGS['interhand3d'],
+                                   os.path.join(work, 'final.pth'),
+                                   '--cfg-options'] + opts)
+        eval_s = time.perf_counter() - t0
+        check(set(stats) == {'MPJPE', 'MRRPE', 'Handedness_acc'} and all(
+            np.isfinite(v) for v in stats.values()),
+            f'fam-ih: eval stats {stats}')
+    k1, k2 = check_no_kernels('fam-ih')
+    report.update(train_cli_s=walls, train_metrics=metrics, eval_s=eval_s,
+                  eval_stats={k: float(v) for k, v in stats.items()},
+                  k1=k1, k2=k2)
+    print(f'fam-ih: InterHand3D-Res50 256x256 (f32, TF32 convs), '
+          f'inference_interhand_3d_model on {FAM_SERVE_BOXES} boxes: median '
+          f'{serve_ms:.1f} ms = {report["crops_s"]:.1f} crops/s (decode and '
+          f'back-projection included), card busy '
+          f'{busy if busy is None else round(busy, 1)} ms, peak '
+          f'{serve_peak:.2f} GB; CUDA vs CPU (TF32 off, 2 crops): '
+          f'{", ".join(f"{e:.2e}" for e in ref_err)} of the largest '
+          f'volume / root / hand-type logit; step at batch {bs}: '
+          f'{step_ms:.1f} ms = {report["step_img_s"]:.1f} img/s, peak '
+          f'{step_peak:.2f} GB; training CLI 2 steps + --resume '
+          f'{walls[0]:.1f} + {walls[1]:.1f} s, evaluation CLI {eval_s:.1f} s '
+          f'({", ".join(f"{k} {v:.3f}" for k, v in stats.items())}); 0 K1, '
+          f'0 K2; on {card}', flush=True)
+    return report
+
+
+# HMR mesh --------------------------------------------------------------------
+
+def write_mesh_sets(root, seed, n=40, size=256):
+    """Two mesh npz sets (SMPL and no SMPL), a val set and a Mosh npz, with
+    JPEGs of `size`^2; returns their paths."""
+    import cv2
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, k, smpl in (('h36m', n, True), ('coco', n // 2, False),
+                          ('val', 24, True)):
+        names = [f'{name}_{i}.jpg' for i in range(k)]
+        for fn in names:
+            img = rng.randint(0, 80, (size, size, 3), np.uint8)
+            img[size // 4:3 * size // 4, size // 3:2 * size // 3] = 200
+            cv2.imwrite(os.path.join(root, fn), img)
+        data = dict(imgname=np.array(names),
+                    center=rng.uniform(0.4, 0.6, (k, 2)) * size,
+                    scale=rng.uniform(0.9, 1.1, k) * size / 200,
+                    part=np.concatenate([rng.uniform(0.3, 0.7, (k, 24, 2))
+                                         * size, np.ones((k, 24, 1))], -1),
+                    S=np.concatenate([rng.randn(k, 24, 3) * 0.3,
+                                      np.ones((k, 24, 1))], -1))
+        if smpl:
+            data.update(pose=rng.randn(k, 72) * 0.2, shape=rng.randn(k, 10))
+        out[name] = os.path.join(root, f'{name}.npz')
+        np.savez(out[name], **data)
+    out['mosh'] = os.path.join(root, 'mosh.npz')
+    np.savez(out['mosh'], pose=rng.randn(50, 72) * 0.2,
+             shape=rng.randn(50, 10))
+    return out
+
+
+def mesh_train_run(dtype, device, batch):
+    """Two adversarial steps (Adam 2.5e-4 and 1e-4 as the config's loop) of
+    the config's generator in `dtype` and a 1024-wide discriminator (f32)
+    on `batch`: train_run's layout of the generator (its total loss as
+    'heatmap_loss')."""
+    from vitpose_tpu_torch.models.mesh import (SMPLDiscriminator,
+                                               adversarial_step)
+    from vitpose_tpu_torch.train.family_loop import adam
+    mesh = fam_model('mesh', dtype).to(device)
+    disc = SMPLDiscriminator(1024, generator=torch.Generator()
+                             .manual_seed(1)).to(device)
+    dt = torch.float64 if dtype == 'float64' else torch.float32
+    b = {k: v.to(device, dt) if k == 'imgs' else v.to(device)
+         for k, v in batch.items()}
+    gopt, gs = adam(mesh.parameters(), 2.5e-4, lambda c: 2.5e-4)
+    dopt, ds = adam(disc.parameters(), 1e-4, lambda c: 1e-4)
+    before = snapshot(mesh)
+    m = adversarial_step(mesh, disc, gopt, dopt, b, gen_sched=gs,
+                         disc_sched=ds)
+    metrics, grads = step_metrics(mesh, m['gen_loss'])
+    adversarial_step(mesh, disc, gopt, dopt, b, gen_sched=gs, disc_sched=ds)
+    after = snapshot(mesh)
+    return metrics, grads, {n: (after[n] - before[n]).double().cpu()
+                            for n in after}
+
+
+def mesh_ref_batch(root):
+    """HMR's train-ref batch: an adversarial loader batch of 2 crops at the
+    config's 224x224 from synthetic sets written to `root`."""
+    from vitpose_tpu_torch.data.mesh import (MeshAdvLoader, MeshDataset,
+                                             MeshMixDataset, MoshDataset)
+    from vitpose_tpu_torch.train.mesh_loop import mesh_batch_to_device
+    from vitpose_tpu_torch.utils.config import load_config
+    sets = write_mesh_sets(root, 32, n=4)
+    size = tuple(load_config(FAM_CFGS['mesh'])['data']['image_size'])
+    parts = [MeshDataset(sets[k], root + '/', image_size=size)
+             for k in ('h36m', 'coco')]
+    ld = MeshAdvLoader(MeshMixDataset(parts, [0.6, 0.4]),
+                       MoshDataset(sets['mosh']), 2, image_size=size)
+    return mesh_batch_to_device(next(iter(ld)), 'cpu')
+
+
+def mesh_train_ref(refs):
+    """HMR's train-ref (family_ref_runs) on the FamRefs `refs`' 'mesh'
+    job."""
+    run_fn, batch = refs.jobs['mesh']
+    h, w = batch['imgs'].shape[1:3]
+    return family_ref_runs(
+        'fam-mesh-train-ref', run_fn, batch,
+        f'HMR-Res50, batch 2 of {w}x{h}', exact=lambda: refs.exact('mesh'))
+
+
+def phase_fam_mesh(card, refs=None):
+    """HMR-Res50 at 224x224, the zoo config at full width (ResNet-50, the
+    1024-wide rot6d head, 3 iterations, the seeded linear SMPL surrogate of
+    689 vertices), f32 with TF32 convs: inference_mesh_model on a 64-box
+    image, timed (busy time, peak memory); CUDA against the CPU on 2 crops
+    (TF32 off); adversarial steps at the config's batch of 64, timed, peak
+    memory; the train-ref (mesh_train_ref); the training CLI for 2
+    steps on synthetic mixed sets and a Mosh prior, then --resume, and the
+    evaluation CLI (MPJPE, MPJPE-PA); 0 K1 and K2."""
+    import io
+    from vitpose_tpu_torch.api.inference_3d import inference_mesh_model
+    from vitpose_tpu_torch.models.mesh import (SMPLDiscriminator,
+                                               adversarial_step)
+    from vitpose_tpu_torch.tools import test as test_cli
+    from vitpose_tpu_torch.tools import train as train_cli
+    from vitpose_tpu_torch.train.family_loop import adam
+    from vitpose_tpu_torch.utils.config import load_config
+    torch_tf32_defaults()
+    reset_counts()
+    mesh = fam_model('mesh').cuda().eval()
+    rng = np.random.RandomState(31)
+    img = rng.randint(0, 255, (720, 1280, 3), np.uint8)
+    dets = [{'bbox': [float(x), float(y), 160.0, 300.0]}
+            for x, y in zip(rng.uniform(0, 1100, FAM_SERVE_BOXES),
+                            rng.uniform(0, 400, FAM_SERVE_BOXES))]
+
+    def serve():
+        return inference_mesh_model(mesh, img, dets)
+
+    res = serve()
+    check(len(res) == FAM_SERVE_BOXES and all(
+        r['vertices'].shape == (689, 3) and np.isfinite(r['vertices']).all()
+        for r in res), 'fam-mesh: serve results')
+    serve_ms, serve_peak = wall_steps_ms(serve)
+    busy, _ = device_busy_ms(serve)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.rand(2, 224, 224, 3, generator=torch.Generator().manual_seed(5))
+    outs = {}
+    for dev in ('cuda', 'cpu'):
+        mesh.to(dev)
+        with torch.no_grad():
+            o = mesh(x.to(dev))
+        outs[dev] = {k: v.cpu().numpy() for k, v in o.items()}
+    ref_err = {k: rel_err(outs['cuda'][k], outs['cpu'][k])
+               for k in outs['cpu']}
+    check(max(ref_err.values()) <= CNN_HM_RTOL, f'fam-mesh: CUDA vs CPU '
+          f'outputs differ by {ref_err} of their largest')
+    torch_tf32_defaults()
+    cfg = load_config(FAM_CFGS['mesh'])
+    bs = cfg['data']['batch_size']
+    mesh.cuda()
+    disc = SMPLDiscriminator(1024, generator=torch.Generator()
+                             .manual_seed(1)).cuda()
+    gen = torch.Generator().manual_seed(6)
+    batch = dict(imgs=torch.rand(bs, 224, 224, 3, generator=gen),
+                 joints_2d=torch.rand(bs, 24, 2, generator=gen),
+                 joints_2d_visible=torch.ones(bs, 24),
+                 joints_3d=torch.randn(bs, 24, 3, generator=gen) * 0.3,
+                 joints_3d_visible=torch.ones(bs, 24),
+                 real_pose=torch.randn(bs, 72, generator=gen) * 0.2,
+                 real_shape=torch.randn(bs, 10, generator=gen))
+    batch = {k: v.cuda() for k, v in batch.items()}
+    gopt, gs = adam(mesh.parameters(), 2.5e-4, lambda c: 2.5e-4)
+    dopt, ds = adam(disc.parameters(), 1e-4, lambda c: 1e-4)
+    mean = mesh.mesh_head.init_pose.clone()
+    step_ms, step_peak = wall_steps_ms(lambda: adversarial_step(
+        mesh, disc, gopt, dopt, batch, gen_sched=gs, disc_sched=ds))
+    check(torch.equal(mesh.mesh_head.init_pose, mean),
+          'fam-mesh: the mean parameters moved')
+    del mesh, disc, gopt, dopt, batch
+    torch.cuda.empty_cache()
+    report = dict(serve_ms=serve_ms, crops_s=FAM_SERVE_BOXES / serve_ms * 1e3,
+                  serve_busy_ms=busy, serve_peak_gb=serve_peak,
+                  ref_err=ref_err, step_ms=step_ms,
+                  step_img_s=bs / step_ms * 1e3, step_peak_gb=step_peak)
+    with tempfile.TemporaryDirectory() as root:
+        sets = write_mesh_sets(root, 32)
+        report['train_ref'] = mesh_train_ref(refs or FamRefs())
+        opts = ['data.train.configs=' + repr([
+                    {'ann_file': sets[k], 'img_prefix': root + '/'}
+                    for k in ('h36m', 'coco')]),
+                f'data.train.adv_ann_file={sets["mosh"]}',
+                f'data.val.ann_file={sets["val"]}',
+                f'data.val.img_prefix={root}/', 'data.batch_size=16']
+        work = os.path.join(root, 'work')
+        args = [FAM_CFGS['mesh'], '--work-dir', work, '--max-steps', '2',
+                '--cfg-options', 'evaluation.interval=0'] + opts
+        walls = []
+        for extra in ([], ['--resume']):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, metrics = train_cli.main(args + extra)
+            walls.append(time.perf_counter() - t0)
+        check(all(np.isfinite(v) for v in metrics.values()),
+              f'fam-mesh: CLI metrics {metrics}')
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = test_cli.main([FAM_CFGS['mesh'],
+                                   os.path.join(work, 'final.pth'),
+                                   '--cfg-options'] + opts)
+        eval_s = time.perf_counter() - t0
+        check(set(stats) == {'MPJPE', 'MPJPE-PA'} and all(
+            np.isfinite(v) for v in stats.values()),
+            f'fam-mesh: eval stats {stats}')
+    k1, k2 = check_no_kernels('fam-mesh')
+    report.update(train_cli_s=walls, train_metrics=metrics, eval_s=eval_s,
+                  eval_stats={k: float(v) for k, v in stats.items()},
+                  k1=k1, k2=k2)
+    print(f'fam-mesh: HMR-Res50 224x224 (f32, TF32 convs), '
+          f'inference_mesh_model on {FAM_SERVE_BOXES} boxes: median '
+          f'{serve_ms:.1f} ms = {report["crops_s"]:.1f} crops/s, card busy '
+          f'{busy if busy is None else round(busy, 1)} ms, peak '
+          f'{serve_peak:.2f} GB; CUDA vs CPU (TF32 off, 2 crops), largest '
+          f'{max(ref_err.values()):.2e} of an output\'s largest; '
+          f'adversarial step at batch {bs}: {step_ms:.1f} ms = '
+          f'{report["step_img_s"]:.1f} img/s, peak {step_peak:.2f} GB, the '
+          f'mean parameters unmoved; training CLI 2 steps + --resume '
+          f'{walls[0]:.1f} + {walls[1]:.1f} s, evaluation CLI {eval_s:.1f} s '
+          f'({", ".join(f"{k} {v:.2f}" for k, v in stats.items())}); 0 K1, '
+          f'0 K2; on {card}', flush=True)
+    return report
+
+
+# VoxelPose -------------------------------------------------------------------
+
+def vp_look_at(pos):
+    """Panoptic extrinsics (X_cam = R X_world + t, cm, y down) of a camera
+    at `pos` looking at the scene's mid-height."""
+    z = np.array([0.0, -90.0, 0.0]) - pos
+    z /= np.linalg.norm(z)
+    x = np.cross([0.0, 1.0, 0.0], z)
+    x /= np.linalg.norm(x)
+    r = np.stack([x, np.cross(z, x), z])
+    return r, -r @ pos
+
+
+def write_panoptic_seq(root, name, seed, frames):
+    """A CMU-Panoptic sequence: the 5 HD cameras of the config (1920x1080,
+    distortion) on a circle of 7 m around the scene, `frames` coco19 body
+    files of VP_PEOPLE people standing 1-1.7 m tall."""
+    rng = np.random.RandomState(seed)
+    seq = os.path.join(root, name)
+    os.makedirs(os.path.join(seq, 'hdPose3d_stage1_coco19'))
+    cams = []
+    for i, cam in enumerate(VP_CAMS):
+        ang = 2 * np.pi * i / len(VP_CAMS) + 0.3
+        r, t = vp_look_at(np.array([700 * np.cos(ang), -150.0,
+                                    700 * np.sin(ang)]))
+        cams.append(dict(name=cam, K=[[1400.0, 0, 960], [0, 1400.0, 540],
+                                      [0, 0, 1]], R=r.tolist(),
+                         t=t.reshape(3, 1).tolist(), resolution=[1920, 1080],
+                         distCoef=(rng.randn(5) * [0.05, 0.01, 1e-3, 1e-3,
+                                                   1e-3]).tolist()))
+    with open(os.path.join(seq, f'calibration_{name}.json'), 'w') as f:
+        json.dump({'cameras': cams}, f)
+    for fi in range(frames):
+        bodies = []
+        for pid in range(VP_PEOPLE):
+            base = np.array([rng.uniform(-250, 250), 0.0,
+                             rng.uniform(-250, 150)])
+            j = base + np.stack([rng.uniform(-25, 25, 19),
+                                 -rng.uniform(0, 170, 19),
+                                 rng.uniform(-25, 25, 19)], 1)
+            j[2] = base + [0, -95, 0]
+            bodies.append(dict(id=pid, joints19=np.concatenate(
+                [j, np.ones((19, 1))], 1).ravel().tolist()))
+        with open(os.path.join(seq, 'hdPose3d_stage1_coco19',
+                               f'body3DScene_{fi:08d}.json'), 'w') as f:
+            json.dump({'bodies': bodies}, f)
+    return seq
+
+
+def vp_shape_centers(model, heat, cams, keep=5):
+    """Shift the centre net's output bias so that about `keep` voxels of
+    the frame's centre volume pass the config's threshold (random weights
+    put the whole volume on one side of it, and the forward would then
+    propose no one or the first max_people voxels of a flat volume);
+    returns the shift."""
+    with torch.no_grad():
+        vol = model.center_volume(heat, cams).flatten()
+        shift = model.center_threshold - float(vol.topk(keep).values[-1]) \
+            + 1e-3
+        model.human_detector.center_net.output_layer.bias += shift
+    return shift
+
+
+def vp_train_run(dtype, device, fa, seed=0):
+    """Two VoxelPose steps (Adam 1e-4, the config's loop) of the config's
+    widths at VP_REF_GEOM, weights from `seed`, in `dtype` on the frame
+    arrays `fa`: train_run's layout (the step's total loss as
+    'heatmap_loss')."""
+    from vitpose_tpu_torch.train.family_loop import adam
+    from vitpose_tpu_torch.train.voxelpose_loop import (stack_frames,
+                                                        voxelpose_step)
+    model = fam_model('voxelpose', dtype, seed, **VP_REF_GEOM).to(device)
+    batch = stack_frames([fa], device)
+    opt, sched = adam(model.parameters(), 1e-4, lambda c: 1e-4)
+    before = snapshot(model)
+    m = voxelpose_step(model, opt, sched, batch)
+    metrics, grads = step_metrics(model, m['total_loss'])
+    voxelpose_step(model, opt, sched, batch)
+    after = snapshot(model)
+    return metrics, grads, {n: (after[n] - before[n]).double().cpu()
+                            for n in after}
+
+
+def vp_train_ref(refs, seed):
+    """VoxelPose's train-ref (family_ref_runs) at the config's widths on
+    VP_REF_GEOM's grid, weights from `seed`, on the FamRefs `refs`' frame
+    arrays (10 candidate slots): the centre net and the pose net, which
+    separate losses train, each held against its own largest gradient;
+    the run that hold_train_ref holds goes through ATen's own CUDA
+    convolutions, the one through cuDNN's by family_holds."""
+    name = f'vp_seed{seed}'
+    run_fn, fa = refs.jobs[name]
+    names = [n for n, _ in fam_model('voxelpose', **VP_REF_GEOM)
+             .named_parameters()]
+    return family_ref_runs(
+        'fam-vp-train-ref', run_fn, fa,
+        f'VoxelPose (V2VNets 32 wide, weights seed {seed}), 20x20x8 space, '
+        '16^3 cubes, 10 candidate slots', zero_grad=v2v_zero_grad(names),
+        zero_floor=VP_ZERO_FLOOR, groups=VP_REF_GROUPS, cudnn_off=True,
+        exact=lambda: refs.exact(name))
+
+
+def phase_fam_vp(card, refs=None):
+    """VoxelPose at the config's sizes (space 8 x 8 x 2 m in 80x80x20
+    voxels, 2 m cubes of 64^3, V2VNets 32 wide, 15 joints, 10 proposals at
+    most), f32 with TF32 convs, on a synthetic 5-view Panoptic frame of 3
+    people with heatmaps painted at the GT projections (15 x 128 x 240 a
+    view), the centre net's output bias shifted so that about 5 voxels
+    pass the config's threshold (vp_shape_centers): the forward with its
+    host proposals, timed (the projections
+    against the centre and pose V2VNets by CUDA events, peak memory);
+    CUDA against the CPU (TF32 off): the centre volume, and the joints of 2
+    proposals given the same proposals; 2 timed steps (10 candidate cubes,
+    peak memory); the train-ref (vp_train_ref) on each of VP_REF_SEEDS;
+    the training CLI for 2 steps, then
+    --resume, and the evaluation CLI (recall, MPJPE, AP and AR; threshold
+    0, so that 10 proposals a frame reach the pose net); 0 K1 and K2."""
+    import io
+    from vitpose_tpu_torch.data.panoptic_mview import PanopticMviewDataset
+    from vitpose_tpu_torch.models.voxelpose import (CuboidCenterHead,
+                                                    camera_tensors)
+    from vitpose_tpu_torch.tools import test as test_cli
+    from vitpose_tpu_torch.tools import train as train_cli
+    from vitpose_tpu_torch.train.family_loop import adam
+    from vitpose_tpu_torch.train.voxelpose_loop import (
+        frame_arrays, gt_projected_heatmaps, heatmap_frame_cameras,
+        stack_frames, voxelpose_step)
+    torch_tf32_defaults()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as root:
+        seqs = {s: write_panoptic_seq(root, s, i, 2)
+                for i, s in enumerate(('train_seq', 'val_seq'))}
+        ds = PanopticMviewDataset([seqs['train_seq']], cam_names=VP_CAMS,
+                                  num_joints=15)
+        frame = ds[0]
+        hm_size = VP_HM_SIZE
+        cams = heatmap_frame_cameras(frame['cameras'], hm_size)
+        heat = torch.from_numpy(gt_projected_heatmaps(frame, cams, 15,
+                                                      hm_size)).cuda()
+        model = fam_model('voxelpose').cuda().eval()
+        shift = vp_shape_centers(model, heat, cams)
+        people = model(heat, cams)
+        check(len(people) >= 1 and all(np.isfinite(j).all()
+                                       for j, _ in people),
+              f'fam-vp: {len(people)} people')
+        fwd_ms, fwd_peak = wall_steps_ms(lambda: model(heat, cams))
+        # the forward's parts by CUDA events, the calls forward makes
+        cp = camera_tensors(cams, 'cuda')
+        with torch.no_grad():
+            proposals = CuboidCenterHead.get_proposals(
+                model.center_volume(heat, cams).cpu().numpy(),
+                model.space_grid().numpy(), model.max_people,
+                model.center_threshold)
+        centers = torch.as_tensor(np.stack([c for c, _ in proposals]),
+                                  device='cuda')
+        with torch.no_grad():
+            space = model.space_grid('cuda')
+            vol_s = model._volume(heat, cp, space)[None]
+            vol_c, grids = project(model, heat, cp, centers)
+            parts = {name: time_ms(fn, calls=1, rounds=3, warmup=1)
+                     for name, fn in (
+                         ('project_space',
+                          lambda: model._volume(heat, cp, space)),
+                         ('center_v2v', lambda: model.center(vol_s)),
+                         ('project_cubes',
+                          lambda: project(model, heat, cp, centers)),
+                         ('pose_v2v', lambda: model.pose(vol_c, grids)))}
+            del vol_s, vol_c, grids
+        # CUDA against the CPU, TF32 off: the centre volume, and the joints
+        # of 2 proposals given the same proposals
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        outs = {}
+        for dev in ('cuda', 'cpu'):
+            model.to(dev)
+            h = heat.to(dev)
+            with torch.no_grad():
+                outs[dev] = (model.center_volume(h, cams).cpu().numpy(),
+                             model.pose_joints(h, camera_tensors(cams, dev),
+                                               centers[:2].to(dev))
+                             .cpu().numpy())
+        ref_err = [rel_err(a, b) for a, b in zip(outs['cuda'], outs['cpu'])]
+        check(ref_err[0] <= CNN_HM_RTOL and ref_err[1] <= 1e-4,
+              f'fam-vp: CUDA vs CPU centre volume / joints differ by '
+              f'{ref_err}')
+        by_dev = [CuboidCenterHead.get_proposals(
+            outs[d][0], model.space_grid().numpy(), model.max_people,
+            model.center_threshold) for d in ('cuda', 'cpu')]
+        same_props = len(by_dev[0]) == len(by_dev[1]) and all(
+            np.array_equal(a[0], b[0]) for a, b in zip(*by_dev))
+        torch_tf32_defaults()
+        # steps: the loop's frame arrays, 10 candidate slots
+        model.cuda()
+        fa = frame_arrays(model, frame, hm_size, 10, 2, 200.0)
+        batch = stack_frames([fa], 'cuda')
+        opt, sched = adam(model.parameters(), 1e-4, lambda c: 1e-4)
+        step_ms, step_peak = wall_steps_ms(
+            lambda: voxelpose_step(model, opt, sched, batch))
+        del model, opt, batch, heat
+        torch.cuda.empty_cache()
+        refs = refs or FamRefs()
+        train_ref = {f'seed_{seed}': vp_train_ref(refs, seed)
+                     for seed in VP_REF_SEEDS}
+        opts = [f'data.{s}.seq_dirs=("{seqs[s + "_seq"]}",)'
+                for s in ('train', 'val')]
+        work = os.path.join(root, 'work')
+        args = [FAM_CFGS['voxelpose'], '--work-dir', work, '--max-steps',
+                '2', '--cfg-options', 'evaluation.interval=0'] + opts
+        walls = []
+        for extra in ([], ['--resume']):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, metrics = train_cli.main(args + extra)
+            walls.append(time.perf_counter() - t0)
+        check(all(np.isfinite(v) for v in metrics.values()),
+              f'fam-vp: CLI metrics {metrics}')
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            # threshold 0: the max_people proposals all go through the pose
+            # net (the 2-step weights' centre volume is not shaped)
+            stats = test_cli.main([FAM_CFGS['voxelpose'],
+                                   os.path.join(work, 'final.pth'),
+                                   '--cfg-options', 'model.center_threshold=0.0']
+                                  + opts)
+        eval_s = time.perf_counter() - t0
+        check('mAP' in stats and 'RECALL 500mm' in stats,
+              f'fam-vp: eval stats {stats}')
+    k1, k2 = check_no_kernels('fam-vp')
+    report = dict(forward_ms=fwd_ms, forward_peak_gb=fwd_peak,
+                  proposals=len(people), center_bias_shift=shift,
+                  parts_ms=parts, ref_err=ref_err,
+                  same_proposals=same_props, step_ms=step_ms,
+                  step_peak_gb=step_peak, train_ref=train_ref,
+                  train_cli_s=walls, train_metrics=metrics, eval_s=eval_s,
+                  eval_stats={k: float(v) for k, v in stats.items()},
+                  k1=k1, k2=k2)
+    print(f'fam-vp: VoxelPose (80x80x20 space, 64^3 cubes, V2VNets 32 wide; '
+          f'f32, TF32 convs), 5 views of 15x128x240 heatmaps, '
+          f'{len(people)} proposals: forward median {fwd_ms:.1f} ms, peak '
+          f'{fwd_peak:.2f} GB; by CUDA events ' + ', '.join(
+              f'{k} {v:.2f} ms' for k, v in parts.items())
+          + f'; CUDA vs CPU (TF32 off): centre volume {ref_err[0]:.2e}, '
+          f'joints of 2 proposals {ref_err[1]:.2e} of the largest, the '
+          f'proposals equal: {same_props}; step (10 candidate cubes): '
+          f'{step_ms:.1f} ms, peak {step_peak:.2f} GB; training CLI 2 steps '
+          f'+ --resume {walls[0]:.1f} + {walls[1]:.1f} s, evaluation CLI '
+          f'{eval_s:.1f} s (mAP {stats["mAP"]:.3f}, recall '
+          f'{stats["RECALL 500mm"]:.3f}); 0 K1, 0 K2; on {card}',
+          flush=True)
+    return report
+
+
+def project(model, heat, cp, centers):
+    """The cubes' volumes [P, K, X, Y, Z] of `centers` and their grids."""
+    from vitpose_tpu_torch.models.voxelpose import project_heatmaps_to_voxels
+    grids = model.cube_grids(centers)
+    vols = project_heatmaps_to_voxels(heat, cp, grids)
+    return vols.permute(0, 4, 1, 2, 3), grids
+
+
+# demos and the multi-task model -------------------------------------------
+
+def phase_fam_apps(card):
+    """Both family demos on the card with the zoo configs and seeded
+    weights (InterHand3D's drawing swapped for lifted_pose_writer: the card
+    machine has no matplotlib), and MultiTaskModel on a ResNet-50 trunk
+    with a heatmap head (17 joints, SimpleBaseline's 3 x 256 deconvs) and a
+    regression head at 256x192, batch 32: its forward and one step of the
+    summed losses (`multitask_loss`), finite, parameters moved; 0 K1 and
+    K2."""
+    import cv2
+    import io
+    from vitpose_tpu_torch.demo import interhand3d_img_demo, mesh_img_demo
+    from vitpose_tpu_torch.models.heads import HeatmapHead
+    from vitpose_tpu_torch.models.heads_extra import RegressionHead
+    from vitpose_tpu_torch.models.losses import (joints_mse_loss,
+                                                 smooth_l1_loss)
+    from vitpose_tpu_torch.models.multitask import (MultiTaskModel,
+                                                    multitask_loss)
+    from vitpose_tpu_torch.models.resnet import ResNet
+    torch_tf32_defaults()
+    reset_counts()
+    report = {}
+    draw = interhand3d_img_demo.vis_pose_result_3d
+    interhand3d_img_demo.vis_pose_result_3d = lifted_pose_writer
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            rng = np.random.RandomState(33)
+            img = rng.randint(0, 80, (480, 640, 3), np.uint8)
+            img[120:360, 220:420] = 220
+            path = os.path.join(root, 'img.jpg')
+            cv2.imwrite(path, img)
+            out = os.path.join(root, 'vis')
+            for name, module, args in (
+                    ('interhand3d_img_demo', interhand3d_img_demo,
+                     ['--hand-box', '220,120,200,240', '--focal',
+                      '1000,1000', '--princpt', '320,240']),
+                    ('mesh_img_demo', mesh_img_demo,
+                     ['--bbox', '200,60,240,380'])):
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res, written = module.main([path, '--out-img-root', out]
+                                               + args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                check(len(res) == 1 and os.path.getsize(written) > 0,
+                      f'fam-apps: {name} output')
+                report[name] = dict(wall_s=wall)
+    finally:
+        interhand3d_img_demo.vis_pose_result_3d = draw
+    gen = torch.Generator().manual_seed(34)
+    model = MultiTaskModel(ResNet(50, generator=gen), [
+        HeatmapHead(2048, 17, (256, 256, 256), (4, 4, 4), generator=gen),
+        RegressionHead(2048, 17, generator=gen)]).cuda().train()
+    x = torch.rand(32, 256, 192, 3, generator=gen).cuda()
+    targets = [torch.rand(32, 17, 64, 48, generator=gen).cuda(),
+               torch.rand(32, 17, 2, generator=gen).cuda()]
+    weights = [torch.ones(32, 17, device='cuda')] * 2
+    opt = torch.optim.Adam(model.parameters(), 1e-4)
+    before = [p.detach().clone() for p in model.parameters()]
+    t0 = time.perf_counter()
+    outs = model(x)
+    total, losses = multitask_loss(outs, targets, weights,
+                                   [joints_mse_loss, smooth_l1_loss],
+                                   [1.0, 0.5])
+    opt.zero_grad()
+    total.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    mt_ms = (time.perf_counter() - t0) * 1e3
+    check(outs[0].shape == (32, 17, 64, 48) and outs[1].shape == (32, 17, 2)
+          and np.isfinite(float(total.detach())),
+          'fam-apps: multi-task outputs')
+    moved = sum(not torch.equal(a, b)
+                for a, b in zip(before, model.parameters()))
+    check(moved == len(before), f'fam-apps: {moved} of {len(before)} '
+          'multi-task parameters moved')
+    k1, k2 = check_no_kernels('fam-apps')
+    report.update(multitask_step_ms=mt_ms, multitask_losses={
+        k: float(v) for k, v in losses.items()}, k1=k1, k2=k2)
+    print(f'fam-apps: interhand3d_img_demo {report["interhand3d_img_demo"]["wall_s"]:.2f} s, '
+          f'mesh_img_demo {report["mesh_img_demo"]["wall_s"]:.2f} s (main, '
+          f'model build and weights included); MultiTaskModel (ResNet-50, '
+          f'heatmap + regression heads, 256x192, batch 32, f32, TF32 '
+          f'convs): one step {mt_ms:.1f} ms (first, with cuDNN\'s '
+          f'selection), losses ' + ', '.join(
+              f'{k} {float(v):.4f}' for k, v in losses.items())
+          + f'; 0 K1, 0 K2; on {card}', flush=True)
+    return report
+
+
+def run_fam_phases(card, refs=None):
+    """The one-config families' phases in order, each timed; `refs` the
+    train-refs' FamRefs (made here, their float64 runs in this process,
+    where not given)."""
+    refs = refs or FamRefs()
+    return run_phases('fam', (
+        ('ih', lambda c: phase_fam_ih(c, refs)),
+        ('mesh', lambda c: phase_fam_mesh(c, refs)),
+        ('vp', lambda c: phase_fam_vp(c, refs)), ('apps', phase_fam_apps)),
+        card)
+
+
+def fam_launches(fam, key):
+    """A kernel's launches on each one-config family path: none."""
+    return {f'fam_{name}': fam[name][key] for name in ('ih', 'mesh', 'vp',
+                                                       'apps')}
+
+
 def kernel_name(mangled):
     """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
     anonymous namespace; the mangled name where it is not one."""
@@ -6307,7 +7446,7 @@ def main():
     except ImportError as e:
         print(f'chip_smoke: run from the repo root ({e})', file=sys.stderr)
         return 1
-    hrformer_f64 = pw_f64 = None
+    hrformer_f64 = pw_f64 = fam_refs = None
     try:
         card = card_line()
         print(f'env: {card}; torch {torch.__version__}, CUDA '
@@ -6385,6 +7524,10 @@ def main():
         # through the CNN and bottom-up groups
         hrformer_f64 = F64Run(f64_run_child, (TD_CONFIGS['hrformer_base'],
                                               HRFORMER_REF_CROP))
+        # and the family train-refs' float64 runs in one more, through the
+        # same groups
+        fam_refs = FamRefs(child=True)
+        lap('fam-refs')
         cnn = run_cnn_phases(card)
         lap('cnn')
         cnn_more = run_cnn_more_phases(card)
@@ -6402,6 +7545,8 @@ def main():
         lap('td-rest')
         vid3d = run_vid3d_phases(card, pw_f64)
         lap('vid3d')
+        fam = run_fam_phases(card, fam_refs)
+        lap('fam')
         print('phases: wall s ' + ', '.join(
             f'{name} {t - laps[i][1]:.1f}'
             for i, (name, t) in enumerate(laps[1:]))
@@ -6410,7 +7555,7 @@ def main():
         print(f'chip_smoke: FAIL {e}', file=sys.stderr)
         return 1
     finally:
-        for run in (hrformer_f64, pw_f64):
+        for run in (hrformer_f64, pw_f64, fam_refs):
             if run is not None:
                 run.stop()
 
@@ -6446,7 +7591,8 @@ def main():
                                   **bu_launches(bu, 'k1'),
                                   **bu_ms_launches(bu_ms, 'k1'),
                                   **td_rest_launches(td_rest, 'k1'),
-                                  **vid3d_launches(vid3d, 'k1')},
+                                  **vid3d_launches(vid3d, 'k1'),
+                                  **fam_launches(fam, 'k1')},
                 'attention_bwd': {'serve': 0, 'eval': 0, 'export': 0,
                                   'demos_per_frame': 0, 'webcam': 0,
                                   'train': train_launches[1],
@@ -6462,7 +7608,8 @@ def main():
                                   **bu_launches(bu, 'k2'),
                                   **bu_ms_launches(bu_ms, 'k2'),
                                   **td_rest_launches(td_rest, 'k2'),
-                                  **vid3d_launches(vid3d, 'k2')}}
+                                  **vid3d_launches(vid3d, 'k2'),
+                                  **fam_launches(fam, 'k2')}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({
@@ -6497,6 +7644,7 @@ def main():
     print(json.dumps({'bottomup_ms': bu_ms}))
     print(json.dumps({'td_rest': td_rest}))
     print(json.dumps({'vid3d': vid3d}))
+    print(json.dumps({'fam': fam}))
     print(json.dumps({'kernels': kernels, 'int8_matmul': int8_matmul,
                       'deploy_latency_ms': {
                           m: r['latency_ms'] for m, r in deploy.items()},

@@ -30,6 +30,7 @@ from vitpose_tpu.ops.attention import fused_attention_bwd as jax_fused_bwd
 from vitpose_tpu.ops.attention import reference_attention as jax_reference
 
 from vitpose_tpu_torch.ops import attention as tattn
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 TOLS = {'float32': dict(rtol=1e-5, atol=1e-5),
         'bfloat16': dict(rtol=1e-2, atol=4e-3)}

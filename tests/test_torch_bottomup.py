@@ -74,6 +74,7 @@ from vitpose_tpu_torch.ops import group as pgroup
 from vitpose_tpu_torch.train import bottomup_loop as ploop
 from vitpose_tpu_torch.train.loop import build_model_from_cfg
 from vitpose_tpu_torch.utils.convert import bottomup_state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_TOL = dict(rtol=1e-6, atol=1e-7)
@@ -555,10 +556,13 @@ _APPLY = {}
 
 
 def _compiled_apply(est):
-    """est.apply (eval mode) as one program per input shape, compiled at
-    level 0 and shared by the test's cases (JAX's API runs it op by op)."""
+    """est.apply (eval mode) as one program per model and input shape,
+    compiled at level 0 and shared by the test's cases (JAX's API runs it op
+    by op). The key holds the model (its backbone, which a copy of the
+    estimator shares): two models fed one image size in one process must not
+    share a program."""
     def apply(v, x):
-        key = x.shape
+        key = (id(est.backbone), x.shape)
         if key not in _APPLY:
             _APPLY[key] = jax.jit(type(est).apply, static_argnums=0).lower(
                 est, v, x).compile(

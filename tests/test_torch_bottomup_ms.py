@@ -59,6 +59,7 @@ from vitpose_tpu_torch.ops import group as pgroup
 from vitpose_tpu_torch.train import bottomup_loop as ploop
 from vitpose_tpu_torch.train.loop import build_model_from_cfg
 from vitpose_tpu_torch.utils.convert import bottomup_state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 HG_AE = dict(downsample_times=2, num_stacks=2, out_channels=34,
              stage_channels=(16, 24, 32), feat_channels=16)

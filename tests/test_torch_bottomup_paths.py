@@ -79,6 +79,7 @@ from vitpose_tpu_torch.train.loop import build_model_from_cfg
 from vitpose_tpu_torch.utils import config
 from vitpose_tpu_torch.utils.convert import bottomup_state_dict_from_flax
 from vitpose_tpu_torch.utils.video import video_writer
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 CFG_DIR = os.path.join(ROOT, 'vitpose_tpu', 'configs')
 HIGHER = os.path.join(CFG_DIR, 'coco', 'higherhrnet_w32_coco_512x512.py')

@@ -42,6 +42,7 @@ from vitpose_tpu_torch.train import (OptimConfig, create_train_state,
 from vitpose_tpu_torch.train import loop
 from vitpose_tpu_torch.utils.checkpoint import CheckpointManager
 from vitpose_tpu_torch.utils.convert import state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 
 def _train_state(seed=0):

@@ -61,6 +61,7 @@ from vitpose_tpu_torch.train.loop import (MULTI_STAGE_HEADS, _model_parts,
                                           build_model_from_cfg)
 from vitpose_tpu_torch.utils.config import load_config
 from vitpose_tpu_torch.utils.convert import cnn_state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_FACTOR = 1.5

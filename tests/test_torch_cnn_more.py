@@ -46,6 +46,7 @@ from vitpose_tpu_torch.ops.decode import keypoints_from_heatmaps
 from vitpose_tpu_torch.train.loop import build_model_from_cfg
 from vitpose_tpu_torch.utils.convert import (FLAX_NAMED_BACKBONES,
                                              cnn_state_dict_from_flax)
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 HEAD = dict(deconv_filters=(16, 16), deconv_kernels=(4, 4))
 VIPNAS_HEAD = dict(head='vipnas', deconv_filters=(16, 16),

@@ -53,6 +53,7 @@ from vitpose_tpu_torch.eval.loop import run_validation
 from vitpose_tpu_torch.ops import target as ttarget
 from vitpose_tpu_torch.tools import test as cli
 from vitpose_tpu_torch.utils import config
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 MBV3 = os.path.join(COCO_CFG, 'vipnas_mbv3_coco_256x192.py')
 MBV3_OPTIONS = [

@@ -52,6 +52,7 @@ from vitpose_tpu_torch.models.topdown import (GenericMultiStageTopDown,
 from vitpose_tpu_torch.ops.decode import keypoints_from_heatmaps
 from vitpose_tpu_torch.train.loop import build_model_from_cfg
 from vitpose_tpu_torch.utils.convert import cnn_state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 HEAD = dict(deconv_filters=(16, 16), deconv_kernels=(4, 4))
 LITE = dict(stem_channels=16, stem_out_channels=16, num_modules=(1, 1, 1),

@@ -54,6 +54,7 @@ from vitpose_tpu_torch.tools import test as cli
 from vitpose_tpu_torch.tools import train as train_cli
 from vitpose_tpu_torch.train.loop import build_model_from_cfg
 from vitpose_tpu_torch.utils import config
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 # the train steps' models: tests/test_torch_cnn_ms.py's, cut to two units
 # (MSPN), two stages of three branches (Lite-HRNet) and two stages on 16x16

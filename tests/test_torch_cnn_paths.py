@@ -70,6 +70,7 @@ from vitpose_tpu_torch.train import loop
 from vitpose_tpu_torch.train.loop import build_model_from_cfg
 from vitpose_tpu_torch.utils import config
 from vitpose_tpu_torch.utils.convert import cnn_state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 COCO_CFG = os.path.join(ROOT, 'vitpose_tpu', 'configs', 'coco')
 HRNET = os.path.join(COCO_CFG, 'hrnet_w32_coco_256x192.py')

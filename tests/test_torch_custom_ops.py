@@ -26,6 +26,7 @@ from test_torch_models import (TOL, SMALL, _compile_fast, _port_model,
 from vitpose_tpu_torch.models import make_config
 from vitpose_tpu_torch.ops import attention as tattn
 from vitpose_tpu_torch.utils.convert import state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 SHAPE = (2, 12, 4, 8)
 SCALE = SHAPE[-1] ** -0.5

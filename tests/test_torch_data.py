@@ -35,6 +35,7 @@ from vitpose_tpu_torch.data.native import (decode_batch_native,
                                            native_available)
 from vitpose_tpu_torch.ops import nms
 from vitpose_tpu_torch.utils import config
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COCO_B = os.path.join(ROOT, 'vitpose_tpu', 'configs', 'coco',

@@ -23,6 +23,7 @@ from vitpose_tpu_torch.demo import (face_img_demo, face_video_demo,
                                     top_down_video_demo,
                                     top_down_video_demo_with_det,
                                     webcam_demo)
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOXES = [[10, 20, 60, 110], [90, 15, 55, 120]]      # xywh, two people

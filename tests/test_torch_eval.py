@@ -56,6 +56,7 @@ from vitpose_tpu_torch.tools import test as cli
 from vitpose_tpu_torch.train.loop import build_model_from_cfg, topdown_config
 from vitpose_tpu_torch.utils import torch_ckpt
 from vitpose_tpu_torch.utils.convert import state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 EXACT = dict(rtol=0, atol=1e-12)
 AP_TOL = 1e-6
@@ -389,10 +390,11 @@ def test_cli_matches_jax(val_setup, tmp_path):
 @pytest.mark.parametrize('flag', ['--int8', '--tmpdir', 'family', 'cuda'])
 def test_cli_refuses_unported(tmp_path, monkeypatch, flag):
     """--int8 is refused only for a ViTPose+ (MoE) model, whose MLP has no
-    int8 path, as in JAX."""
+    int8 path, as in JAX; every family of the zoo is evaluated since item
+    12f, and a family the zoo does not have is refused."""
     args = [_small_config(tmp_path), 'none.npz', '--device', 'cpu']
     if flag == 'family':
-        args += ['--cfg-options', 'model.family=mesh']
+        args += ['--cfg-options', 'model.family=nerf']
     elif flag == 'cuda':
         monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
         args = args[:2] + ['--device', 'cuda']
@@ -401,8 +403,9 @@ def test_cli_refuses_unported(tmp_path, monkeypatch, flag):
                  'model.part_dim=8']
     else:
         args += [flag, str(tmp_path)]
-    with pytest.raises((NotImplementedError, RuntimeError),
-                       match='ROADMAP|CUDA is not available|MoE'):
+    with pytest.raises((NotImplementedError, RuntimeError, KeyError),
+                       match='ROADMAP|CUDA is not available|MoE|'
+                             'unknown model family'):
         cli.main(args)
 
 
@@ -425,15 +428,20 @@ def test_config_file_model_matches_jax():
     assert bb_port == {k: bb_ref[k] for k in bb_port}
     assert port.backbone.dtype == 'bfloat16' and port.backbone.fused_attention
     # a CNN backbone builds its GenericTopDown (ROADMAP item 12's CNN
-    # top-down; HRFormer since item 12c); another family still raises
+    # top-down; HRFormer since item 12c); every family of the zoo builds
+    # since item 12f, and a family the zoo does not have raises
     cnn = build_model_from_cfg(dict(
         mcfg, backbone_type='hrnet',
         backbone_overrides=dict(width=8, stage_modules=(1, 1),
                                 stage_blocks=1)))
     assert type(cnn).__name__ == 'GenericTopDown'
     assert cnn.backbone_type == 'hrnet' and cnn.cfg.backbone.depth == 12
-    with pytest.raises(NotImplementedError, match='item 12'):
-        build_model_from_cfg(dict(mcfg, family='mesh'))
+    mesh = build_model_from_cfg(dict(
+        family='mesh', backbone_type='resnet',
+        backbone_overrides=dict(depth=18)))
+    assert type(mesh).__name__ == 'ParametricMesh'
+    with pytest.raises(KeyError, match='unknown model family'):
+        build_model_from_cfg(dict(mcfg, family='nerf'))
     former = build_model_from_cfg(dict(
         mcfg, backbone_type='hrformer', backbone_overrides=dict(
             width=8, stage_modules=(1,), num_heads=(1, 2),

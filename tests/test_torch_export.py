@@ -27,6 +27,7 @@ from test_torch_models import (SMALL, _compile_fast, _peaked,
 from vitpose_tpu_torch.api import init_pose_model
 from vitpose_tpu_torch.models import infer
 from vitpose_tpu_torch.tools import export
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COCO = os.path.join(ROOT, 'vitpose_tpu', 'configs', 'coco')

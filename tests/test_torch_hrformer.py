@@ -44,6 +44,7 @@ from test_torch_models import _compile_fast
 from vitpose_tpu_torch.models import hrformer
 from vitpose_tpu_torch.models.topdown import GenericTopDown, forward, infer
 from vitpose_tpu_torch.utils.convert import cnn_state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 HW = (64, 48)
 SMALL = dict(width=16, stage_modules=(1, 1, 1), num_heads=(1, 2, 4, 8),

@@ -9,6 +9,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / 'vitpose_tpu_torch'

@@ -52,6 +52,7 @@ from vitpose_tpu_torch.models import TopDownModel, make_config
 from vitpose_tpu_torch.models.vit import Int8Linear, int8_matmul
 from vitpose_tpu_torch.tools import test as cli
 from vitpose_tpu_torch.utils import quantize as q
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 OUT_RTOL = 1e-6
 SCALE_RTOL = 1e-5

@@ -28,8 +28,8 @@ MPI-INF-3DHP-style npz sets with a cameras .pkl and normalisation stats).
     .evaluate on JAX's predictions.
   * `extract_pose_sequence` and `inference_pose_lifter_model` (track ids,
     norm_pose_2d, causal, the trajectory); both body3d demos on the CPU;
-    the converters' round trips; the zoo: 490 of the 493 configs run, and
-    the mesh, interhand3d and VoxelPose ones refuse, naming item 12f.
+    the converters' round trips; the zoo: all 493 configs pass the
+    runners' checks (the test's name keeps the earlier count of 490).
 """
 import glob
 import json
@@ -68,6 +68,7 @@ from vitpose_tpu_torch.train.loop import (_refuse_unported,
                                           build_model_from_cfg)
 from vitpose_tpu_torch.utils.config import load_config
 from vitpose_tpu_torch.utils.convert import pose_lifter_state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BODY3D = os.path.join(ROOT, 'vitpose_tpu', 'configs', 'body3d')
@@ -771,28 +772,27 @@ def test_converters_round_trip(traj):
 
 def test_the_zoo_runs_490_of_493():
     """Every config of the zoo passes the training runner's and the
-    evaluation CLI's refusals but the three of ROADMAP item 12f; the 12
-    configs of this slice build at full width on the meta device."""
+    evaluation CLI's checks: all 493 run since ROADMAP item 12f (the name
+    keeps the earlier count); the 15 configs of the video and 3D families
+    (PoseWarper, the lifters, InterHand3D, the mesh, VoxelPose) build at
+    full width on the meta device."""
     paths = sorted(glob.glob(os.path.join(ROOT, 'vitpose_tpu', 'configs',
                                           '*', '*.py')))
     paths = [p for p in paths if '/base/' not in p]
-    refused, new = {}, []
+    families = {}
     args = test_cli.argparse.Namespace(int8=False, show_dir=None,
                                        batch_size=None, tmpdir=None)
     for p in paths:
         cfg = load_config(p)
         family = cfg.get('model', {}).get('family', 'topdown')
-        try:
-            _refuse_unported(cfg)
-            test_cli._refuse_unported(cfg, args)
-        except NotImplementedError as e:
-            assert 'item 12f' in str(e), (p, e)
-            refused[family] = refused.get(family, 0) + 1
-            continue
-        if family in ('posewarper', 'pose_lifter'):
-            new.append(p)
+        _refuse_unported(cfg)
+        test_cli._refuse_unported(cfg, args)
+        families[family] = families.get(family, 0) + 1
+        if family in ('posewarper', 'pose_lifter', 'interhand3d', 'mesh',
+                      'voxelpose'):
             with torch.device('meta'):
                 build_model_from_cfg(cfg['model'])
     assert len(paths) == 493
-    assert refused == {'mesh': 1, 'interhand3d': 1, 'voxelpose': 1}
-    assert len(new) == 12
+    assert families == {'topdown': 434, 'bottomup': 44, 'posewarper': 2,
+                        'pose_lifter': 10, 'interhand3d': 1, 'mesh': 1,
+                        'voxelpose': 1}

@@ -59,6 +59,7 @@ from vitpose_tpu_torch.train import loop
 from vitpose_tpu_torch.utils import config
 from vitpose_tpu_torch.utils.checkpoint import CheckpointManager
 from vitpose_tpu_torch.utils.convert import state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 STEPS_PER_EPOCH = 2
 METRIC_RTOL = 1e-4
@@ -371,7 +372,9 @@ def test_cli_refuses_unported(fixture, tmp_path, monkeypatch, case):
         monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
         args[4] = 'cuda'
     elif case == 'family':
-        args.append('model.family=mesh')
+        # every family of the zoo trains since item 12f; one the zoo does
+        # not have is refused
+        args.append('model.family=nerf')
     elif case == 'moe':
         # a ViTPose+ mixture whose augmentation is not ported: every dataset
         # class is (PoseTrack18 and JHMDB since item 12d); albumentations
@@ -382,10 +385,10 @@ def test_cli_refuses_unported(fixture, tmp_path, monkeypatch, case):
                  "data.aug.albumentations=[{'type': 'Blur'}]"]
     else:
         args.append(f'runtime.{case}=True')
-    item = {'cuda': 'CUDA is not available', 'family': 'item 12',
-            'moe': 'Not queued', 'zero1': 'item 11',
-            'tensorboard': 'Not queued'}
-    with pytest.raises((NotImplementedError, RuntimeError),
+    item = {'cuda': 'CUDA is not available',
+            'family': 'unknown model family', 'moe': 'Not queued',
+            'zero1': 'item 11', 'tensorboard': 'Not queued'}
+    with pytest.raises((NotImplementedError, RuntimeError, KeyError),
                        match=item[case]):
         cli.main(args)
 

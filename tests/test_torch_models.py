@@ -33,6 +33,7 @@ from vitpose_tpu_torch.api import (inference_top_down_pose_model,
                                    init_pose_model)
 from vitpose_tpu_torch.models import TopDownModel, infer, make_config
 from vitpose_tpu_torch.utils.convert import state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 # bf16 backbone against flax at dtype=bfloat16: the two round to bf16 at

@@ -51,6 +51,7 @@ from vitpose_tpu_torch.train import (OptimConfig, create_train_state,
 from vitpose_tpu_torch.train import loop
 from vitpose_tpu_torch.utils import torch_ckpt
 from vitpose_tpu_torch.utils.convert import state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 EXPERTS, PART = 3, 8

@@ -64,6 +64,7 @@ from vitpose_tpu_torch.train import loop
 from vitpose_tpu_torch.utils import config
 from vitpose_tpu_torch.utils.convert import state_dict_from_flax
 from vitpose_tpu_torch.utils.torch_ckpt import merge_moe_expert
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 PLUS_B = os.path.join(ROOT, 'vitpose_tpu', 'configs', 'coco',
                       'vitpose_plus_b_6datasets_256x192.py')

@@ -17,6 +17,7 @@ from vitpose_tpu.ops.warp import warp_affine_batch as jax_warp
 from vitpose_tpu_torch.ops import decode as tdec
 from vitpose_tpu_torch.ops import geometry as tgeo
 from vitpose_tpu_torch.ops.warp import warp_affine_batch
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

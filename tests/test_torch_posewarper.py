@@ -66,6 +66,7 @@ from vitpose_tpu_torch.train.posewarper_loop import (load_window,
                                                      posewarper_step,
                                                      trainable_parameters)
 from vitpose_tpu_torch.utils.convert import posewarper_state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, 'vitpose_tpu', 'configs', 'posetrack',

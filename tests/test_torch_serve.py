@@ -52,6 +52,7 @@ from vitpose_tpu_torch.eval.loop import run_validation
 from vitpose_tpu_torch.ops.smoothing import OneEuroFilter
 from vitpose_tpu_torch.tools import serve
 from vitpose_tpu_torch.tools import test as cli
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KP_TOL_PX = 1e-3

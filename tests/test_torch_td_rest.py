@@ -59,6 +59,7 @@ from vitpose_tpu_torch.train.optim import weight_norm_clip
 from vitpose_tpu_torch.train.loop import build_model_from_cfg, topdown_config
 from vitpose_tpu_torch.train.step import make_train_step
 from vitpose_tpu_torch.utils.convert import cnn_state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 SEEDS = range(40)
 

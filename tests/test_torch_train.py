@@ -59,6 +59,7 @@ from vitpose_tpu_torch.train import (OptimConfig, create_train_state,
                                      make_train_step)
 from vitpose_tpu_torch.train.optim import layer_id_for_path, make_freeze_mask
 from vitpose_tpu_torch.utils.convert import state_dict_from_flax
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -31,6 +31,7 @@ from test_torch_zoo_data import write_kpt_fixture
 from vitpose_tpu_torch.data import (JhmdbDataset, PoseTrackDataset,
                                     TopDownLoader, topdown_dataset_cls)
 from vitpose_tpu_torch.data import posetrack as pposetrack
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 TOL = 1e-9
 

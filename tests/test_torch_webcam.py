@@ -43,6 +43,7 @@ from vitpose_tpu_torch.webcam import (NODES, Buffer, BufferManager,
 from vitpose_tpu_torch.webcam.model_nodes import (DetectorNode,
                                                   TopDownPoseEstimatorNode)
 from vitpose_tpu_torch.webcam.node import Node
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 APP_CONFIGS = sorted(glob.glob(os.path.join(ROOT, 'tools', 'webcam',

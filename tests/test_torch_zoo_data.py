@@ -44,6 +44,7 @@ from vitpose_tpu_torch.data.loader import (ConcatPoseDataset,
 from vitpose_tpu_torch.data.pipeline import AugmentConfig, make_preprocess_fn
 from vitpose_tpu_torch.train.loop import _refuse_unported, topdown_config
 from vitpose_tpu_torch.utils.config import load_config
+from test_torch_threads import torch_test_threads  # noqa: F401
 
 JAX_META = os.path.join(ROOT, 'vitpose_tpu', 'data', 'metadata')
 SIZE = (120, 160)                     # (h, w) of every fixture image

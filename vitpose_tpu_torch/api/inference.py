@@ -32,8 +32,11 @@ from ..data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from ..models.bottomup import (BottomUpEstimator, aggregate_scale,
                                aggregate_stage_flip, flip_feature_maps,
                                split_ae_outputs)
+from ..models.interhand3d import Interhand3DEstimator
+from ..models.mesh import ParametricMesh
 from ..models.pose3d import PoseLifter
 from ..models.posewarper import PoseWarper
+from ..models.voxelpose import DetectAndRegress
 from ..models.topdown import TopDownConfig, TopDownModel, infer, make_config
 from ..models.vit import VIT_VARIANTS, compute_dtype
 from ..ops.decode import keypoints_from_heatmaps, keypoints_from_regression
@@ -148,7 +151,7 @@ def load_checkpoint(model, checkpoint: str):
             checkpoint, model.backbone.cfg if vit else None,
             model.backbone_type, family='bottomup'), strict=True)
         return
-    if isinstance(model, (PoseWarper, PoseLifter)):
+    if isinstance(model, FAMILY_MODELS):
         load_family_checkpoint(model, checkpoint)
         return
     sd = checkpoint_state_dict(checkpoint, model.cfg.backbone,
@@ -168,16 +171,41 @@ def load_checkpoint(model, checkpoint: str):
             "or the JAX package's .npz") from e
 
 
+# the families whose checkpoints go through load_family_checkpoint, and
+# the entries of a reference .pth each reads (the rest, e.g. a mesh's
+# discriminator and SMPL buffers or VoxelPose's 2D backbone, are left out
+# as JAX's converters leave them)
+FAMILY_MODELS = (BottomUpEstimator, PoseWarper, PoseLifter,
+                 Interhand3DEstimator, ParametricMesh, DetectAndRegress)
+_FAMILY_KEYS = {'mesh': ('backbone.', 'mesh_head.'),
+                'voxelpose': ('human_detector.', 'pose_regressor.')}
+
+
+def _family_of(model):
+    for cls, name in ((PoseWarper, 'posewarper'), (PoseLifter, 'pose_lifter'),
+                      (Interhand3DEstimator, 'interhand3d'),
+                      (ParametricMesh, 'mesh'),
+                      (DetectAndRegress, 'voxelpose')):
+        if isinstance(model, cls):
+            return name
+    raise TypeError(f'no family checkpoint for {type(model).__name__}')
+
+
 def load_family_checkpoint(model, checkpoint: str):
-    """A PoseWarper's or a PoseLifter's weights: the port's .pth (mmpose
-    names), a reference .pth, or the JAX package's .npz through the
-    converters. A PoseWarper checkpoint with keypoint_head tensors is
-    refused where the model's head has no parameters (the stage-2 identity
-    head), with JAX's message (vitpose_tpu/utils/family_ckpt.py:222-240)."""
-    posewarper = isinstance(model, PoseWarper)
-    sd = checkpoint_state_dict(
-        checkpoint, None, getattr(model, 'backbone_type', None),
-        family='posewarper' if posewarper else 'pose_lifter')
+    """A family model's weights (PoseWarper, PoseLifter, InterHand3D,
+    mesh, VoxelPose): the port's .pth (mmpose names), a reference .pth, or
+    the JAX package's .npz through the converters. A PoseWarper checkpoint
+    with keypoint_head tensors is refused where the model's head has no
+    parameters (the stage-2 identity head), with JAX's message
+    (vitpose_tpu/utils/family_ckpt.py:222-240)."""
+    family = _family_of(model)
+    posewarper = family == 'posewarper'
+    sd = checkpoint_state_dict(checkpoint, None,
+                               getattr(model, 'backbone_type', None),
+                               family=family)
+    if family in _FAMILY_KEYS:
+        sd = {k: v for k, v in sd.items()
+              if k.startswith(_FAMILY_KEYS[family])}
     head = sorted(k for k in sd if k.startswith('keypoint_head.'))
     if posewarper and head and next(model.keypoint_head.parameters(),
                                     None) is None:
@@ -219,8 +247,9 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
     builds a GenericTopDown. A bottom-up config (family
     'bottomup') gives its BottomUpEstimator itself, on the device in eval
     mode, for the bottom-up functions below (JAX refuses those configs
-    here); a PoseWarper or pose-lifter config (api/inference_3d.py) its
-    PoseWarper or PoseLifter. Without a checkpoint the weights are random, drawn on the CPU
+    here); a PoseWarper, pose-lifter, InterHand3D, mesh or VoxelPose
+    config (api/inference_3d.py) its PoseWarper, PoseLifter,
+    Interhand3DEstimator, ParametricMesh or DetectAndRegress. Without a checkpoint the weights are random, drawn on the CPU
     from a torch.Generator seeded with 0, so every device gets the same
     ones.
     """
@@ -241,7 +270,7 @@ def init_pose_model(config, checkpoint: Optional[str] = None,
     model = None
     if model_dict is not None:
         model = build_model_from_cfg(model_dict)
-        if isinstance(model, (BottomUpEstimator, PoseWarper, PoseLifter)):
+        if isinstance(model, FAMILY_MODELS):
             if checkpoint is not None:
                 load_checkpoint(model, checkpoint)
             return model.to(dev).eval()
@@ -811,3 +840,65 @@ def vis_pose_result_3d(pose_results_3d, skeleton=None, out_file=None,
         fig.savefig(out_file, dpi=100)
         plt.close(fig)
     return fig
+
+
+def imshow_mesh_3d(img, vertices, faces, camera_center, focal_length,
+                   colors=((76, 76, 204),)):
+    """Render meshes onto a background image on the host (JAX
+    vitpose_tpu/api/inference.py:687, reference
+    core/visualization/image.py:353 without pyrender): a numpy z-buffer
+    with flat Lambertian shading. img [H, W, 3] uint8; vertices a list of
+    [V, 3] camera-space arrays (x right, y down, z in front); faces a list
+    of [F, 3] int arrays; camera_center (cx, cy) and focal_length (fx, fy)
+    in pixels; colors per mesh (r, g, b). Returns the [H, W, 3] uint8
+    composite."""
+    h, w = img.shape[:2]
+    out = img.astype(np.float32).copy()
+    zbuf = np.full((h, w), np.inf, np.float32)
+    cx, cy = float(camera_center[0]), float(camera_center[1])
+    fx, fy = float(focal_length[0]), float(focal_length[1])
+    if not isinstance(colors, (list, tuple)) or (
+            len(colors) and np.isscalar(colors[0])):
+        colors = [colors]
+    light = np.array([0.0, 0.0, 1.0], np.float32)
+    for mi, (verts, fcs) in enumerate(zip(vertices, faces)):
+        v = np.asarray(verts, np.float32)
+        z = np.maximum(v[:, 2], 1e-6)
+        px = cx + fx * v[:, 0] / z
+        py = cy + fy * v[:, 1] / z
+        color = np.asarray(colors[mi % len(colors)], np.float32)
+        tri = np.asarray(fcs, np.int64)
+        p0, p1, p2 = px[tri[:, 0]], px[tri[:, 1]], px[tri[:, 2]]
+        q0, q1, q2 = py[tri[:, 0]], py[tri[:, 1]], py[tri[:, 2]]
+        z0, z1, z2 = z[tri[:, 0]], z[tri[:, 1]], z[tri[:, 2]]
+        nrm = np.cross(v[tri[:, 1]] - v[tri[:, 0]], v[tri[:, 2]] - v[tri[:, 0]])
+        nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-9)
+        shade = 0.5 + 0.5 * np.abs(nrm @ light)
+        for t in range(len(tri)):
+            xmin = max(int(np.floor(min(p0[t], p1[t], p2[t]))), 0)
+            xmax = min(int(np.ceil(max(p0[t], p1[t], p2[t]))) + 1, w)
+            ymin = max(int(np.floor(min(q0[t], q1[t], q2[t]))), 0)
+            ymax = min(int(np.ceil(max(q0[t], q1[t], q2[t]))) + 1, h)
+            if xmin >= xmax or ymin >= ymax:
+                continue
+            xs, ys = np.meshgrid(np.arange(xmin, xmax),
+                                 np.arange(ymin, ymax))
+            d = ((q1[t] - q2[t]) * (p0[t] - p2[t])
+                 + (p2[t] - p1[t]) * (q0[t] - q2[t]))
+            if abs(d) < 1e-9:
+                continue
+            l0 = ((q1[t] - q2[t]) * (xs - p2[t])
+                  + (p2[t] - p1[t]) * (ys - q2[t])) / d
+            l1 = ((q2[t] - q0[t]) * (xs - p2[t])
+                  + (p0[t] - p2[t]) * (ys - q2[t])) / d
+            l2 = 1.0 - l0 - l1
+            inside = (l0 >= 0) & (l1 >= 0) & (l2 >= 0)
+            if not inside.any():
+                continue
+            depth = l0 * z0[t] + l1 * z1[t] + l2 * z2[t]
+            sub = zbuf[ymin:ymax, xmin:xmax]
+            upd = inside & (depth < sub)
+            sub[upd] = depth[upd]
+            region = out[ymin:ymax, xmin:xmax]
+            region[upd] = color * shade[t]
+    return np.clip(out, 0, 255).astype(np.uint8)

@@ -16,6 +16,9 @@ Geometry as in the reference: a flipped record mirrors its joints with
 (top_down_transform.py:149-164), and the source pixel mirror is folded into
 the warp matrix on the device; targets use the crop-space joints, i.e. the
 unflipped warp applied to the mirrored joints.
+
+`multitask_gather_target` (JAX :447, reference `MultitaskGatherTarget`)
+gathers per-head targets for `models.multitask.MultiTaskModel`.
 """
 from __future__ import annotations
 
@@ -317,3 +320,18 @@ def apply_image_augmentations(rng: np.random.RandomState, img,
             img = fn(rng, img, **(enabled if isinstance(enabled, dict)
                                   else {}))
     return img
+
+
+def multitask_gather_target(target_fns, record, indices=None,
+                            keys=('target', 'target_weight')):
+    """Every target pipeline of `target_fns` (record -> dict) on a copy of
+    the record, then for each key of `keys` a list with one entry per head:
+    head i takes pipeline indices[i] (default: pipeline i), None where that
+    pipeline made no such key. Returns the extended record."""
+    outputs = [fn(dict(record)) for fn in target_fns]
+    if indices is None:
+        indices = list(range(len(target_fns)))
+    out = dict(record)
+    for key in keys:
+        out[key] = [outputs[i].get(key) for i in indices]
+    return out

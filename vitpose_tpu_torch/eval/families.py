@@ -1,7 +1,8 @@
 """Validation of the model families other than top-down and bottom-up.
 
 Counterpart of vitpose_tpu/eval/families.py (`evaluate_pose_lifter` :16-66,
-`evaluate_posewarper` :110-176), shared by the evaluation CLI and the
+`evaluate_mesh` :69, `evaluate_posewarper` :110-176,
+`evaluate_interhand3d` :179, `evaluate_voxelpose` :222), shared by the evaluation CLI and the
 family training loops. Each takes the config dict and a model whose
 parameters sit on the device to run on, and returns the dataset's metrics.
 """
@@ -148,3 +149,104 @@ def evaluate_posewarper(cfg: dict, model, batch_size: Optional[int] = None,
                             bbox_ids=[r['bbox_id'] for r in recs]))
     metric = metric or cfg.get('evaluation', {}).get('metric', 'mAP')
     return ds.evaluate(results, res_folder=res_folder, metric=metric)
+
+
+@torch.no_grad()
+def evaluate_mesh(cfg: dict, model, metric=None):
+    """HMR over the val MeshDataset (cv2 crops of each record's centre and
+    scale, /255) in batches of data.batch_size -> the joint_error protocol
+    (14 LSP joints, hip-centred MPJPE and MPJPE-PA in mm)."""
+    import cv2
+    from ..data.mesh import MeshDataset
+    from ..ops.geometry import affine_matrix
+    dcfg = cfg['data']
+    vcfg = dcfg['val']
+    image_size = tuple(dcfg.get('image_size', (224, 224)))
+    iw, ih = image_size
+    ds = MeshDataset(vcfg['ann_file'], vcfg.get('img_prefix', ''),
+                     image_size=image_size)
+    bs = dcfg.get('batch_size', 32)
+    dev = _device_of(model)
+    model.eval()
+    results = []
+    for start in range(0, len(ds), bs):
+        recs = ds.db[start:start + bs]
+        crops = []
+        for rec in recs:
+            img = cv2.cvtColor(cv2.imread(rec['image_file']),
+                               cv2.COLOR_BGR2RGB)
+            mat = np.asarray(affine_matrix(
+                rec['center'][None], rec['scale'][None],
+                np.zeros((1,), np.float32), (iw, ih)))[0]
+            crops.append(cv2.warpAffine(img.astype(np.float32), mat,
+                                        (iw, ih), flags=cv2.INTER_LINEAR))
+        x = torch.from_numpy(np.stack(crops) / np.float32(255.0)).to(dev)
+        out = model(x)
+        results.append(dict(keypoints_3d=out['joints_3d'].float().cpu()
+                            .numpy(),
+                            image_path=[r['image_file'] for r in recs]))
+    metric = metric or cfg.get('evaluation', {}).get('metric',
+                                                     'joint_error')
+    return ds.evaluate(results, metric=metric)
+
+
+@torch.no_grad()
+def evaluate_interhand3d(cfg: dict, model, metric=None):
+    """Per-crop 2.5D inference in batches of data.batch_size -> the decode
+    -> camera-space back-projection at each record's camera and root depths
+    -> MPJPE / MRRPE / Handedness_acc / AUC."""
+    from ..models.interhand3d import backproject_to_camera
+    from ..ops.geometry import bbox_xywh2cs
+    from ..train.interhand_loop import interhand_loader
+    loader = interhand_loader(cfg, 'val', is_train=False)
+    ds = loader.ds
+    w, h = loader.image_size
+    dev = _device_of(model)
+    results = []
+    n = len(ds.db)
+    for start in range(0, n, loader.batch_size):
+        recs = ds.db[start:start + loader.batch_size]
+        crops = np.stack([loader._prepare(r)[0] for r in recs])
+        out = model.infer(torch.from_numpy(crops).to(dev))
+        cs = [bbox_xywh2cs(r['bbox'], aspect_ratio=w / h) for r in recs]
+        dec = model.decode(*out, torch.stack([c for c, _ in cs]),
+                           torch.stack([s for _, s in cs]))
+        cam = backproject_to_camera(
+            dec['keypoints_3d'], np.stack([r['focal'] for r in recs]),
+            np.stack([r['princpt'] for r in recs]),
+            np.stack([r['abs_depth'] for r in recs]))
+        results.append(dict(preds=cam, hand_type=dec['hand_type'],
+                            keypoints_px=dec['keypoints_3d'],
+                            rel_root_depth=dec['rel_root_depth'],
+                            bbox_ids=[r['bbox_id'] for r in recs]))
+    metric = metric or cfg.get('evaluation', {}).get('metric', ['MPJPE'])
+    return ds.evaluate(results, metric=metric)
+
+
+@torch.no_grad()
+def evaluate_voxelpose(cfg: dict, model, metric=None):
+    """Per frame: the GT-projection heatmaps in each camera's heatmap frame
+    (as training paints them), the model's people -> the Panoptic protocol
+    (recall and MPJPE at 500 mm, AP and AR at 25-150 mm)."""
+    from ..data.panoptic_mview import PanopticMviewDataset
+    from ..train.voxelpose_loop import (gt_projected_heatmaps,
+                                        heatmap_frame_cameras)
+    dcfg = cfg['data']
+    vcfg = dcfg.get('val', dcfg.get('train', {}))
+    ds = PanopticMviewDataset(
+        [str(p) for p in vcfg['seq_dirs']], cam_names=vcfg.get('cam_names'),
+        num_joints=cfg['model'].get('num_joints', 15))
+    hm_size = tuple(dcfg.get('heatmap_size', (64, 64)))[::-1]
+    dev = _device_of(model)
+    results = []
+    for idx in range(len(ds)):
+        frame = ds[idx]
+        cameras = heatmap_frame_cameras(frame['cameras'], hm_size)
+        heatmaps = gt_projected_heatmaps(frame, cameras, model.num_joints,
+                                         hm_size)
+        people = model(torch.from_numpy(heatmaps).to(dev), cameras)
+        results.append([(np.asarray(j), float(s)) for j, s in people])
+    metric = metric or cfg.get('evaluation', {}).get('metric', ['mpjpe'])
+    metric = [{'MPJPE': 'mpjpe'}.get(m, m) for m in (
+        metric if isinstance(metric, list) else [metric])]
+    return ds.evaluate(results, metric=metric)

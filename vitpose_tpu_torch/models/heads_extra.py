@@ -38,7 +38,14 @@ of NCHW maps in the compute dtype:
 GlobalAveragePooling neck): the mean over the NHWC features' H and W, then
 `fc` to [N, K, 2] normalised coordinates in the compute dtype.
 
-The 3-D heads of JAX's module come with their families.
+`Interhand3DHead` (JAX :223, mmpose's interhand_3d_head.py): on NCHW
+features, the 2.5D volumes from `right_hand_head` and `left_hand_head`
+(with `split_hands`, mmpose's layout: each a HeatmapHead's deconvs and
+1x1 `final_layer` to 21 x D channels, right first) or one `hand_head`
+(JAX's fused layout); `root_head.fc` and `hand_type_head.fc` (Linear 512,
+ReLU, Linear) on the features' spatial mean. The volumes come out
+[N, K, D, H, W] in JAX's channel order (channel j * D + d is joint j at
+depth bin d).
 """
 from __future__ import annotations
 
@@ -302,3 +309,56 @@ class MSMUHead(nn.Module):
                 x = resize_bilinear_ac(layer.conv_layers(f), out_shape)
                 outs.append(x if layer.prm is None else layer.prm(x))
         return outs
+
+
+class Interhand3DHead(nn.Module):
+    """NCHW features -> (heatmaps3d [N, K, D, H, W], root-depth logits
+    [N, root_depth_bins], hand-type logits [N, 2]) in the compute dtype."""
+
+    def __init__(self, in_channels, num_joints=42, depth_size=64,
+                 root_depth_bins=64, deconv_filters=(256, 256),
+                 split_hands=False, dtype='float32', generator=None):
+        super().__init__()
+        self.num_joints = num_joints
+        self.depth_size = depth_size
+        self.split_hands = split_hands
+        self.dtype = compute_dtype(dtype)
+        n = len(deconv_filters)
+        kw = dict(deconv_filters=tuple(deconv_filters),
+                  deconv_kernels=(4,) * n, final_kernel=1, dtype=dtype,
+                  generator=generator)
+        if split_hands:
+            if num_joints % 2:
+                raise ValueError(f'split_hands with {num_joints} joints: '
+                                 'expected an even number')
+            half = num_joints // 2 * depth_size
+            self.right_hand_head = HeatmapHead(in_channels, half, **kw)
+            self.left_hand_head = HeatmapHead(in_channels, half, **kw)
+        else:
+            self.hand_head = HeatmapHead(in_channels,
+                                         num_joints * depth_size, **kw)
+        self.root_head = nn.Module()
+        self.root_head.fc = nn.Sequential(
+            nn.Linear(in_channels, 512), nn.ReLU(),
+            nn.Linear(512, root_depth_bins))
+        self.hand_type_head = nn.Module()
+        self.hand_type_head.fc = nn.Sequential(
+            nn.Linear(in_channels, 512), nn.ReLU(), nn.Linear(512, 2))
+        init_cnn(self.root_head, generator)
+        init_cnn(self.hand_type_head, generator)
+
+    @staticmethod
+    def _mlp(fc, x, dt):
+        return linear(fc[2], F.relu(linear(fc[0], x, dt)), dt)
+
+    def forward(self, x):
+        dt = self.dtype
+        heads = ((self.right_hand_head, self.left_hand_head)
+                 if self.split_hands else (self.hand_head,))
+        hm = torch.cat([run_heatmap_head(h.deconv_layers, h.final_layer, x,
+                                         dt) for h in heads], dim=1)
+        n, _, hh, ww = hm.shape
+        heatmaps3d = hm.reshape(n, self.num_joints, self.depth_size, hh, ww)
+        pooled = x.to(dt).mean(dim=(2, 3))
+        return (heatmaps3d, self._mlp(self.root_head.fc, pooled, dt),
+                self._mlp(self.hand_type_head.fc, pooled, dt))

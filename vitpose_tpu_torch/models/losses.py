@@ -5,7 +5,9 @@ DeepPose criteria `smooth_l1_loss`, `wing_loss` and `soft_wing_loss`
 (:27, :45, :55), the bottom-up losses `ae_heatmap_loss` and
 `ae_tag_loss` (:139-196), and the pose lifters' `mse_loss`,
 `mpjpe_loss`, `bone_loss`, `project_joints` and `semi_supervision_loss`
-(:40-98, :241-300))."""
+(:40-98, :241-300)), InterHand3D's `l1_loss` and `bce_loss` (:35, :99)
+and the mesh losses `gan_loss`, `mesh_joint_loss` and `smpl_param_loss`
+(:197-238))."""
 from __future__ import annotations
 
 import math
@@ -248,3 +250,61 @@ def semi_supervision_loss(labeled_pose, unlabeled_pose, unlabeled_traj,
     loss_bone = bone_loss(unlabeled_pose, labeled_pose, joint_parents,
                           loss_weight=bone_loss_weight)
     return {'proj_loss': loss_proj.float(), 'bone_loss': loss_bone.float()}
+
+
+def l1_loss(pred, target, target_weight=None, loss_weight=1.0):
+    """The elementwise mean absolute error, weighted as `_weighted`."""
+    pred, target = _weighted(pred, target, target_weight)
+    return (pred - target).abs().mean() * loss_weight
+
+
+def bce_loss(pred, target, target_weight=None, loss_weight=1.0):
+    """Binary cross-entropy on probabilities clipped to [1e-7, 1 - 1e-7]
+    (reference classfication_loss.py:9), target_weight broadcast over the
+    trailing axes."""
+    p = pred.clamp(1e-7, 1.0 - 1e-7)
+    loss = -(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))
+    if target_weight is not None:
+        w = target_weight
+        while w.ndim < loss.ndim:
+            w = w[..., None]
+        loss = loss * w
+    return loss.mean() * loss_weight
+
+
+def gan_loss(pred, target_is_real, gan_type='vanilla', loss_weight=1.0):
+    """The SMPL discriminator's objective (reference mesh_loss.py
+    `GANLoss`): 'vanilla' BCE on logits, 'lsgan' MSE, 'wgan' +-mean."""
+    if gan_type == 'wgan':
+        loss = -pred.mean() if target_is_real else pred.mean()
+        return loss * loss_weight
+    target = torch.ones_like(pred) if target_is_real \
+        else torch.zeros_like(pred)
+    if gan_type == 'vanilla':
+        loss = (pred.clamp_min(0) - pred * target
+                + torch.log1p(torch.exp(-pred.abs()))).mean()
+    elif gan_type == 'lsgan':
+        loss = ((pred - target) ** 2).mean()
+    else:
+        raise ValueError(gan_type)
+    return loss * loss_weight
+
+
+def mesh_joint_loss(pred_joints_3d, gt_joints_3d, joints_3d_visible,
+                    loss_weight=1.0, pelvis_ids=None):
+    """L1 joint loss of mesh training (reference mesh_loss.py
+    `joints_3d_loss` / `joints_2d_loss`); with `pelvis_ids` (the hips) both
+    poses are first centred on the hips' midpoint."""
+    pred, gt = pred_joints_3d, gt_joints_3d
+    if pelvis_ids is not None:
+        i, j = pelvis_ids
+        pred = pred - (pred[:, i:i + 1] + pred[:, j:j + 1]) / 2
+        gt = gt - (gt[:, i:i + 1] + gt[:, j:j + 1]) / 2
+    conf = joints_3d_visible[..., None]
+    return ((pred - gt).abs() * conf).mean() * loss_weight
+
+
+def smpl_param_loss(pred_params, gt_params, has_smpl, loss_weight=1.0):
+    """MSE over SMPL parameters on the samples that have them."""
+    return (((pred_params - gt_params) ** 2) * has_smpl[..., None]).mean() \
+        * loss_weight

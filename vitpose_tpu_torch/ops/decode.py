@@ -3,8 +3,9 @@
 Counterpart of vitpose_tpu/ops/decode.py: argmax, the default +-0.25
 shift, megvii's Gaussian modulation, DARK (unbiased) and UDP Newton
 refinement of GaussianHeatmap targets, the UDP CombinedTarget decode
-(`decode_combined_target`), the un-crop back to image space, and the
-DeepPose coordinates' (`keypoints_from_regression`).
+(`decode_combined_target`), the un-crop back to image space, the
+DeepPose coordinates' (`keypoints_from_regression`), and the argmax of 3D
+heatmap volumes (`heatmaps3d_to_coords`, InterHand3D's).
 
 cv2 compatibility, as in the JAX package:
   * `cv2.getGaussianKernel(k, 0)` uses a fixed table for k in {1, 3, 5, 7}
@@ -96,6 +97,20 @@ def heatmaps_to_coords(heatmaps):
     maxvals = flat.amax(dim=-1, keepdim=True)
     idx = flat.argmax(dim=-1)
     coords = torch.stack([(idx % w).float(), (idx // w).float()], dim=-1)
+    coords = torch.where(maxvals > 0.0, coords, -1.0)
+    return coords, maxvals
+
+
+def heatmaps3d_to_coords(heatmaps):
+    """Argmax decode of [N, K, D, H, W] volumes -> (coords [N, K, 3] as
+    (x, y, z), maxvals [N, K, 1]); -1 where maxval <= 0 (JAX
+    vitpose_tpu/ops/decode.py:315, reference top_down_eval.py:98)."""
+    n, k, d, h, w = heatmaps.shape
+    flat = heatmaps.reshape(n, k, d * h * w)
+    maxvals = flat.amax(dim=-1, keepdim=True)
+    idx = flat.argmax(dim=-1)
+    coords = torch.stack([(idx % w).float(), ((idx // w) % h).float(),
+                          (idx // (h * w)).float()], dim=-1)
     coords = torch.where(maxvals > 0.0, coords, -1.0)
     return coords, maxvals
 

@@ -9,6 +9,11 @@ Gaussians masked to the (6 sigma + 1)^2 paste window around the joint's
 rounded position, with the window anchor truncated toward zero as Python's
 int() does, and the joint's weight zeroed when the window misses the map.
 Joints are in input-image pixels; the sizes are (w, h).
+
+The 3D targets, `generate_3d_heatmaps` (InterHand3D's 2.5D volumes) and
+`generate_voxel_3d_targets` (VoxelPose's metric voxel Gaussians), are host
+numpy as in the JAX package (vitpose_tpu/ops/target.py:200-308): the
+loaders build them per record.
 """
 from __future__ import annotations
 
@@ -147,3 +152,93 @@ def generate_megvii_heatmaps(joints, visible, image_size, heatmap_size,
             *tyc.shape, 1, w)), -1, txc[..., None, None].long())[..., 0, 0]
     scale = torch.where(paint, 255.0 / peak.clamp_min(1e-20), 0.0)
     return blurred * scale[..., None, None], weight
+
+
+def generate_3d_heatmaps(joints_3d, visible, image_size, heatmap_size,
+                         depth_bound, sigma=2.0, max_bound=1.0,
+                         joint_indices=None, joint_weights=None):
+    """2.5D Gaussian volumes (reference pose3d_transform.py:470
+    `Generate3DHeatmapTarget`): joints_3d [K, 3] ((x, y) in input pixels, z
+    metric within +-depth_bound / 2), visible [K] or [K, 3]; image_size (w,
+    h), heatmap_size (W, H, D). Returns (target [K, D, H, W] f32, weight
+    [K, 1]). Each joint paints its (6 sigma + 1)^3 cube at coordinates
+    rounded then clipped per axis, as the outer product of three 1-D
+    Gaussians."""
+    import numpy as np
+    joints_3d = np.asarray(joints_3d, np.float32)
+    visible = np.asarray(visible, np.float32)
+    if visible.ndim == 2:
+        visible = visible[:, 0]
+    if joint_indices is not None:
+        joints_3d = joints_3d[joint_indices]
+        visible = visible[joint_indices]
+        if joint_weights is not None:
+            joint_weights = np.asarray(joint_weights)[joint_indices]
+    num_joints = joints_3d.shape[0]
+    W, H, D = (int(s) for s in heatmap_size)
+    mu_x = joints_3d[:, 0] * W / image_size[0]
+    mu_y = joints_3d[:, 1] * H / image_size[1]
+    mu_z = (joints_3d[:, 2] / depth_bound + 0.5) * D
+    weight = visible * (mu_z >= 0) * (mu_z < D)
+    if joint_weights is not None:
+        weight = weight * np.asarray(joint_weights, np.float32).reshape(-1)
+    weight = weight.astype(np.float32)[:, None]
+    tmp = 3 * sigma
+    offs = np.arange(2 * tmp + 1, dtype=np.float32) - tmp
+    target = np.zeros((num_joints, D, H, W), np.float32)
+    for k in range(num_joints):
+        xs = np.round(mu_x[k] + offs).clip(0, W - 1)
+        ys = np.round(mu_y[k] + offs).clip(0, H - 1)
+        zs = np.round(mu_z[k] + offs).clip(0, D - 1)
+        gx = np.exp(-(xs - mu_x[k]) ** 2 / (2 * sigma ** 2))
+        gy = np.exp(-(ys - mu_y[k]) ** 2 / (2 * sigma ** 2))
+        gz = np.exp(-(zs - mu_z[k]) ** 2 / (2 * sigma ** 2))
+        target[k, zs.astype(int)[:, None, None],
+               ys.astype(int)[None, :, None],
+               xs.astype(int)[None, None, :]] = (
+            gz[:, None, None] * gy[None, :, None] * gx[None, None, :])
+    return target * max_bound, weight
+
+
+def generate_voxel_3d_targets(joints_3d, visible, space_size, space_center,
+                              cube_size, sigma=200.0, joint_indices=None):
+    """Per-joint metric 3D Gaussians over a voxel grid (reference
+    pose3d_transform.py:559 `GenerateVoxel3DHeatmapTarget`): joints_3d
+    [P, K, 3] mm, visible [P, K] or [P, K, C]; the grid's size, centre and
+    resolution (`cube_size`) per axis (x, y, z). Returns [K', X, Y, Z] f32,
+    the max over people clipped to [0, 1]; one selected joint gives [X, Y,
+    Z]. Only the voxels within 3 sigma of a joint are painted."""
+    import numpy as np
+    joints_3d = np.asarray(joints_3d, np.float32)
+    visible = np.asarray(visible, np.float32)
+    if visible.ndim == 3:
+        visible = visible[..., 0]
+    num_people, num_joints = joints_3d.shape[:2]
+    idxs = list(range(num_joints)) if joint_indices is None \
+        else list(joint_indices)
+    grids = [np.linspace(-space_size[a] / 2, space_size[a] / 2,
+                         cube_size[a]) + space_center[a] for a in range(3)]
+    target = np.zeros((len(idxs),) + tuple(int(c) for c in cube_size),
+                      np.float32)
+    for n in range(num_people):
+        for out_k, k in enumerate(idxs):
+            if visible[n, k] < 1:
+                continue
+            mu = joints_3d[n, k]
+            lo = [np.searchsorted(grids[a], mu[a] - 3 * sigma)
+                  for a in range(3)]
+            hi = [np.searchsorted(grids[a], mu[a] + 3 * sigma, 'right')
+                  for a in range(3)]
+            if any(lo[a] >= hi[a] for a in range(3)):
+                continue
+            gs = [np.exp(-(grids[a][lo[a]:hi[a]] - mu[a]) ** 2
+                         / (2 * sigma ** 2)) for a in range(3)]
+            g = (gs[0][:, None, None] * gs[1][None, :, None]
+                 * gs[2][None, None, :])
+            sl = (out_k, slice(lo[0], hi[0]), slice(lo[1], hi[1]),
+                  slice(lo[2], hi[2]))
+            target[sl] = np.maximum(target[sl], g)
+    target = np.clip(target, 0, 1)
+    if target.shape[0] == 1:
+        target = target[0]
+    return target

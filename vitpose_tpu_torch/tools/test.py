@@ -18,8 +18,9 @@ backbone type as JAX's tools/test.py:250-256 routes it.
 
 A bottom-up config (family 'bottomup') is evaluated per image through the
 multi-scale test protocol (`run_bottomup_eval`, JAX tools/test.py:69); a
-PoseWarper config over PoseTrack18 frame windows and a pose-lifter config
-over H36M or MPI-INF-3DHP windows (`run_family_eval`, JAX
+PoseWarper config over PoseTrack18 frame windows, a pose-lifter config
+over H36M or MPI-INF-3DHP windows, an InterHand3D, mesh or VoxelPose config
+over its val set (`run_family_eval`, JAX
 tools/test.py:147-170; PoseWarper writes its per-video jsons to
 `--tmpdir`, as JAX's does). `--int8`, `--show-dir` and `--batch-size`
 (but PoseWarper's), which those paths do not read, raise there.
@@ -82,15 +83,15 @@ def _emit_stats(stats, args):
             json.dump({k: float(v) for k, v in stats.items()}, f)
 
 
-FAMILY_EVALS = ('bottomup', 'posewarper', 'pose_lifter')
+FAMILY_EVALS = ('bottomup', 'posewarper', 'pose_lifter', 'interhand3d',
+                'mesh', 'voxelpose')
 
 
 def _refuse_unported(cfg, args):
     family = cfg['model'].get('family', 'topdown')
     if family not in ('topdown',) + FAMILY_EVALS:
-        raise NotImplementedError(f'evaluation of the {family!r} family is '
-                                  'not ported yet (ROADMAP.md queue 1 '
-                                  'item 12f)')
+        raise KeyError(f'unknown model family {family!r}; expected one of '
+                       f"{('topdown',) + FAMILY_EVALS}")
     if family in FAMILY_EVALS:
         # options JAX's family paths never read (PoseWarper's takes the
         # batch size, and --tmpdir as its result folder)
@@ -191,21 +192,25 @@ def run_bottomup_eval(cfg, args, dev):
 
 
 def run_family_eval(cfg, args, dev):
-    """PoseWarper (PoseTrack18 mAP over frame windows with the flip test)
-    and the pose lifters (MPJPE, P-MPJPE, N-MPJPE; 3DPCK and 3DAUC on
-    MPI-INF-3DHP): eval/families.py, as JAX tools/test.py:147-170 runs
-    them, on a checkpoint that is the port's .pth, a reference .pth or
-    the JAX package's .npz."""
-    from ..eval.families import evaluate_pose_lifter, evaluate_posewarper
+    """PoseWarper (PoseTrack18 mAP over frame windows with the flip test),
+    the pose lifters (MPJPE, P-MPJPE, N-MPJPE; 3DPCK and 3DAUC on
+    MPI-INF-3DHP), InterHand3D (MPJPE, MRRPE, Handedness_acc), the mesh
+    (joint_error: MPJPE, MPJPE-PA) and VoxelPose (recall and MPJPE at 500
+    mm, mAP): eval/families.py, as JAX tools/test.py:147-170 runs them, on
+    a checkpoint that is the port's .pth, a reference .pth or the JAX
+    package's .npz."""
+    from ..eval import families
     model = build_model_from_cfg(cfg['model'])
     load_checkpoint(model, args.checkpoint)
     model = model.to(dev).eval()
-    if cfg['model']['family'] == 'posewarper':
-        stats = evaluate_posewarper(cfg, model, batch_size=args.batch_size,
-                                    res_folder=args.tmpdir,
-                                    metric=args.metric)
+    family = cfg['model']['family']
+    if family == 'posewarper':
+        stats = families.evaluate_posewarper(
+            cfg, model, batch_size=args.batch_size, res_folder=args.tmpdir,
+            metric=args.metric)
     else:
-        stats = evaluate_pose_lifter(cfg, model, metric=args.metric)
+        stats = getattr(families, f'evaluate_{family}')(
+            cfg, model, metric=args.metric)
     _emit_stats(stats, args)
     return stats
 

@@ -3,8 +3,8 @@ best weights, and the validation log.
 
 Counterpart of vitpose_tpu/train/interhand_loop.py:256-335
 (`_resume_loop_weights`, `_save_loop_outputs`, `_log_val_stats`,
-`_should_eval`, `_save_best_ckpt`), for the PoseWarper and pose-lifter
-loops (and the later family loops). These loops keep weights only: the
+`_should_eval`, `_save_best_ckpt`), for the PoseWarper, pose-lifter,
+InterHand3D, mesh and VoxelPose loops. These loops keep weights only: the
 work dir holds `final.pth` (the model's state dict under the mmpose names,
 BN statistics included, as the JAX loops' `final.npz` holds variables),
 `best.pth` where `save_best` names a metric, and `train.log.json` (one
@@ -23,11 +23,14 @@ import torch
 from ..utils.checkpoint import _LESS_IS_BETTER, _save
 
 
-def adam(params, base_lr, lr_of_count):
+def adam(params, base_lr, lr_of_count, weight_decay=0.0):
     """(optimizer, scheduler): Adam (torch's defaults are optax.adam's:
-    betas 0.9 / 0.999, eps 1e-8) over `params`, its learning rate
+    betas 0.9 / 0.999, eps 1e-8), AdamW where `weight_decay` is given
+    (optax.adamw's decoupled decay), over `params`, its learning rate
     lr_of_count(c) for the c-th update (from 0)."""
-    optimizer = torch.optim.Adam(params, lr=base_lr)
+    optimizer = (torch.optim.AdamW(params, lr=base_lr,
+                                   weight_decay=weight_decay)
+                 if weight_decay else torch.optim.Adam(params, lr=base_lr))
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda c: lr_of_count(c) / base_lr)
     return optimizer, scheduler

@@ -7,10 +7,10 @@ the classic, the ViPNAS, the DeepPose regression or a multi-stage head),
 `_log` (:33-45), `_pop_freeze_options` and the freezing
 of `_apply_freeze` (:67-81), `train_model` (the top-down ViT branch of
 :239-479), `train_model_moe` (:520-706, the ViTPose+ runner) and the
-`pretrained` / `load_from` merges (:330-353, :482-517), and the bottom-up,
-PoseWarper and pose-lifter branches of `build_family_model` (:160-219) and
-of `train_model` (:248-281, the runners in train/bottomup_loop.py,
-train/posewarper_loop.py and train/lifter_loop.py).
+`pretrained` / `load_from` merges (:330-353, :482-517), and every branch of
+`build_family_model` (:160-219: bottom-up, pose lifter, mesh, PoseWarper,
+InterHand3D, VoxelPose) and of `train_model` (:248-281, the runners in
+train/{bottomup,posewarper,lifter,interhand,mesh,voxelpose}_loop.py).
 
 One epoch of `train_model`: the host loader -> pinned staging -> the device
 crop and targets (`make_preprocess_fn`) -> the train step -> json-lines
@@ -24,8 +24,7 @@ set in one mixture of single-dataset batches, targets padded to
 per step, evaluation through expert 0 and the main head. The port runs
 both in this one loop, so the MoE run also gets what JAX's
 `train_model_moe` lacks: `load_from`, the preemption save and the
-`data_time` log. The mesh, interhand3d and VoxelPose families (ROADMAP
-item 12f), ZeRO-1 and TensorBoard are not ported yet and raise.
+`data_time` log. ZeRO-1 and TensorBoard are not ported and raise.
 """
 from __future__ import annotations
 
@@ -52,6 +51,8 @@ from ..models.lightweight import (Hourglass, HourglassAE, MobileNetV2,
                                   ShuffleNetV2)
 from ..models.more_cnns import (MobileNetV3, RegNet, ResNeSt, SCNet,
                                 ShuffleNetV1, ViPNASMobileNetV3, ViPNASResNet)
+from ..models.interhand3d import Interhand3DEstimator
+from ..models.mesh import build_parametric_mesh
 from ..models.multistage_nets import MSPN, RSN, LiteHRNet
 from ..models.pose3d import PoseLifter
 from ..models.posewarper import build_posewarper
@@ -59,6 +60,8 @@ from ..models.resnet import ResNet, ResNetV1d
 from ..models.resnext import ResNeXt, SEResNeXt
 from ..models.topdown import (GenericMultiStageTopDown, GenericTopDown,
                               TopDownConfig, TopDownModel, make_config)
+from ..models.vit import ViT, ViTConfig
+from ..models.voxelpose import DetectAndRegress
 from ..parallel.distributed import PreemptionGuard
 from ..utils.checkpoint import CheckpointManager
 from ..utils.torch_ckpt import (checkpoint_state_dict,
@@ -120,9 +123,8 @@ def _model_parts(mcfg: dict):
     mcfg = dict(mcfg)
     family = mcfg.pop('family', 'topdown')
     if family != 'topdown':
-        raise NotImplementedError(
-            f'model family {family!r} is not ported yet (ROADMAP.md queue 1 '
-            'item 12)')
+        raise ValueError(f'model family {family!r} has no top-down config: '
+                         'build it with build_model_from_cfg')
     backbone_type = mcfg.pop('backbone_type', 'vit')
     variant = mcfg.pop('variant', 'b')
     hw = tuple(mcfg.pop('img_size', (256, 192)))
@@ -145,8 +147,7 @@ def _model_parts(mcfg: dict):
 
 def topdown_config(mcfg: dict) -> TopDownConfig:
     """A config file's `model` dict -> TopDownConfig (`img_size` is (h, w)
-    there). Another `family`, or a backbone_type that is not ported,
-    raises."""
+    there). Another `family` raises."""
     return _model_parts(mcfg)[2]
 
 
@@ -163,13 +164,16 @@ def build_generic_topdown(backbone_type: str, bb_kwargs: dict,
 def build_family_model(family: str, mcfg: dict, generator=None):
     """The non-top-down families of a config's `model` dict (JAX
     vitpose_tpu/train/loop.py:160-219 `build_family_model`), weights drawn
-    from `generator`: 'posewarper' (models/posewarper.py) and 'pose_lifter'
+    from `generator`: 'posewarper' (models/posewarper.py), 'pose_lifter'
     (models/pose3d.py, whose 2D input has num_joints joints, one more with
-    `remove_root`), and 'bottomup': the backbone of
+    `remove_root`), 'mesh' (models/mesh.py ParametricMesh), 'interhand3d'
+    (models/interhand3d.py on `backbone_type`, default the ViT of
+    `backbone_overrides`), 'voxelpose' (models/voxelpose.py
+    DetectAndRegress), and 'bottomup': the backbone of
     `backbone_type` (default 'hrnet'), the AE head ('ae': AEHead,
     'ae_higher': AEHigherResolutionHead, 'ae_multi': Hourglass-AE's
     AEMultiStageHead, whose config sets its out_channels), the dataset's
-    metadata and the parser options. The other families raise."""
+    metadata and the parser options. Another family raises KeyError."""
     if family == 'posewarper':
         return build_posewarper(mcfg, build_backbone, generator)
     if family == 'pose_lifter':
@@ -181,10 +185,26 @@ def build_family_model(family: str, mcfg: dict, generator=None):
         return PoseLifter(num_joints=num_joints,
                           in_joints=num_joints + remove_root,
                           generator=generator, **mcfg)
+    if family == 'mesh':
+        return build_parametric_mesh(mcfg, build_backbone, generator)
+    if family == 'interhand3d':
+        mcfg = dict(mcfg)
+        mcfg.pop('family', None)
+        backbone_type = mcfg.pop('backbone_type', 'vit')
+        bb_over = dict(mcfg.pop('backbone_overrides', None) or {})
+        bb = (ViT(ViTConfig(**bb_over), generator) if backbone_type == 'vit'
+              else build_backbone(backbone_type, generator, **bb_over))
+        return Interhand3DEstimator(bb, backbone_type=backbone_type,
+                                    generator=generator, **mcfg)
+    if family == 'voxelpose':
+        mcfg = dict(mcfg)
+        for key in ('family', 'root_id', 'max_people_train'):
+            mcfg.pop(key, None)     # the loop's options
+        return DetectAndRegress(generator=generator, **mcfg)
     if family != 'bottomup':
-        raise NotImplementedError(
-            f'model family {family!r} is not ported yet (ROADMAP.md queue 1 '
-            'item 12f)')
+        raise KeyError(f'unknown model family {family!r}; expected '
+                       'topdown, bottomup, pose_lifter, mesh, posewarper, '
+                       'interhand3d or voxelpose')
     mcfg = dict(mcfg)
     backbone_type = mcfg.pop('backbone_type', 'hrnet')
     if backbone_type == 'vit':
@@ -215,8 +235,9 @@ def build_family_model(family: str, mcfg: dict, generator=None):
 def build_model_from_cfg(mcfg: dict, generator=None):
     """A config file's `model` dict -> TopDownModel (ViT), GenericTopDown
     or GenericMultiStageTopDown (CNN) or, for families 'bottomup',
-    'posewarper' and 'pose_lifter', BottomUpEstimator, PoseWarper and
-    PoseLifter, with random weights, drawn on the CPU from
+    'posewarper', 'pose_lifter', 'mesh', 'interhand3d' and 'voxelpose',
+    BottomUpEstimator, PoseWarper, PoseLifter, ParametricMesh,
+    Interhand3DEstimator and DetectAndRegress, with random weights, drawn on the CPU from
     `generator` (default: a torch.Generator seeded with 0, as in
     `init_pose_model`)."""
     if generator is None:
@@ -291,14 +312,15 @@ def load_from(model: TopDownModel, path):
     model.load_state_dict(keep, strict=False)
 
 
-PORTED_FAMILIES = ('topdown', 'bottomup', 'posewarper', 'pose_lifter')
+PORTED_FAMILIES = ('topdown', 'bottomup', 'posewarper', 'pose_lifter',
+                   'interhand3d', 'mesh', 'voxelpose')
 
 
 def _refuse_unported(cfg):
     family = cfg['model'].get('family', 'topdown')
     if family not in PORTED_FAMILIES:
-        raise NotImplementedError(f'training the {family!r} family is not '
-                                  'ported yet (ROADMAP.md queue 1 item 12f)')
+        raise KeyError(f'unknown model family {family!r}; expected one of '
+                       f'{PORTED_FAMILIES}')
     rt = cfg.get('runtime', {})
     if rt.get('zero1'):
         raise NotImplementedError('runtime.zero1 (sharded optimizer state '
@@ -419,6 +441,19 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
         return train_pose_lifter_model(cfg, work_dir=work_dir,
                                        resume=resume, max_steps=max_steps,
                                        device=device)
+    if family == 'interhand3d':
+        from .interhand_loop import train_interhand3d_model
+        return train_interhand3d_model(cfg, work_dir=work_dir,
+                                       resume=resume, max_steps=max_steps,
+                                       device=device)
+    if family == 'mesh':
+        from .mesh_loop import train_mesh_model
+        return train_mesh_model(cfg, work_dir=work_dir, resume=resume,
+                                max_steps=max_steps, device=device)
+    if family == 'voxelpose':
+        from .voxelpose_loop import train_voxelpose_model
+        return train_voxelpose_model(cfg, work_dir=work_dir, resume=resume,
+                                     max_steps=max_steps, device=device)
     dev = _device(device)
     rt = cfg.get('runtime', {})
     work_dir = work_dir or rt.get('work_dir', 'work_dir')

@@ -894,3 +894,130 @@ def pose_lifter_state_dict_from_flax(variables) -> dict:
         sd[head + 'conv.weight'] = _t(np.asarray(fc['kernel']).T[:, :, None])
         sd[head + 'conv.bias'] = _t(fc['bias'])
     return sd
+
+
+# --- the one-config families: JAX's family converters run backwards ---
+
+def _family_backbone(variables, backbone_type):
+    """The trunk of a family's {'backbone': {'params', 'batch_stats'}}
+    variables under 'backbone.': the ViT's names or a CNN's."""
+    bb = variables['backbone']
+    if backbone_type == 'vit':
+        return {f'backbone.{k}': v
+                for k, v in _backbone(bb['params']).items()}
+    return _cnn_backbone(bb.get('params', {}), bb.get('batch_stats', {}),
+                         backbone_type)
+
+
+def _dense(sd, name, p):
+    sd[f'{name}.weight'] = _t(np.asarray(p['kernel']).T)
+    sd[f'{name}.bias'] = _t(p['bias'])
+
+
+def interhand3d_state_dict_from_flax(variables, backbone_type='resnet'):
+    """flax Interhand3DEstimator variables ({'backbone', 'head'}, as JAX's
+    init and its loop's .npz hold them) -> the port's state dict: the
+    inverse of vitpose_tpu/utils/family_ckpt.py:158 (the `right_`/`left_`
+    Heatmap3DHead stacks -> `keypoint_head.{right,left}_hand_head`, or
+    JAX's fused stack `deconv_i`/`bn_i`/`hm3d` -> `keypoint_head.hand_head`;
+    `root_fc1/2` -> `root_head.fc.0/2`, `type_fc1/2` ->
+    `hand_type_head.fc.0/2`)."""
+    sd = _family_backbone(variables, backbone_type)
+    hp = variables['head']['params']
+    hs = variables['head'].get('batch_stats', {})
+    split = any(k.startswith('right_') for k in hp)
+    for prefix, name in ((('right_', 'right_hand_head'),
+                          ('left_', 'left_hand_head')) if split
+                         else (('', 'hand_head'),)):
+        sub = {k[len(prefix):]: v for k, v in hp.items()
+               if k.startswith(prefix)}
+        if not split:
+            sub['final'] = hp['hm3d']
+        stats = {k[len(prefix):]: v for k, v in hs.items()
+                 if k.startswith(prefix)}
+        sd.update({f'keypoint_head.{name}.{k}': v
+                   for k, v in _head(sub, stats).items()})
+    for flax_name, name in (('root_fc1', 'root_head.fc.0'),
+                            ('root_fc2', 'root_head.fc.2'),
+                            ('type_fc1', 'hand_type_head.fc.0'),
+                            ('type_fc2', 'hand_type_head.fc.2')):
+        _dense(sd, f'keypoint_head.{name}', hp[flax_name])
+    return sd
+
+
+def mesh_state_dict_from_flax(variables, backbone_type='resnet'):
+    """flax ParametricMesh variables ({'backbone', 'head'}; JAX's loop's
+    .npz holds {'gen': ..., 'disc': ...} and the generator is read) -> the
+    port's state dict: the inverse of vitpose_tpu/utils/family_ckpt.py:243
+    (`fc1`, `fc2`; the fused 'out' Dense split into `decpose`, `decshape`,
+    `deccam`; `mean_params` into the `init_pose`, `init_shape`, `init_cam`
+    buffers)."""
+    if 'gen' in variables:
+        variables = variables['gen']
+    sd = _family_backbone(variables, backbone_type)
+    hp = variables['head']['params']
+    for fc in ('fc1', 'fc2'):
+        _dense(sd, f'mesh_head.{fc}', hp[fc])
+    npar = np.asarray(hp['out']['bias']).shape[0]
+    bounds = {'decpose': (0, npar - 13), 'decshape': (npar - 13, npar - 3),
+              'deccam': (npar - 3, npar)}
+    for name, (a, b) in bounds.items():
+        _dense(sd, f'mesh_head.{name}', {
+            'kernel': np.asarray(hp['out']['kernel'])[:, a:b],
+            'bias': np.asarray(hp['out']['bias'])[a:b]})
+    mean = np.asarray(hp['mean_params'])
+    for name, (a, b) in zip(('init_pose', 'init_shape', 'init_cam'),
+                            bounds.values()):
+        sd[f'mesh_head.{name}'] = _t(mean[a:b][None])
+    return sd
+
+
+def _v2v(w):
+    """V2VNet (the inverse of vitpose_tpu/utils/family_ckpt.py:274
+    `_convert_v2v`): flax Conv [kd, kh, kw, in, out] -> Conv3d [out, in,
+    kd, kh, kw]; ConvTranspose [kd, kh, kw, out, in] -> ConvTranspose3d
+    [in, out, kd, kh, kw]."""
+    def conv3(tname, fpath):
+        p = w._node(w.params, fpath)
+        if p is None:
+            return
+        w.sd[f'{w.prefix}{tname}.weight'] = _t(
+            np.transpose(p['kernel'], (4, 3, 0, 1, 2)))
+        w.sd[f'{w.prefix}{tname}.bias'] = _t(p['bias'])
+
+    def res3d(tname, fname):
+        for i in (0, 1):
+            conv3(f'{tname}.res_branch.{i}.conv', f'{fname}/conv{i + 1}')
+            w.bn(f'{tname}.res_branch.{i}.bn', f'{fname}/bn{i + 1}')
+        conv3(f'{tname}.skip_con.conv', f'{fname}/skip_conv')
+        w.bn(f'{tname}.skip_con.bn', f'{fname}/skip_bn')
+
+    conv3('front_layers.0.block.conv', 'front_basic/conv')
+    w.bn('front_layers.0.block.bn', 'front_basic/bn')
+    res3d('front_layers.1', 'front_res')
+    for name in ('skip_res1', 'skip_res2', 'encoder_res1', 'encoder_res2',
+                 'mid_res', 'decoder_res1', 'decoder_res2'):
+        res3d(f'encoder_decoder.{name}', name)
+    for name in ('decoder_upsample1', 'decoder_upsample2'):
+        p = w._node(w.params, f'{name}/deconv')
+        t = f'{w.prefix}encoder_decoder.{name}.block.0.'
+        w.sd[t + 'weight'] = _t(np.transpose(p['kernel'], (4, 3, 0, 1, 2)))
+        w.sd[t + 'bias'] = _t(p['bias'])
+        w.bn(f'encoder_decoder.{name}.block.1', f'{name}/bn')
+    conv3('output_layer', 'output_layer')
+
+
+def voxelpose_state_dict_from_flax(variables):
+    """flax DetectAndRegress variables ({'center', 'pose'}, each
+    {'params': {'v2v'}, 'batch_stats': {'v2v'}}) -> the port's state dict
+    (`human_detector.center_net.*`, `pose_regressor.pose_net.*`, mmpose's
+    names): the inverse of vitpose_tpu/utils/family_ckpt.py:325."""
+    sd = {}
+    for flax_name, name in (('center', 'human_detector.center_net.'),
+                            ('pose', 'pose_regressor.pose_net.')):
+        v = variables[flax_name]
+        w = _Writer(v['params']['v2v'], v.get('batch_stats', {}).get(
+            'v2v', {}), name)
+        _v2v(w)
+        sd.update(w.sd)
+    return sd

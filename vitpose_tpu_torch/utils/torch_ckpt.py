@@ -32,9 +32,12 @@ import torch
 import torch.nn.functional as F
 
 from .convert import (bottomup_state_dict_from_flax,
-                      cnn_state_dict_from_flax, load_params_npz,
+                      cnn_state_dict_from_flax,
+                      interhand3d_state_dict_from_flax, load_params_npz,
+                      mesh_state_dict_from_flax,
                       pose_lifter_state_dict_from_flax,
-                      posewarper_state_dict_from_flax, state_dict_from_flax)
+                      posewarper_state_dict_from_flax, state_dict_from_flax,
+                      voxelpose_state_dict_from_flax)
 
 # the backbone entries the JAX package's `convert_backbone` carries
 # (vitpose_tpu/utils/torch_ckpt.py:182-226); the rest of an MAE checkpoint
@@ -70,8 +73,10 @@ def checkpoint_state_dict(checkpoint: str, backbone_cfg,
     `backbone_type`: an .npz written by the JAX package, or a .pth, adapted
     to a ViT backbone's geometry (a CNN's loads as it is: no position
     embedding to regrid). A bottom-up model's .npz (`family` 'bottomup')
-    holds JAX's {'backbone', 'head'} variables; a PoseWarper's
-    ('posewarper') and a pose lifter's ('pose_lifter') one tree of each."""
+    holds JAX's {'backbone', 'head'} variables, as an InterHand3D's
+    ('interhand3d') and a mesh's ('mesh'; its loop's {'gen', 'disc'}) do;
+    a PoseWarper's ('posewarper') and a pose lifter's ('pose_lifter') one
+    tree of each; a VoxelPose's ('voxelpose') {'center', 'pose'}."""
     if checkpoint.endswith('.npz'):
         variables = load_params_npz(checkpoint)
         if family == 'bottomup':
@@ -80,6 +85,12 @@ def checkpoint_state_dict(checkpoint: str, backbone_cfg,
             return posewarper_state_dict_from_flax(variables, backbone_type)
         if family == 'pose_lifter':
             return pose_lifter_state_dict_from_flax(variables)
+        if family == 'interhand3d':
+            return interhand3d_state_dict_from_flax(variables, backbone_type)
+        if family == 'mesh':
+            return mesh_state_dict_from_flax(variables, backbone_type)
+        if family == 'voxelpose':
+            return voxelpose_state_dict_from_flax(variables)
         if backbone_type == 'vit':
             return state_dict_from_flax(variables)
         return cnn_state_dict_from_flax(variables, backbone_type)
