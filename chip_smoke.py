@@ -343,15 +343,31 @@ no result:
             ResNet-50 trunk with a heatmap and a regression head (forward
             and one step); 0 K1 and K2 on every fam path
 
-Then the cnn, cnn_more, cnn_ms, bottomup, bottomup_ms, td_rest, vid3d and
-fam JSON lines (those phases' numbers),
+  dist      training across processes (vitpose_tpu_torch/parallel/, last):
+            init_distributed starts a world-1 NCCL group, and the
+            full-width ViTPose-B bf16 step at batch 64 runs with the
+            data-parallel hook and ZeRO-1 on a data group of that one
+            process (so that their all-reduce and broadcasts run): 12 K1 +
+            12 K2 launches, parameters and metrics equal to the plain
+            step's, its ms beside the plain step's in turns; meanwhile two
+            spawned ranks on the same card (gloo, CUDA tensors; NCCL takes
+            one rank a card) each step on half of each batch: ViTPose-B
+            with K1 + K2 and ZeRO-1 (the AdamW state split between them),
+            its gradients and losses against the one-process step, and
+            HRNet-W32 in float64 with its BN over both ranks, its
+            gradients and BN statistics against one process's (DIST_*
+            tolerances)
+
+Then the cnn, cnn_more, cnn_ms, bottomup, bottomup_ms, td_rest, vid3d, fam
+and dist JSON lines (those phases' numbers),
 the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, int8
 serve call, server request per mode, eval run, int8 eval run, train step,
 train-loop run, remat step, moe-train run, exported call, demo frame,
 webcam run, each CNN, cnn-more, cnn-ms, bottom-up, bu-ms, td-rest, video
-and 3D and fam phase (0), bottom-up demo frame and body3d demo frame; beside the kernels, the int8 product's launches per path and times, the server's latencies and the
+and 3D and fam phase (0), bottom-up demo frame and body3d demo frame, and
+the dist phase's world-1 and two-rank steps; beside the kernels, the int8 product's launches per path and times, the server's latencies and the
 int8 AP, the dispatcher's price, the exported program's times and the
 demos' and webcam's frames/s), the nvidia-smi card line and the result
 line.
@@ -7392,6 +7408,276 @@ def fam_launches(fam, key):
                                                        'apps')}
 
 
+# --- dist: training across processes (parallel/) -----------------------------
+
+DIST_BATCH = 64                       # the world-1 step: the COCO-B batch
+DIST_HR_BATCH = 8                     # HRNet-W32's float64 step, 4 a rank
+DIST_TIMED_STEPS = 3                  # timed steps per turn
+DIST_SAMPLES = 256                    # gradient elements compared per tensor
+# two bf16 ranks against one process: the per-sample work is the same, but
+# the GEMMs of half a batch may tile and sum in another order, and the
+# gradients of the halves are summed by the all-reduce: each gradient
+# tensor's norm and sampled elements within DIST_GRAD_RTOL of the tensor's
+# largest (eight bf16 steps; the first card run measured 0.0075, two), or
+# of DIST_GRAD_FLOOR of the largest of all, for gradients of rounding size;
+# the loss and grad_norm within DIST_LOSS_RTOL, acc_pose within
+# DIST_ACC_ATOL (an argmax tie may fall the other way)
+DIST_GRAD_RTOL = 2.0 ** -5
+DIST_GRAD_FLOOR = 1e-3
+DIST_LOSS_RTOL = 1e-3
+DIST_ACC_ATOL = 0.02
+# HRNet-W32 in float64 over two ranks (global BN) against one process
+DIST_F64_RTOL = 1e-8
+DIST_F64_FLOOR = 1e-6
+DIST_CHILD_TIMEOUT_S = 240
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def grad_summary(model):
+    """Per parameter with a gradient: (its norm, DIST_SAMPLES of its
+    elements at fixed positions), in float64 on the host."""
+    out = {}
+    for name, p in model.named_parameters():
+        g = p.grad.detach().reshape(-1).double()
+        idx = torch.linspace(0, g.numel() - 1, min(DIST_SAMPLES, g.numel()),
+                             device=g.device).long()
+        out[name] = (g.norm().item(), g[idx].cpu())
+    return out
+
+
+def compare_grads(what, got, want, rtol, floor):
+    """The largest difference of the per-tensor norms and sampled elements
+    of two grad_summary()s, relative to each tensor's largest sampled
+    element or `floor` times the largest of all; fails beyond `rtol`."""
+    top = max(sample.abs().max().item() for _, sample in want.values())
+    worst = (0.0, None)
+    for name, (norm, sample) in want.items():
+        n2, s2 = got[name]
+        scale = max(sample.abs().max().item(), floor * top, 1e-300)
+        err = max(abs(n2 - norm), (s2 - sample).abs().max().item()) / scale
+        check(err <= rtol, f'{what}: gradient of {name} {err:.3g} from one '
+              f'process (limit {rtol})')
+        worst = max(worst, (err, name))
+    return worst
+
+
+def dist_vit_step(layout=None, zero=False, batch_rows=None):
+    """One full-width ViTPose-B bf16 step (K1 + K2, drop_path 0.3, COCO-B
+    AdamW) from init_pose_model's seed on the seeded DIST_BATCH batch (this
+    rank's rows of it under `layout`), ZeRO-1 where `zero`: (state, step,
+    batch, metrics of the first step, its gradients' summary)."""
+    from vitpose_tpu_torch.parallel.mesh import (activate, average_metrics,
+                                                 shard_rows)
+    from vitpose_tpu_torch.parallel.zero import zero1
+    state, step, preprocess, info = train_setup(SERVE_CFG, 'cuda')
+    batch = preprocess(*train_inputs(0, DIST_BATCH, info, 'cuda'))
+    with activate(layout):
+        if zero:
+            zero1(state.optimizer)
+        if layout is not None:
+            batch = {k: v.contiguous() for k, v in shard_rows(batch).items()}
+        gen = torch.Generator(device='cuda').manual_seed(7)
+        m = average_metrics(step(state, batch, gen))
+    return (state, step, batch, {k: v.item() for k, v in m.items()},
+            grad_summary(state.model))
+
+
+def dist_hrnet_step(layout=None):
+    """One HRNet-W32 step in float64 (its config's model, BN after every
+    conv) on DIST_HR_BATCH seeded crops (this rank's rows under `layout`):
+    (metrics, gradients' summary, BN running statistics after it)."""
+    from vitpose_tpu_torch.data.dataset_info import DatasetInfo
+    from vitpose_tpu_torch.data.pipeline import make_preprocess_fn
+    from vitpose_tpu_torch.parallel.mesh import (activate, average_metrics,
+                                                 shard_rows)
+    from vitpose_tpu_torch.train.loop import build_train_state
+    from vitpose_tpu_torch.train.step import make_train_step
+    from vitpose_tpu_torch.utils.config import load_config
+    cfg = load_config(HRNET_CFG)
+    cfg['model'] = cnn_model_dict(HRNET_CFG, 'float64')
+    state = build_train_state(cfg, STEPS_PER_EPOCH, 'cuda')
+    state.model.double()
+    batch = make_preprocess_fn(cfg['data']['image_size'],
+                               cfg['data']['heatmap_size'], use_udp=False)(
+        *train_inputs(1, DIST_HR_BATCH, DatasetInfo.load('coco'), 'cuda'))
+    batch = {k: v.double() if v.is_floating_point() else v
+             for k, v in batch.items()}
+    with activate(layout):
+        if layout is not None:
+            batch = {k: v.contiguous() for k, v in shard_rows(batch).items()}
+        m = average_metrics(make_train_step(state.model)(
+            state, batch, torch.Generator(device='cuda')))
+    stats = {n: b.detach().cpu() for n, b in state.model.named_buffers()
+             if 'running' in n}
+    return ({k: v.item() for k, v in m.items()},
+            grad_summary(state.model), stats)
+
+
+def dist_child(rank, root):
+    """One of the two ranks of phase_dist on the one card: a gloo group over
+    a file store in `root` (NCCL takes one rank a card), CUDA tensors; the
+    ViTPose-B step with ZeRO-1 and the HRNet-W32 float64 step on this rank's
+    half of each batch; results to root/rank<r>.pt."""
+    import datetime
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.parallel import init_distributed, make_mesh
+    init_distributed(device='cpu', backend='gloo',
+                     init_method='file://' + os.path.join(root, 'store'),
+                     rank=rank, world_size=2,
+                     timeout=datetime.timedelta(
+                         seconds=DIST_CHILD_TIMEOUT_S))
+    layout = make_mesh(n_data=2)
+    reset_counts()
+    state, _, _, vit_m, vit_g = dist_vit_step(layout, zero=True)
+    launches = (fused_attention.launches, fused_attention_bwd.launches)
+    owned = len(state.optimizer.state)
+    del state
+    torch.cuda.empty_cache()
+    hr = dist_hrnet_step(layout)
+    torch.save(dict(vit=(vit_m, vit_g), launches=launches, owned=owned,
+                    hrnet=hr), os.path.join(root, f'rank{rank}.pt'))
+    torch.distributed.destroy_process_group()
+
+
+def timed_turns(runs, steps=DIST_TIMED_STEPS):
+    """Median ms per step of each named run() in turns (a, b, b, a)."""
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def phase_dist(card):
+    """World 1 over NCCL (init_distributed; the runner's data-parallel hook
+    and ZeRO-1 on a data group of one process, so that their collectives
+    run) against the plain step; then two gloo ranks on the one card,
+    each on half of each batch, against one process."""
+    import multiprocessing
+    import shutil
+    import torch.distributed as dist
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    from vitpose_tpu_torch.parallel import init_distributed
+    from vitpose_tpu_torch.parallel.mesh import Layout, activate
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix='dist')
+    ctx = multiprocessing.get_context('spawn')
+    # the two ranks start first: they take seconds to reach the card
+    kids = [ctx.Process(target=dist_child, args=(r, root), daemon=True)
+            for r in range(2)]
+    for k in kids:
+        k.start()
+    try:
+        rank, world = init_distributed(
+            device='cuda', init_method=f'tcp://127.0.0.1:{free_port()}',
+            rank=0, world_size=1)
+        check((rank, world, dist.get_backend()) == (0, 1, 'nccl'),
+              f'init_distributed gave {rank, world, dist.get_backend()}')
+        layout = Layout(groups={'data': dist.group.WORLD})
+        plain, p_step, p_batch, p_m, p_g = dist_vit_step()
+        reset_counts()
+        dp, d_step, d_batch, d_m, d_g = dist_vit_step(layout, zero=True)
+        launches = (fused_attention.launches, fused_attention_bwd.launches)
+        check(launches == (12, 12), f'the world-1 data-parallel step '
+              f'launched K1, K2 {launches} times, expected 12 each')
+        check(hasattr(dp.optimizer, 'vtp_zero'), 'ZeRO-1 did not split')
+        diff = max((a - b).abs().max().item() for a, b in
+                   zip(plain.model.parameters(), dp.model.parameters()))
+        check(diff == 0.0, f'world-1 data-parallel step: parameters '
+              f'{diff:.3g} from the plain step')
+        check(p_m == d_m, f'world-1 metrics {d_m} != plain {p_m}')
+        gen = torch.Generator(device='cuda')
+
+        def run_dp():
+            with activate(layout):
+                d_step(dp, d_batch, gen)
+        ms = timed_turns({'plain': lambda: p_step(plain, p_batch, gen),
+                          'dp': run_dp})
+        del plain, dp
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        hr_one = dist_hrnet_step()
+        deadline = time.perf_counter() + DIST_CHILD_TIMEOUT_S
+        for k in kids:
+            k.join(max(deadline - time.perf_counter(), 1))
+        codes = [k.exitcode for k in kids]
+        check(codes == [0, 0], f'the two gloo ranks on the card exited '
+              f'with {codes}')
+        r0, r1 = (torch.load(os.path.join(root, f'rank{r}.pt'),
+                             weights_only=False) for r in range(2))
+    finally:
+        for k in kids:
+            if k.is_alive():
+                k.terminate()
+                k.join()
+        shutil.rmtree(root, ignore_errors=True)
+    for r in (r0, r1):
+        check(r['launches'] == (12, 12), f'a rank launched K1, K2 '
+              f'{r["launches"]} times in its step, expected 12 each')
+    n_params = len(p_g)
+    check(0 < r0['owned'] < n_params and r0['owned'] + r1['owned']
+          == n_params, f'ZeRO-1 state split {r0["owned"]} + '
+          f'{r1["owned"]} of {n_params}')
+    vit_m, vit_g = r0['vit']
+    for k, v in p_m.items():
+        tol = (DIST_ACC_ATOL if k == 'acc_pose'
+               else DIST_LOSS_RTOL * abs(v))
+        check(abs(vit_m[k] - v) <= tol, f'two ranks {k} {vit_m[k]} against '
+              f'one process {v}')
+    vit_err = compare_grads('two ranks ViTPose-B', vit_g, p_g,
+                            DIST_GRAD_RTOL, DIST_GRAD_FLOOR)
+    hr_m, hr_g, hr_stats = r0['hrnet']
+    for k, v in hr_one[0].items():
+        tol = (DIST_ACC_ATOL if k == 'acc_pose'
+               else DIST_F64_RTOL * abs(v) + 1e-12)
+        check(abs(hr_m[k] - v) <= tol, f'two ranks HRNet-W32 {k} {hr_m[k]} '
+              f'against one process {v}')
+    hr_err = compare_grads('two ranks HRNet-W32 f64', hr_g, hr_one[1],
+                           DIST_F64_RTOL, DIST_F64_FLOOR)
+    stat_err = max(((hr_stats[n] - s).abs().max()
+                    / s.abs().max().clamp_min(1e-30)).item()
+                   for n, s in hr_one[2].items())
+    check(stat_err <= DIST_F64_RTOL, f'two ranks HRNet-W32 BN statistics '
+          f'{stat_err:.3g} from one process')
+    wall = time.perf_counter() - t_phase
+    print(f'dist: world 1 over NCCL (init_distributed), ViTPose-B 256x192 '
+          f'bf16 batch {DIST_BATCH} with the data-parallel hook and ZeRO-1 '
+          f'on: {launches[0]} K1 + {launches[1]} K2 launches a step, '
+          f'parameters equal to the plain step\'s; step {ms["dp"]:.1f} ms '
+          f'beside the plain step\'s {ms["plain"]:.1f} ms on {card}',
+          flush=True)
+    print(f'dist: two gloo ranks on the one card, CUDA tensors, half of '
+          f'each batch a rank: ViTPose-B (K1 + K2, ZeRO-1: '
+          f'{r0["owned"]} + {r1["owned"]} of {n_params} tensors\' AdamW '
+          f'state) gradients within {vit_err[0]:.3g} of one process (limit '
+          f'{DIST_GRAD_RTOL:.3g}; the farthest {vit_err[1]}), losses within '
+          f'{DIST_LOSS_RTOL}; HRNet-W32 float64, BN over both ranks: '
+          f'gradients within {hr_err[0]:.3g}, BN statistics within '
+          f'{stat_err:.3g} (limit {DIST_F64_RTOL}); phase {wall:.1f} s',
+          flush=True)
+    return {'world1': {'k1': launches[0], 'k2': launches[1],
+                       'step_ms': ms['dp'], 'plain_step_ms': ms['plain']},
+            'two_ranks': {'vit_grad_err': vit_err[0],
+                          'vit_grad_farthest': vit_err[1],
+                          'hrnet_grad_err': hr_err[0],
+                          'hrnet_bn_err': stat_err,
+                          'zero1_owned': [r0['owned'], r1['owned']],
+                          'k1': r0['launches'][0], 'k2': r0['launches'][1]},
+            'wall_s': wall}
+
+
 def kernel_name(mangled):
     """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
     anonymous namespace; the mangled name where it is not one."""
@@ -7547,6 +7833,8 @@ def main():
         lap('vid3d')
         fam = run_fam_phases(card, fam_refs)
         lap('fam')
+        dist = phase_dist(card)
+        lap('dist')
         print('phases: wall s ' + ', '.join(
             f'{name} {t - laps[i][1]:.1f}'
             for i, (name, t) in enumerate(laps[1:]))
@@ -7592,7 +7880,10 @@ def main():
                                   **bu_ms_launches(bu_ms, 'k1'),
                                   **td_rest_launches(td_rest, 'k1'),
                                   **vid3d_launches(vid3d, 'k1'),
-                                  **fam_launches(fam, 'k1')},
+                                  **fam_launches(fam, 'k1'),
+                                  'dist_world1_step': dist['world1']['k1'],
+                                  'dist_two_ranks_step':
+                                      dist['two_ranks']['k1']},
                 'attention_bwd': {'serve': 0, 'eval': 0, 'export': 0,
                                   'demos_per_frame': 0, 'webcam': 0,
                                   'train': train_launches[1],
@@ -7609,7 +7900,10 @@ def main():
                                   **bu_ms_launches(bu_ms, 'k2'),
                                   **td_rest_launches(td_rest, 'k2'),
                                   **vid3d_launches(vid3d, 'k2'),
-                                  **fam_launches(fam, 'k2')}}
+                                  **fam_launches(fam, 'k2'),
+                                  'dist_world1_step': dist['world1']['k2'],
+                                  'dist_two_ranks_step':
+                                      dist['two_ranks']['k2']}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({
@@ -7645,6 +7939,7 @@ def main():
     print(json.dumps({'td_rest': td_rest}))
     print(json.dumps({'vid3d': vid3d}))
     print(json.dumps({'fam': fam}))
+    print(json.dumps({'dist': dist}))
     print(json.dumps({'kernels': kernels, 'int8_matmul': int8_matmul,
                       'deploy_latency_ms': {
                           m: r['latency_ms'] for m, r in deploy.items()},

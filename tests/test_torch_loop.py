@@ -383,11 +383,21 @@ def test_cli_refuses_unported(fixture, tmp_path, monkeypatch, case):
                  f"'{fixture['train']['ann']}', 'img_prefix': "
                  f"'{fixture['train']['prefix']}'}}]",
                  "data.aug.albumentations=[{'type': 'Blur'}]"]
+    elif case == 'zero1':
+        # trains since item 11: at world 1 ZeRO-1 leaves the optimizer
+        # whole, as JAX's shard_state does for n_data <= 1
+        state = cli.main(args + fixture['options']
+                         + ['runtime.zero1=True', '--max-steps', '1'])
+        assert state.step == 1
+        assert not hasattr(state.optimizer, 'vtp_zero')
+        assert len(state.optimizer.state) == sum(
+            len(g['params']) for g in state.optimizer.param_groups)
+        return
     else:
         args.append(f'runtime.{case}=True')
     item = {'cuda': 'CUDA is not available',
             'family': 'unknown model family', 'moe': 'Not queued',
-            'zero1': 'item 11', 'tensorboard': 'Not queued'}
+            'tensorboard': 'Not queued'}
     with pytest.raises((NotImplementedError, RuntimeError, KeyError),
                        match=item[case]):
         cli.main(args)

@@ -1,8 +1,9 @@
 """User-facing API of the port: the JAX package's top-down, bottom-up and
 pose-lifting surface (vitpose_tpu/api/__init__.py, the reference `mmpose.apis` exports).
-`run_validation` is the single-process `single_gpu_test` counterpart
-(eval/loop.py); `train_model` lives in train/loop.py."""
-from ..eval.loop import run_validation
+`run_validation` is the single-process `single_gpu_test` counterpart and
+`collect_results` gathers its results over processes (eval/loop.py);
+`train_model` lives in train/loop.py."""
+from ..eval.loop import collect_results, run_validation
 from ..parallel.distributed import init_random_seed
 from ..train.loop import train_model
 from .inference import (PoseModel, imshow_bboxes,
@@ -21,5 +22,5 @@ __all__ = [
     'run_validation', 'vis_pose_result', 'get_track_id',
     'vis_pose_tracking_result', 'process_mmdet_results', 'init_random_seed',
     'extract_pose_sequence', 'inference_pose_lifter_model',
-    'vis_3d_pose_result',
+    'vis_3d_pose_result', 'collect_results',
 ]

@@ -155,3 +155,34 @@ def run_validation(model: TopDownModel, loader, use_udp=True,
         results.append(_results_of(in_flight[0], *(
             t.cpu().numpy() for t in in_flight[1])))
     return results
+
+
+def collect_results(results, tmpdir):
+    """Gather every process's result list onto rank 0 (JAX eval/loop.py:191
+    `collect_results`; the reference's `collect_results_cpu`,
+    mmpose/apis/test.py:119): each rank pickles its part into `tmpdir`
+    (on a filesystem every process sees), a barrier, rank 0 merges the
+    parts in rank order and removes the folder, a second barrier so that no
+    writer exits before rank 0 has read its part. Returns the merged list
+    on rank 0 and None elsewhere; in one process, `results` unchanged."""
+    import os
+    import pickle
+    import shutil
+
+    from ..parallel.distributed import barrier, rank_and_world
+    rank, world = rank_and_world()
+    if world == 1:
+        return results
+    os.makedirs(tmpdir, exist_ok=True)
+    with open(os.path.join(tmpdir, f'part_{rank}.pkl'), 'wb') as f:
+        pickle.dump(results, f)
+    barrier()
+    merged = None
+    if rank == 0:
+        merged = []
+        for r in range(world):
+            with open(os.path.join(tmpdir, f'part_{r}.pkl'), 'rb') as f:
+                merged.extend(pickle.load(f))
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    barrier()
+    return merged

@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_sum, axis_group
 from .vit import at_least_f32, compute_dtype, normal_
 
 FLAX_BN_MOMENTUM = 0.9
@@ -157,12 +158,25 @@ def conv(layer: nn.Conv2d, x, dtype):
 def batch_norm(bn: nn.BatchNorm2d, x):
     """`bn` on f32 NCHW `x` with flax semantics: running statistics in eval
     mode; in training mode batch statistics, and the running ones updated
-    in place with the biased variance."""
+    in place with the biased variance. Under an active data axis
+    (parallel/mesh.py) the batch statistics are the global batch's."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
-    mean = x.mean((0, 2, 3))
-    var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+    group, n, _ = axis_group('data')
+    if group is None:
+        mean = x.mean((0, 2, 3))
+        var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+    else:
+        # the global batch's moments (JAX's sync-BN under the data mesh,
+        # vitpose_tpu/models/heads.py:15-23): the sums over every data
+        # rank's rows, their gradients summed back in the backward
+        c = x.shape[1]
+        sums = all_reduce_sum(torch.cat([x.sum((0, 2, 3)),
+                                         (x * x).sum((0, 2, 3))]), group)
+        count = x.numel() // c * n
+        mean = sums[:c] / count
+        var = torch.clamp(sums[c:] / count - mean * mean, min=0.0)
     with torch.no_grad():
         m = FLAX_BN_MOMENTUM
         bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)

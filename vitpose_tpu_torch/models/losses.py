@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from ..parallel.mesh import global_batch_mean
+
 
 def joints_mse_loss(pred, target, target_weight=None, loss_weight=1.0):
     """Weighted per-joint MSE over [N, K, H, W] heatmaps, target_weight
@@ -199,7 +201,9 @@ def bone_loss(pred, target, joint_parents, target_weight=None,
     if target_weight is not None:
         bone_pred = bone_pred * target_weight
         bone_gt = bone_gt * target_weight
-    return (bone_pred.mean(0) - bone_gt.mean(0)).abs().mean() * loss_weight
+    # the global batch's means under a data axis (parallel/mesh.py)
+    return (global_batch_mean(bone_pred) - global_batch_mean(bone_gt)
+            ).abs().mean() * loss_weight
 
 
 def project_joints(x, intrinsics):

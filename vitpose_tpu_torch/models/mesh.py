@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import reduce_gradients
 from .losses import gan_loss, mesh_joint_loss
 from .resnet import init_cnn
 from .vit import ViT, compute_dtype, linear
@@ -243,10 +244,12 @@ class ParametricMesh(nn.Module):
 
 def _grads_to(loss, params):
     """`loss`'s gradient into each parameter's `.grad` (zeros where it does
-    not reach), leaving every other tensor's `.grad` untouched."""
+    not reach), leaving every other tensor's `.grad` untouched; averaged
+    over the data ranks where there is a data axis (parallel/mesh.py)."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
+    reduce_gradients(params)
 
 
 def adversarial_step(mesh, disc, gen_opt, disc_opt, batch, w_joint2d=1.0,

@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import draw_rows
 from .heads import batch_norm
 from .vit import at_least_f32, compute_dtype, normal_
 
@@ -34,14 +35,16 @@ from .vit import at_least_f32, compute_dtype, normal_
 def dropout(x, p, generator):
     """flax nn.Dropout in training: keep with probability 1 - p, scaled by
     1 / (1 - p); the mask drawn from `generator` (a torch.Generator on x's
-    device)."""
+    device); under a data axis this rank's rows of the global batch's mask
+    (parallel/mesh.py `draw_rows`)."""
     if p <= 0:
         return x
     if generator is None:
         raise ValueError('dropout in training draws from a torch.Generator: '
                          'pass one (forward(..., generator=g))')
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < 1.0 - p
+    keep = draw_rows(lambda s: torch.rand(s, generator=generator,
+                                          device=x.device, dtype=x.dtype),
+                     x.shape) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

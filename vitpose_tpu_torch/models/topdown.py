@@ -100,10 +100,9 @@ class TopDownModel(nn.Module):
                                             cfg.upsample, dtype=dtype,
                                             generator=generator)
         else:
-            raise NotImplementedError(
-                f'head_type {cfg.head_type!r}: only the classic deconv head '
-                "and the simple decoder are ported (ROADMAP.md queue 1 "
-                'item 12)')
+            # a ViT takes the classic deconv head or the simple decoder;
+            # JAX raises ValueError(head_type) for any other
+            raise ValueError(cfg.head_type)
         self.associate_keypoint_heads = nn.ModuleList([
             HeatmapHead(d, ch, cfg.deconv_filters, cfg.deconv_kernels,
                         cfg.final_kernel, dtype, generator)

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.attention import attention, keep_outputs, keeping
+from ..parallel.mesh import copy_to_group, draw_rows, reduce_from_group
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
            'float16': torch.float16, 'float64': torch.float64}
@@ -201,7 +202,10 @@ class DropPath(nn.Module):
     In training the mask is drawn from `generator`, a torch.Generator on the
     activations' device (the JAX module's 'droppath' rng), never from torch's
     global generator. `draw` and `drop` split the two halves, so that a
-    caller can draw the masks before a checkpointed region (ViT.forward)."""
+    caller can draw the masks before a checkpointed region (ViT.forward).
+    Under a data axis each rank draws the global batch's masks and keeps
+    its rows (parallel/mesh.py `draw_rows`), so n ranks drop what one
+    process drops over the whole batch."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -216,8 +220,10 @@ class DropPath(nn.Module):
             raise ValueError('DropPath in training mode needs a '
                              'torch.Generator on the activations\' device')
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        return torch.rand(shape, device=x.device,
-                          generator=generator) < 1.0 - self.rate
+        # under a data axis, this rank's rows of the global batch's masks
+        return draw_rows(lambda s: torch.rand(s, device=x.device,
+                                              generator=generator),
+                         shape) < 1.0 - self.rate
 
     def drop(self, x, mask):
         if mask is None:
@@ -232,7 +238,12 @@ class DropPath(nn.Module):
 class Mlp(nn.Module):
     """fc1, GELU, fc2; with `int8`, both products W8A8 (`Int8Linear`) at
     the static scales `act_scales[:2]` (fc1_in, fc2_in), or per token where
-    they are None."""
+    they are None.
+
+    Split over a model axis (parallel/mesh.py `shard_params` sets `shard`):
+    fc1 holds this rank's rows of the hidden dimension and fc2 its columns,
+    and the partial products are all-reduced before fc2's bias is added
+    once (Megatron's tensor parallelism, JAX `_tp_spec`)."""
 
     def __init__(self, dim, hidden_dim, gelu_approx=False, int8=False,
                  act_scales=None):
@@ -241,11 +252,16 @@ class Mlp(nn.Module):
         self.fc1 = _dense(dim, hidden_dim, int8, a1)
         self.fc2 = _dense(hidden_dim, dim, int8, a2)
         self.gelu_approx = gelu_approx
+        self.shard = None
 
     def forward(self, x, dtype):
-        x = self.fc1(x, dtype)
+        tp = self.shard.model_group if self.shard is not None else None
+        x = self.fc1(copy_to_group(x, tp), dtype)
         x = F.gelu(x, approximate='tanh' if self.gelu_approx else 'none')
-        return self.fc2(x, dtype)
+        if tp is None:
+            return self.fc2(x, dtype)
+        y = reduce_from_group(F.linear(x, self.fc2.weight.to(dtype)), tp)
+        return y + self.fc2.bias.to(dtype)
 
 
 def expert_routing(expert_idx, n, num_experts, device):
@@ -293,6 +309,15 @@ class MoEMlp(nn.Module):
     The expert product is one matmul per expert that the batch holds,
     over that expert's rows (`expert_routing`), not JAX's one-hot einsum,
     which builds per-sample [hidden, part] weights.
+
+    Split over the expert and model axes (parallel/mesh.py `shard_params`
+    sets `shard`): a rank holds E / n_expert experts, from
+    `shard.expert_offset`, and its block of their hidden dimension; it
+    contracts its slice of the samples' one-hot with them (JAX's einsum:
+    zeros for the rows of other ranks' experts), the partial products are
+    all-reduced over the model group, its experts' biases are added, and
+    the parts are all-reduced over the expert group, whose ranks see the
+    same rows. fc1 and fc2 split as Mlp's do.
     """
 
     def __init__(self, dim, hidden_dim, num_experts, part_dim,
@@ -305,10 +330,13 @@ class MoEMlp(nn.Module):
             torch.zeros(num_experts, part_dim, hidden_dim))
         self.expert_bias = nn.Parameter(torch.zeros(num_experts, part_dim))
         self.gelu_approx = gelu_approx
+        self.shard = None
         self.register_state_dict_post_hook(_experts_to_mmpose)
         self.register_load_state_dict_pre_hook(_experts_from_mmpose)
 
     def forward(self, x, dtype, route):
+        if self.shard is not None:
+            return self._split_forward(x, dtype, route)
         h = self.fc1(x, dtype)
         h = F.gelu(h, approximate='tanh' if self.gelu_approx else 'none')
         shared = self.fc2(h, dtype)
@@ -319,6 +347,35 @@ class MoEMlp(nn.Module):
             part = h.new_empty(h.shape[:-1] + (self.part_dim,))
             for e, rows in route:
                 part[rows] = F.linear(h[rows], w[e], b[e])
+        return torch.cat([shared, part], dim=-1)
+
+    def _split_forward(self, x, dtype, route):
+        s = self.shard
+        tp, ep = s.model_group, s.expert_group
+        h = self.fc1(copy_to_group(x, tp), dtype)
+        h = F.gelu(h, approximate='tanh' if self.gelu_approx else 'none')
+        shared = F.linear(h, self.fc2.weight.to(dtype))
+        if tp is None:
+            shared = shared + self.fc2.bias.to(dtype)
+        w, b = self.expert_weight.to(dtype), self.expert_bias.to(dtype)
+        # this rank's slice of the samples' one-hot over the experts: every
+        # rank contracts every row with its experts (JAX's einsum), so the
+        # collectives of the backward run on each rank whatever the batch
+        lo, n_local = s.expert_offset, w.shape[0]
+        onehot = h.new_zeros(h.shape[0], n_local)
+        for e, rows in ([(route, None)] if isinstance(route, int)
+                        else route):
+            if lo <= e < lo + n_local:
+                onehot[slice(None) if rows is None else rows, e - lo] = 1
+        part = torch.einsum('n...h,eph,ne->n...p', copy_to_group(h, ep), w,
+                            onehot)
+        if tp is not None:
+            out = reduce_from_group(torch.cat([shared, part], dim=-1), tp)
+            shared, part = out.split([shared.shape[-1], self.part_dim], -1)
+            shared = shared + self.fc2.bias.to(dtype)
+        bias = (onehot @ b).reshape((h.shape[0],) + (1,) * (h.ndim - 2)
+                                    + (self.part_dim,))
+        part = reduce_from_group(part + bias, ep)
         return torch.cat([shared, part], dim=-1)
 
 

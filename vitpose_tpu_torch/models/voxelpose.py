@@ -34,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import data_sum
 from .heads import batch_norm
 from .vit import at_least_f32, normal_
 
@@ -440,7 +441,10 @@ class DetectAndRegress(nn.Module):
                                grids.flatten(0, 1))
         joints = joints.reshape(g, p, self.num_joints, 3)
         w = cand_mask[..., None, None] * gt_vis[..., None]
-        pose_abs = ((joints - gt_joints) * w).abs().sum()
-        pose_cnt = cand_mask.sum() * self.num_joints * 3
+        # under a data axis the sum and the count are the global batch's
+        # (parallel/mesh.py `data_sum`): a mean of per-rank ratios would be
+        # another loss
+        pose_abs = data_sum(((joints - gt_joints) * w).abs().sum())
+        pose_cnt = data_sum(cand_mask.sum()) * self.num_joints * 3
         return dict(loss_center=loss_center,
                     loss_pose=pose_abs / pose_cnt.clamp_min(1.0))

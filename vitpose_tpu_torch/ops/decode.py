@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import data_sum
 from .geometry import transform_preds
 
 _CV2_SMALL_GAUSSIAN = {
@@ -282,7 +283,9 @@ def regression_pck_accuracy(output, target, target_weight, thr=0.05):
     normalisation, vitpose_tpu/train/step.py:122-127)."""
     vis = target_weight[..., 0] > 0
     hits = ((output - target).norm(dim=-1) < thr) & vis
-    return hits.sum() / vis.sum().clamp(min=1)
+    # the global batch's counts under a data axis (parallel/mesh.py)
+    hits, cnt = data_sum(torch.stack([hits.sum(), vis.sum()]).float())
+    return hits / cnt.clamp(min=1)
 
 
 def pose_pck_accuracy(output, target, mask, thr=0.05):
@@ -301,9 +304,12 @@ def pose_pck_accuracy(output, target, mask, thr=0.05):
     dist = torch.sqrt((d[..., 0] / h) ** 2 + (d[..., 1] / w) ** 2)
     valid = mask.bool()
     hit = (dist < thr) & valid
-    per_kpt_valid = valid.sum(0)
+    # per joint, the global batch's counts under a data axis
+    # (parallel/mesh.py)
+    hits, per_kpt_valid = data_sum(
+        torch.stack([hit.sum(0), valid.sum(0)])).unbind(0)
     per_kpt_acc = torch.where(
-        per_kpt_valid > 0, hit.sum(0) / per_kpt_valid.clamp(min=1), -1.0)
+        per_kpt_valid > 0, hits / per_kpt_valid.clamp(min=1), -1.0)
     has_valid = per_kpt_acc >= 0
     cnt = has_valid.sum()
     avg = torch.where(cnt > 0, torch.where(has_valid, per_kpt_acc, 0.0).sum()

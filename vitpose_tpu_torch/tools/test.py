@@ -25,6 +25,16 @@ tools/test.py:147-170; PoseWarper writes its per-video jsons to
 `--tmpdir`, as JAX's does). `--int8`, `--show-dir` and `--batch-size`
 (but PoseWarper's), which those paths do not read, raise there.
 
+Across processes (`python -m torch.distributed.run --nproc-per-node N -m
+vitpose_tpu_torch.tools.test ...`, or SLURM; `init_distributed` reads the
+launcher's environment) a top-down evaluation shards the val set by rank
+(the loader's wrap-around padding repeats a few boxes, which the COCO
+scoring drops by bbox id), each rank pickles its results into `--tmpdir`
+(default `.eval_gather_tmp` beside `--out`), rank 0 merges and scores them
+and the other ranks return None (`eval.loop.collect_results`, JAX
+tools/test.py:274-290). The family evaluations run whole in every
+process, as JAX's do; rank 0 prints and writes the stats.
+
 `--int8` evaluates the int8 serving path, as JAX's does: static scales
 calibrated on the first two val batches (`calibrate_from_loader`, with
 attention), W8A8 MLP and qkv/proj products, tanh GELU; `--int8-skip K`
@@ -45,7 +55,9 @@ import numpy as np
 from ..api.inference import _device, load_checkpoint, vis_pose_result
 from ..data import topdown_dataset_cls
 from ..data.loader import TopDownLoader
-from ..eval.loop import run_validation
+from ..eval.loop import collect_results, run_validation
+from ..parallel.distributed import (init_distributed, is_main_process,
+                                    rank_and_world)
 from ..train.loop import build_model_from_cfg
 from ..utils.config import apply_options, load_config
 from ..utils.quantize import (calibrate_from_loader, first_last_skip,
@@ -54,11 +66,12 @@ from ..utils.quantize import (calibrate_from_loader, first_last_skip,
 
 def build_eval_objects(cfg, batch_size=None, shard_by_process=False):
     """Model (on the CPU, seeded random weights) + val dataset + loader from
-    a config."""
-    if shard_by_process:
-        raise NotImplementedError('multi-process evaluation is not ported '
-                                  'yet (ROADMAP.md queue 1 item 11)')
+    a config; `shard_by_process` gives the loader this rank's shard of the
+    val set (padded by wrap-around to the same length on every rank)."""
     model = build_model_from_cfg(cfg['model'])
+    rank, world = rank_and_world()
+    shard = (dict(process_index=rank, process_count=world)
+             if shard_by_process else {})
     dcfg = cfg['data']
     name = dcfg.get('dataset', 'coco')
     ds = topdown_dataset_cls(name)(
@@ -72,11 +85,13 @@ def build_eval_objects(cfg, batch_size=None, shard_by_process=False):
         ds, batch_size or dcfg.get('batch_size', 64), is_train=False,
         canvas_size=dcfg.get('canvas_size'),
         padding=dcfg.get('padding', 1.25),
-        num_workers=dcfg.get('num_workers', 8))
+        num_workers=dcfg.get('num_workers', 8), **shard)
     return model, ds, loader
 
 
 def _emit_stats(stats, args):
+    if not is_main_process():
+        return
     print(json.dumps({k: float(v) for k, v in stats.items()}, indent=2))
     if args.out:
         with open(args.out, 'w') as f:
@@ -103,9 +118,6 @@ def _refuse_unported(cfg, args):
                 raise NotImplementedError(
                     f'{flag} with a {family} config: its evaluation does '
                     'not take it')
-    if args.tmpdir and family != 'posewarper':
-        raise NotImplementedError('--tmpdir is not ported yet (ROADMAP.md '
-                                  'queue 1 item 11)')
     if args.int8 and cfg['model'].get('backbone_type', 'vit') != 'vit':
         raise NotImplementedError(
             '--int8 quantises the ViT blocks; a '
@@ -231,7 +243,10 @@ def main(argv=None):
     ap.add_argument('--show-dir', default=None,
                     help='write one drawing of the predictions per val '
                          'image here')
-    ap.add_argument('--tmpdir', default=None)
+    ap.add_argument('--tmpdir', default=None,
+                    help='where the ranks of a multi-process evaluation '
+                         'leave their results for rank 0 (a folder every '
+                         "process sees); PoseWarper's result folder")
     ap.add_argument('--int8', action='store_true',
                     help='evaluate the int8 serving path: static scales '
                          'calibrated on the first val batches, W8A8 MLP '
@@ -244,11 +259,14 @@ def main(argv=None):
     cfg = apply_options(load_config(args.config), args.cfg_options)
     _refuse_unported(cfg, args)
     dev = _device(args.device)
+    # a no-op in one process; the launcher's contract otherwise
+    _, world = init_distributed(device=args.device)
     if cfg['model'].get('family') == 'bottomup':
         return run_bottomup_eval(cfg, args, dev)
     if cfg['model'].get('family') in FAMILY_EVALS:
         return run_family_eval(cfg, args, dev)
-    model, ds, loader = build_eval_objects(cfg, args.batch_size)
+    model, ds, loader = build_eval_objects(cfg, args.batch_size,
+                                           shard_by_process=world > 1)
     load_checkpoint(model, args.checkpoint)
     model = model.to(dev).eval()
     if args.int8:
@@ -257,7 +275,15 @@ def main(argv=None):
     results = run_validation(model, loader, use_udp=mcfg.use_udp,
                              post_process=mcfg.post_process,
                              modulate_kernel=mcfg.modulate_kernel,
-                             target_type=mcfg.target_type, progress=True)
+                             target_type=mcfg.target_type,
+                             progress=is_main_process())
+    if world > 1:
+        tmpdir = args.tmpdir or os.path.join(
+            os.path.dirname(args.out) if args.out else '.',
+            '.eval_gather_tmp')
+        results = collect_results(results, tmpdir)
+        if results is None:            # the other ranks are done
+            return None
     if args.show_dir:
         n = show_results(results, ds, cfg['data']['val']['img_prefix'],
                          args.show_dir)

@@ -14,6 +14,16 @@ train/bottomup_loop.py's runner, a PoseWarper config through
 train/posewarper_loop.py and a pose-lifter config through
 train/lifter_loop.py (weights only: `final.pth`, `--resume` restarts the
 optimizer), as JAX's `train_model` dispatches them.
+
+Across processes, one per card:
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m vitpose_tpu_torch.tools.train CONFIG [...]
+
+or one `srun` task per card under SLURM: `init_distributed` reads the
+launcher's environment (parallel/distributed.py) and `train_model` lays the
+processes out over the data axis (and the expert axis of a ViTPose+
+mixture, runtime.n_expert); rank 0 writes the work dir.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import argparse
 import os
 
 from ..api.inference import _device
+from ..parallel.distributed import init_distributed
 from ..train.loop import train_model
 from ..utils.config import apply_options, load_config
 from ..utils.env import setup_multi_processes
@@ -53,14 +64,16 @@ def main(argv=None):
                     help='stop after N optimizer steps, without a checkpoint')
     ap.add_argument('--seed', type=int, default=None)
     ap.add_argument('--autoscale-lr', action='store_true',
-                    help='scale base_lr linearly by the device count / 8 '
-                         '(reference tools/train.py:134-136); the port '
-                         'trains on one device')
+                    help='scale base_lr linearly by the process count / 8 '
+                         '(one process a card; reference tools/train.py:'
+                         '134-136)')
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (default; raises without CUDA) or 'cpu'")
     args = ap.parse_args(argv)
 
     _device(args.device)
+    # a no-op in one process; the launcher's contract otherwise
+    _, world = init_distributed(device=args.device)
     cfg = apply_options(load_config(args.config), args.cfg_options)
     setup_multi_processes(cfg)
     if 'PATH_TO_DATA' in os.environ:
@@ -72,8 +85,7 @@ def main(argv=None):
         cfg.setdefault('runtime', {})['seed'] = args.seed
     if args.autoscale_lr:
         opt = cfg.setdefault('optimizer', {})
-        # the device count is 1: the port trains on one device
-        opt['base_lr'] = opt.get('base_lr', 5e-4) / 8
+        opt['base_lr'] = opt.get('base_lr', 5e-4) * world / 8
     return train_model(cfg, work_dir=args.work_dir, resume=args.resume,
                        max_steps=args.max_steps, device=args.device)
 

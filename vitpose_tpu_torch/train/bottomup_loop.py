@@ -18,8 +18,11 @@ losses/multi_loss_factory.py:164):
     weights, optimizer and schedule every epoch (utils/checkpoint.py, a
     temporary file renamed), `resume` from the latest one.
 
-As in JAX, the configs' `warmup_iters` is not read. The JAX runner's
-data-parallel mesh is not ported: the port trains on one device.
+As in JAX, the configs' `warmup_iters` is not read. Across processes the
+runner is data-parallel as JAX's (`data_parallel_step` over the gcd of
+the batch and the devices, :372-378): `data.batch_size` is the global
+batch, each rank steps its rows of it and BatchNorm sees all of them
+(train/family_loop.py `data_parallel`).
 """
 from __future__ import annotations
 
@@ -37,7 +40,9 @@ from ..data.bottomup import (BottomUpCocoDataset, bottomup_random_affine,
 from ..data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from ..models.bottomup import resize_bilinear
 from ..models.losses import ae_heatmap_loss, ae_tag_loss
+from ..parallel.mesh import average_metrics, shard_rows
 from ..utils.checkpoint import CheckpointManager
+from .family_loop import data_parallel
 from .state import TrainState
 
 
@@ -310,6 +315,7 @@ def build_bottomup_loader(cfg: dict):
                           use_udp=dcfg.get('use_udp', False), aug=aug)
 
 
+@data_parallel(24)
 def train_bottomup_model(cfg: dict, work_dir=None, resume=False,
                          max_steps=None, device='cuda'):
     """Epoch loop for the bottom-up AE configs (family 'bottomup') on
@@ -351,10 +357,15 @@ def train_bottomup_model(cfg: dict, work_dir=None, resume=False,
         t_last = time.time()
         for it, batch in enumerate(loader):
             t_data += time.time() - t_last
-            metrics = train_step(state, batch_to_device(batch, dev))
+            # every rank loads the global batch (one augmentation stream)
+            # and keeps its rows
+            metrics = train_step(state,
+                                 batch_to_device(shard_rows(batch), dev))
             done += 1
             if it % log_interval == 0:
-                # the one read-back of the step's metrics
+                # the one read-back of the step's metrics, the global
+                # batch's under a data axis
+                metrics = average_metrics(metrics)
                 _log(work_dir, dict(
                     mode='train', epoch=epoch, iter=it, step=state.step,
                     data_time=t_data, time=time.time() - t_epoch,

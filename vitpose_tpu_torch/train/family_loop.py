@@ -11,15 +11,22 @@ BN statistics included, as the JAX loops' `final.npz` holds variables),
 metrics line per run, one mode='val' line per evaluation). `--resume`
 loads `final.pth` over the fresh model; the optimizer state restarts.
 `adam` and `adam_step` are the loops' optax.adam under a schedule of the
-update count.
+update count. Across processes (parallel/) the loops run data-parallel as
+JAX's `data_parallel_step` does: `data_parallel` sizes the data axis, each
+rank steps its rows of the global batch, `adam_step` averages the
+gradients, and rank 0 alone writes the work dir.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 
 import torch
 
+from ..parallel.distributed import barrier, is_main_process
+from ..parallel.mesh import (activate, average_metrics, data_axis_size,
+                             make_mesh, reduce_gradients)
 from ..utils.checkpoint import _LESS_IS_BETTER, _save
 
 
@@ -38,14 +45,42 @@ def adam(params, base_lr, lr_of_count, weight_decay=0.0):
 
 def adam_step(optimizer, scheduler):
     """One update from the parameters' `.grad`: a parameter the loss did
-    not reach gets a zero gradient (optax steps every leaf), then the step
-    and the schedule."""
-    for group in optimizer.param_groups:
-        for p in group['params']:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    not reach gets a zero gradient (optax steps every leaf), the gradients
+    are averaged over the data ranks where there is a data axis
+    (parallel/mesh.py; JAX's data_parallel_step), then the step and the
+    schedule."""
+    params = [p for group in optimizer.param_groups for p in group['params']]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    reduce_gradients(params)
     optimizer.step()
     scheduler.step()
+
+
+def data_parallel(default_batch_size):
+    """Decorate a family runner `f(cfg, ...)` to run under the data axis
+    of JAX's data_parallel_step: runtime.n_data, or the gcd of the
+    config's batch size (default `default_batch_size`, the global batch)
+    and the processes (`data_axis_size`; axes that do not cover every
+    process raise ValueError). Each rank then takes its rows of every
+    global batch (`shard_rows`)."""
+    def wrap(run):
+        @functools.wraps(run)
+        def runner(cfg, *args, **kwargs):
+            batch = cfg.get('data', {}).get('batch_size', default_batch_size)
+            n = data_axis_size(batch,
+                               n_data=cfg.get('runtime', {}).get('n_data'))
+            with activate(make_mesh(n_data=n)):
+                return run(cfg, *args, **kwargs)
+        return runner
+    return wrap
+
+
+def final_metrics(metrics):
+    """The last step's metrics as floats, the global batch's under a data
+    axis (every rank calls it)."""
+    return {k: float(v) for k, v in average_metrics(metrics).items()}
 
 
 def _work_dir(cfg, work_dir):
@@ -73,20 +108,23 @@ def _cpu_state_dict(model):
 
 
 def save_loop_outputs(cfg, work_dir, model, metrics, n_steps):
-    """work_dir/final.pth and a metrics line in train.log.json."""
+    """work_dir/final.pth and a metrics line in train.log.json, from rank
+    0; every process waits until they are written."""
     work_dir = _work_dir(cfg, work_dir)
     if not work_dir:
         return
-    os.makedirs(work_dir, exist_ok=True)
-    _save(_cpu_state_dict(model), os.path.join(work_dir, 'final.pth'))
-    with open(os.path.join(work_dir, 'train.log.json'), 'a') as f:
-        f.write(json.dumps(dict(metrics, step=n_steps)) + '\n')
+    if is_main_process():
+        os.makedirs(work_dir, exist_ok=True)
+        _save(_cpu_state_dict(model), os.path.join(work_dir, 'final.pth'))
+        with open(os.path.join(work_dir, 'train.log.json'), 'a') as f:
+            f.write(json.dumps(dict(metrics, step=n_steps)) + '\n')
+    barrier()
 
 
 def log_val_stats(cfg, work_dir, stats, epoch):
-    """A mode='val' line in train.log.json."""
+    """A mode='val' line in train.log.json (rank 0)."""
     work_dir = _work_dir(cfg, work_dir)
-    if not work_dir:
+    if not work_dir or not is_main_process():
         return
     os.makedirs(work_dir, exist_ok=True)
     with open(os.path.join(work_dir, 'train.log.json'), 'a') as f:
@@ -117,8 +155,10 @@ def save_best_ckpt(cfg, work_dir, stats, model, best):
     if mode is None:
         mode = 'min' if any(m in key for m in _LESS_IS_BETTER) else 'max'
     v = float(stats[key])
-    if best is None or (v < best if mode == 'min' else v > best):
+    better = best is None or (v < best if mode == 'min' else v > best)
+    if better and is_main_process():
         os.makedirs(work_dir, exist_ok=True)
         _save(_cpu_state_dict(model), os.path.join(work_dir, 'best.pth'))
-        return v
-    return best
+    # every process waits, whatever its own reading of the metric
+    barrier()
+    return v if better else best

@@ -22,8 +22,9 @@ from ..data.interhand import InterHandDataset, training_targets
 from ..models.interhand3d import interhand3d_losses
 from ..ops.geometry import (affine_matrix, apply_affine_to_points,
                             bbox_xywh2cs)
-from .family_loop import (adam, adam_step, log_val_stats,
-                          resume_loop_weights, save_best_ckpt,
+from ..parallel.mesh import shard_rows
+from .family_loop import (adam, adam_step, data_parallel, final_metrics,
+                          log_val_stats, resume_loop_weights, save_best_ckpt,
                           save_loop_outputs, should_eval)
 from .loop import build_model_from_cfg
 
@@ -176,6 +177,7 @@ def interhand_loader(cfg, split='train', is_train=True):
         sigma=tcfg.get('sigma', 2.5), is_train=is_train)
 
 
+@data_parallel(16)
 def train_interhand3d_model(cfg: dict, work_dir: Optional[str] = None,
                             resume: bool = False,
                             max_steps: Optional[int] = None, device='cuda'):
@@ -201,7 +203,8 @@ def train_interhand3d_model(cfg: dict, work_dir: Optional[str] = None,
         loader.set_epoch(epoch)
         for batch in loader:
             metrics = interhand_step(
-                model, optimizer, scheduler, batch_to_device(batch, dev),
+                model, optimizer, scheduler,
+                batch_to_device(shard_rows(batch), dev),
                 root_depth_bins=tcfg.get('root_depth_bins', 64),
                 root_depth_bound=tcfg.get('root_depth_bound', 400.0))
             n_steps += 1
@@ -215,6 +218,6 @@ def train_interhand3d_model(cfg: dict, work_dir: Optional[str] = None,
                 best = save_best_ckpt(cfg, work_dir, stats, model, best)
             continue
         break
-    metrics = {k: float(v) for k, v in metrics.items()}
+    metrics = final_metrics(metrics)
     save_loop_outputs(cfg, work_dir, model, metrics, n_steps)
     return model, metrics

@@ -30,8 +30,9 @@ from ..data.body3d import (Body3DH36MDataset, flip_relative_pose,
                            load_joint_normalize)
 from ..data.dataset_info import DatasetInfo
 from ..models.losses import mpjpe_loss, mse_loss, semi_supervision_loss
-from .family_loop import (adam, adam_step, log_val_stats,
-                          resume_loop_weights, save_best_ckpt,
+from ..parallel.mesh import shard_rows
+from .family_loop import (adam, adam_step, data_parallel, final_metrics,
+                          log_val_stats, resume_loop_weights, save_best_ckpt,
                           save_loop_outputs, should_eval)
 from .loop import build_model_from_cfg, step_seed
 
@@ -139,6 +140,7 @@ def lifter_semi_step(model, optimizer, scheduler, x, y_rel, root, xu, t2d,
                 bone_loss=sl['bone_loss'].detach())
 
 
+@data_parallel(128)
 def train_pose_lifter_model(cfg: dict, work_dir: Optional[str] = None,
                             resume: bool = False,
                             max_steps: Optional[int] = None, device='cuda'):
@@ -195,14 +197,15 @@ def train_pose_lifter_model(cfg: dict, work_dir: Optional[str] = None,
                 idxs = np.concatenate([idxs, order[:batch_size
                                                    - len(idxs)]])
             flip_rng = ep_rng if dcfg.get('flip_aug', True) else None
-            x, y_rel, roots = labeled_batch(
+            # every rank draws the global batch and keeps its rows
+            x, y_rel, roots = shard_rows(labeled_batch(
                 ds, idxs, flip_pairs, flip_rng, norm2d=norm2d,
-                norm3d=norm3d, remove_root=remove_root)
+                norm3d=norm3d, remove_root=remove_root))
             generator.manual_seed(step_seed(seed, n_steps))
             if semi:
                 u_idxs = ep_rng.randint(0, len(ds_unlabeled), batch_size)
-                xu, t2d, intr = unlabeled_batch(ds_unlabeled, u_idxs,
-                                                flip_pairs, flip_rng)
+                xu, t2d, intr = shard_rows(unlabeled_batch(
+                    ds_unlabeled, u_idxs, flip_pairs, flip_rng))
                 metrics = lifter_semi_step(
                     model, optimizer, scheduler, put(x), put(y_rel),
                     put(roots), put(xu), put(t2d), put(intr),
@@ -221,6 +224,6 @@ def train_pose_lifter_model(cfg: dict, work_dir: Optional[str] = None,
                 best = save_best_ckpt(cfg, work_dir, stats, model, best)
             continue
         break
-    metrics = {k: float(v) for k, v in metrics.items()}
+    metrics = final_metrics(metrics)
     save_loop_outputs(cfg, work_dir, model, metrics, n_steps)
     return model, metrics

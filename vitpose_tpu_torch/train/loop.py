@@ -24,7 +24,20 @@ set in one mixture of single-dataset batches, targets padded to
 per step, evaluation through expert 0 and the main head. The port runs
 both in this one loop, so the MoE run also gets what JAX's
 `train_model_moe` lacks: `load_from`, the preemption save and the
-`data_time` log. ZeRO-1 and TensorBoard are not ported and raise.
+`data_time` log. TensorBoard is not ported and raises.
+
+Across processes (parallel/; one per card, started by torchrun or SLURM
+and `init_distributed`) the runner lays the processes out as JAX's does
+(:365-377, :614-626): `data.batch_size` is the step's global batch, the
+data axis is runtime.n_data or the gcd of the batch and the processes
+(`parallel.mesh.data_axis_size`), and a ViTPose+ mixture adds
+runtime.n_expert (its experts split over that axis, `shard_params`).
+Each data rank loads its shard of the train set (the loader's
+process_index / process_count) at batch_size / n_data, the gradients are
+averaged over the data group in the train state, BatchNorm and DropPath
+see the global batch, runtime.zero1 splits AdamW's moments over the data
+group (`parallel.zero.zero1`), and rank 0 alone writes the log and the
+checkpoints. Validation runs whole on every rank, as JAX's does.
 """
 from __future__ import annotations
 
@@ -62,7 +75,10 @@ from ..models.topdown import (GenericMultiStageTopDown, GenericTopDown,
                               TopDownConfig, TopDownModel, make_config)
 from ..models.vit import ViT, ViTConfig
 from ..models.voxelpose import DetectAndRegress
-from ..parallel.distributed import PreemptionGuard
+from ..parallel.distributed import PreemptionGuard, is_main_process
+from ..parallel.mesh import (activate, any_process, average_metrics,
+                             data_axis_size, make_mesh, shard_params)
+from ..parallel.zero import zero1
 from ..utils.checkpoint import CheckpointManager
 from ..utils.torch_ckpt import (checkpoint_state_dict,
                                 convert_backbone_checkpoint)
@@ -252,7 +268,11 @@ def build_model_from_cfg(mcfg: dict, generator=None):
 
 
 def _log(work_dir, record):
-    """Print one json record and append it to work_dir/train.log.json."""
+    """Print one json record and append it to work_dir/train.log.json, on
+    rank 0 alone (JAX's `_log`: every process would otherwise append to the
+    same file)."""
+    if not is_main_process():
+        return
     line = json.dumps(record)
     print(line, flush=True)
     if work_dir:
@@ -322,10 +342,6 @@ def _refuse_unported(cfg):
         raise KeyError(f'unknown model family {family!r}; expected one of '
                        f'{PORTED_FAMILIES}')
     rt = cfg.get('runtime', {})
-    if rt.get('zero1'):
-        raise NotImplementedError('runtime.zero1 (sharded optimizer state '
-                                  'across devices) is not ported yet '
-                                  '(ROADMAP.md queue 1 item 11)')
     if rt.get('tensorboard'):
         raise NotImplementedError('runtime.tensorboard is not ported: the '
                                   'card machine has no tensorboard package '
@@ -352,12 +368,15 @@ def _batch_to_device(batch, dev, staging):
     return [imgs] + rest
 
 
-def build_train_state(cfg: dict, steps_per_epoch: int, device):
+def build_train_state(cfg: dict, steps_per_epoch: int, device, layout=None):
     """The runner's model and train state for `cfg`, on `device`: random
     weights from runtime.seed, then `pretrained` (its fc2 split into the
-    experts of a ViTPose+ backbone) and `load_from`, then the layer-decay
-    AdamW with the optimizer config's freezing. Returns the state; its
-    model is `state.model`."""
+    experts of a ViTPose+ backbone) and `load_from`, then, under a
+    `layout` with expert or model axes, the FFNs split over them
+    (`shard_params`), then the layer-decay AdamW with the optimizer
+    config's freezing, its moments split over the data axis where
+    runtime.zero1 asks (`zero1`, under the active layout). Returns the
+    state; its model is `state.model`."""
     seed = cfg.get('runtime', {}).get('seed', 0)
     model = build_model_from_cfg(cfg['model'],
                                  torch.Generator().manual_seed(seed))
@@ -366,20 +385,26 @@ def build_train_state(cfg: dict, steps_per_epoch: int, device):
     if cfg.get('load_from'):
         load_from(model, cfg['load_from'])
     model.to(device)
+    if layout is not None and layout.n_expert * layout.n_model > 1:
+        shard_params(model, layout)
     ocfg_d = dict(cfg.get('optimizer', {}))
     ocfg_d.pop('total_epochs', None)
     freeze_kw = _pop_freeze_options(ocfg_d)
     ocfg = OptimConfig(num_layers=model.cfg.backbone.depth, **ocfg_d)
     tx = layer_decay_adamw(model, ocfg, steps_per_epoch,
                            trainable=_freeze_mask(model, freeze_kw))
+    if cfg.get('runtime', {}).get('zero1'):
+        zero1(tx[0])
     return create_train_state(model, tx, ocfg.grad_clip_norm)
 
 
-def _train_data(cfg: dict, seed: int):
+def _train_data(cfg: dict, seed: int, layout=None):
     """(loader, preprocess, number of datasets) of the config's train set;
     the number is None for one train set, and for a list (ViTPose+) the
     loader is the mixture of one loader per set, with its dataset_idx and
-    seed + i, and the targets are padded to data.max_num_joints."""
+    seed + i, and the targets are padded to data.max_num_joints. Under a
+    `layout` with a data axis each loader yields this data rank's shard of
+    the set, batch_size / n_data rows a batch."""
     dcfg = cfg['data']
     image_size = tuple(dcfg.get('image_size', (192, 256)))
     heatmap_size = tuple(dcfg.get('heatmap_size', (48, 64)))
@@ -397,6 +422,13 @@ def _train_data(cfg: dict, seed: int):
         preprocess = make_preprocess_fn(
             **target, unbiased=tcfg.get('unbiased', False),
             target_type=cfg['model'].get('target_type', 'GaussianHeatmap'))
+    n_data = layout.n_data if layout is not None else 1
+    batch_size = dcfg.get('batch_size', 64)
+    if batch_size % n_data:
+        raise ValueError(f'data.batch_size {batch_size} does not split over '
+                         f'{n_data} data ranks')
+    shard = (dict(process_index=layout.index('data'), process_count=n_data)
+             if n_data > 1 else {})
     loaders = []
     for i, entry in enumerate(entries):
         name = entry.get('dataset', 'coco')
@@ -407,11 +439,12 @@ def _train_data(cfg: dict, seed: int):
             image_size=image_size, heatmap_size=heatmap_size,
             use_gt_bbox=entry.get('use_gt_bbox', True), **kw)
         loaders.append(TopDownLoader(
-            ds, dcfg.get('batch_size', 64), is_train=True,
+            ds, batch_size // n_data, is_train=True,
             canvas_size=dcfg.get('canvas_size'),
             padding=dcfg.get('padding', 1.25),
             aug=AugmentConfig(**dcfg.get('aug', {})),
-            seed=seed + i, num_workers=dcfg.get('num_workers', 8)))
+            seed=seed + i, num_workers=dcfg.get('num_workers', 8),
+            **shard))
     if multi:
         return MultiDatasetLoader(loaders), preprocess, len(loaders)
     return loaders[0], preprocess, None
@@ -456,6 +489,21 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
                                      max_steps=max_steps, device=device)
     dev = _device(device)
     rt = cfg.get('runtime', {})
+    # the expert axis is the ViTPose+ mixture's (JAX's train_model_moe)
+    n_expert = (rt.get('n_expert', 1)
+                if isinstance(cfg['data']['train'], (list, tuple)) else 1)
+    layout = make_mesh(
+        n_data=data_axis_size(cfg['data'].get('batch_size', 64), n_expert,
+                              n_data=rt.get('n_data')),
+        n_expert=n_expert)
+    with activate(layout):
+        return _train_topdown(cfg, work_dir, resume, max_steps, dev, layout)
+
+
+def _train_topdown(cfg, work_dir, resume, max_steps, dev, layout):
+    """train_model's top-down runner (ViT, CNN, ViTPose+) under `layout`,
+    which is active."""
+    rt = cfg.get('runtime', {})
     work_dir = work_dir or rt.get('work_dir', 'work_dir')
     os.makedirs(work_dir, exist_ok=True)
     seed = rt.get('seed', 0)
@@ -464,12 +512,12 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
     dcfg = cfg['data']
     image_size = tuple(dcfg.get('image_size', (192, 256)))
     heatmap_size = tuple(dcfg.get('heatmap_size', (48, 64)))
-    loader, preprocess, num_datasets = _train_data(cfg, seed)
+    loader, preprocess, num_datasets = _train_data(cfg, seed, layout)
 
     # ---- model + optimizer -----------------------------------------
     total_epochs = cfg.get('optimizer', {}).get('total_epochs', 210)
     steps_per_epoch = max(1, len(loader))
-    state = build_train_state(cfg, steps_per_epoch, dev)
+    state = build_train_state(cfg, steps_per_epoch, dev, layout)
     model = state.model
     if num_datasets is None:
         train_step = make_train_step(
@@ -547,13 +595,16 @@ def train_model(cfg: dict, work_dir: Optional[str] = None,
                     record = dict(mode='train', epoch=epoch, iter=it)
                     if num_datasets is not None:
                         record['dataset'] = int(batch['dataset_idx'][0])
-                    # the one read-back of the step's metrics
+                    # the one read-back of the step's metrics, the global
+                    # batch's under a data axis
+                    metrics = average_metrics(metrics)
                     record.update(step=global_step, data_time=t_data,
                                   time=time.time() - t_epoch,
                                   **{k: float(v) for k, v in metrics.items()})
                     _log(work_dir, record)
                 t_last = time.time()
-                if guard.should_stop:
+                # every rank stops where any was preempted
+                if any_process(guard.should_stop):
                     _log(work_dir, {'mode': 'preempt', 'epoch': epoch,
                                     'step': global_step})
                     # marked incomplete, so resume redoes this epoch

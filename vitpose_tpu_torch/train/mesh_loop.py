@@ -18,8 +18,10 @@ import torch
 from ..data.mesh import MeshAdvLoader, MeshDataset, MeshMixDataset, \
     MoshDataset
 from ..models.mesh import SMPLDiscriminator, adversarial_step
-from .family_loop import (adam, log_val_stats, resume_loop_weights,
-                          save_best_ckpt, save_loop_outputs, should_eval)
+from ..parallel.mesh import shard_rows
+from .family_loop import (adam, data_parallel, final_metrics, log_val_stats,
+                          resume_loop_weights, save_best_ckpt,
+                          save_loop_outputs, should_eval)
 from .loop import build_model_from_cfg
 
 DISC_PREFIX = 'discriminator.'
@@ -56,6 +58,7 @@ def mesh_batch_to_device(batch, dev):
                                                    'has_smpl')}
 
 
+@data_parallel(64)
 def train_mesh_model(cfg: dict, work_dir: Optional[str] = None,
                      resume: bool = False, max_steps: Optional[int] = None,
                      device='cuda'):
@@ -96,7 +99,8 @@ def train_mesh_model(cfg: dict, work_dir: Optional[str] = None,
         for batch in loader:
             metrics = adversarial_step(
                 mesh, disc, gen_opt, disc_opt,
-                mesh_batch_to_device(batch, dev), gen_sched=gen_sched,
+                mesh_batch_to_device(shard_rows(batch), dev),
+                gen_sched=gen_sched,
                 disc_sched=disc_sched)
             n_steps += 1
             if max_steps is not None and n_steps >= max_steps:
@@ -109,6 +113,6 @@ def train_mesh_model(cfg: dict, work_dir: Optional[str] = None,
                 best = save_best_ckpt(cfg, work_dir, stats, pair, best)
             continue
         break
-    metrics = {k: float(v) for k, v in metrics.items()}
+    metrics = final_metrics(metrics)
     save_loop_outputs(cfg, work_dir, pair, metrics, n_steps)
     return pair, metrics

@@ -26,8 +26,9 @@ from ..models.losses import joints_mse_loss
 from ..ops.geometry import affine_matrix, bbox_xywh2cs
 from ..ops.target import generate_msra_heatmaps
 from .bottomup_loop import piecewise_constant_lr
-from .family_loop import (adam, adam_step, log_val_stats,
-                          resume_loop_weights, save_best_ckpt,
+from ..parallel.mesh import shard_rows
+from .family_loop import (adam, adam_step, data_parallel, final_metrics,
+                          log_val_stats, resume_loop_weights, save_best_ckpt,
                           save_loop_outputs, should_eval)
 
 
@@ -119,6 +120,7 @@ def posewarper_step(model, optimizer, scheduler, frames, target, weight,
     return dict(heatmap_loss=loss.detach())
 
 
+@data_parallel(16)
 def train_posewarper_model(cfg: dict, work_dir: Optional[str] = None,
                            resume: bool = False,
                            max_steps: Optional[int] = None, device='cuda'):
@@ -185,10 +187,14 @@ def train_posewarper_model(cfg: dict, work_dir: Optional[str] = None,
                 rot_prob=aug.get('rot_prob', 0.6), info=ds.info,
                 half_body_prob=aug.get('half_body_prob', 0.3))
                 for i in idxs]
-            frames = torch.from_numpy(np.stack([w[0] for w in windows]))
+            # every rank loads the global batch (one augmentation stream)
+            # and keeps its rows
+            frames, joints, vis = shard_rows(tuple(
+                np.stack([w[j] for w in windows]) for j in range(3)))
+            frames = torch.from_numpy(frames)
             target, weight = generate_msra_heatmaps(
-                torch.from_numpy(np.stack([w[1] for w in windows])).to(dev),
-                torch.from_numpy(np.stack([w[2] for w in windows])).to(dev),
+                torch.from_numpy(joints).to(dev),
+                torch.from_numpy(vis).to(dev),
                 image_size, heatmap_size, sigma=sigma)
             metrics = posewarper_step(model, optimizer, scheduler,
                                       frames.to(dev), target, weight,
@@ -204,6 +210,6 @@ def train_posewarper_model(cfg: dict, work_dir: Optional[str] = None,
                 best = save_best_ckpt(cfg, work_dir, stats, model, best)
             continue
         break
-    metrics = {k: float(v) for k, v in metrics.items()}
+    metrics = final_metrics(metrics)
     save_loop_outputs(cfg, work_dir, model, metrics, n_steps)
     return model, metrics

@@ -11,6 +11,9 @@ import dataclasses
 
 import torch
 
+from ..parallel.mesh import global_norm, reduce_gradients
+from ..parallel.zero import optimizer_params, zero1_sync
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -30,24 +33,34 @@ class TrainState:
         parameters only, as the clip inside JAX's freeze_tx does.
 
         A parameter that the loss does not reach (Lite-HRNet's last fusion
-        of its lower branches) gets a zero gradient: JAX differentiates
-        every leaf, and optax steps it (the moments, AdamW's decay) where
-        torch's optimizers skip a parameter without a gradient."""
-        for group in self.optimizer.param_groups:
-            for p in group['params']:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        grads = [p.grad for group in self.optimizer.param_groups
-                 for p in group['params'] if p.grad is not None]
-        every = [p.grad for p in self.model.parameters()
-                 if p.grad is not None]
-        norm = torch.nn.utils.get_total_norm(every)
-        clip_norm = (norm if len(every) == len(grads)
-                     else torch.nn.utils.get_total_norm(grads))
+        of its lower branches, a ViTPose+ head without a sample of its
+        dataset) gets a zero gradient: JAX differentiates every leaf, and
+        optax steps it (the moments, AdamW's decay) where torch's
+        optimizers skip a parameter without a gradient.
+
+        Under a data axis (parallel/mesh.py) the gradients are then
+        averaged over the data ranks, in the model's parameter order, so
+        the norm, the clip and the step see the global batch's gradient;
+        the norm sums the blocks of parameters split over the expert and
+        model axes; a ZeRO-1 optimizer steps the parameters this rank owns
+        and broadcasts them."""
+        every_p = [p for p in self.model.parameters() if p.requires_grad]
+        for p in every_p:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        reduce_gradients(every_p)
+        opt_p = optimizer_params(self.optimizer)
+        for p in opt_p:
+            if p.grad is None:      # a parameter that requires no gradient
+                p.grad = torch.zeros_like(p)
+        norm = global_norm(every_p)
+        clip_norm = (norm if len(every_p) == len(opt_p)
+                     else global_norm(opt_p))
         coef = torch.where(clip_norm < self.grad_clip_norm, 1.0,
                            self.grad_clip_norm / clip_norm)
-        torch._foreach_mul_(grads, coef)
+        torch._foreach_mul_([p.grad for p in opt_p], coef)
         self.optimizer.step()
+        zero1_sync(self.optimizer)
         self.scheduler.step()
         self.step += 1
         return norm

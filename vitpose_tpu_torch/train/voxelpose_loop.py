@@ -23,8 +23,9 @@ import torch
 from ..data.panoptic_mview import PanopticMviewDataset
 from ..models.voxelpose import camera_tensors, stack_camera_params
 from ..ops.target import generate_voxel_3d_targets
-from .family_loop import (adam, adam_step, log_val_stats,
-                          resume_loop_weights, save_best_ckpt,
+from ..parallel.mesh import shard_rows
+from .family_loop import (adam, adam_step, data_parallel, final_metrics,
+                          log_val_stats, resume_loop_weights, save_best_ckpt,
                           save_loop_outputs, should_eval)
 from .loop import build_model_from_cfg
 
@@ -130,6 +131,7 @@ def voxelpose_step(model, optimizer, scheduler, batch):
                 total_loss=total.detach())
 
 
+@data_parallel(1)
 def train_voxelpose_model(cfg: dict, work_dir: Optional[str] = None,
                           resume: bool = False,
                           max_steps: Optional[int] = None,
@@ -176,12 +178,12 @@ def train_voxelpose_model(cfg: dict, work_dir: Optional[str] = None,
             pending.append(fa)
             if len(pending) < g_frames:
                 continue
-            batch = stack_frames(pending, dev)
+            batch = stack_frames(shard_rows(pending), dev)
             pending = []
             metrics = voxelpose_step(model, optimizer, scheduler, batch)
             n_steps += 1
             if max_steps is not None and n_steps >= max_steps:
-                metrics = {k: float(v) for k, v in metrics.items()}
+                metrics = final_metrics(metrics)
                 save_loop_outputs(cfg, work_dir, model, metrics, n_steps)
                 return model, metrics
         if should_eval(cfg, epoch):
@@ -189,6 +191,6 @@ def train_voxelpose_model(cfg: dict, work_dir: Optional[str] = None,
             stats = evaluate_voxelpose(cfg, model)
             log_val_stats(cfg, work_dir, stats, epoch + 1)
             best = save_best_ckpt(cfg, work_dir, stats, model, best)
-    metrics = {k: float(v) for k, v in metrics.items()}
+    metrics = final_metrics(metrics)
     save_loop_outputs(cfg, work_dir, model, metrics, n_steps)
     return model, metrics

@@ -12,6 +12,13 @@ epoch, the metric and its mode) and the best epoch's weights, here
 `torch.load(weights_only=True)` and both packages' `init_pose_model` read.
 Files are written to a temporary name and renamed, so a preempted save never
 leaves a torn checkpoint.
+
+Across processes (parallel/), every rank calls `save` and `restore`: the
+state is gathered whole (the parameters split over the expert or model
+axis, the ZeRO-1 moments from their owners), rank 0 alone writes, as JAX's
+manager does (vitpose_tpu/utils/checkpoint.py:34-37), and every rank waits
+at a barrier until it has; every rank restores from the files and keeps
+its part.
 """
 from __future__ import annotations
 
@@ -22,6 +29,11 @@ import re
 from typing import Optional
 
 import torch
+
+from ..parallel.distributed import barrier, is_main_process
+from ..parallel.mesh import full_state_dict, load_full_state_dict
+from ..parallel.zero import (full_optimizer_state_dict,
+                             load_full_optimizer_state_dict)
 
 # metrics where smaller is better (reference eval_hooks.py:7-10)
 _LESS_IS_BETTER = ('NME', 'EPE', 'MPJPE', 'P-MPJPE', 'N-MPJPE', 'loss')
@@ -74,32 +86,37 @@ class CheckpointManager:
     def save(self, epoch, state, metrics: Optional[dict] = None, meta=None):
         """Save `state` (a TrainState) as epoch `epoch`, drop the oldest
         checkpoints beyond `max_to_keep`, write info_{epoch}.json, and
-        when `metrics` improve on the best, best.pth and meta.json."""
-        _save({'model': state.model.state_dict(),
-               'optimizer': state.optimizer.state_dict(),
-               'scheduler': state.scheduler.state_dict(),
-               'step': state.step, 'epoch': epoch}, self.path(epoch))
-        for old in self.epochs()[:-self.max_to_keep]:
-            os.remove(self.path(old))
-        _write_json({'epoch': epoch, 'meta': meta or {},
-                     'metrics': {k: float(v)
-                                 for k, v in (metrics or {}).items()}},
-                    os.path.join(self.directory, f'info_{epoch}.json'))
+        when `metrics` improve on the best, best.pth and meta.json. Every
+        process calls it; rank 0 writes."""
+        model_sd = full_state_dict(state.model)
+        optim_sd = full_optimizer_state_dict(state.optimizer)
+        main = is_main_process()
+        if main:
+            _save({'model': model_sd, 'optimizer': optim_sd,
+                   'scheduler': state.scheduler.state_dict(),
+                   'step': state.step, 'epoch': epoch}, self.path(epoch))
+            for old in self.epochs()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+            _write_json({'epoch': epoch, 'meta': meta or {},
+                         'metrics': {k: float(v)
+                                     for k, v in (metrics or {}).items()}},
+                        os.path.join(self.directory, f'info_{epoch}.json'))
         if metrics and self.save_best_metric in metrics:
             v = float(metrics[self.save_best_metric])
             if (v < self.best_value if self.mode == 'min'
                     else v > self.best_value):
                 self.best_value = v
-                # persisted apart from the epoch files, which max_to_keep
-                # removes
-                _save({k: t.detach().cpu()
-                       for k, t in state.model.state_dict().items()},
-                      self._best_path)
-                _write_json({'best_value': v, 'best_epoch': epoch,
-                             'metric': self.save_best_metric,
-                             'mode': self.mode,
-                             'best_weights': self._best_path},
-                            self._meta_path)
+                if main:
+                    # persisted apart from the epoch files, which
+                    # max_to_keep removes
+                    _save({k: t.detach().cpu() for k, t in model_sd.items()},
+                          self._best_path)
+                    _write_json({'best_value': v, 'best_epoch': epoch,
+                                 'metric': self.save_best_metric,
+                                 'mode': self.mode,
+                                 'best_weights': self._best_path},
+                                self._meta_path)
+        barrier()
 
     def latest_epoch(self):
         epochs = self.epochs()
@@ -132,8 +149,8 @@ class CheckpointManager:
             return state, None
         ckpt = torch.load(self.path(epoch), map_location='cpu',
                           weights_only=True)
-        state.model.load_state_dict(ckpt['model'])
-        state.optimizer.load_state_dict(ckpt['optimizer'])
+        load_full_state_dict(state.model, ckpt['model'])
+        load_full_optimizer_state_dict(state.optimizer, ckpt['optimizer'])
         state.scheduler.load_state_dict(ckpt['scheduler'])
         state.step = ckpt['step']
         return state, epoch
