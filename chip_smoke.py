@@ -75,11 +75,14 @@ no result:
   webcam    the examples/pose_estimation.py runner dict as
             tools/run_webcam.py loads it, its pose node on the COCO-B config
             and the shaped .pth, a 16-frame video as the camera, headless,
-            max_frames 10: threaded (the config's synchronous=False; K1 on
-            the pose node's own thread) and synchronous; no node thread
-            raises; frames shown and inferred (at least half the frames
-            shown threaded, all of them synchronous), 24 K1 launches per
-            inferred frame, frames/s; then
+            max_frames 10: synchronous, then threaded (the config's
+            synchronous=False; K1 on the pose node's own thread) with the
+            camera paced at a third of the model chain's rate measured in
+            the synchronous run (at most the config's 20 frames/s); no node
+            thread raises, every one is alive when the last frame is shown
+            and has ended when the run returns; frames shown and inferred
+            (at least half the frames shown threaded, all of them
+            synchronous), 24 K1 launches per inferred frame, frames/s; then
             tools/run_webcam.py itself with --cfg-options for the camera,
             show and max_frames
   eval      the evaluation CLI (vitpose_tpu_torch.tools.test) on the COCO-B
@@ -343,7 +346,7 @@ no result:
             ResNet-50 trunk with a heatmap and a regression head (forward
             and one step); 0 K1 and K2 on every fam path
 
-  dist      training across processes (vitpose_tpu_torch/parallel/, last):
+  dist      training across processes (vitpose_tpu_torch/parallel/):
             init_distributed starts a world-1 NCCL group, and the
             full-width ViTPose-B bf16 step at batch 64 runs with the
             data-parallel hook and ZeRO-1 on a data group of that one
@@ -357,9 +360,24 @@ no result:
             HRNet-W32 in float64 with its BN over both ranks, its
             gradients and BN statistics against one process's (DIST_*
             tolerances)
+  tools     the root tools and the functions that no config reaches
+            (ROADMAP items 14 and 15; last), each through its main(argv)
+            on the COCO-B config with shaped weights and a synthetic COCO
+            set (TOOLS_*): get_flops, benchmark_inference at batch 64
+            (flip test, and --int8), speed_test, profile_trace in both
+            modes (the Chrome trace must name K1's kernel, and K2's in
+            training), tools/test.py beside test_new (the same stats; the
+            histogram and the overlays), keypoints2coco against the API,
+            publish_model (the published weights' heatmaps bit for bit),
+            the int8 sweep (ViT-B f32 with K1) on two grid points,
+            overfit_sanity for 2 epochs (ViT-S f32, K1 and K2),
+            benchmark_processing, and HybridEmbed (ResNet-50) with 12
+            ViT-B blocks in bf16 against the plain attention; every path's
+            K1 and K2 launches counted and their shapes held
+            (check_shapes_held)
 
-Then the cnn, cnn_more, cnn_ms, bottomup, bottomup_ms, td_rest, vid3d, fam
-and dist JSON lines (those phases' numbers),
+Then the cnn, cnn_more, cnn_ms, bottomup, bottomup_ms, td_rest, vid3d, fam,
+dist and tools JSON lines (those phases' numbers),
 the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, int8
@@ -367,7 +385,8 @@ serve call, server request per mode, eval run, int8 eval run, train step,
 train-loop run, remat step, moe-train run, exported call, demo frame,
 webcam run, each CNN, cnn-more, cnn-ms, bottom-up, bu-ms, td-rest, video
 and 3D and fam phase (0), bottom-up demo frame and body3d demo frame, and
-the dist phase's world-1 and two-rank steps; beside the kernels, the int8 product's launches per path and times, the server's latencies and the
+the dist phase's world-1 and two-rank steps, and each tools path; beside
+the kernels, the int8 product's launches per path and times, the server's latencies and the
 int8 AP, the dispatcher's price, the exported program's times and the
 demos' and webcam's frames/s), the nvidia-smi card line and the result
 line.
@@ -426,6 +445,9 @@ KERNEL_CASES = [
     ((1, 256, 12, 32), torch.float32, 'bottom-up demos, ViT-S base 256'),
     ((1, 256, 12, 32), torch.bfloat16, 'bottom-up ViT-S base 256, bf16'),
     ((1, 1024, 12, 32), torch.bfloat16, 'bottom-up ViT-S base 512, bf16'),
+    ((64, 48, 12, 64), torch.bfloat16, 'HybridEmbed ResNet-50 tokens'),
+    ((7, 192, 12, 64), torch.float32, 'int8 sweep, val batch 7, f32'),
+    ((12, 48, 4, 32), torch.float32, 'overfit_sanity ViT-S, batch 12'),
 ]
 BWD_CASES = [
     ((64, 192, 12, 64), torch.bfloat16, 'training batch 64, ViT-B'),
@@ -437,6 +459,7 @@ BWD_CASES = [
     ((2, 972, 16, 80), torch.bfloat16, '576x432 inputs'),
     ((4, 72, 12, 64), torch.bfloat16, 'last tile holds 8 of 64 rows'),
     ((3, 48, 5, 32), torch.float32, 'ragged'),
+    ((12, 48, 4, 32), torch.float32, 'overfit_sanity ViT-S, batch 12'),
 ]
 # K2 against its plain version, per output: |err| <= atol * max|ref| +
 # rtol * |ref|. f32: summation order. bf16: the outputs are rounded to bf16
@@ -3217,9 +3240,13 @@ def phase_demos(card, root, ckpt):
 
 WEBCAM_TIMEOUT_S = 120
 # threaded, the pose node takes the latest frame and the display does not
-# wait for it, so it may skip frames; in every run so far it kept up (34
-# inferred for 32 shown). A node thread that stops after a few frames
-# infers far fewer than this share of the frames shown
+# wait for it, so it skips frames whenever the camera outpaces the models:
+# a slow host inferred 4 frames for 10 shown at the config's 20 frames/s.
+# So the threaded run paces the camera at 1 / WEBCAM_PACE of the model
+# chain's rate (detector plus pose node, medians of the synchronous run);
+# a live node then infers about every frame, and one that stops after a
+# few frames infers far fewer than this share of the frames shown
+WEBCAM_PACE = 3
 WEBCAM_MIN_INFERRED_SHARE = 0.5
 
 
@@ -3245,25 +3272,43 @@ def thread_errors():
 def webcam_run(runner_cfg, label):
     """Run the webcam runner built from `runner_cfg`, ended by its `_exit_`
     event after WEBCAM_TIMEOUT_S if it has not ended by then; fails if a
-    node's thread raised or K1 launched at a shape no kernel phase holds.
-    Returns (frames shown, frames the pose node inferred, K1 launches, wall
-    s of the run without the model build)."""
+    node's thread raised, was not alive when the last frame was shown or
+    still runs when the runner returns, or if K1 launched at a shape no
+    kernel phase holds. Returns (frames shown, frames the pose node
+    inferred, K1 launches, wall s of the run without the model build, the
+    model chain's s per frame: the sum of the detector's and the pose
+    node's median process times)."""
     import threading
     from vitpose_tpu_torch.ops.attention import fused_attention
     from vitpose_tpu_torch.webcam import WebcamRunner
-    from vitpose_tpu_torch.webcam.model_nodes import TopDownPoseEstimatorNode
+    from vitpose_tpu_torch.webcam.model_nodes import (
+        DetectorNode, TopDownPoseEstimatorNode)
     runner = WebcamRunner(**runner_cfg)
-    pose = [n for n in runner.node_list
-            if isinstance(n, TopDownPoseEstimatorNode)][0]
-    inferred = [0]
-    process = pose.process
+    models = [n for n in runner.node_list
+              if isinstance(n, (DetectorNode, TopDownPoseEstimatorNode))]
+    pose = [n for n in models if isinstance(n, TopDownPoseEstimatorNode)][0]
+    spent = {}
 
-    def counted(msgs):
-        out = process(msgs)
-        inferred[0] += 1
-        return out
+    def timed(node):
+        process, times = node.process, spent.setdefault(node.name, [])
 
-    pose.process = counted
+        def run(msgs):
+            t = time.perf_counter()
+            out = process(msgs)
+            times.append(time.perf_counter() - t)
+            return out
+        node.process = run
+
+    for node in models:
+        timed(node)
+    alive_at_last = {}
+
+    def on_display(img, msg):
+        if runner.frame_count == runner.max_frames:
+            alive_at_last.update((n.name, n.is_alive())
+                                 for n in runner.node_list)
+
+    runner.on_display = on_display
     watchdog = threading.Timer(WEBCAM_TIMEOUT_S,
                                lambda: runner.event_manager.set('_exit_'))
     watchdog.start()
@@ -3276,9 +3321,18 @@ def webcam_run(runner_cfg, label):
         finally:
             watchdog.cancel()
     check(not errors, f'webcam {label}: a node thread raised: {errors}')
+    check(len(alive_at_last) == len(runner.node_list)
+          and all(alive_at_last.values()),
+          f'webcam {label}: node threads not alive when the last frame was '
+          f'shown: {[n for n, a in alive_at_last.items() if not a] or "none recorded"}')
+    running = [n.name for n in runner.node_list if n.is_alive()]
+    check(not running, f'webcam {label}: node threads still running after '
+          f'the run: {running}')
     check_shapes_held(f'webcam {label}')
-    return shown, inferred[0], fused_attention.launches, \
-        time.perf_counter() - t0
+    chain_s = sum(float(np.median(spent[n.name])) for n in models
+                  if spent[n.name])
+    return shown, len(spent[pose.name]), fused_attention.launches, \
+        time.perf_counter() - t0, chain_s
 
 
 def phase_webcam(card, root, ckpt):
@@ -3290,19 +3344,25 @@ def phase_webcam(card, root, ckpt):
                         scene(4, boxes), WEBCAM_FRAMES)
     base = run_webcam.runner_config(run_webcam.parse_args([]))
     results = {}
-    for mode, sync in (('threaded', False), ('synchronous', True)):
+    chain_s = None
+    for mode, sync in (('synchronous', True), ('threaded', False)):
         cfg = copy.deepcopy(base)
         check(cfg['synchronous'] is False, 'the example config is not '
               'threaded by default')
         cfg.update(camera_id=video, show=False, synchronous=sync,
                    max_frames=WEBCAM_MAX_FRAMES)
+        if not sync:
+            cfg.update(camera_fps=min(cfg['camera_fps'],
+                                      1.0 / (WEBCAM_PACE * chain_s)))
         for node in cfg['nodes']:
             if node['type'] == 'TopDownPoseEstimatorNode':
                 node.update(model_config=COCO_B, model_checkpoint=ckpt)
             if node['type'] == 'RecorderNode':
                 node.update(out_video_file=os.path.join(
                     root, f'record_{mode}.avi'), out_video_codec='MJPG')
-        shown, inferred, launches, wall = webcam_run(cfg, mode)
+        shown, inferred, launches, wall, chain = webcam_run(cfg, mode)
+        if sync:
+            chain_s = chain
         check(shown == WEBCAM_MAX_FRAMES, f'webcam {mode}: {shown} frames '
               f'shown, expected {WEBCAM_MAX_FRAMES}')
         check(inferred >= 1 and launches == 24 * inferred,
@@ -3310,9 +3370,11 @@ def phase_webcam(card, root, ckpt):
               'inferred frames, expected 24 each')
         least = shown if sync else WEBCAM_MIN_INFERRED_SHARE * shown
         check(inferred >= least, f'webcam {mode}: {inferred} frames '
-              f'inferred for {shown} shown, expected at least {least:g}')
+              f'inferred for {shown} shown at {cfg["camera_fps"]:.3g} '
+              f'camera frames/s, expected at least {least:g}')
         results[mode] = dict(shown=shown, inferred=inferred,
-                             k1=launches, fps=shown / wall, wall_s=wall)
+                             k1=launches, fps=shown / wall, wall_s=wall,
+                             camera_fps=cfg['camera_fps'], chain_ms=1e3 * chain)
     # the example's RecorderNode writes record.mp4 (mp4v) in the working
     # directory from its own thread: a codec that cannot open fails here,
     # not as a recorder thread that dies and stalls the app
@@ -3338,7 +3400,8 @@ def phase_webcam(card, root, ckpt):
           f'{WEBCAM_MAX_FRAMES}, headless: ' + '; '.join(
               f'{m}: {r["shown"]} frames shown, {r["inferred"]} inferred, '
               f'{r["k1"]} K1 launches, {r["fps"]:.1f} frames/s shown '
-              f'({r["wall_s"]:.2f} s)'
+              f'({r["wall_s"]:.2f} s) at {r["camera_fps"]:.3g} camera '
+              f'frames/s, model chain {r["chain_ms"]:.1f} ms per frame'
               for m, r in results.items())
           + f'; tools/run_webcam.py (ViT-S f32, the config\'s own model) '
           f'showed {runner.frame_count} frames in {cli_s:.2f} s; phase '
@@ -7678,6 +7741,288 @@ def phase_dist(card):
             'wall_s': wall}
 
 
+# tools: the root CLIs and the JAX functions that no config reaches (items
+# 14 and 15), each through its main(argv) on the card at full ViT-B width,
+# on a synthetic COCO set of TOOLS_IMAGES 480x640 images (4 boxes each, 14
+# GT persons: one training step of 12 for overfit_sanity, two val batches
+# of 7 for the int8 sweep)
+TOOLS_IMAGES = 4
+TOOLS_BATCH = 64                      # the timed tools' batch
+TOOLS_ITERS = 3                       # timed calls per timing tool
+TOOLS_SWEEP_GRID = ((0, 0), (1, 1))   # of JAX's eight (k_first, k_last)
+TOOLS_HYBRID_TOL = 1e-2               # K1 vs plain attention, 12 bf16 blocks
+
+
+def quiet(fn, *args, **kw):
+    """fn(*args, **kw) with its standard output kept out of the log; returns
+    (result, output)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def tool_run(name, launches, fn, *args, **kw):
+    """Run one tool path from zero counts; record its K1 and K2 launches in
+    `launches[name]`, check its launch shapes; returns (result, output,
+    wall s)."""
+    from vitpose_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_bwd)
+    reset_counts()
+    t0 = time.perf_counter()
+    out, text = quiet(fn, *args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches[name] = (fused_attention.launches, fused_attention_bwd.launches)
+    check_shapes_held(f'tools {name}')
+    return out, text, wall
+
+
+def phase_hybrid(card):
+    """HybridEmbed over a ResNet-50 trunk, then 12 ViT-B blocks in bf16 on
+    64 crops at 256x192: 48 tokens, 12 K1 launches a forward, held against
+    the same modules with the plain attention."""
+    from vitpose_tpu_torch.models.resnet import ResNet
+    from vitpose_tpu_torch.models.vit import Block, HybridEmbed
+    from vitpose_tpu_torch.ops.attention import fused_attention
+    gen = torch.Generator().manual_seed(0)
+    embed = HybridEmbed(ResNet(depth=50, dtype='bfloat16', generator=gen),
+                        768, dtype='bfloat16', generator=gen)
+    blocks = torch.nn.ModuleList(
+        Block(768, 12, fused_attention=True) for _ in range(12))
+    embed, blocks = embed.cuda().eval(), blocks.cuda().eval()
+    x = torch.randn(TOOLS_BATCH, 256, 192, 3, generator=gen).cuda()
+
+    def run():
+        with torch.inference_mode():
+            t = embed(x)
+            for blk in blocks:
+                t = blk(t, torch.bfloat16)
+        return t
+
+    reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    k1 = fused_attention.launches
+    check_shapes_held('tools hybrid')
+    check(out.shape == (TOOLS_BATCH, 48, 768) and out.dtype == torch.bfloat16
+          and bool(out.isfinite().all()), f'HybridEmbed + blocks gave '
+          f'{tuple(out.shape)} {out.dtype}')
+    check(k1 == 12, f'HybridEmbed + 12 blocks launched K1 {k1} times')
+    ms = time_ms(run, calls=TOOLS_ITERS, rounds=1, warmup=1)
+    for blk in blocks:
+        blk.attn.fused = False
+    plain = run()
+    err = ((out.float() - plain.float()).norm() / plain.float().norm()).item()
+    check(err <= TOOLS_HYBRID_TOL, f'HybridEmbed + blocks: K1 {err:.3g} '
+          f'from the plain attention (limit {TOOLS_HYBRID_TOL})')
+    return {'k1': k1, 'rel_err_vs_plain': err, 'ms': ms}
+
+
+def phase_tools(card):
+    """The item-14 tools and the item-15 functions on the card (see the
+    TOOLS_* constants): every path's K1 and K2 launches counted and their
+    shapes held; each tool's own check."""
+    import shutil
+    from vitpose_tpu_torch.api import (inference_top_down_pose_model,
+                                       init_pose_model)
+    from vitpose_tpu_torch.data import CocoIndex
+    from vitpose_tpu_torch.models import infer
+    from vitpose_tpu_torch.tools import test as test_cli
+    from vitpose_tpu_torch.tools import test_new
+    from vitpose_tpu_torch.tools.analysis import (benchmark_inference,
+                                                  benchmark_processing,
+                                                  get_flops,
+                                                  int8_selective_sweep,
+                                                  overfit_sanity,
+                                                  profile_trace, speed_test)
+    from vitpose_tpu_torch.tools.misc import (keypoints2coco_without_mmdet,
+                                              publish_model)
+    t_phase = time.perf_counter()
+    launches, wall, res = {}, {}, {}
+    root = tempfile.mkdtemp(prefix='tools')
+    try:
+        files, n_boxes = write_eval_set(root, 11, n_small=TOOLS_IMAGES,
+                                        n_big=0)
+        ckpt = peaks_checkpoint(root, COCO_B, 'vitpose_b_peaks')
+        options = eval_options(root, files)
+        prefix = root + '/'
+        b, it = str(TOOLS_BATCH), str(TOOLS_ITERS)
+
+        r, _, wall['get_flops'] = tool_run(
+            'get_flops', launches, get_flops.main, [COCO_B])
+        res['get_flops_gflops'] = r['flops'] / 1e9
+        check(launches['get_flops'] == (12, 0), f'get_flops launched '
+              f'{launches["get_flops"]}, expected 12 K1')
+
+        r, _, wall['benchmark_inference'] = tool_run(
+            'benchmark_inference', launches, benchmark_inference.main,
+            [COCO_B, '--batch', b, '--iters', it])
+        res['benchmark_inference_ms'] = r['ms']
+        want = 24 * (1 + TOOLS_ITERS)
+        check(launches['benchmark_inference'] == (want, 0),
+              f'benchmark_inference launched '
+              f'{launches["benchmark_inference"]}, expected {want} K1: 24 '
+              'per flip-tested batch')
+        r, _, wall['benchmark_inference_int8'] = tool_run(
+            'benchmark_inference_int8', launches, benchmark_inference.main,
+            [COCO_B, '--batch', b, '--iters', it, '--int8'])
+        res['benchmark_inference_int8_ms'] = r['ms']
+        want = 2 * 12 + 24 * (1 + TOOLS_ITERS)
+        check(launches['benchmark_inference_int8'] == (want, 0),
+              f'benchmark_inference --int8 launched '
+              f'{launches["benchmark_inference_int8"]}, expected {want} K1: '
+              '12 per calibration batch, 24 per flip-tested batch')
+
+        r, _, wall['speed_test'] = tool_run(
+            'speed_test', launches, speed_test.main,
+            [COCO_B, '--bz', b, '--iters', it, '--warmup', '1'])
+        res['speed_test_ms'] = r['ms']
+        want = 12 * (1 + TOOLS_ITERS)
+        check(launches['speed_test'] == (want, 0), f'speed_test launched '
+              f'{launches["speed_test"]}, expected {want} K1: 12 a batch')
+
+        for mode, names, per in (('infer', ('attn_fwd',), (24, 0)),
+                                 ('train', ('attn_fwd', 'attn_bwd'),
+                                  (12, 12))):
+            out = os.path.join(root, f'trace_{mode}.json')
+            r, _, wall[f'profile_{mode}'] = tool_run(
+                f'profile_{mode}', launches, profile_trace.main,
+                [COCO_B, '--out', out, '--mode', mode, '--batch', b,
+                 '--steps', '2'])
+            with open(out) as f:
+                text = f.read()
+            for name in names:
+                check(name in text, f'the {mode} trace names no {name} '
+                      'kernel')
+            want = tuple(3 * n for n in per)
+            check(launches[f'profile_{mode}'] == want, f'profile_trace '
+                  f'--mode {mode} launched {launches[f"profile_{mode}"]} '
+                  f'in 3 steps, expected {want}')
+            res[f'profile_{mode}_trace_bytes'] = len(text)
+            res[f'profile_{mode}_kernel_ms_per_step'] = sum(
+                r['kernels_us'].values()) / 2 / 1e3
+
+        n_batches = -(-n_boxes // EVAL_BATCH)
+        r, _, wall['test'] = tool_run('test', launches, test_cli.main,
+                                      [COCO_B, ckpt, '--cfg-options',
+                                       *options])
+        vis = os.path.join(root, 'vis')
+        (stats, matches), _, wall['test_new'] = tool_run(
+            'test_new', launches, test_new.main,
+            [COCO_B, ckpt, '--save-dir', vis, '--num-images', '8',
+             '--cfg-options', *options])
+        for name in ('test', 'test_new'):
+            check(launches[name] == (24 * n_batches, 0), f'{name} launched '
+                  f'{launches[name]}, expected 24 K1 per batch')
+        gap = max(abs(stats[k] - r[k]) for k in r)
+        check(gap <= 1e-9, f'test_new AP {stats["AP"]} against tools/test.py '
+              f'{r["AP"]}: stats {gap:.3g} apart')
+        drawn = [f for f in os.listdir(vis) if f.endswith('.png')]
+        check(test_new.HISTOGRAM in drawn and len(drawn) == 1 + len(
+            test_new.sample_indices(len(matches), 8)), f'test_new wrote '
+            f'{sorted(drawn)}')
+        res['test_new_ap'] = stats['AP']
+        res['test_new_matches'] = len(matches)
+
+        out = os.path.join(root, 'pseudo.json')
+        r, _, wall['keypoints2coco'] = tool_run(
+            'keypoints2coco', launches, keypoints2coco_without_mmdet.main,
+            [COCO_B, ckpt, '--json-file', files['ann'], '--img-root', prefix,
+             '--out-json-file', out])
+        pm = init_pose_model(COCO_B, ckpt, device='cuda')
+        coco = CocoIndex(files['ann'])
+        want_kpts = []
+        for image_id in sorted(coco.imgs):
+            people = [{'bbox': coco.anns[a]['bbox']}
+                      for a in coco.getAnnIds(image_id)]
+            poses, _ = inference_top_down_pose_model(
+                pm, os.path.join(prefix, coco.imgs[image_id]['file_name']),
+                people)
+            for p in poses:
+                k = np.asarray(p['keypoints'], np.float64).copy()
+                low = k[:, 2] < 0.3
+                k[low] = 0
+                k[~low, 2] = 2
+                want_kpts.append([int(v) for v in k.reshape(-1)])
+        got = [a['keypoints'] for a in r['annotations']]
+        check(got == want_kpts and len(got) == len(coco.anns),
+              f'keypoints2coco: {len(got)} annotations, not the API\'s '
+              f'{len(want_kpts)} keypoints')
+        check(launches['keypoints2coco'] == (24 * TOOLS_IMAGES, 0),
+              f'keypoints2coco launched {launches["keypoints2coco"]}, '
+              'expected 24 K1 per image')
+
+        pub, _, wall['publish_model'] = tool_run(
+            'publish_model', launches, publish_model.main,
+            [ckpt, os.path.join(root, 'vitpose_b.pth')])
+        crops = torch.randn(8, 256, 192, 3,
+                            generator=torch.Generator().manual_seed(5)).cuda()
+        with torch.inference_mode():
+            before = infer(pm.model, crops)
+            pm_pub = init_pose_model(COCO_B, pub, device='cuda')
+            after = infer(pm_pub.model, crops)
+        check(torch.equal(before, after), 'the published .pth gives other '
+              'heatmaps than the unpublished weights')
+        del pm, pm_pub
+        res['published'] = os.path.basename(pub)
+
+        sweep, _, wall['int8_sweep'] = tool_run(
+            'int8_sweep', launches, int8_selective_sweep.sweep,
+            files['ann'], prefix, TOOLS_SWEEP_GRID)
+        check(len(sweep['rows']) == len(TOOLS_SWEEP_GRID)
+              and 0 < sweep['exact']['AP'] <= 1, f'int8 sweep gave {sweep}')
+        k1, k2 = launches['int8_sweep']
+        check(k1 > 0 and k2 == 0, f'int8 sweep launched {k1, k2}')
+        res['int8_sweep'] = {'exact_ap': sweep['exact']['AP'],
+                             'rows': sweep['rows']}
+
+        work = os.path.join(root, 'overfit')
+        evals, _, wall['overfit_sanity'] = tool_run(
+            'overfit_sanity', launches, overfit_sanity.main,
+            ['--ann', files['ann'], '--img-root', prefix, '--epochs', '2',
+             '--work-dir', work])
+        # 2 steps of 4 blocks (K1 and K2), 2 val batches of 12 flip-tested
+        check(launches['overfit_sanity'] == (2 * 4 + 2 * 8, 2 * 4),
+              f'overfit_sanity launched {launches["overfit_sanity"]}, '
+              'expected (24, 8)')
+        check(len(evals) == 1 and 0 <= evals[0]['AP'] <= 1,
+              f'overfit_sanity evaluated {evals}')
+        res['overfit_ap_epoch2'] = evals[0]['AP']
+
+        r, _, wall['benchmark_processing'] = tool_run(
+            'benchmark_processing', launches, benchmark_processing.main,
+            ['--ann', files['ann'], '--prefix', prefix, '--batch', '8',
+             '--iters', '1', '--num-workers', '2'])
+        res['processing_img_s'] = {'host': r['host_img_s'],
+                                   'device': r['device_img_s']}
+        check(launches['benchmark_processing'] == (0, 0),
+              'benchmark_processing launched a kernel')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    hybrid = phase_hybrid(card)
+    launches['hybrid_embed'] = (hybrid['k1'], 0)
+    res['hybrid'] = hybrid
+    total = time.perf_counter() - t_phase
+    print('tools: on the card at full ViT-B width (COCO-B, bf16, K1; the '
+          'int8 sweep f32 with K1, overfit_sanity ViT-S f32 with K1 and '
+          'K2), K1, K2 launches per tool path: ' + ', '.join(
+              f'{n} {a}/{b2}' for n, (a, b2) in launches.items())
+          + '; wall s of main (model builds included): ' + ', '.join(
+              f'{n} {v:.1f}' for n, v in wall.items())
+          + f'; benchmark_inference batch {TOOLS_BATCH} flip '
+          f'{res["benchmark_inference_ms"]:.2f} ms, --int8 '
+          f'{res["benchmark_inference_int8_ms"]:.2f} ms, speed_test '
+          f'{res["speed_test_ms"]:.2f} ms, HybridEmbed + 12 blocks '
+          f'{hybrid["ms"]:.2f} ms ({hybrid["rel_err_vs_plain"]:.2g} from '
+          f'the plain attention); test_new AP {res["test_new_ap"]:.4f} = '
+          f'tools/test.py\'s; phase {total:.1f} s on {card}', flush=True)
+    return {'launches': {n: {'k1': a, 'k2': b2}
+                         for n, (a, b2) in launches.items()},
+            'wall_s': wall, 'results': res, 'phase_s': total}
+
+
 def kernel_name(mangled):
     """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
     anonymous namespace; the mangled name where it is not one."""
@@ -7835,6 +8180,9 @@ def main():
         lap('fam')
         dist = phase_dist(card)
         lap('dist')
+        torch.cuda.empty_cache()
+        tools = phase_tools(card)
+        lap('tools')
         print('phases: wall s ' + ', '.join(
             f'{name} {t - laps[i][1]:.1f}'
             for i, (name, t) in enumerate(laps[1:]))
@@ -7883,7 +8231,9 @@ def main():
                                   **fam_launches(fam, 'k1'),
                                   'dist_world1_step': dist['world1']['k1'],
                                   'dist_two_ranks_step':
-                                      dist['two_ranks']['k1']},
+                                      dist['two_ranks']['k1'],
+                                  'tools': {n: v['k1'] for n, v in
+                                            tools['launches'].items()}},
                 'attention_bwd': {'serve': 0, 'eval': 0, 'export': 0,
                                   'demos_per_frame': 0, 'webcam': 0,
                                   'train': train_launches[1],
@@ -7903,7 +8253,9 @@ def main():
                                   **fam_launches(fam, 'k2'),
                                   'dist_world1_step': dist['world1']['k2'],
                                   'dist_two_ranks_step':
-                                      dist['two_ranks']['k2']}}
+                                      dist['two_ranks']['k2'],
+                                  'tools': {n: v['k2'] for n, v in
+                                            tools['launches'].items()}}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({
@@ -7940,6 +8292,7 @@ def main():
     print(json.dumps({'vid3d': vid3d}))
     print(json.dumps({'fam': fam}))
     print(json.dumps({'dist': dist}))
+    print(json.dumps({'tools': tools}))
     print(json.dumps({'kernels': kernels, 'int8_matmul': int8_matmul,
                       'deploy_latency_ms': {
                           m: r['latency_ms'] for m, r in deploy.items()},

@@ -35,7 +35,21 @@ MODULES = ['ops.attention', 'kernels._build', 'models.vit', 'models.heads',
            'demo.top_down_img_demo', 'demo.top_down_img_demo_with_det',
            'demo.top_down_video_demo', 'demo.top_down_video_demo_with_det',
            'demo.top_down_pose_tracking_demo', 'demo.face_img_demo',
-           'demo.face_video_demo', 'demo.webcam_demo']
+           'demo.face_video_demo', 'demo.webcam_demo', 'tools.test_new',
+           'tools.eval_detector', 'tools.train_comet', 'tools.misc',
+           'tools.misc.keypoints2coco_without_mmdet',
+           'tools.misc.publish_model', 'tools.analysis',
+           'tools.analysis._common', 'tools.analysis.get_flops',
+           'tools.analysis.speed_test', 'tools.analysis.benchmark_inference',
+           'tools.analysis.benchmark_processing',
+           'tools.analysis.profile_trace', 'tools.analysis.overfit_sanity',
+           'tools.analysis.print_config',
+           'tools.analysis.int8_selective_sweep', 'tools.dataset',
+           'tools.dataset._coco', 'tools.dataset.parse_animalpose_dataset',
+           'tools.dataset.parse_cofw_dataset',
+           'tools.dataset.parse_deepposekit_dataset',
+           'tools.dataset.parse_macaquepose_dataset',
+           'tools.dataset.h36m_to_coco']
 
 
 def _imported_names(path):

@@ -628,7 +628,7 @@ def test_train_cli_evaluates_and_keeps_the_best(sets, tmp_path):
 
 
 def load_params_npz(path):
-    from vitpose_tpu_torch.utils.convert import load_params_npz as load
+    from vitpose_tpu_torch.utils.checkpoint import load_params_npz as load
     return load(path)
 
 
@@ -770,10 +770,10 @@ def test_converters_round_trip(traj):
                            else v), k
 
 
-def test_the_zoo_runs_490_of_493():
+def test_the_zoo_runs_493_of_493():
     """Every config of the zoo passes the training runner's and the
-    evaluation CLI's checks: all 493 run since ROADMAP item 12f (the name
-    keeps the earlier count); the 15 configs of the video and 3D families
+    evaluation CLI's checks: all 493 run since ROADMAP item 12f; the 15
+    configs of the video and 3D families
     (PoseWarper, the lifters, InterHand3D, the mesh, VoxelPose) build at
     full width on the meta device."""
     paths = sorted(glob.glob(os.path.join(ROOT, 'vitpose_tpu', 'configs',

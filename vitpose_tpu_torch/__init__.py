@@ -20,7 +20,9 @@ names. It imports torch and numpy, never JAX or the JAX package.
                config-driven training runner (``train_model``)
 - ``parallel`` SIGTERM preemption and the training seed (one process)
 - ``tools``    the evaluation and training CLIs
-               (``python -m vitpose_tpu_torch.tools.test`` / ``.train``)
+               (``python -m vitpose_tpu_torch.tools.test`` / ``.train``),
+               the server, export, webcam and analysis, dataset and misc
+               tools, and the torchrun and SLURM launchers
 - ``utils``    config files, weight carry-over from the JAX package's
                variables, .pth reading with the pos-embed regrid and
                patch-kernel pad, training checkpoints, threading limits

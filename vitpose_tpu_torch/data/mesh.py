@@ -6,7 +6,8 @@ datasets/mesh/*.py and pipelines/mesh_transform.py): npz record sets with
 SMPL pose and shape and 24-joint 2D/3D keypoints (`MeshDataset`, its
 joint_error evaluation), the Mosh prior (`MoshDataset`), the weighted
 mixture (`MeshMixDataset`), the flips and rotations that keep the SMPL
-parameters consistent with the image, and `MeshAdvLoader`, whose batches
+parameters consistent with the image, the DensePose IUV maps (`load_iuv`,
+`flip_iuv`, `iuv_to_arrays`), and `MeshAdvLoader`, whose batches
 (imgs, joints, pose, beta, real_pose, real_shape) feed
 `models.mesh.adversarial_step`; the same RandomState draws as JAX's.
 """
@@ -89,6 +90,45 @@ def rotate_joints_3d(joints_3d, rot_deg):
     rot = np.array([[cs, -sn, 0], [sn, cs, 0], [0, 0, 1]], np.float32)
     return np.einsum('ij,kj->ki', rot, np.asarray(joints_3d,
                                                   np.float32))
+
+
+def load_iuv(iuv_file, has_iuv=True, use_iuv=True):
+    """Read a DensePose-style IUV image in the reference's channel order
+    (reference mesh_transform.py:171 `LoadIUVFromFile`: read as BGR, so
+    the channels come out I, U, V). Returns (iuv [H, W, 3] uint8 or None,
+    has_iuv); raises ValueError where cv2 cannot read the file."""
+    if not (has_iuv and use_iuv):
+        return None, 0
+    import cv2
+    iuv = cv2.imread(str(iuv_file), cv2.IMREAD_COLOR)
+    if iuv is None:
+        raise ValueError(f'Fail to read {iuv_file}')
+    return iuv, has_iuv
+
+
+def flip_iuv(iuv, uv_type='BF'):
+    """Horizontal IUV flip (reference mesh_transform.py:35 `_flip_iuv`):
+    only DecoMR's 'BF' map has a simple rule, the image and its U channel
+    mirrored."""
+    if uv_type != 'BF':
+        raise NotImplementedError(
+            f'The flip of {uv_type} UV map is not implemented yet.')
+    out = np.ascontiguousarray(iuv[:, ::-1, :])
+    out[:, :, 1] = 255 - out[:, :, 1]
+    return out
+
+
+def iuv_to_arrays(iuv, iuv_size=(256, 256)):
+    """IUV image -> (part index [1, H, W] int64, uv [2, H, W] float32 in
+    [0, 1]) (reference mesh_transform.py:199 `IUVToTensor`); zeros of
+    `iuv_size` (h, w) where the sample has no IUV map."""
+    if iuv is None:
+        h, w = int(iuv_size[0]), int(iuv_size[1])
+        return (np.zeros((1, h, w), np.int64),
+                np.zeros((2, h, w), np.float32))
+    part_index = np.asarray(iuv[:, :, 0], np.int64)[None]
+    uv = np.asarray(iuv[:, :, 1:], np.float32).transpose(2, 0, 1) / 255.0
+    return part_index, uv
 
 
 class MeshDataset:

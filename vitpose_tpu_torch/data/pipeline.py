@@ -17,8 +17,15 @@ Geometry as in the reference: a flipped record mirrors its joints with
 the warp matrix on the device; targets use the crop-space joints, i.e. the
 unflipped warp applied to the mirrored joints.
 
+The crop wire format (JAX :231-291): `make_host_crop_fn` warps the crops
+on the CPU and ships them as uint8; `make_device_finish_fn` normalises them
+and paints the targets on their device.
+
 `multitask_gather_target` (JAX :447, reference `MultitaskGatherTarget`)
-gathers per-head targets for `models.multitask.MultiTaskModel`.
+gathers per-head targets for `models.multitask.MultiTaskModel`;
+`multi_item_process`, `discard_duplicated_items` and `rename_keys` (JAX
+:421-503) are the other record utilities of the reference's
+shared_transform.py.
 """
 from __future__ import annotations
 
@@ -181,14 +188,8 @@ def make_preprocess_fn(image_size=(192, 256), heatmap_size=(48, 64),
             mat = udp_warp_matrix(rot, center, scale, (iw, ih))
         else:
             mat = affine_matrix(center, scale, rot, (iw, ih))
-        mat_pix = mat
-        if flip is not None:
-            col0 = mat[..., :, 0]
-            flipped = torch.stack([-col0, mat[..., :, 1],
-                                   mat[..., :, 2] + (imgs.shape[2] - 1) * col0],
-                                  dim=-1)
-            mat_pix = torch.where(flip.bool()[:, None, None], flipped, mat)
-        crops = (warp_affine_batch(imgs, mat_pix, (iw, ih)) - mean) / std
+        crops = (warp_affine_batch(imgs, _pixel_warp(mat, flip, imgs.shape[2]),
+                                   (iw, ih)) - mean) / std
         out = {'imgs': crops}
         if with_targets:
             joints_c = apply_affine_to_points(joints, mat)
@@ -229,6 +230,82 @@ def make_preprocess_fn(image_size=(192, 256), heatmap_size=(48, 64),
         return out
 
     return preprocess
+
+
+def _pixel_warp(mat, flip, width):
+    """Each sample's pixel warp: `mat`, composed on the right with the source
+    mirror [[-1, 0, W-1], [0, 1, 0]] where `flip` is set."""
+    if flip is None:
+        return mat
+    col0 = mat[..., :, 0]
+    flipped = torch.stack([-col0, mat[..., :, 1],
+                           mat[..., :, 2] + (width - 1) * col0], dim=-1)
+    return torch.where(flip.bool()[:, None, None], flipped, mat)
+
+
+def make_host_crop_fn(image_size=(192, 256), use_udp=True):
+    """The host half of the crop wire format (JAX :231): the crops are
+    warped on the CPU and leave the host as uint8, a fraction of the
+    canvases' bytes (the reference's loader workers ship cv2-warped uint8
+    crops too, top_down_transform.py `TopDownAffine`); pairs with
+    `make_device_finish_fn`.
+
+    fn(imgs_uint8 [N, H, W, 3], center [N, 2], scale [N, 2], rot [N],
+       joints [N, K, 2], flip [N] bool or None) ->
+       (crops uint8 [N, h, w, 3], joints in the crop [N, K, 2]),
+    numpy arrays or CPU tensors in, CPU tensors out.
+    """
+    iw, ih = int(image_size[0]), int(image_size[1])
+
+    def host_crop(imgs, center, scale, rot, joints, flip=None):
+        args = [None if a is None else torch.as_tensor(a)
+                for a in (imgs, center, scale, rot, joints, flip)]
+        if any(a is not None and a.device.type != 'cpu' for a in args):
+            raise ValueError('make_host_crop_fn warps on the host: pass '
+                             'numpy arrays or CPU tensors')
+        imgs, center, scale, rot, joints, flip = args
+        if use_udp:
+            mat = udp_warp_matrix(rot, center, scale, (iw, ih))
+        else:
+            mat = affine_matrix(center, scale, rot, (iw, ih))
+        crops = warp_affine_batch(imgs.float(),
+                                  _pixel_warp(mat, flip, imgs.shape[2]),
+                                  (iw, ih))
+        crops = crops.round().clamp(0, 255).to(torch.uint8)
+        return crops, apply_affine_to_points(joints, mat)
+
+    return host_crop
+
+
+def make_device_finish_fn(image_size=(192, 256), heatmap_size=(48, 64),
+                          sigma=2.0, use_udp=True, unbiased=False):
+    """The device half of the crop wire format (JAX :270): uint8 crops
+    normalised and the heatmap targets painted (UDP, else MSRA), on the
+    inputs' device.
+
+    fn(crops_uint8 [N, h, w, 3], joints_c [N, K, 2], vis [N, K]) ->
+       dict(imgs [N, h, w, 3], target [N, K, hh, hw], target_weight [N, K])
+    """
+    iw, ih = int(image_size[0]), int(image_size[1])
+    norm = {}                        # device -> (mean, std), copied once
+
+    def finish(crops_u8, joints_c, vis):
+        dev = crops_u8.device
+        if dev not in norm:
+            norm[dev] = (torch.as_tensor(IMAGENET_MEAN, device=dev),
+                         torch.as_tensor(IMAGENET_STD, device=dev))
+        mean, std = norm[dev]
+        imgs = (crops_u8.float() / 255.0 - mean) / std
+        if use_udp:
+            target, weight = generate_udp_heatmaps(
+                joints_c, vis, (iw, ih), heatmap_size, sigma=sigma)
+        else:
+            target, weight = generate_msra_heatmaps(
+                joints_c, vis, (iw, ih), heatmap_size, sigma=sigma,
+                unbiased=unbiased)
+        return {'imgs': imgs, 'target': target, 'target_weight': weight}
+
+    return finish
 
 
 # --- image-level augmentations (vitpose_tpu/data/pipeline.py:293-418) -------
@@ -334,4 +411,36 @@ def multitask_gather_target(target_fns, record, indices=None,
     out = dict(record)
     for key in keys:
         out[key] = [outputs[i].get(key) for i in indices]
+    return out
+
+
+def multi_item_process(fn, items):
+    """`fn` (record -> record) on each item of a keyed collection, the
+    outputs merged per field into lists (reference `MultiItemProcess`):
+    {id: record} -> {field: [value of each item, ...]}, for samples that
+    carry several images sharing one transform."""
+    merged = {}
+    for item in items.values():
+        for k, v in fn(item).items():
+            merged.setdefault(k, []).append(v)
+    return merged
+
+
+def discard_duplicated_items(record, keys):
+    """Per-item lists known to be equal across the items collapsed back to
+    their first value, for every k of `keys` the record has (reference
+    `DiscardDuplicatedItems`)."""
+    out = dict(record)
+    for k in keys:
+        if k in out:
+            out[k] = out[k][0]
+    return out
+
+
+def rename_keys(record, key_pairs):
+    """Each (src, tgt) of `key_pairs` moves record[src] to record[tgt]
+    (reference `RenameKeys`)."""
+    out = dict(record)
+    for src, tgt in key_pairs:
+        out[tgt] = out.pop(src)
     return out

@@ -1,9 +1,11 @@
 """Keypoint losses (counterpart of vitpose_tpu/models/losses.py: the joints
-MSE of the GaussianHeatmap target, the CombinedTarget MSE and the
-adaptive wing loss; and of vitpose_tpu/models/losses_regression.py: the
-DeepPose criteria `smooth_l1_loss`, `wing_loss` and `soft_wing_loss`
-(:27, :45, :55), the bottom-up losses `ae_heatmap_loss` and
-`ae_tag_loss` (:139-196), and the pose lifters' `mse_loss`,
+MSE of the GaussianHeatmap target, the CombinedTarget MSE, the online hard
+keypoint mining MSE and the adaptive wing loss; and of
+vitpose_tpu/models/losses_regression.py: the DeepPose criteria
+`smooth_l1_loss`, `wing_loss` and `soft_wing_loss` (:27, :45, :55), the
+flow-free RLE loss `rle_loss` (:112), the bottom-up losses
+`ae_heatmap_loss` and `ae_tag_loss` (:139-196), and the pose lifters'
+`mse_loss`,
 `mpjpe_loss`, `bone_loss`, `project_joints` and `semi_supervision_loss`
 (:40-98, :241-300)), InterHand3D's `l1_loss` and `bce_loss` (:35, :99)
 and the mesh losses `gan_loss`, `mesh_joint_loss` and `smpl_param_loss`
@@ -47,6 +49,18 @@ def combined_target_mse_loss(pred, target, target_weight, loss_weight=1.0):
     loss = loss + 0.5 * ((hm_t * p[:, :, 2] - hm_t * t[:, :, 2]) ** 2
                          ).mean((0, 2))
     return loss.sum() / k * loss_weight
+
+
+def joints_ohkm_mse_loss(pred, target, target_weight, topk=8,
+                         loss_weight=1.0):
+    """Online hard keypoint mining MSE over [N, K, H, W] heatmaps
+    (reference mse_loss.py:97 `JointsOHKMMSELoss`): each sample keeps its
+    `topk` largest per-joint losses, mean_{H,W}((w_nk * (pred -
+    target))^2); the mean over samples of their kept sums over `topk`."""
+    diff = (pred - target) * target_weight[:, :, None, None]
+    per_joint = (diff ** 2).mean((2, 3))                   # [N, K]
+    kept = per_joint.topk(topk, dim=1).values
+    return (kept.sum(1) / topk).mean() * loss_weight
 
 
 def adaptive_wing_loss(pred, target, target_weight=None, alpha=2.1,
@@ -109,6 +123,28 @@ def soft_wing_loss(pred, target, target_weight=None, omega1=2.0,
     loss = torch.where(d < omega1, d,
                        omega2 * torch.log(1.0 + d / epsilon) + b)
     return loss.sum((1, 2)).mean() * loss_weight
+
+
+def rle_loss(pred, sigma, target, target_weight=None,
+             q_distribution='laplace', loss_weight=1.0):
+    """Residual log-likelihood estimation loss (Li et al., ICCV 2021) in
+    its flow-free form, as JAX's (losses_regression.py:112): -log Q of the
+    error scaled by the predicted `sigma` [N, K, D] (floored at 1e-9),
+    with a Laplace ('laplace') or Gaussian base density, plus log sigma;
+    weighted as `_weighted` weights, the elementwise mean."""
+    sigma = sigma.clamp_min(1e-9)
+    error = (pred - target) / sigma
+    if q_distribution == 'laplace':
+        log_q = error.abs() + math.log(2.0)
+    else:
+        log_q = 0.5 * error ** 2 + 0.5 * math.log(2.0 * math.pi)
+    loss = torch.log(sigma) + log_q
+    if target_weight is not None:
+        w = target_weight
+        if w.ndim == loss.ndim - 1:
+            w = w[..., None]
+        loss = loss * w
+    return loss.mean() * loss_weight
 
 
 REGRESSION_LOSSES = {'smooth_l1': smooth_l1_loss, 'wing': wing_loss,

@@ -24,7 +24,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 
-from ..ops.geometry import flip_back
+from ..ops.geometry import flip_back, fliplr_regression
 from .heads import HeatmapHead, SimpleHead
 from .heads_extra import MSMUHead, MultiStageHead, RegressionHead, ViPNASHead
 from .losses import combined_target_mse_loss, joints_mse_loss
@@ -250,9 +250,8 @@ def infer(model: TopDownModel, imgs, flip_index=None, expert_idx=None,
     hm_f = model(imgs.flip(2), expert_idx=expert_idx,      # W axis of NHWC
                  head_idx=head_idx)
     if cfg.head_type == 'regression':
-        hm_f = hm_f[:, flip_index]
-        hm_f = torch.stack([1.0 - hm_f[..., 0], hm_f[..., 1]], dim=-1)
-        return (hm + hm_f) * 0.5
+        return (hm + fliplr_regression(hm_f, None,
+                                       flip_index=flip_index)) * 0.5
     hm_f = flip_back(hm_f, flip_index, target_type=cfg.target_type)
     if cfg.shift_heatmap:
         hm_f = torch.cat([hm_f[..., :1], hm_f[..., :-1]], dim=-1)

@@ -1,7 +1,8 @@
 """Plain ViT backbone for top-down pose, in PyTorch.
 
 Counterpart of vitpose_tpu/models/vit.py (`DropPath`, `Int8Dense`, `Mlp`,
-`MoEMlp`, `Attention`, `Block`, `ViTConfig`, `VIT_VARIANTS`, `ViT`), with
+`MoEMlp`, `Attention`, `Block`, `ViTConfig`, `VIT_VARIANTS`, `ViT`,
+`HybridEmbed`), with
 the mmpose parameter names (`patch_embed.proj`,
 `blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,mlp.fc2}`,
 `last_norm`; ViTPose+ adds `blocks.{i}.mlp.experts.{e}` in state dicts),
@@ -628,3 +629,34 @@ class ViT(nn.Module):
         kw = {} if context is None else {'context_fn': context}
         return checkpoint(blk, x, dtype, masks, route, use_reentrant=False,
                           preserve_rng_state=False, **kw)
+
+
+class HybridEmbed(nn.Module):
+    """CNN-feature patch embedding (JAX vitpose_tpu/models/vit.py:386,
+    reference vit.py:168): a CNN trunk of `train.loop.build_backbone` on
+    [N, H, W, 3] crops, its last feature map [N, C, h, w] flattened to
+    h * w tokens in row-major order, and the Linear `proj` to the
+    transformer width in `dtype` -> [N, h * w, embed_dim], ready for
+    `Block`s:
+
+        embed = HybridEmbed(ResNet(depth=50, dtype='bfloat16'), 768,
+                            dtype='bfloat16')
+        x = embed(crops)                      # [N, 48, 768] at 256x192
+        for blk in blocks:
+            x = blk(x, torch.bfloat16)
+    """
+
+    def __init__(self, backbone: nn.Module, embed_dim=768, dtype='float32',
+                 generator=None):
+        super().__init__()
+        self.backbone = backbone
+        self.dtype = compute_dtype(dtype)
+        self.proj = Linear(backbone.out_channels, embed_dim)
+        init_linear(self.proj, generator)
+
+    def forward(self, x):
+        feat = self.backbone(x)
+        if isinstance(feat, (list, tuple)):
+            feat = feat[-1]
+        tokens = feat.flatten(2).transpose(1, 2)         # [N, h * w, C]
+        return self.proj(tokens.to(self.dtype), self.dtype)

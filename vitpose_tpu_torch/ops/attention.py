@@ -33,6 +33,9 @@ JAX package.
   * ``attention`` -- what the ViT calls: ``attention_fwd`` on either device.
     Inside ``keep_outputs`` its output is kept for a recompute (the ViT's
     remat policy 'attn'; see ``keeping``).
+  * ``register_flop_formulas`` -- the two ops' FLOPs for
+    torch.utils.flop_counter, which cannot see inside a custom op:
+    4 N H T S d forward (the QK^T and PV products), 2.5 times that backward.
 """
 from __future__ import annotations
 
@@ -406,3 +409,28 @@ def attention(q, k, v):
     scale = q.shape[-1] ** -0.5
     with keeping(torch.ops.vitpose.attention_fwd.default):
         return torch.ops.vitpose.attention_fwd(q, k, v, scale)
+
+
+def attention_flops(q_shape, k_shape):
+    """FLOPs of the forward's two products for q [N, T, H, d] and
+    k [N, S, H, d]: QK^T and PV, 2 N H T S d each."""
+    n, t, h, d = q_shape
+    return 4 * n * h * t * k_shape[1] * d
+
+
+def register_flop_formulas():
+    """Register the ops' FLOPs with torch.utils.flop_counter (once; later
+    calls do nothing): `attention_flops` for `vitpose::attention_fwd` and
+    2.5 times it for `vitpose::attention_bwd` (dQ, dK, dV and the
+    recomputed scores: five products of the forward's size)."""
+    from torch.utils import flop_counter
+    if torch.ops.vitpose.attention_fwd in flop_counter.flop_registry:
+        return
+
+    @flop_counter.register_flop_formula(torch.ops.vitpose.attention_fwd)
+    def _fwd(q_shape, k_shape, *args, **kwargs):
+        return attention_flops(q_shape, k_shape)
+
+    @flop_counter.register_flop_formula(torch.ops.vitpose.attention_bwd)
+    def _bwd(q_shape, k_shape, *args, **kwargs):
+        return attention_flops(q_shape, k_shape) * 5 // 2

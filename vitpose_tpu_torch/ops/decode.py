@@ -5,7 +5,9 @@ shift, megvii's Gaussian modulation, DARK (unbiased) and UDP Newton
 refinement of GaussianHeatmap targets, the UDP CombinedTarget decode
 (`decode_combined_target`), the un-crop back to image space, the
 DeepPose coordinates' (`keypoints_from_regression`), and the argmax of 3D
-heatmap volumes (`heatmaps3d_to_coords`, InterHand3D's).
+heatmap volumes (`heatmaps3d_to_coords`, InterHand3D's) with their
+un-crop (`keypoints_from_heatmaps3d`); on the host, the keypoint metrics
+and the exact-match `multilabel_classification_accuracy`.
 
 cv2 compatibility, as in the JAX package:
   * `cv2.getGaussianKernel(k, 0)` uses a fixed table for k in {1, 3, 5, 7}
@@ -114,6 +116,20 @@ def heatmaps3d_to_coords(heatmaps):
                           (idx // (h * w)).float()], dim=-1)
     coords = torch.where(maxvals > 0.0, coords, -1.0)
     return coords, maxvals
+
+
+def keypoints_from_heatmaps3d(heatmaps, center, scale):
+    """[N, K, D, H, W] volumes -> (image-space x, y and the depth bin z
+    [N, K, 3], maxvals [N, K, 1]): the argmax of `heatmaps3d_to_coords`
+    with x, y taken back through `transform_preds` (JAX
+    vitpose_tpu/ops/decode.py:330, reference top_down_eval.py:625)."""
+    coords, maxvals = heatmaps3d_to_coords(heatmaps)
+    h, w = heatmaps.shape[3], heatmaps.shape[4]
+    center, scale = (torch.as_tensor(a, dtype=torch.float32,
+                                     device=heatmaps.device)
+                     for a in (center, scale))
+    xy = transform_preds(coords[..., :2], center, scale, (w, h))
+    return torch.cat([xy, coords[..., 2:]], dim=-1), maxvals
 
 
 def _gather_hm(heatmaps, px, py):
@@ -373,3 +389,16 @@ def keypoint_epe(pred, gt, mask):
     dists = _normalized_distances(pred, gt, mask, ones)
     valid = dists[dists != -1]
     return float(valid.sum() / max(1, len(valid)))
+
+
+def multilabel_classification_accuracy(pred, gt, mask, thr=0.5):
+    """Exact-match multi-label accuracy (reference top_down_eval.py:658,
+    the InterHand hand-type metric): over the samples whose every label
+    has ground truth (`mask` > 0), the share whose every label in `pred`
+    lies on the same side of `thr` as in `gt`; 0 with no such sample."""
+    pred, gt, mask = (np.asarray(a) for a in (pred, gt, mask))
+    valid = (mask > 0).min(axis=1) if mask.ndim == 2 else (mask > 0)
+    pred, gt = pred[valid], gt[valid]
+    if pred.shape[0] == 0:
+        return 0.0
+    return float((((pred - thr) * (gt - thr)) > 0).all(axis=1).mean())

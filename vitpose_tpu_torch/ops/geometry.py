@@ -40,6 +40,14 @@ def bbox_xyxy2xywh(bbox):
     return torch.cat([bbox[..., :2], wh, bbox[..., 4:]], dim=-1)
 
 
+def bbox_cs2xyxy(center, scale, pixel_std=PIXEL_STD):
+    """(center [..., 2], scale [..., 2]) -> [..., 4] xyxy boxes: the
+    inverse of bbox_xywh2cs, its padding kept."""
+    wh = _f32(scale) * pixel_std
+    xy = _f32(center) - wh * 0.5
+    return torch.cat([xy, xy + wh], dim=-1)
+
+
 def affine_matrix(center, scale, rot_deg, output_size, shift=(0.0, 0.0),
                   inv=False, pixel_std=PIXEL_STD):
     """Batched classic (MSRA) crop affine in closed form, [..., 2, 3].
@@ -153,6 +161,41 @@ def flip_index_from_pairs(flip_pairs, num_joints):
     for a, b in flip_pairs:
         idx[a], idx[b] = b, a
     return idx
+
+
+def fliplr_joints(joints, visible, img_width, flip_index):
+    """Mirror [..., K, C] joints of an image `img_width` wide (x -> W - 1 -
+    x), permuted by `flip_index` with their [..., K, C'] visibility and
+    masked by it (reference post_transforms.py:13-51). Returns (joints,
+    visible)."""
+    joints = _f32(joints)[..., flip_index, :]
+    visible = _f32(visible)[..., flip_index, :]
+    x = img_width - 1 - joints[..., 0:1]
+    return torch.cat([x, joints[..., 1:]], dim=-1) * visible, visible
+
+
+def fliplr_regression(regression, flip_pairs, center_mode='static',
+                      center_x=0.5, center_index=0, flip_index=None):
+    """Flip regressed [..., K, D] coordinates horizontally (reference
+    post_transforms.py:54): swap the left/right `flip_pairs`, then mirror x
+    about a static x (`center_x`, normalised coordinates) or about joint
+    `center_index`'s x ('root'). `flip_index`, the permutation itself (a
+    tensor on the coordinates' device), stands in for the pairs where the
+    caller holds it, so that nothing is read back from the card."""
+    if regression.ndim < 2:
+        raise ValueError(f'fliplr_regression takes [..., K, D] coordinates, '
+                         f'got shape {tuple(regression.shape)}')
+    if center_mode == 'static':
+        x_c = center_x
+    elif center_mode == 'root':
+        x_c = regression[..., center_index:center_index + 1, 0:1]
+    else:
+        raise ValueError(center_mode)
+    if flip_index is None:
+        flip_index = flip_index_from_pairs(flip_pairs, regression.shape[-2])
+    out = regression[..., torch.as_tensor(flip_index,
+                                          device=regression.device), :]
+    return torch.cat([x_c * 2 - out[..., :1], out[..., 1:]], dim=-1)
 
 
 def flip_back(heatmaps, flip_index, target_type='GaussianHeatmap'):

@@ -49,8 +49,9 @@ def _replace_path_in_dict(d, old, new):
     return d
 
 
-def main(argv=None):
-    """Train; returns the final TrainState."""
+def parser():
+    """The CLI's argument parser (tools/train_comet.py reads the same
+    arguments)."""
     ap = argparse.ArgumentParser(description='Train a pose model '
                                  '(PyTorch port)')
     ap.add_argument('config')
@@ -69,7 +70,12 @@ def main(argv=None):
                          '134-136)')
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (default; raises without CUDA) or 'cpu'")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    """Train; returns the final TrainState."""
+    args = parser().parse_args(argv)
 
     _device(args.device)
     # a no-op in one process; the launcher's contract otherwise

@@ -1,8 +1,8 @@
 """The top-down train steps (counterpart of vitpose_tpu/train/step.py:
 `make_train_step` :48-102 with the joints MSE, the CombinedTarget MSE or
 the adaptive wing loss, `_make_regression_train_step` :105-137 for
-DeepPose, and `make_moe_train_step` :140-176, the ViTPose+ multi-dataset
-step).
+DeepPose, `make_moe_train_step` :140-176, the ViTPose+ multi-dataset
+step, and `make_eval_step` :179, the flip-tested forward).
 
 One step: forward in training mode (BN batch statistics, DropPath from the
 caller's generator), the loss (a multi-stage model's summed over its
@@ -18,7 +18,7 @@ import torch
 from ..models.bottomup import resize_bilinear
 from ..models.losses import (REGRESSION_LOSSES, adaptive_wing_loss,
                              combined_target_mse_loss, joints_mse_loss)
-from ..models.topdown import forward
+from ..models.topdown import forward, infer
 from ..ops.decode import pose_pck_accuracy, regression_pck_accuracy
 
 
@@ -156,3 +156,17 @@ def make_moe_train_step(model, num_datasets):
         return metrics
 
     return train_step
+
+
+def make_eval_step(model, flip_index=None):
+    """The eval step (JAX :179): eval_step(imgs, expert_idx=None) -> NCHW
+    heatmaps of `infer` with the flip test over `flip_index` (none without
+    it), a ViTPose+ model through expert `expert_idx`; no gradient is
+    recorded."""
+
+    def eval_step(imgs, expert_idx=None):
+        with torch.no_grad():
+            return infer(model, imgs, flip_index=flip_index,
+                         expert_idx=expert_idx)
+
+    return eval_step

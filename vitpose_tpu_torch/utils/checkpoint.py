@@ -13,6 +13,11 @@ epoch, the metric and its mode) and the best epoch's weights, here
 Files are written to a temporary name and renamed, so a preempted save never
 leaves a torn checkpoint.
 
+`save_params_npz` and `load_params_npz` write and read the flat 'a/b/c'
+.npz interchange format of the JAX package
+(vitpose_tpu/utils/checkpoint.py:160-186): a nested dict of arrays (flax
+variables, or the port's state dict, whose flat keys stay as they are).
+
 Across processes (parallel/), every rank calls `save` and `restore`: the
 state is gathered whole (the parameters split over the expert or model
 axis, the ZeRO-1 moments from their owners), rank 0 alone writes, as JAX's
@@ -28,6 +33,7 @@ import os
 import re
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..parallel.distributed import barrier, is_main_process
@@ -154,3 +160,35 @@ class CheckpointManager:
         state.scheduler.load_state_dict(ckpt['scheduler'])
         state.step = ckpt['step']
         return state, epoch
+
+
+def save_params_npz(path, variables):
+    """Write a nested dict of arrays (numpy or CPU tensors) as one flat .npz,
+    each leaf under its keys joined by '/' (JAX's `save_params_npz`)."""
+    flat = {}
+
+    def visit(prefix, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                visit(f'{prefix}/{k}' if prefix else k, v)
+        else:
+            flat[prefix] = (tree.detach().cpu().numpy()
+                            if isinstance(tree, torch.Tensor)
+                            else np.asarray(tree))
+
+    visit('', variables)
+    np.savez(path, **flat)
+
+
+def load_params_npz(path):
+    """Flat 'a/b/c'-keyed .npz -> nested dict of numpy arrays (the inverse of
+    `save_params_npz`)."""
+    out = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split('/')
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return out

@@ -41,8 +41,10 @@ vitpose_tpu/utils/family_ckpt.py:102 `convert_bottomup_checkpoint`, with
 run JAX's family converters backwards (vitpose_tpu/utils/family_ckpt.py:
 125-155, 191-242, with `convert_tcn`, cnn_ckpt.py:578) for PoseWarper and
 the pose lifters.
-`load_params_npz` reads the flat 'a/b/c' .npz files that the JAX package's
-`save_params_npz` writes (vitpose_tpu/utils/checkpoint.py:160-186).
+`hybrid_embed_state_dict_from_flax` carries JAX's `HybridEmbed` over:
+its CNN trunk by the trunk's converter, and `proj`.
+The flat 'a/b/c' .npz files that the JAX package's `save_params_npz`
+writes are read by `utils.checkpoint.load_params_npz`.
 """
 from __future__ import annotations
 
@@ -62,19 +64,6 @@ MULTI_STAGE_BACKBONES = ('mspn', 'rsn', 'litehrnet', 'hourglass',
 CNN_BACKBONES = ('resnet', 'resnet_v1d', 'hrnet', 'hrnetv2', 'resnext',
                  'seresnet', 'seresnext', 'scnet', 'vipnas_resnet',
                  'vipnas_mbv3') + FLAX_NAMED_BACKBONES + MULTI_STAGE_BACKBONES
-
-
-def load_params_npz(path):
-    """Flat 'a/b/c'-keyed .npz -> nested variables dict of numpy arrays."""
-    out = {}
-    with np.load(path) as data:
-        for key in data.files:
-            *parents, leaf = key.split('/')
-            node = out
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = data[key]
-    return out
 
 
 def _t(x):
@@ -290,6 +279,20 @@ def cnn_state_dict_from_flax(variables, backbone_type) -> dict:
     else:
         sd.update({f'keypoint_head.{k}': v
                    for k, v in _head(head, head_stats).items()})
+    return sd
+
+
+def hybrid_embed_state_dict_from_flax(variables, backbone_type) -> dict:
+    """flax HybridEmbed variables (JAX vitpose_tpu/models/vit.py:386) over a
+    `backbone_type` CNN trunk -> the state dict of the port's
+    `models.vit.HybridEmbed`: the trunk's entries under 'backbone.' by
+    `cnn_state_dict_from_flax`'s converter, and the Dense `proj`."""
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    sd = _cnn_backbone(params['backbone'], stats.get('backbone', {}),
+                       backbone_type)
+    sd['proj.weight'] = _t(np.asarray(params['proj']['kernel']).T)
+    sd['proj.bias'] = _t(params['proj']['bias'])
     return sd
 
 

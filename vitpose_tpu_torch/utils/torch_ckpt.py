@@ -33,11 +33,12 @@ import torch.nn.functional as F
 
 from .convert import (bottomup_state_dict_from_flax,
                       cnn_state_dict_from_flax,
-                      interhand3d_state_dict_from_flax, load_params_npz,
+                      interhand3d_state_dict_from_flax,
                       mesh_state_dict_from_flax,
                       pose_lifter_state_dict_from_flax,
                       posewarper_state_dict_from_flax, state_dict_from_flax,
                       voxelpose_state_dict_from_flax)
+from .checkpoint import load_params_npz
 
 # the backbone entries the JAX package's `convert_backbone` carries
 # (vitpose_tpu/utils/torch_ckpt.py:182-226); the rest of an MAE checkpoint
