@@ -164,8 +164,8 @@ no result:
             (so the blocks route rows per expert), drop_path 0, on CUDA
             (K1 + K2) and on the CPU (plain attention): f32 (TF32 off)
             losses, grad_norm, gradients, parameters, every expert's rows
-            and BN statistics within MOE_REF_TOL, printed beside the CPU's
-            own spread on one thread; bf16 CUDA as close to the f32 CPU
+            and BN statistics within MOE_REF_TOL; bf16 CUDA as close to
+            the f32 CPU
             answer as the bf16 CPU path is (within BF16_FACTOR)
   cnn-serve HRNet-W32 (bf16) and ResNet-50 (f32) from the zoo's configs
             through init_pose_model with seeded weights, TF32 as torch
@@ -250,8 +250,9 @@ no result:
             from the seeded model's jittered poses): AP in (0, 1], 0
             K1/K2, images/s, the card's and the host's share
   bu-train  the training CLI on the flagship config at batch 24, 512 ->
-            (128, 256): 2 epochs of 2 steps; 1 epoch then --resume equals
-            it bit for bit; step time, img/s, data_time share, peak
+            (128, 256): 2 epochs of 2 steps; epoch 1 redone with --resume
+            from the epoch-0 checkpoint equals it bit for bit; step time,
+            img/s, data_time share, peak
             memory, one profiled step's kernel time and launches
   bu-apps   the 3 bottom-up demos (ViT-S f32 base 256, K1) on an image and
             a 4-frame video: 24 K1 launches per frame at held shapes,
@@ -375,9 +376,21 @@ no result:
             ViT-B blocks in bf16 against the plain attention; every path's
             K1 and K2 launches counted and their shapes held
             (check_shapes_held)
+  bench     the seven bench_* analysis tools (the JAX package's
+            tools/analysis/bench_*.py; last), each through its main(argv)
+            on the card at full width and the tools' own batches (BENCH_*):
+            bench_zoo (the ten ZOO models, 2 timed calls each),
+            bench_fused_attention, bench_batch_sweep, bench_attn_pack
+            (every arm; first K1 on its fused arm's [B, S, H, D] views held
+            against the plain version), bench_breakdown, bench_io (64
+            JPEGs), bench_train for ViT-B and ViT-H (2 timed calls of 4
+            steps) and its fed loop in the canvas and crop modes (192
+            JPEGs, 6 timed steps); each tool's K1 and K2 launches held to
+            what its code implies and their shapes held, every JSON line
+            parsed, every rate finite and positive
 
 Then the cnn, cnn_more, cnn_ms, bottomup, bottomup_ms, td_rest, vid3d, fam,
-dist and tools JSON lines (those phases' numbers),
+dist, tools and bench JSON lines (those phases' numbers),
 the kernels JSON line (per kernel: the design the main path takes, its
 times, the tiled design's times from the same run, bound, library time,
 launches in a train step and `launches_per_path`: per serve call, int8
@@ -385,7 +398,8 @@ serve call, server request per mode, eval run, int8 eval run, train step,
 train-loop run, remat step, moe-train run, exported call, demo frame,
 webcam run, each CNN, cnn-more, cnn-ms, bottom-up, bu-ms, td-rest, video
 and 3D and fam phase (0), bottom-up demo frame and body3d demo frame, and
-the dist phase's world-1 and two-rank steps, and each tools path; beside
+the dist phase's world-1 and two-rank steps, and each tools and bench
+path; beside
 the kernels, the int8 product's launches per path and times, the server's latencies and the
 int8 AP, the dispatcher's price, the exported program's times and the
 demos' and webcam's frames/s), the nvidia-smi card line and the result
@@ -448,6 +462,11 @@ KERNEL_CASES = [
     ((64, 48, 12, 64), torch.bfloat16, 'HybridEmbed ResNet-50 tokens'),
     ((7, 192, 12, 64), torch.float32, 'int8 sweep, val batch 7, f32'),
     ((12, 48, 4, 32), torch.float32, 'overfit_sanity ViT-S, batch 12'),
+    ((32, 192, 12, 64), torch.bfloat16, 'bench_batch_sweep batch 32'),
+    ((256, 192, 12, 32), torch.bfloat16, 'bench_zoo ViT-S batch 256'),
+    ((256, 192, 16, 64), torch.bfloat16, 'bench_zoo ViT-L batch 256'),
+    ((128, 192, 16, 80), torch.bfloat16, 'bench_zoo ViT-H batch 128'),
+    ((64, 192, 16, 80), torch.bfloat16, 'bench_train ViT-H batch 64'),
 ]
 BWD_CASES = [
     ((64, 192, 12, 64), torch.bfloat16, 'training batch 64, ViT-B'),
@@ -460,6 +479,7 @@ BWD_CASES = [
     ((4, 72, 12, 64), torch.bfloat16, 'last tile holds 8 of 64 rows'),
     ((3, 48, 5, 32), torch.float32, 'ragged'),
     ((12, 48, 4, 32), torch.float32, 'overfit_sanity ViT-S, batch 12'),
+    ((64, 192, 16, 80), torch.bfloat16, 'bench_train ViT-H batch 64'),
 ]
 # K2 against its plain version, per output: |err| <= atol * max|ref| +
 # rtol * |ref|. f32: summation order. bf16: the outputs are rounded to bf16
@@ -2271,7 +2291,7 @@ def phase_train_resume(root, work_dir, options, log, card):
 
 REMAT_POLICIES = ('none', 'full', 'attn', 'dots')
 REMAT_K1 = {'none': 12, 'full': 24, 'attn': 12, 'dots': 24}
-REMAT_STEPS = 2                      # timed steps per turn, two turns each
+REMAT_STEPS = 1                      # timed steps per turn, two turns each
 # remat against no remat, in the units of ref_distances' 'grads': one bf16
 # rounding step (2^-8 of a value). A recompute runs the same kernels on the
 # same inputs: every policy read 0 on an H100 80GB HBM3 at 700 W.
@@ -2658,9 +2678,9 @@ MOE_REF_JOINTS = 133                 # the mixture's max_num_joints
 # the tiny-gradient elements (the LayerNorm weights). Measured on the card
 # (heatmap_loss / grad_norm / losses / grads / params / experts / bn_stats):
 # CUDA vs CPU 8.8e-8 / 1.6e-4 / 3.0e-7 / 5.1e-3 / 3.0e-2 / 8.8e-3 /
-# 1.3e-5; the CPU against itself on one thread instead of eight, which the
-# phase prints beside them, 8.8e-8 / 7.7e-6 / 2.4e-7 / 2.4e-3 / 4.0e-2 /
-# 5.5e-3 / 9.2e-6. The bounds are about twice the larger of the two
+# 1.3e-5; the CPU against itself on one thread instead of eight (measured
+# once, not repeated by the phase), 8.8e-8 / 7.7e-6 / 2.4e-7 / 2.4e-3 /
+# 4.0e-2 / 5.5e-3 / 9.2e-6. The bounds are about twice the larger of the two
 MOE_REF_TOL = {'heatmap_loss': 1e-6, 'grad_norm': 1e-3, 'losses': 1e-6,
                'grads': 1e-2, 'params': 8e-2, 'experts': 2e-2,
                'bn_stats': 3e-5}
@@ -2800,14 +2820,6 @@ def phase_moe_ref(card):
                 check(n == (24, 24), f'moe-ref: two CUDA steps launched K1, '
                       f'K2 {n} times, expected 24 each')
     ref = runs['cpu', 'float32']
-    # the spread of summation order alone: the CPU on one thread
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        spread = moe_ref_distances(
-            moe_ref_run(cfgs['float32'], 'cpu', batch), ref)[0]
-    finally:
-        torch.set_num_threads(threads)
     f32, f32_per = moe_ref_distances(runs['cuda', 'float32'], ref)
     print('moe-ref: f32 (TF32 off) CUDA+K1+K2 vs CPU plain, ViTPose+-B full '
           f'width and depth, batch {len(MOE_REF_ROUTES[0])}, datasets '
@@ -2819,9 +2831,7 @@ def phase_moe_ref(card):
                   f'{k} {v:.6f}' for k, v in m.items() if k.startswith('loss'))
               for i, m in enumerate(ref[0]))
           + '; largest distances: ' + '; '.join(
-              f'{k} {worst(v)}' for k, v in f32_per.items())
-          + f'; the CPU on one thread against {threads}: ' + ', '.join(
-              f'{k} {v:.3e}' for k, v in spread.items()), flush=True)
+              f'{k} {worst(v)}' for k, v in f32_per.items()), flush=True)
     for k, tol in MOE_REF_TOL.items():
         check(f32[k] <= tol, f'moe-ref f32: {k} differs by {f32[k]} '
               f'(tol {tol})')
@@ -2849,8 +2859,8 @@ def phase_moe_ref(card):
 OPS_SHAPE = (2, 192, 12, 64)         # opcheck, bf16
 OPS_CALL_SHAPE = (8, 192, 12, 64)    # the 8-box serve call's K1
 OPS_HOST_CALLS = 400
-OPS_TURN_BATCHES = 4                 # timed serve batches per turn
-OPS_TURN_STEPS = 10                  # timed train steps per turn
+OPS_TURN_BATCHES = 2                 # timed serve batches per turn
+OPS_TURN_STEPS = 5                   # timed train steps per turn
 
 
 class _DirectK3(torch.autograd.Function):
@@ -3415,7 +3425,7 @@ HRNET_CFG = 'vitpose_tpu/configs/coco/hrnet_w32_coco_256x192.py'
 RES50_CFG = 'vitpose_tpu/configs/coco/res50_coco_256x192.py'
 CNN_CONFIGS = (('hrnet_w32', HRNET_CFG), ('res50', RES50_CFG))
 CNN_SERVE_TURNS = 1                  # timed 256-crop batches per model
-CNN_TIMED_STEPS = 2                  # timed train steps per model
+CNN_TIMED_STEPS = 1                  # timed train steps per model
 # cnn-ref f32 (TF32 off): heatmaps within CNN_HM_RTOL of max |CPU heatmap|
 # (summation order through 50 to 300 convs), and a keypoint is decisive
 # where its top-2 gap and both neighbour differences at the argmax (the
@@ -4873,11 +4883,13 @@ def phase_bu_train(card):
     """The training CLI on the flagship config at its batch of 24, 512
     input, output sizes (128, 256), over a synthetic COCO set of 48 images
     (2 steps per epoch; crowd regions in RLE and polygons), seeded weights:
-    2 epochs in one run; 1 epoch, then --resume for the second, equals it
-    bit for bit (parameters, BN statistics, Adam's moments; cuDNN
-    deterministic for these runs); 0 K1 and K2 launches, finite losses;
+    2 epochs in one run; --resume from its epoch-0 checkpoint (in a copy of
+    the work dir without epoch 1's) redoes the second and equals it bit for
+    bit (parameters, BN statistics, Adam's moments; cuDNN deterministic for
+    these runs); 0 K1 and K2 launches, finite losses;
     step wall time and img/s, the data_time share, peak memory, and one
     profiled step's kernel time and launches."""
+    import shutil
     import tempfile
     from vitpose_tpu_torch.ops.attention import (fused_attention,
                                                  fused_attention_bwd)
@@ -4902,25 +4914,25 @@ def phase_bu_train(card):
             runs = {}
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
-            for name, extra in (('whole', ['optimizer.total_epochs=2']),
-                                ('cut', ['optimizer.total_epochs=1']),
-                                ('resumed', ['optimizer.total_epochs=2'])):
-                work = os.path.join(root, 'cut' if name == 'resumed'
-                                    else name)
-                t0 = time.perf_counter()
-                args = [HIGHER_CFG, '--work-dir', work, '--cfg-options',
-                        *options, *extra]
-                if name == 'resumed':
-                    args.insert(1, '--resume')
-                runs[name] = (*run_train_cli(args),
-                              time.perf_counter() - t0)
-                if name == 'whole':
-                    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            work = os.path.join(root, 'whole')
+            args = [HIGHER_CFG, '--work-dir', work, '--cfg-options',
+                    *options, 'optimizer.total_epochs=2']
+            t0 = time.perf_counter()
+            runs['whole'] = (*run_train_cli(args), time.perf_counter() - t0)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            # epoch 1 again from the epoch-0 checkpoint, in a copy of the
+            # work dir without epoch 1's (the first epoch runs once)
+            cut = os.path.join(root, 'cut')
+            shutil.copytree(work, cut)
+            for name in ('epoch_1.pth', 'info_1.json'):
+                os.remove(os.path.join(cut, 'ckpts', name))
+            args[args.index(work)] = cut
+            resumed, rlog = run_train_cli([args[0], '--resume', *args[1:]])
+            rlog = rlog[len(runs['whole'][1]):]
             k1, k2 = fused_attention.launches, fused_attention_bwd.launches
             check(k1 == 0 and k2 == 0, f'bu-train: K1 {k1} and K2 {k2} '
                   'launches, expected none')
             whole, log, whole_s = runs['whole']
-            resumed, rlog, _ = runs['resumed']
             train = [r for r in log if r['mode'] == 'train']
             check(len(train) == whole.step == resumed.step == 4,
                   f'bu-train: {len(train)} logged steps, states at '
@@ -4959,8 +4971,9 @@ def phase_bu_train(card):
             flags
     print(f'bu-train: CLI on {HIGHER_CFG} (HigherHRNet-W32 f32, TF32 on for '
           f'convs, batch {BU_TRAIN_BATCH}, 512 -> (128, 256)), 2 epochs of 2 '
-          f'steps: 0 K1 and 0 K2 launches; the resumed run (1 epoch, then '
-          f'--resume) equals the uninterrupted one bit for bit (every '
+          f'steps: 0 K1 and 0 K2 launches; epoch 1 redone with --resume from '
+          f'the epoch-0 checkpoint equals the uninterrupted one bit for bit '
+          f'(every '
           f'parameter, BN statistic and Adam moment); step wall time median '
           f'{med * 1e3:.1f} ms ({min(times) * 1e3:.1f}-'
           f'{max(times) * 1e3:.1f}) = {BU_TRAIN_BATCH / med:.1f} img/s; '
@@ -5525,7 +5538,7 @@ PW_REF_CROP = (96, 128)
 # f32 and f64 (about a third on CUDA and on the CPU alike, PERF.md §6),
 # where a state that did not move reads 1 and one moved the wrong way 2
 PW_REF_PARAMS_CAP = 0.7
-PW_TRAIN_STEPS = 2                    # timed steps after one warm-up
+PW_TRAIN_STEPS = 1                    # timed steps after one warm-up
 # the synthetic PoseTrack18 set: videos, frames per video (the last two
 # unlabelled), people per labelled frame, frame (h, w)
 PW_VIDEOS, PW_VIDEO_FRAMES, PW_PEOPLE, PW_FRAME_HW = 2, 10, 2, (720, 1280)
@@ -6406,7 +6419,7 @@ FAM_CFGS = {name: f'vitpose_tpu/configs/{path}.py' for name, path in (
     ('mesh', 'mesh/hmr_res50_mixed_224x224'),
     ('voxelpose', 'body3d/voxelpose_prn64x64x64_cpn80x80x20_panoptic_cam5'))}
 FAM_SERVE_BOXES = 64                  # the serve batch of crops
-FAM_TIMED = 2                         # timed serve batches and steps
+FAM_TIMED = 1                         # timed serve batches and steps
 # the family train-refs, beyond hold_train_ref's rule (whose limits, a
 # factor times the CPU's own distance from f64, do not fail a CUDA step
 # that leaves every parameter where it was: Adam turns the rounding of a
@@ -7475,7 +7488,7 @@ def fam_launches(fam, key):
 
 DIST_BATCH = 64                       # the world-1 step: the COCO-B batch
 DIST_HR_BATCH = 8                     # HRNet-W32's float64 step, 4 a rank
-DIST_TIMED_STEPS = 3                  # timed steps per turn
+DIST_TIMED_STEPS = 2                  # timed steps per turn
 DIST_SAMPLES = 256                    # gradient elements compared per tensor
 # two bf16 ranks against one process: the per-sample work is the same, but
 # the GEMMs of half a batch may tile and sum in another order, and the
@@ -7748,7 +7761,7 @@ def phase_dist(card):
 # of 7 for the int8 sweep)
 TOOLS_IMAGES = 4
 TOOLS_BATCH = 64                      # the timed tools' batch
-TOOLS_ITERS = 3                       # timed calls per timing tool
+TOOLS_ITERS = 2                       # timed calls per timing tool
 TOOLS_SWEEP_GRID = ((0, 0), (1, 1))   # of JAX's eight (k_first, k_last)
 TOOLS_HYBRID_TOL = 1e-2               # K1 vs plain attention, 12 bf16 blocks
 
@@ -8023,6 +8036,203 @@ def phase_tools(card):
             'wall_s': wall, 'results': res, 'phase_s': total}
 
 
+# bench: the seven bench_* analysis tools (tools/analysis/bench_*.py of the
+# JAX package), each through its main(argv) on the card at full width and
+# the tools' own batches; repetitions cut where the tools take knobs
+BENCH_ZOO_ITERS = 2                   # timed calls per zoo model (JAX: 3)
+BENCH_IO_ARGS = ['--n', '64', '--iters', '1']
+BENCH_TRAIN_ITERS = 2                 # timed calls of 4 steps (JAX: 3)
+BENCH_E2E_IMGS = 192                  # JPEGs of the fed loop (JAX: 768)
+BENCH_E2E_STEPS = 6                   # timed fed steps (JAX: 40)
+# the rates of the tools' JSON lines, each finite and positive
+BENCH_RATE_KEYS = ('per_sec', 'ms_per_iter', 'imgs_per_sec', 'ms_per_step',
+                   'e2e_imgs_per_sec', 'loader_imgs_per_sec',
+                   'step_imgs_per_sec')
+
+
+@contextlib.contextmanager
+def bench_env(**env):
+    """The BENCH_* knobs of bench_train set for a block, restored after."""
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bench_json(name, text, want):
+    """The JSON lines of a tool's output: `want` of them, each parsed,
+    every rate in it finite and positive."""
+    recs = [json.loads(line) for line in text.splitlines()
+            if line.startswith('{')]
+    check(len(recs) == want, f'bench {name} printed {len(recs)} JSON lines, '
+          f'expected {want}')
+    for rec in recs:
+        for key in BENCH_RATE_KEYS:
+            if key in rec:
+                check(np.isfinite(rec[key]) and rec[key] > 0,
+                      f'bench {name}: {key} {rec[key]} in {rec}')
+    return recs
+
+
+def check_bench_fused_layout():
+    """K1 on bench_attn_pack's fused arm's layout: [B, S, H, D] views of
+    [B, H, S, D] tensors at the serving shape, against the plain version at
+    the kernel phase's tolerance (the kernel phase holds other strides)."""
+    from vitpose_tpu_torch.ops import attention as attn
+    from vitpose_tpu_torch.tools.analysis.bench_attn_pack import fused_core
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    q, k, v = (torch.randn((256, 12, 192, 64), generator=gen, device='cuda',
+                           dtype=torch.bfloat16) for _ in range(3))
+    with torch.inference_mode():
+        out = fused_core(q, k, v).transpose(1, 2).float()
+        ref = attn.reference_attention(
+            *(x.transpose(1, 2) for x in (q, k, v))).float()
+    atol, rtol = TOLS[torch.bfloat16]
+    bad = ((out - ref).abs() > atol + rtol * ref.abs()).sum().item()
+    err = (out - ref).abs().max().item()
+    check(bad == 0, f'K1 on [B, S, H, D] views of [B, H, S, D] disagrees '
+          f'with plain: {bad} elements, max abs err {err}')
+    return err
+
+
+def phase_bench(card):
+    """The seven bench tools on the card (see the BENCH_* constants): each
+    tool's K1 and K2 launches counted and held to what its code implies,
+    their shapes held (check_shapes_held); every JSON line parsed, every
+    rate finite and positive."""
+    from vitpose_tpu_torch.tools.analysis import (bench_attn_pack,
+                                                  bench_batch_sweep,
+                                                  bench_breakdown,
+                                                  bench_fused_attention,
+                                                  bench_io, bench_train,
+                                                  bench_zoo)
+    from vitpose_tpu_torch.models.vit import VIT_VARIANTS
+    t_phase = time.perf_counter()
+    launches, wall, res = {}, {}, {}
+    depth = {v: VIT_VARIANTS[v]['depth'] for v in VIT_VARIANTS}
+
+    def expect(name, want):
+        check(launches[name] == want, f'bench {name} launched K1, K2 '
+              f'{launches[name]}, expected {want}')
+
+    res['fused_layout_err'] = check_bench_fused_layout()
+
+    r, text, wall['zoo'] = tool_run('zoo', launches, bench_zoo.main,
+                                    ['--iters', str(BENCH_ZOO_ITERS)])
+    bench_json('zoo', text, len(bench_zoo.ZOO))
+    check('| model | batch | imgs/s/card | GFLOP/img (FlopCounterMode) '
+          '| TFLOP/s |' in text, 'bench zoo printed no table')
+    want = 0
+    for name, (path, batch, group) in bench_zoo.ZOO.items():
+        variant = name.split('_')[1] if name.startswith('vitpose') else None
+        # a warm-up and the timed calls of GROUP batches, and the FLOP
+        # count's one batch: a launch a block each
+        per = (depth[variant] * ((1 + BENCH_ZOO_ITERS) * group + 1)
+               if variant else 0)
+        check(r['launches'][name] == {'k1': per, 'k2': 0}, f'bench zoo '
+              f'{name} launched {r["launches"][name]}, expected {per} K1')
+        want += per
+    expect('zoo', (want, 0))
+    res['zoo'] = {row['model']: row for row in r['rows']}
+    res['zoo_build_s'] = r['build_s']
+
+    r, text, wall['fused_attention'] = tool_run(
+        'fused_attention', launches, bench_fused_attention.main, [])
+    # the plain arm none; the K1 arm 24 a flip-tested batch, 1 + 6 calls
+    expect('fused_attention', (7 * 24, 0))
+    check(r['plain']['launches']['k1'] == 0, 'the plain arm launched K1')
+    res['fused_attention'] = {k: {'ms': v['ms'], 'img_s': v['img_s'],
+                                  'first_s': v['first_s']}
+                              for k, v in r.items()}
+
+    r, text, wall['batch_sweep'] = tool_run(
+        'batch_sweep', launches, bench_batch_sweep.main, [])
+    expect('batch_sweep', (len(r) * 6 * 24, 0))
+    res['batch_sweep'] = {b: {'ms': v['ms'], 'img_s': v['img_s']}
+                          for b, v in r.items()}
+
+    r, text, wall['attn_pack'] = tool_run(
+        'attn_pack', launches, bench_attn_pack.main, [])
+    # the fused arm: 12 chained launches in each of 1 + 5 calls
+    expect('attn_pack', (12 * 6, 0))
+    check(all(v['launches']['k1'] == (72 if n == 'fused' else 0)
+              for n, v in r.items()), f'bench attn_pack launches '
+          f'{ {n: v["launches"] for n, v in r.items()} }')
+    res['attn_pack'] = {n: {'ms': v['ms'], 'tflops': v['tflops']}
+                        for n, v in r.items()}
+
+    r, text, wall['breakdown'] = tool_run(
+        'breakdown', launches, bench_breakdown.main, [])
+    recs = bench_json('breakdown', text, 8)
+    # (1 + 3) calls of 4 batches, 12 blocks, on the three K1 arms; 4 calls
+    # of one batch on group1
+    expect('breakdown', (3 * 4 * 4 * 12 + 4 * 12, 0))
+    res['breakdown'] = {rec['exp']: rec['per_sec'] for rec in recs}
+
+    r, text, wall['io'] = tool_run('io', launches, bench_io.main,
+                                   BENCH_IO_ARGS)
+    expect('io', (0, 0))
+    check(all(v > 0 for v in r['loader_img_s'].values()) and r['cv2_img_s']
+          > 0, f'bench io rates {r}')
+    res['io'] = r
+
+    res['train'] = {}
+    for variant in ('b', 'h'):
+        with bench_env(BENCH_VARIANT=variant,
+                       BENCH_TRAIN_ITERS=BENCH_TRAIN_ITERS, BENCH_E2E=0):
+            r, text, wall[f'train_{variant}'] = tool_run(
+                f'train_{variant}', launches, bench_train.main, [])
+        bench_json(f'train_{variant}', text, 1)
+        # remat 'full': per block and step 2 K1 (forward and recompute)
+        # and 1 K2; a warm-up call and the timed calls of 4 steps
+        steps = 4 * (1 + BENCH_TRAIN_ITERS)
+        expect(f'train_{variant}', (2 * depth[variant] * steps,
+                                    depth[variant] * steps))
+        res['train'][variant] = {k: r[k] for k in ('imgs_per_sec',
+                                                   'ms_per_step', 'peak_gib')}
+    for mode in ('canvas', 'crop'):
+        with bench_env(BENCH_E2E=1, BENCH_E2E_MODE=mode, BENCH_VARIANT='b',
+                       BENCH_E2E_IMGS=BENCH_E2E_IMGS,
+                       BENCH_E2E_STEPS=BENCH_E2E_STEPS):
+            r, text, wall[f'e2e_{mode}'] = tool_run(
+                f'e2e_{mode}', launches, bench_train.main, [])
+        bench_json(f'e2e_{mode}', text, 1)
+        # the first step, the timed ones, the step-only warm-up and its 20
+        steps = 1 + BENCH_E2E_STEPS + 1 + bench_train.STEP_ONLY_STEPS
+        expect(f'e2e_{mode}', (24 * steps, 12 * steps))
+        check(np.isfinite(r['first_loss']), f'e2e {mode}: first loss '
+              f'{r["first_loss"]}')
+        res[f'e2e_{mode}'] = {k: r[k] for k in (
+            'e2e_imgs_per_sec', 'loader_imgs_per_sec', 'step_imgs_per_sec',
+            'fed', 'host_processes_needed', 'first_loss')}
+    total = time.perf_counter() - t_phase
+    zoo = res['zoo']
+    print('bench: the bench_* tools on the card, K1, K2 launches per tool: '
+          + ', '.join(f'{n} {a}/{b2}' for n, (a, b2) in launches.items())
+          + '; wall s of main: ' + ', '.join(
+              f'{n} {v:.1f}' for n, v in wall.items())
+          + '; zoo model builds s: ' + ', '.join(
+              f'{n} {v:.1f}' for n, v in res['zoo_build_s'].items())
+          + '; zoo img/s: ' + ', '.join(
+              f'{n} {v["imgs_per_sec"]}' for n, v in zoo.items())
+          + f'; matmul_ceiling {res["breakdown"]["matmul_ceiling"]} TFLOP/s'
+          + '; train ms/step ' + ', '.join(
+              f'{v} {r2["ms_per_step"]} (peak {r2["peak_gib"]:.1f} GiB)'
+              for v, r2 in res['train'].items())
+          + '; e2e fed ' + ', '.join(
+              f'{m} {res[f"e2e_{m}"]["fed"]}' for m in ('canvas', 'crop'))
+          + f'; phase {total:.1f} s on {card}', flush=True)
+    return {'launches': {n: {'k1': a, 'k2': b2}
+                         for n, (a, b2) in launches.items()},
+            'wall_s': wall, 'results': res, 'phase_s': total}
+
+
 def kernel_name(mangled):
     """attn_fwd_pair<64,3> for the mangled name of a kernel template in an
     anonymous namespace; the mangled name where it is not one."""
@@ -8183,6 +8393,9 @@ def main():
         torch.cuda.empty_cache()
         tools = phase_tools(card)
         lap('tools')
+        torch.cuda.empty_cache()
+        bench = phase_bench(card)
+        lap('bench')
         print('phases: wall s ' + ', '.join(
             f'{name} {t - laps[i][1]:.1f}'
             for i, (name, t) in enumerate(laps[1:]))
@@ -8233,7 +8446,9 @@ def main():
                                   'dist_two_ranks_step':
                                       dist['two_ranks']['k1'],
                                   'tools': {n: v['k1'] for n, v in
-                                            tools['launches'].items()}},
+                                            tools['launches'].items()},
+                                  'bench': {n: v['k1'] for n, v in
+                                            bench['launches'].items()}},
                 'attention_bwd': {'serve': 0, 'eval': 0, 'export': 0,
                                   'demos_per_frame': 0, 'webcam': 0,
                                   'train': train_launches[1],
@@ -8255,7 +8470,9 @@ def main():
                                   'dist_two_ranks_step':
                                       dist['two_ranks']['k2'],
                                   'tools': {n: v['k2'] for n, v in
-                                            tools['launches'].items()}}}
+                                            tools['launches'].items()},
+                                  'bench': {n: v['k2'] for n, v in
+                                            bench['launches'].items()}}}
     for name, line, rec, n in (('attention_fwd', 22, k1, train_launches[0]),
                                ('attention_bwd', 94, k2, train_launches[1])):
         kernels.append({
@@ -8293,6 +8510,7 @@ def main():
     print(json.dumps({'fam': fam}))
     print(json.dumps({'dist': dist}))
     print(json.dumps({'tools': tools}))
+    print(json.dumps({'bench': bench}, default=str))
     print(json.dumps({'kernels': kernels, 'int8_matmul': int8_matmul,
                       'deploy_latency_ms': {
                           m: r['latency_ms'] for m, r in deploy.items()},

@@ -44,7 +44,13 @@ MODULES = ['ops.attention', 'kernels._build', 'models.vit', 'models.heads',
            'tools.analysis.benchmark_processing',
            'tools.analysis.profile_trace', 'tools.analysis.overfit_sanity',
            'tools.analysis.print_config',
-           'tools.analysis.int8_selective_sweep', 'tools.dataset',
+           'tools.analysis.int8_selective_sweep',
+           'tools.analysis.bench_attn_pack',
+           'tools.analysis.bench_batch_sweep',
+           'tools.analysis.bench_breakdown',
+           'tools.analysis.bench_fused_attention', 'tools.analysis.bench_io',
+           'tools.analysis.bench_train', 'tools.analysis.bench_zoo',
+           'tools.dataset',
            'tools.dataset._coco', 'tools.dataset.parse_animalpose_dataset',
            'tools.dataset.parse_cofw_dataset',
            'tools.dataset.parse_deepposekit_dataset',

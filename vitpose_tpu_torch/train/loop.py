@@ -42,6 +42,7 @@ checkpoints. Validation runs whole on every rank, as JAX's does.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import os
 import time
@@ -91,45 +92,64 @@ from .step import make_moe_train_step, make_train_step
 MULTI_STAGE_HEADS = ('multistage', 'msmu', 'identity')
 
 
+# the JAX package's BACKBONES registry: name -> constructor taking
+# `generator` and the config's backbone options
+BACKBONES = {
+    'resnet': ResNet,
+    'resnet_v1d': ResNetV1d,
+    'hrnet': lambda generator, **kw: HRNet(HRNetConfig(**kw), generator),
+    'hrnetv2': lambda generator, **kw: HRNet(
+        HRNetConfig(multiscale_concat=True, **kw), generator),
+    'resnext': ResNeXt,
+    'seresnet': SEResNet,
+    'seresnext': SEResNeXt,
+    'scnet': SCNet,
+    'resnest': ResNeSt,
+    'regnet': RegNet,
+    'vgg': VGG,
+    'alexnet': AlexNet,
+    'mobilenet_v3': MobileNetV3,
+    'shufflenet_v1': ShuffleNetV1,
+    'vipnas_mbv3': ViPNASMobileNetV3,
+    'vipnas_resnet': ViPNASResNet,
+    'mobilenet_v2': MobileNetV2,
+    'shufflenet_v2': ShuffleNetV2,
+    'litehrnet': LiteHRNet,
+    'hrformer': HRFormer,
+    # the multi-stage backbones (GenericMultiStageTopDown, or for
+    # hourglass_ae the bottom-up AEMultiStageHead)
+    'cpm': CPM,
+    'hourglass': Hourglass,
+    'hourglass_ae': HourglassAE,
+    'mspn': MSPN,
+    'rsn': RSN,
+}
+
+
+def _known_backbone(backbone_type):
+    if backbone_type not in BACKBONES:
+        raise KeyError(f'unknown backbone_type {backbone_type}: '
+                       f'{sorted(BACKBONES)}')
+
+
 def build_backbone(backbone_type: str, generator=None, **bb_kwargs):
     """Name -> NCHW feature backbone with random weights drawn from
     `generator`: the JAX package's BACKBONES registry. The multi-stage ones
     return a list (per stage or stack; MSPN and RSN per stage a list of
     units)."""
-    registry = {
-        'resnet': ResNet,
-        'resnet_v1d': ResNetV1d,
-        'hrnet': lambda generator, **kw: HRNet(HRNetConfig(**kw), generator),
-        'hrnetv2': lambda generator, **kw: HRNet(
-            HRNetConfig(multiscale_concat=True, **kw), generator),
-        'resnext': ResNeXt,
-        'seresnet': SEResNet,
-        'seresnext': SEResNeXt,
-        'scnet': SCNet,
-        'resnest': ResNeSt,
-        'regnet': RegNet,
-        'vgg': VGG,
-        'alexnet': AlexNet,
-        'mobilenet_v3': MobileNetV3,
-        'shufflenet_v1': ShuffleNetV1,
-        'vipnas_mbv3': ViPNASMobileNetV3,
-        'vipnas_resnet': ViPNASResNet,
-        'mobilenet_v2': MobileNetV2,
-        'shufflenet_v2': ShuffleNetV2,
-        'litehrnet': LiteHRNet,
-        'hrformer': HRFormer,
-        # the multi-stage backbones (GenericMultiStageTopDown, or for
-        # hourglass_ae the bottom-up AEMultiStageHead)
-        'cpm': CPM,
-        'hourglass': Hourglass,
-        'hourglass_ae': HourglassAE,
-        'mspn': MSPN,
-        'rsn': RSN,
-    }
-    if backbone_type not in registry:
-        raise KeyError(f'unknown backbone_type {backbone_type}: '
-                       f'{sorted(registry)}')
-    return registry[backbone_type](generator=generator, **bb_kwargs)
+    _known_backbone(backbone_type)
+    return BACKBONES[backbone_type](generator=generator, **bb_kwargs)
+
+
+def backbone_takes(backbone_type: str, option: str) -> bool:
+    """Whether `backbone_type` takes the config option `option` (e.g.
+    'dtype'), from its constructor's signature (HRNet's from HRNetConfig's
+    fields): where JAX's flax module raises TypeError on an unknown field,
+    this answers before anything is built."""
+    _known_backbone(backbone_type)
+    if backbone_type in ('hrnet', 'hrnetv2'):
+        return option in {f.name for f in dataclasses.fields(HRNetConfig)}
+    return option in inspect.signature(BACKBONES[backbone_type]).parameters
 
 
 def _model_parts(mcfg: dict):
